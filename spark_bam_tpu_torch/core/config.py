@@ -1,0 +1,120 @@
+"""Typed configuration: the subset of the ``spark.bam.*`` knobs that the
+count-reads path reads, under the reference package's names and defaults.
+
+Values this port cannot serve yet raise ``ValueError`` naming what will
+serve them, so a run never silently takes another path than asked for.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+TOKENIZE = ("host", "device", "auto")
+KERNEL = ("xla", "pallas", "auto")
+ONOFF = ("on", "off")
+
+
+@dataclass(frozen=True)
+class InflateConfig:
+    """The ``Config.inflate`` spec: ``tokenize=…,kernel=…,donate=…``.
+
+    ``tokenize`` says where the DEFLATE entropy phase runs. This port has
+    only the device tokenizer (the hand-written CUDA kernel), so ``auto``
+    resolves to ``device`` and ``host`` is refused. ``kernel`` names a
+    tokenizer engine of the reference package; the port has one engine,
+    so only ``auto`` is served. ``donate`` names the reference's jit buffer
+    donation; eager PyTorch has none, and the port always resolves LZ77 in
+    place over the literal plane, so only ``on`` is served.
+    """
+
+    tokenize: str = "auto"
+    kernel: str = "auto"
+    donate: str = "on"
+
+    @staticmethod
+    @functools.lru_cache(maxsize=64)
+    def parse(spec: str) -> "InflateConfig":
+        kw: dict = {}
+        for part in (spec or "").split(","):
+            part = part.strip()
+            if not part:
+                continue
+            if "=" not in part:
+                if part in TOKENIZE:
+                    kw["tokenize"] = part
+                    continue
+                raise ValueError(
+                    f"Bad inflate spec {spec!r}: {part!r} is not key=value"
+                )
+            key, value = (s.strip() for s in part.split("=", 1))
+            allowed = {"tokenize": TOKENIZE, "kernel": KERNEL,
+                       "donate": ONOFF}.get(key)
+            if allowed is None:
+                raise ValueError(f"Unknown inflate key {key!r} in {spec!r}")
+            if value not in allowed:
+                raise ValueError(
+                    f"Bad inflate {key} {value!r}: expected "
+                    f"{' | '.join(allowed)}"
+                )
+            kw[key] = value
+        cfg = InflateConfig(**kw)
+        if cfg.tokenize == "host":
+            raise ValueError(
+                "inflate tokenize=host needs a host DEFLATE tokenizer, which "
+                "the slice that ports the host tokenizer will serve; this "
+                "port tokenizes on the device (tokenize=device or auto)"
+            )
+        if cfg.kernel != "auto":
+            raise ValueError(
+                f"inflate kernel={cfg.kernel} names an engine of the JAX "
+                "package; this port has one device tokenizer (kernel=auto)"
+            )
+        if cfg.donate != "on":
+            raise ValueError(
+                "inflate donate=off names the JAX package's jit buffer "
+                "donation; this port always resolves LZ77 in place (donate=on)"
+            )
+        return cfg
+
+
+@dataclass(frozen=True)
+class Config:
+    reads_to_check: int = 10            # consecutive records a boundary must chain
+    # Uncompressed bytes per streaming window; window + halo rounds up to a
+    # power-of-two kernel window (24 MiB + 4 MiB → 32 MiB).
+    window_size: int = 24 << 20
+    halo_size: int = 4 << 20            # trailing bytes so chains can complete
+    funnel: str = "auto"                # on | off | auto
+    # None = auto: on (the device inflate is the only one this port has).
+    device_inflate: bool | None = None
+    # None = auto: follows device_inflate.
+    fused_count: bool | None = None
+    inflate: str = ""                   # InflateConfig spec
+    flush_every: int | None = None      # windows between device→host flushes
+    ring_depth: int = 2                 # un-synced windows in the count ring
+
+    def __post_init__(self):
+        if self.funnel not in ("on", "off", "auto"):
+            raise ValueError(
+                f"Bad funnel mode: {self.funnel!r} (expected on | off | auto)"
+            )
+        if self.funnel == "off":
+            raise ValueError(
+                "funnel=off needs the full 19-flag pass (full_check_flags), "
+                "which the full-check slice of the port will serve"
+            )
+        InflateConfig.parse(self.inflate)
+
+    @property
+    def inflate_config(self) -> InflateConfig:
+        return InflateConfig.parse(self.inflate)
+
+    def flush_every_for(self, kernel_window: int) -> int:
+        """Windows between flushes of the device accumulators: the explicit
+        knob when set, else the int32-safe auto value; either way at most
+        2^30 positions accumulate between flushes."""
+        auto = max(1, (1 << 30) // max(kernel_window, 1))
+        if self.flush_every is None:
+            return auto
+        return max(1, min(self.flush_every, auto))

@@ -1,0 +1,454 @@
+"""Record-boundary checker over one window, funnel form (reference
+``spark_bam_tpu/tpu/checker.py``).
+
+Stage 0 screens every offset with the fixed-block prefilter (the CUDA kernel
+``prefilter_check_flags``); survivors compact into a fixed-capacity lane
+buffer, get their full 19-bit mask from word-level hierarchical tables, and
+walk ``reads_to_check`` chained records. Verdicts equal the reference's at
+every position. The full single-pass flag kernel (funnel off) belongs to the
+full-check slice and is not here.
+
+Scalars the reference traces (``n``, ``at_eof``, ``lo``, ``own``,
+``carry_len``, ``num_contigs``) are plain Python values here: the host knows
+them when it queues a window. Everything else is tensor code on the
+window's device. PyTorch has no popcount and thin uint32 support, so packed
+words live in int64 with a SWAR popcount, and the reference's JVM int32 wrap
+is applied explicitly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spark_bam_tpu_torch.check.flags import BIT, DEFINITIVE_MASK, ESCAPE_MASK
+from spark_bam_tpu_torch.tpu.kernels import (
+    PAD,
+    _prefilter_flags,
+    _ref_pos_bits,
+    _wrap32,
+    lz77_resolve,
+    prefilter_check_flags,
+    tokenize,
+)
+from spark_bam_tpu_torch.tpu.tokenize_device import STRIDE
+
+__all__ = [
+    "PAD", "_prefilter_flags", "check_window", "count_window",
+    "count_window_raw",
+]
+
+_M32 = 0xFFFFFFFF
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int64 holding a uint32 value (SWAR)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & _M32) >> 24
+
+
+def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(t, idx, mode="clip")``."""
+    return t[idx.clamp(0, t.numel() - 1)]
+
+
+def _misc_at(p, n: int, pos):
+    """``remaining`` and ``body_end`` of the record at each position (K,)
+    (pre-clipped to [0, w)): what the chain walk needs to step."""
+    def byte(off):
+        return _take(p, pos + off).long()
+
+    remaining = _wrap32(byte(0) | (byte(1) << 8) | (byte(2) << 16)
+                        | (byte(3) << 24))
+    name_len = byte(12)
+    n_cigar = byte(16) | (byte(17) << 8)
+    has_name = name_len >= 2
+    name_eof = has_name & (pos + 36 + name_len > n)
+    name_in = has_name & ~name_eof
+    cig_start = pos + 36 + torch.where(name_in, name_len, 0)
+    few_fixed = pos > n - 36
+    body_end = torch.where(
+        few_fixed, pos + 36,
+        cig_start + torch.where(~name_eof, 4 * n_cigar, 0),
+    )
+    return remaining, body_end
+
+
+def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Pack a bool vector into uint32 words held in int64 (lane = bit
+    index), zero-padding the tail to a word boundary."""
+    length = bits.numel()
+    full = -(-length // 32) * 32
+    if full != length:
+        bits = torch.cat([bits, bits.new_zeros(full - length)])
+    lanes = torch.arange(32, device=bits.device)
+    return (bits.view(-1, 32).long() << lanes).sum(1)
+
+
+def _funnel_tables(p, n: int):
+    """Word-level prefix tables for the deep checks: packed indicator words
+    plus exclusive per-word popcount prefixes (allowed read-name bytes; bad
+    cigar-op bytes per stride-4 class)."""
+    allowed = (p >= 0x21) & (p <= 0x7E) & (p != 0x40)
+    nwords = _pack_bits(allowed)
+    nwpc = _popcount32(nwords)
+    nwpre = torch.cumsum(nwpc, 0) - nwpc
+    j = torch.arange(p.numel(), device=p.device)
+    bad_op = ((p & 0xF) > 8) & (j + 4 <= n)
+    cwords = _pack_bits(bad_op)
+    # One 1-D scan per class: a scan down dim 0 of a (words, 4) tensor runs
+    # PyTorch's outer-dim scan kernel, which took 238.6 ms per 32 MiB window
+    # on an H100 80GB HBM3 at 700 W (benchmarks/profile_count.py).
+    pcs = [_popcount32(cwords & (0x11111111 << c)) for c in range(4)]
+    cwpre4 = torch.stack([torch.cumsum(pc, 0) - pc for pc in pcs], dim=1)
+    return nwords, nwpre, cwords, cwpre4.reshape(-1)
+
+
+def _allowed_before(nwords, nwpre, q):
+    """Allowed read-name bytes at positions < q."""
+    wi = q >> 5
+    part = _popcount32(_take(nwords, wi) & ((1 << (q & 31)) - 1))
+    return _take(nwpre, wi) + part
+
+
+def _badops_before(cwords, cwpre4, q, c):
+    """Bad cigar-op bytes j < q with j ≡ c (mod 4)."""
+    wi = q >> 5
+    part = _popcount32(
+        _take(cwords, wi) & (0x11111111 << c) & ((1 << (q & 31)) - 1)
+    )
+    return _take(cwpre4, wi * 4 + c) + part
+
+
+def _deep_flags_at(p, lengths, num_contigs: int, n: int, tables, pos):
+    """The full 19-bit mask at positions (K,), field for field the reference
+    full pass (same overwrite, same quirks)."""
+    nwords, nwpre, cwords, cwpre4 = tables
+    total = p.numel()
+    pc = pos.clamp(0, total - 36)
+    slab = _take(p, pc[:, None] + torch.arange(36, device=p.device)[None, :])
+    slab = slab.long()
+
+    def u32at(off):
+        return (slab[:, off] | (slab[:, off + 1] << 8)
+                | (slab[:, off + 2] << 16) | (slab[:, off + 3] << 24))
+
+    remaining = _wrap32(u32at(0))
+    ref_idx = _wrap32(u32at(4))
+    ref_pos = _wrap32(u32at(8))
+    name_len = slab[:, 12]
+    fnc = u32at(16)
+    n_cigar = fnc & 0xFFFF
+    mapped = ((fnc >> 18) & 1) == 0
+    seq_len = _wrap32(u32at(20))
+    next_ref_idx = _wrap32(u32at(24))
+    next_ref_pos = _wrap32(u32at(28))
+
+    cmax = lengths.numel()
+    lens = lengths.long()
+    f = _ref_pos_bits(
+        ref_idx, ref_pos, num_contigs, lens[ref_idx.clamp(0, cmax - 1)],
+        BIT["negativeReadIdx"], BIT["tooLargeReadIdx"],
+        BIT["negativeReadPos"], BIT["tooLargeReadPos"],
+    ) | _ref_pos_bits(
+        next_ref_idx, next_ref_pos, num_contigs,
+        lens[next_ref_idx.clamp(0, cmax - 1)],
+        BIT["negativeNextReadIdx"], BIT["tooLargeNextReadIdx"],
+        BIT["negativeNextReadPos"], BIT["tooLargeNextReadPos"],
+    )
+    half = torch.div(_wrap32(seq_len + 1), 2, rounding_mode="trunc")
+    rhs = _wrap32(32 + name_len + 4 * n_cigar + half + seq_len)
+    f |= (remaining < rhs).long() * BIT["tooFewRemainingBytesImplied"]
+    f |= (name_len == 0).long() * BIT["noReadName"]
+    f |= (name_len == 1).long() * BIT["emptyReadName"]
+
+    name_start = pos + 36
+    name_end = name_start + name_len
+    has_name = name_len >= 2
+    name_eof = has_name & (name_end > n)
+    f |= name_eof.long() * BIT["tooFewBytesForReadName"]
+    name_in = has_name & ~name_eof
+    last_idx = name_end - 1
+    non_null = name_in & (_take(p, last_idx) != 0)
+    f |= non_null.long() * BIT["nonNullTerminatedReadName"]
+    good = (_allowed_before(nwords, nwpre, last_idx.clamp(0, total - 1))
+            - _allowed_before(nwords, nwpre, name_start.clamp(0, total - 1)))
+    bad_chars = name_in & ~non_null & (good != name_len - 1)
+    f |= bad_chars.long() * BIT["nonASCIIReadName"]
+
+    cig_start = name_start + torch.where(name_in, name_len, 0)
+    cig_end = cig_start + 4 * n_cigar
+    cig_considered = ~name_eof
+    ccls = cig_start & 3
+    bad_count = (
+        _badops_before(cwords, cwpre4, cig_end.clamp(0, total - 1), ccls)
+        - _badops_before(cwords, cwpre4, cig_start.clamp(0, total - 1), ccls)
+    )
+    has_bad = cig_considered & (bad_count != 0)
+    f |= has_bad.long() * BIT["invalidCigarOp"]
+    cig_eof = cig_considered & ~has_bad & (cig_end > n)
+    f |= cig_eof.long() * BIT["tooFewBytesForCigarOps"]
+    empty_ok = cig_considered & ~has_bad & ~cig_eof & mapped
+    empty_seq = empty_ok & (seq_len == 0)
+    empty_cig = empty_ok & (n_cigar == 0)
+    # Swapped on purpose: reference quirk (EmptyMapped binds its fields in
+    # the other order).
+    f |= empty_seq.long() * BIT["emptyMappedCigar"]
+    f |= empty_cig.long() * BIT["emptyMappedSeq"]
+    f = torch.where(pos > n - 36, BIT["tooFewFixedBlockBytes"], f)
+    return f.int()
+
+
+def _compact_mask(mask: torch.Tensor, capacity: int):
+    """Set positions of ``mask`` compacted into a (capacity,) index buffer
+    (-1 past the population), via packed words, a word-level popcount prefix,
+    a binary search for the word holding the k-th set bit and masked
+    popcounts for its lane. Returns ``(cand, n_set)``."""
+    words = _pack_bits(mask)
+    wpc = _popcount32(words)
+    wcnt = torch.cumsum(wpc, 0)
+    n_set = wcnt[-1]
+    k = torch.arange(capacity, device=mask.device)
+    wi = torch.searchsorted(wcnt, k + 1, right=False)
+    excl = _take(wcnt - wpc, wi)
+    r = k + 1 - excl                              # rank inside the word: 1..32
+    word = _take(words, wi)
+    lanes = torch.arange(32, device=mask.device)
+    incl = (2 << lanes) - 1                       # inclusive lane masks
+    pcnt = _popcount32(word[:, None] & incl[None, :])
+    hit = (pcnt == r[:, None]) & (((word[:, None] >> lanes[None, :]) & 1) == 1)
+    lane = hit.int().argmax(dim=1)                # first hit
+    cand = torch.where(k < n_set, wi * 32 + lane, -1)
+    return cand, n_set
+
+
+def _check_lanes(padded, lengths, num_contigs: int, n: int, at_eof: bool,
+                 reads_to_check: int = 10) -> dict:
+    """Prefilter + survivor compaction + chain walk, without scattering the
+    lanes back to full width (the shared core of ``check_window`` and
+    ``count_window``)."""
+    dev = padded.device
+    w = padded.numel() - PAD
+    ae = torch.tensor(bool(at_eof), device=dev)
+    F = prefilter_check_flags(padded, lengths, num_contigs, n)
+    in_range = torch.arange(w, device=dev) < n
+    definitive0 = F & DEFINITIVE_MASK
+    boundary0 = F & ESCAPE_MASK
+    survivor = (F == 0) & in_range
+    # Prefilter-rejected positions resolve straight from F: every prefilter
+    # bit is definitive except the tooFewFixedBlockBytes overwrite, where
+    # the prefilter mask equals the full mask.
+    fail0 = (F != 0) & ((definitive0 != 0) | (ae & (boundary0 != 0)))
+    esc0 = (F != 0) & ~ae & (definitive0 == 0) & (boundary0 != 0)
+    inexact0 = (F != 0) & ~ae & (definitive0 != 0) & (boundary0 != 0)
+    res0 = torch.where(esc0, 2, torch.where(fail0, -1, 0)).to(torch.int8)
+    fail_mask0 = torch.where(fail0, F, 0)
+
+    capacity = max(w // 32, 4096)
+    cand, n_survivors = _compact_mask(survivor, capacity)
+    overflow = n_survivors > capacity
+    live = cand >= 0
+    tables = _funnel_tables(padded, n)
+    F_cand = _deep_flags_at(padded, lengths, num_contigs, n, tables,
+                            torch.where(live, cand, 0))
+    F_cand = torch.where(live, F_cand, 0)
+    F_deep = torch.zeros(w + 1, dtype=torch.int32, device=dev)
+    F_deep[torch.where(live, cand, w)] = F_cand
+    F_deep = F_deep[:w]
+
+    def flags_lookup(pi):
+        pre = F[pi]
+        return torch.where(pre == 0, F_deep[pi], pre)
+
+    logical = torch.where(live, cand, 0)
+    physical = logical
+    l_overflowed = torch.zeros(capacity, dtype=torch.bool, device=dev)
+    res = torch.where(live, 0, -1).to(torch.int8)
+    fail_mask = torch.zeros(capacity, dtype=torch.int32, device=dev)
+    reads_before = torch.zeros(capacity, dtype=torch.int32, device=dev)
+    reads_parsed = torch.zeros(capacity, dtype=torch.int32, device=dev)
+    exact = torch.ones(capacity, dtype=torch.bool, device=dev)
+    bound = n + 64
+
+    for step in range(reads_to_check):
+        run = res == 0
+        # EOF at a record edge (zero bytes left): eager/Checker.scala:36-39.
+        at_end = run & (physical >= n)
+        edge = (physical == logical) & ~l_overflowed & (step > 0)
+        maybe_edge = l_overflowed & (step > 0)   # comparison untrustworthy
+        eof_ok = at_end & edge & ae
+        eof_bad = at_end & ~edge & ~maybe_edge & ae
+        eof_esc = at_end & (~ae | maybe_edge)
+        res = torch.where(eof_ok, 1, res).to(torch.int8)
+        reads_parsed = torch.where(eof_ok, step, reads_parsed)
+        res = torch.where(eof_bad, -1, res).to(torch.int8)
+        fail_mask = torch.where(eof_bad, BIT["tooFewFixedBlockBytes"],
+                                fail_mask)
+        reads_before = torch.where(eof_bad, step, reads_before)
+        res = torch.where(eof_esc, 2, res).to(torch.int8)
+        run = res == 0
+
+        pi = physical.clamp(0, w - 1)
+        f = torch.where(run, flags_lookup(pi), 0)
+        definitive = f & DEFINITIVE_MASK
+        boundary = f & ESCAPE_MASK
+        fail = run & ((definitive != 0) | (ae & (boundary != 0)))
+        esc = run & ~ae & (definitive == 0) & (boundary != 0)
+        inexact = run & ~ae & (definitive != 0) & (boundary != 0)
+        res = torch.where(fail, -1, res).to(torch.int8)
+        fail_mask = torch.where(fail, f, fail_mask)
+        reads_before = torch.where(fail, step, reads_before)
+        res = torch.where(esc, 2, res).to(torch.int8)
+        exact = exact & ~inexact
+        run = res == 0
+
+        ok = run & (f == 0)
+        rem, b_end = _misc_at(padded, n, pi)
+        # Out-of-range logical cursors collapse to sentinels (±(n+64)) that
+        # keep every later comparison; a lane whose cursor would need to
+        # re-enter range is flagged via l_overflowed.
+        rem_c = rem.clamp(-bound, bound)
+        next_logical = logical + 4 + rem_c
+        clamped = next_logical.clamp(-bound, bound)
+        overflow_now = (rem > bound) | (rem < -bound) | (next_logical != clamped)
+        next_physical = torch.maximum(b_end, clamped).clamp(max=n)
+        logical = torch.where(ok, clamped, logical)
+        physical = torch.where(ok, next_physical, physical)
+        l_overflowed = l_overflowed | (ok & overflow_now)
+
+    full_chain = live & (res == 0)
+    res = torch.where(full_chain, 1, res).to(torch.int8)
+    reads_parsed = torch.where(full_chain, reads_to_check, reads_parsed)
+    return {
+        "survivor": survivor, "res0": res0, "fail_mask0": fail_mask0,
+        "inexact0": inexact0, "cand": cand, "live": live, "res": res,
+        "fail_mask": fail_mask, "reads_before": reads_before,
+        "reads_parsed": reads_parsed, "exact": exact,
+        "overflow": overflow, "n_survivors": n_survivors,
+    }
+
+
+def check_window(padded, lengths, num_contigs: int, n: int, at_eof: bool,
+                 reads_to_check: int = 10) -> dict:
+    """Verdicts for every offset of a (W + PAD,) u8 window (zeros past
+    ``n``): (W,) ``verdict``, ``fail_mask``, ``reads_parsed``,
+    ``reads_before``, ``exact``, ``escaped`` and the () ``survivors`` count
+    of stage 0. A survivor-capacity overflow escapes the whole window."""
+    w = padded.numel() - PAD
+    L = _check_lanes(padded, lengths, num_contigs, n, at_eof, reads_to_check)
+    live, survivor = L["live"], L["survivor"]
+    tgt = torch.where(live, L["cand"], w)
+
+    def scatter(vals, fill, dtype):
+        full = torch.full((w + 1,), fill, dtype=dtype, device=padded.device)
+        full[tgt] = vals.to(dtype)
+        return full[:w]
+
+    res_full = torch.where(
+        survivor, scatter(torch.where(live, L["res"], 0), 0, torch.int8),
+        L["res0"])
+    fm_full = torch.where(survivor, scatter(L["fail_mask"], 0, torch.int32),
+                          L["fail_mask0"])
+    rb_full = torch.where(survivor, scatter(L["reads_before"], 0, torch.int32),
+                          0)
+    rp_full = torch.where(survivor, scatter(L["reads_parsed"], 0, torch.int32),
+                          0)
+    ex_full = torch.where(survivor, scatter(L["exact"], True, torch.bool),
+                          ~L["inexact0"])
+    overflow = L["overflow"]
+    res_full = torch.where(overflow, 2, res_full)
+    escaped = res_full == 2
+    return {
+        "verdict": res_full == 1,
+        "fail_mask": torch.where(overflow, 0, fm_full).int(),
+        "reads_parsed": rp_full.int(),
+        "reads_before": rb_full.int(),
+        "exact": ex_full & ~escaped & ~overflow,
+        "escaped": escaped,
+        "survivors": L["n_survivors"],
+    }
+
+
+def count_window(padded, lengths, num_contigs: int, n: int, at_eof: bool,
+                 lo: int, own: int, reads_to_check: int = 10) -> dict:
+    """``check_window`` reduced over the owned span [lo, own) without the
+    full-width scatters: () ``count`` of record starts, ``esc_count`` of
+    escaped owned positions (all of them on a capacity overflow), and
+    ``survivors``."""
+    L = _check_lanes(padded, lengths, num_contigs, n, at_eof, reads_to_check)
+    w = padded.numel() - PAD
+    i = torch.arange(w, device=padded.device)
+    m = (i >= lo) & (i < own)
+    own_lane = L["live"] & (L["cand"] >= lo) & (L["cand"] < own)
+    count = (own_lane & (L["res"] == 1)).sum()
+    esc = (m & (L["res0"] == 2)).sum() + (own_lane & (L["res"] == 2)).sum()
+    overflow = L["overflow"]
+    return {
+        "count": torch.where(overflow, 0, count),
+        "esc_count": torch.where(overflow, m.sum(), esc),
+        "survivors": L["n_survivors"],
+    }
+
+
+def _assemble(resolved, out_lens, carry, carry_len: int, n: int, *,
+              window: int, halo: int) -> torch.Tensor:
+    """The logical (window + PAD,) u8 window from the halo carry and the
+    resolved block rows: byte ``i`` is ``carry[i]`` or byte ``i - carry_len``
+    of the concatenated rows, located by a search over the cumulative
+    ``out_lens`` (zero-length rows take no range); zeros from ``n`` on."""
+    dev = resolved.device
+    b = resolved.shape[0]
+    cum = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                     torch.cumsum(out_lens.long(), 0)])
+    i = torch.arange(window, device=dev)
+    j = i - carry_len
+    blk = (torch.searchsorted(cum, j, right=True) - 1).clamp(0, b - 1)
+    off = (j - cum[blk]).clamp(0, STRIDE - 1)
+    from_blocks = resolved.reshape(-1)[blk * STRIDE + off]
+    carry_v = carry[i.clamp(0, halo - 1)]
+    zero = torch.zeros((), dtype=torch.uint8, device=dev)
+    val = torch.where(i < carry_len, carry_v,
+                      torch.where(i < n, from_blocks, zero))
+    return torch.cat([val, torch.zeros(PAD, dtype=torch.uint8, device=dev)])
+
+
+def _count_from_planes(resolved, rounds, out_lens, carry, lengths,
+                       num_contigs: int, carry_len: int, n: int, at_eof: bool,
+                       lo: int, own: int, *, window: int, halo: int,
+                       reads_to_check: int = 10) -> dict:
+    """Assemble the window (``_assemble``), count it, and slice the next
+    carry ``val[own : own + halo]``."""
+    dev = resolved.device
+    padded = _assemble(resolved, out_lens, carry, carry_len, n,
+                       window=window, halo=halo)
+    val = padded[:window]
+    r = count_window(padded, lengths, num_contigs, n, at_eof, lo, own,
+                     reads_to_check)
+    new_carry = torch.cat(
+        [val[own: own + halo],
+         torch.zeros(max(own + halo - window, 0), dtype=torch.uint8,
+                     device=dev)])
+    return {**r, "carry": new_carry, "rounds": rounds}
+
+
+def count_window_raw(staged, clens, exp_lens, carry, lengths,
+                     num_contigs: int, carry_len: int, n: int, at_eof: bool,
+                     lo: int, own: int, *, window: int, halo: int,
+                     reads_to_check: int = 10) -> dict:
+    """The device-resident window: tokenize the staged raw-DEFLATE rows,
+    resolve LZ77 in place over the literal plane, assemble and count. Adds
+    ``tok_ok``: True iff every real row (``clens > 0``) decoded cleanly to
+    exactly its footer ISIZE. The assembly uses the footer lengths, so a
+    lying row cannot shift its neighbours' bytes; callers discard the
+    window's counts when tok_ok is False."""
+    lit, dist, olens, ok = tokenize(staged, clens)
+    pad = clens == 0
+    tok_ok = ((ok | pad) & ((olens == exp_lens) | pad)).all()
+    resolved, rounds = lz77_resolve(lit, dist, out=lit)
+    out = _count_from_planes(
+        resolved, rounds, exp_lens, carry, lengths, num_contigs, carry_len,
+        n, at_eof, lo, own, window=window, halo=halo,
+        reads_to_check=reads_to_check,
+    )
+    return {**out, "tok_ok": tok_ok}

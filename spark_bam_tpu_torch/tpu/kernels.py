@@ -1,0 +1,239 @@
+"""The port's three hand-written CUDA kernels, their wrappers, and the plain
+PyTorch versions of the same functions.
+
+Each wrapper takes its plain version only for tensors that lie on the CPU.
+For CUDA tensors it launches its kernel (``csrc/*.cu``, built by
+``kernels/build.py``) on the current stream or raises; nothing falls back.
+``LAUNCHES`` counts kernel launches per wrapper, and only those.
+
+| wrapper                 | CUDA source           | replaces (spark_bam_tpu/tpu/pallas_kernels.py) |
+| ----------------------- | --------------------- | ---------------------------------------------- |
+| ``prefilter_check_flags`` | ``csrc/prefilter.cu`` | ``prefilter_check_flags`` (``:436``)          |
+| ``lz77_resolve``        | ``csrc/lz77.cu``      | ``lz77_resolve_pallas`` (``:250``)             |
+| ``tokenize``            | ``csrc/tokenize.cu``  | ``tokenize_pallas`` (``:299``)                 |
+
+What bounds each on the H100 and how its design answers is noted at the
+top of its source. The tokenizer's plain version is the Python decoder in
+``tpu/tokenize_device.py`` (a bit-serial decoder has no tensor form).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spark_bam_tpu_torch.check.flags import BIT
+from spark_bam_tpu_torch.kernels.build import load
+from spark_bam_tpu_torch.tpu.tokenize_device import STRIDE, tokenize_plain
+
+# Padding beyond any index a flag pass can touch (36 fixed + 255 name +
+# 4*65535 cigar + slack), as in the reference checker: 257*1024 = 263168.
+PAD = 257 * 1024
+#: log2(64 Ki): pointer doubling collapses any chain inside a token row.
+DOUBLING_ROUNDS = (STRIDE - 1).bit_length()
+
+LAUNCHES = {"prefilter_check_flags": 0, "lz77_resolve": 0, "tokenize": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 → the int32 value a JVM int would hold (two's-complement wrap)."""
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _u32_fields(p: torch.Tensor, w: int):
+    """Little-endian u32 (as int64) at byte offsets [0, w + 32) of ``p``."""
+    q = p[: w + 35].long()
+    return q[:-3] | (q[1:-2] << 8) | (q[2:-1] << 16) | (q[3:] << 24)
+
+
+def _ref_pos_bits(idx, pos, c, len_at, b_neg_idx, b_large_idx, b_neg_pos,
+                  b_large_pos):
+    neg_idx = idx < -1
+    large_idx = ~neg_idx & (idx >= c)
+    neg_pos = pos < -1
+    large_pos = ~neg_idx & ~large_idx & ~neg_pos & (idx >= 0) & (pos > len_at)
+    return (
+        neg_idx.long() * b_neg_idx | large_idx.long() * b_large_idx
+        | neg_pos.long() * b_neg_pos | large_pos.long() * b_large_pos
+    )
+
+
+def _prefilter_flags(p, lengths, num_contigs: int, n: int) -> torch.Tensor:
+    """Plain version of the stage-0 funnel pass: the fixed-block subset of
+    the 19 bits at every offset of the (W + PAD,) window ``p``, including
+    the ``tooFewFixedBlockBytes`` overwrite. Returns (W,) int32."""
+    w = p.numel() - PAD
+    u = _u32_fields(p, w)
+    i32 = _wrap32(u)
+    remaining = i32[0:w]
+    ref_idx = i32[4: w + 4]
+    ref_pos = i32[8: w + 8]
+    name_len = p[12: w + 12].long()
+    n_cigar = u[16: w + 16] & 0xFFFF
+    seq_len = i32[20: w + 20]
+    next_ref_idx = i32[24: w + 24]
+    next_ref_pos = i32[28: w + 28]
+    cmax = lengths.numel()
+    lens = lengths.long()
+    len_r = lens[ref_idx.clamp(0, cmax - 1)]
+    len_n = lens[next_ref_idx.clamp(0, cmax - 1)]
+    f = _ref_pos_bits(
+        ref_idx, ref_pos, num_contigs, len_r,
+        BIT["negativeReadIdx"], BIT["tooLargeReadIdx"],
+        BIT["negativeReadPos"], BIT["tooLargeReadPos"],
+    ) | _ref_pos_bits(
+        next_ref_idx, next_ref_pos, num_contigs, len_n,
+        BIT["negativeNextReadIdx"], BIT["tooLargeNextReadIdx"],
+        BIT["negativeNextReadPos"], BIT["tooLargeNextReadPos"],
+    )
+    half = torch.div(_wrap32(seq_len + 1), 2, rounding_mode="trunc")
+    rhs = _wrap32(32 + name_len + 4 * n_cigar + half + seq_len)
+    f |= (remaining < rhs).long() * BIT["tooFewRemainingBytesImplied"]
+    f |= (name_len == 0).long() * BIT["noReadName"]
+    f |= (name_len == 1).long() * BIT["emptyReadName"]
+    few_fixed = torch.arange(w, device=p.device) > n - 36
+    f = torch.where(few_fixed, BIT["tooFewFixedBlockBytes"], f)
+    return f.int()
+
+
+def _resolve_body(lit: torch.Tensor, dist: torch.Tensor):
+    """Plain version of the LZ77 resolve: synchronous pointer doubling with
+    early exit. ``lit``/``dist`` are (B, STRIDE) u8/u16 token rows with
+    ``dist[i] <= i``. Returns ``(resolved (B, STRIDE) u8, rounds () i32)``;
+    ``rounds`` counts doubling rounds including the one that found the
+    fixed point (at most 16)."""
+    d = dist.view(torch.int16).long() & 0xFFFF
+    p = torch.arange(lit.shape[1], device=lit.device)[None, :] - d
+    rounds = 0
+    while rounds < DOUBLING_ROUNDS:
+        nxt = torch.gather(p, 1, p)
+        rounds += 1
+        done = torch.equal(nxt, p)
+        p = nxt
+        if done:
+            break
+    return torch.gather(lit, 1, p), torch.tensor(rounds, dtype=torch.int32)
+
+
+def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
+    if t.dtype != dtype or t.dim() != ndim:
+        raise TypeError(
+            f"{name}: expected a {ndim}-D {dtype} tensor, got {t.dim()}-D "
+            f"{t.dtype}"
+        )
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(name: str, fn, *args, device: torch.device) -> None:
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {t.device}")
+
+
+def prefilter_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
+                          num_contigs: int, n: int) -> torch.Tensor:
+    """Stage-0 funnel bits at every offset of a (W + PAD,) u8 window;
+    ``lengths`` is the padded (Cmax,) i32 contig table and ``n`` the valid
+    byte count. Returns (W,) i32.
+
+    Replaces ``pallas_kernels.py::prefilter_check_flags``. Bound by bytes
+    (~5 per offset: one in, four out); one thread per offset reading its
+    fixed block from global memory as aligned words, contig lengths by
+    direct gather."""
+    if not _on_cuda(padded):
+        return _prefilter_flags(padded, lengths, num_contigs, n)
+    dev = padded.device
+    _check(padded, "padded", torch.uint8, 1, dev)
+    _check(lengths, "lengths", torch.int32, 1, dev)
+    w = padded.numel() - PAD
+    if w <= 0 or lengths.numel() == 0:
+        raise ValueError("padded must exceed PAD bytes; lengths non-empty")
+    if padded.data_ptr() % 4:
+        raise ValueError("padded must start on a 4-byte boundary")
+    out = torch.empty(w, dtype=torch.int32, device=dev)
+    _launch("prefilter_check_flags", "sbt_prefilter", padded.data_ptr(), w,
+            lengths.data_ptr(), lengths.numel(), int(num_contigs), int(n),
+            out.data_ptr(), device=dev)
+    return out
+
+
+def lz77_resolve(lit: torch.Tensor, dist: torch.Tensor,
+                 out: torch.Tensor | None = None):
+    """Resolve (B, STRIDE) u8/u16 token rows to bytes. Returns
+    ``(resolved (B, STRIDE) u8, rounds () i32)``. ``out`` may be ``lit``
+    itself (the kernel resolves in place safely).
+
+    Replaces ``pallas_kernels.py::lz77_resolve_pallas``. Bound by bytes
+    (~4 per output byte); one CTA per row with uint16 parents in shared
+    memory, so the pointer jumping never touches device memory. Its
+    ``rounds`` may be fewer than the plain version's (in-place jumping)."""
+    if not _on_cuda(lit):
+        res, rounds = _resolve_body(lit, dist)
+        if out is not None:
+            out.copy_(res)
+            res = out
+        return res, rounds
+    dev = lit.device
+    _check(lit, "lit", torch.uint8, 2, dev)
+    _check(dist, "dist", torch.uint16, 2, dev)
+    if lit.shape[1] != STRIDE or dist.shape != lit.shape:
+        raise ValueError(f"token rows must be (B, {STRIDE}), got "
+                         f"{tuple(lit.shape)} / {tuple(dist.shape)}")
+    if out is None:
+        out = torch.empty_like(lit)
+    _check(out, "out", torch.uint8, 2, dev)
+    if out.shape != lit.shape:
+        raise ValueError("out must have lit's shape")
+    rounds = torch.zeros(1, dtype=torch.int32, device=dev)
+    _launch("lz77_resolve", "sbt_lz77_resolve", lit.data_ptr(),
+            dist.data_ptr(), lit.shape[0], out.data_ptr(), rounds.data_ptr(),
+            device=dev)
+    return out, rounds[0]
+
+
+def tokenize(staged: torch.Tensor, clens: torch.Tensor):
+    """Entropy-decode (B, C_pad) u8 raw-DEFLATE rows (``clens`` (B,) i32,
+    C_pad ≥ clen + 8) into ``(lit (B, S) u8, dist (B, S) u16, out_lens (B,)
+    i32, ok (B,) bool)``; see ``tpu/tokenize_device.py`` for the contract.
+
+    Replaces ``pallas_kernels.py::tokenize_pallas``. Bound by the latency
+    of the bit-serial symbol loop, not bytes; one thread per row, alone in
+    its warp. The planes are zero-filled here; the kernel writes only the
+    non-zero bytes."""
+    if not _on_cuda(staged):
+        return tokenize_plain(staged, clens)
+    dev = staged.device
+    _check(staged, "staged", torch.uint8, 2, dev)
+    _check(clens, "clens", torch.int32, 1, dev)
+    b, c_pad = staged.shape
+    if clens.numel() != b or c_pad < 16:
+        raise ValueError("clens must have one entry per staged row; "
+                         "C_pad must be at least 16")
+    lit = torch.zeros((b, STRIDE), dtype=torch.uint8, device=dev)
+    dist = torch.zeros((b, STRIDE), dtype=torch.int16, device=dev).view(
+        torch.uint16)
+    out_lens = torch.empty(b, dtype=torch.int32, device=dev)
+    ok = torch.empty(b, dtype=torch.bool, device=dev)
+    _launch("tokenize", "sbt_tokenize", staged.data_ptr(), clens.data_ptr(),
+            b, c_pad, lit.data_ptr(), dist.data_ptr(), out_lens.data_ptr(),
+            ok.data_ptr(), device=dev)
+    return lit, dist, out_lens, ok

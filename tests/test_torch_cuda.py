@@ -1,0 +1,132 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test takes the ``gpu`` fixture, which skips where no
+CUDA device is present. Imports only torch, numpy and the port, so it runs
+on a GPU host without JAX (``python -m pytest --noconftest -m cuda
+tests/test_torch_cuda.py``). Comparisons are exact.
+"""
+
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+from spark_bam_tpu_torch import Config, StreamChecker
+from spark_bam_tpu_torch.benchmarks.synth import synth_bam
+from spark_bam_tpu_torch.tpu import kernels as K
+from spark_bam_tpu_torch.tpu.tokenize_device import STRIDE
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA unavailable)")
+    return torch.device("cuda", 0)
+
+
+def _u16(t):
+    return t.cpu().view(torch.int16).long() & 0xFFFF
+
+
+def test_prefilter_kernel_matches_plain(gpu):
+    rng = np.random.default_rng(1)
+    w = 1 << 20
+    for n in (w, w - 999):
+        padded = torch.from_numpy(
+            rng.integers(0, 256, w + K.PAD, dtype=np.uint8)).to(gpu)
+        lens = torch.from_numpy(
+            rng.integers(0, 1 << 31, 1024, dtype=np.int64).astype(np.int32)
+        ).to(gpu)
+        got = K.prefilter_check_flags(padded, lens, 7, n)
+        want = K._prefilter_flags(padded, lens, 7, n)
+        assert torch.equal(got, want)
+
+
+def test_lz77_kernel_matches_plain(gpu):
+    rng = np.random.default_rng(2)
+    lit = torch.from_numpy(rng.integers(0, 256, (8, STRIDE), dtype=np.uint8))
+    i = np.arange(STRIDE)
+    d = (rng.random((8, STRIDE)) * np.minimum(i, 32768)).astype(np.int64)
+    d[0, 1:] = 1
+    dist = torch.from_numpy(d.astype(np.uint16))
+    lit, dist = lit.to(gpu), dist.to(gpu)
+    want, want_rounds = K._resolve_body(lit, dist)
+    got, rounds = K.lz77_resolve(lit, dist)
+    assert torch.equal(got, want)
+    assert int(rounds) <= int(want_rounds) == 16
+    donor = lit.clone()                      # in place, as the main path does
+    K.lz77_resolve(donor, dist, out=donor)
+    assert torch.equal(donor, want)
+
+
+def test_tokenize_kernel_matches_plain(gpu):
+    rng = np.random.default_rng(3)
+    datas = [b"the quick brown fox " * 300, b"z" * 60_000, b"",
+             rng.integers(0, 256, 9_000, dtype=np.uint8).tobytes(),
+             b"z" * 70_000]
+    comps = []
+    for j, d in enumerate(datas):
+        co = zlib.compressobj(9 if j % 2 else 1, zlib.DEFLATED, -15)
+        comps.append(co.compress(d) + co.flush())
+    for j in range(24):
+        c = bytearray(comps[j % 4])
+        if c:
+            for h in rng.integers(0, len(c), 1 + j % 3):
+                c[h] ^= int(rng.integers(1, 256))
+        comps.append(bytes(c))
+    staged = np.zeros((32, 16384), dtype=np.uint8)
+    clens = np.zeros(32, dtype=np.int32)
+    for r, c in enumerate(comps):
+        staged[r, : len(c)] = np.frombuffer(c, dtype=np.uint8)
+        clens[r] = len(c)
+    want = K.tokenize(torch.from_numpy(staged), torch.from_numpy(clens))
+    got = K.tokenize(torch.from_numpy(staged).to(gpu),
+                     torch.from_numpy(clens).to(gpu))
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(_u16(got[1]), _u16(want[1]))
+    assert torch.equal(got[2].cpu(), want[2])
+    assert torch.equal(got[3].cpu(), want[3])
+    assert bool(want[3][:4].all()) and not bool(want[3][4])
+
+
+def test_wrappers_check_their_inputs(gpu):
+    with pytest.raises(TypeError):
+        K.prefilter_check_flags(torch.zeros(K.PAD + 64, device=gpu),
+                                torch.zeros(4, dtype=torch.int32, device=gpu),
+                                1, 1)
+    with pytest.raises(ValueError, match="4-byte boundary"):
+        K.prefilter_check_flags(
+            torch.zeros(K.PAD + 65, dtype=torch.uint8, device=gpu)[1:],
+            torch.zeros(4, dtype=torch.int32, device=gpu), 1, 1)
+    with pytest.raises(ValueError):
+        K.lz77_resolve(torch.zeros((1, 100), dtype=torch.uint8, device=gpu),
+                       torch.zeros((1, 100), dtype=torch.uint16, device=gpu))
+
+
+def test_count_on_gpu_equals_cpu(gpu, tmp_path):
+    p = tmp_path / "g.bam"
+    m = synth_bam(p, 3 << 20, seed=5, unit_reads=2000)
+    K.reset_launch_counts()
+    sc = StreamChecker(p, Config(), window_uncompressed=1 << 20,
+                       halo=256 << 10)
+    assert sc.count_reads() == m["reads"]
+    assert all(v > 0 for v in K.LAUNCHES.values())
+    cpu = StreamChecker(p, Config(fused_count=False),
+                        window_uncompressed=1 << 20, halo=256 << 10,
+                        device="cpu")
+    assert cpu.count_reads() == m["reads"]
+
+
+def test_default_geometry_small_file_launches_every_kernel(gpu, tmp_path):
+    """A BAM of a few MiB at the default 24 MiB window / 4 MiB halo runs
+    the fused loop on the card: all three kernels launch, none demotes."""
+    p = tmp_path / "small.bam"
+    m = synth_bam(p, 5 << 20, seed=6, unit_reads=2000)
+    K.reset_launch_counts()
+    sc = StreamChecker(p, Config())
+    assert sc.count_reads() == m["reads"]
+    assert sc.tokenize_demotions == 0
+    assert all(v > 0 for v in K.LAUNCHES.values()), K.LAUNCHES
