@@ -9,19 +9,34 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    PyTorch version, bit for bit, at the shapes of the main path's first
    window: ``tokenize`` on the window's staged payload rows (plus seeded
    byte-mutants of 16 of them), ``lz77_resolve`` on the resulting token
-   planes (plus a distance-1 RLE row, the 16-round worst case) and
+   planes (plus a distance-1 RLE row, the 16-round worst case),
    ``prefilter_check_flags`` on the inflated 32 MiB window (plus a window
-   of seeded random bytes). Kernel times are CUDA-event medians.
-3. Counts the BAM through ``StreamChecker.count_reads`` at the default
-   geometry (24 MiB window, 4 MiB halo, 32 MiB kernel window) on the fused
-   device path, with the launch counters reset just before and read just
-   after, then through the classic host-zlib loop, and checks both counts
-   against the generator's.
+   of seeded random bytes) and ``full_check_flags`` on that window at two
+   valid lengths, on random bytes, on constant 0x88 bytes (every int a
+   valid cigar op) and on a long-read window. Kernel times are CUDA-event
+   medians.
+3. count-reads: counts the BAM through ``StreamChecker.count_reads`` at the
+   default geometry (24 MiB window, 4 MiB halo, 32 MiB kernel window) on
+   the fused device path, then through the classic host-zlib loop, and
+   checks both counts against the generator's.
+4. full-check: ``full_check_summary_streaming`` over the same BAM at the
+   default geometry, its windows inflated on the card (``tokenize``,
+   ``lz77_resolve``) and fully flagged there (``full_check_flags``), then
+   one pass over ``StreamChecker.full_spans``: its spans must tile the file
+   and its zero masks past the header must number the generator's reads.
+   A small BAM of two windows is summarised on the card, on the card from
+   host-zlib windows (``device_inflate=False``) and with ``device="cpu"``
+   (the plain versions): equal summaries.
+5. Long reads (60-110 kb) at a 256 KiB window and 64 KiB halo, which the
+   chains outrun: both count loops must still be exact (through the escape
+   retry), ``full_spans`` must defer, and the card's summary must equal
+   the CPU's.
 
-Prints one JSON line per kernel set (``{"kernels": [...]}``) and, last, the
-device line ``{"ok": true, "device": {...}}``. Any failure raises and exits
-non-zero; without CUDA, or without the package beside it, it exits non-zero
-before printing a result.
+Launch counters are set to 0 just before each main path (3, 4) and read
+just after. Prints one JSON line per kernel set (``{"kernels": [...]}``)
+and, last, the device line ``{"ok": true, "device": {...}}``. Any failure
+raises and exits non-zero; without CUDA, or without the package beside
+it, it exits non-zero before printing a result.
 """
 
 from __future__ import annotations
@@ -38,6 +53,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak memory rate
+#: The kernels of the count-reads path and of the full-check path.
+COUNT_KERNELS = ("tokenize", "lz77_resolve", "prefilter_check_flags")
+FULL_CHECK_KERNELS = ("tokenize", "lz77_resolve", "full_check_flags")
 
 
 def log(msg: str) -> None:
@@ -84,6 +102,41 @@ def max_abs_err(pairs) -> int:
     return err
 
 
+def tile_full_spans(checker):
+    """One pass over ``checker.full_spans()``: ``(positions tiled by the
+    window spans, zero masks at or past the header, deferred
+    re-emissions)``. Window spans must be contiguous from 0; a deferred
+    position holds mask 0 in its covering span and comes back once, in a
+    span behind the frontier."""
+    he = checker.header_end_abs
+    frontier = zeros = deferred = 0
+    for base, fm, _rb in checker.full_spans():
+        lo = max(he - base, 0)
+        if base < frontier:
+            deferred += 1
+            zeros += int((fm[lo:] == 0).sum()) - len(fm[lo:])
+            continue
+        require(base == frontier, f"span at {base}, frontier {frontier}")
+        zeros += int((fm[lo:] == 0).sum())
+        frontier = base + len(fm)
+    # Each re-emitted position also counted once as a zero in its covering
+    # span; the subtraction above took that back.
+    return frontier, zeros, deferred
+
+
+def summaries_equal(a: dict, b: dict) -> bool:
+    """Two full-check summaries, site arrays compared exactly."""
+    if a.keys() != b.keys():
+        return False
+    for k in a:
+        if hasattr(a[k], "shape"):
+            if not (a[k].shape == b[k].shape and (a[k] == b[k]).all()):
+                return False
+        elif a[k] != b[k]:
+            return False
+    return True
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -97,6 +150,7 @@ def main() -> int:
 
     from spark_bam_tpu_torch.benchmarks.synth import synth_bam
     from spark_bam_tpu_torch.bgzf.flat import inflate_blocks
+    from spark_bam_tpu_torch.bgzf.index_blocks import blocks_metadata
     from spark_bam_tpu_torch.core.channel import open_channel
     from spark_bam_tpu_torch.device import sync
     from spark_bam_tpu_torch.kernels import build
@@ -259,7 +313,53 @@ def main() -> int:
             bound_ms=pre_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
             library_ms=None,
         ))
-        del padded, soup, k_tok, p_tok, k_res, p_res, lit, dist, staged
+        # ---- full_check_flags: the window at two lengths, random bytes,
+        # constant 0x88 (n_cigar 34,952 of valid ops at every offset), and
+        # a window of long reads ------------------------------------------
+        long_bam = work / "long.bam"
+        long_manifest = synth_bam(long_bam, 8 << 20, seed=9, unit_reads=32,
+                                  read_len=(60_000, 110_000))
+        log(f"long-read BAM: {long_manifest}")
+        with open_channel(long_bam) as ch:
+            long_flat = inflate_blocks(ch, blocks_metadata(long_bam)).data
+        long_n = min(len(long_flat), w)
+        long_pad = torch.zeros(w + K.PAD, dtype=torch.uint8, device=dev)
+        long_pad[:long_n] = torch.from_numpy(long_flat[:long_n]).to(dev)
+        const88 = torch.full((w + K.PAD,), 0x88, dtype=torch.uint8, device=dev)
+        full_err = 0
+        for label, buf, n in (("window", padded, n0),
+                              ("window, n - 12345", padded, n0 - 12345),
+                              ("random bytes", soup, w),
+                              ("constant 0x88", const88, w),
+                              ("long reads", long_pad, long_n)):
+            got = K.full_check_flags(buf, lens_dev, nc, n)
+            want = K._compute_flags(buf, lens_dev, nc, n)
+            err = max_abs_err([(got, want)])
+            full_err = max(full_err, err)
+            case_ms = cuda_ms(
+                lambda: K.full_check_flags(buf, lens_dev, nc, n), reps=20)
+            log(f"full_check_flags [{label}]: W={w}, n={n}, max_abs_err "
+                f"{err}, kernel {case_ms:.3f} ms")
+        require(full_err == 0, f"full_check_flags differs from plain: "
+                               f"{full_err}")
+        full_ms = cuda_ms(
+            lambda: K.full_check_flags(padded, lens_dev, nc, n0), reps=20)
+        full_plain_ms = cuda_ms(
+            lambda: K._compute_flags(padded, lens_dev, nc, n0), reps=3)
+        full_bytes = (w + K.PAD) + 4 * lens_dev.numel() + 4 * w
+        log(f"full_check_flags: bit-identical on all five; kernel "
+            f"{full_ms:.3f} ms, plain {full_plain_ms:.3f} ms")
+        rows.append(dict(
+            name="full_check_flags", route="cuda",
+            source="spark_bam_tpu_torch/csrc/full_flags.cu",
+            replaces="spark_bam_tpu/tpu/pallas_kernels.py:470",
+            parity="bit-identical", max_abs_err=full_err, ms=full_ms,
+            plain_ms=full_plain_ms,
+            bound_ms=full_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=None,
+        ))
+        del padded, soup, const88, long_pad, k_tok, p_tok, k_res, p_res
+        del lit, dist, staged
         torch.cuda.empty_cache()
 
         # ---- end to end: count-reads, fused device path, then classic -----
@@ -281,7 +381,7 @@ def main() -> int:
         require(fused == want, f"fused count {fused} != generator's {want}")
         require(classic == want, f"classic count {classic} != {want}")
         require(checker.tokenize_demotions == 0, "tokenizer demoted")
-        require(all(v > 0 for v in launches.values()), launches)
+        require(all(launches[k] > 0 for k in COUNT_KERNELS), launches)
         gb = manifest["uncompressed_bytes"] / 1e9
         for name, s in (("fused device", fused_s), ("classic host-zlib",
                                                     classic_s)):
@@ -289,6 +389,92 @@ def main() -> int:
                 f"{want / s:.0f} reads/s, {gb / s:.3f} GB/s inflated "
                 f"({card})")
         log(f"funnel: {checker.funnel_stats}; launches {launches}")
+
+        # ---- end to end: full-check, then one pass over its spans --------
+        K.reset_launch_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        summary = port.full_check_summary_streaming(bam, port.Config())
+        sync(dev)
+        fc_s = time.perf_counter() - t0
+        fc_launches = dict(K.LAUNCHES)
+        require(all(fc_launches[k] > 0 for k in FULL_CHECK_KERNELS),
+                fc_launches)
+        launches["full_check_flags"] = fc_launches["full_check_flags"]
+        total = summary["positions"]
+        windows = len(checker.pipeline.groups)
+        log(f"full-check: {total} positions, {windows} windows in "
+            f"{fc_s:.3f} s = {total / fc_s:.0f} positions/s, "
+            f"{want / fc_s:.0f} reads/s; {summary['considered']} considered, "
+            f"{len(summary['critical_positions'])} critical, "
+            f"{len(summary['two_check_positions'])} two-check; launches "
+            f"{fc_launches} ({card})")
+        sc = port.StreamChecker(bam, port.Config())
+        t0 = time.perf_counter()
+        tiled, zeros, deferred = tile_full_spans(sc)
+        spans_s = time.perf_counter() - t0
+        require(tiled == sc.total == total, (tiled, sc.total, total))
+        require(sc.tokenize_demotions == 0, "full_spans demoted a window")
+        require(zeros == want, f"{zeros} zero masks past the header, "
+                               f"{want} reads")
+        log(f"full_spans: tiles {tiled} positions, {deferred} deferred "
+            f"re-emissions, {zeros} zero masks past the header = reads; "
+            f"the pass alone (no summary) {spans_s:.3f} s")
+
+        small = work / "small.bam"
+        small_manifest = synth_bam(small, 40 << 20, seed=8)
+        t0 = time.perf_counter()
+        on_card = port.full_check_summary_streaming(small, port.Config())
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host_zlib = port.full_check_summary_streaming(
+            small, port.Config(device_inflate=False))
+        host_zlib_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = port.full_check_summary_streaming(small, port.Config(),
+                                                   device="cpu")
+        cpu_s = time.perf_counter() - t0
+        small_windows = len(port.StreamChecker(
+            small, port.Config(), device="cpu").pipeline.groups)
+        require(small_windows >= 2, small_windows)
+        require(summaries_equal(on_card, on_cpu), "card and CPU summaries "
+                                                  "differ")
+        require(summaries_equal(on_card, host_zlib),
+                "device-inflated and host-zlib summaries differ")
+        log(f"full-check card vs CPU: {small_manifest['uncompressed_bytes']} "
+            f"bytes, {small_windows} windows, equal summaries; card "
+            f"{card_s:.3f} s, card from host-zlib windows {host_zlib_s:.3f} "
+            f"s, CPU (plain versions) {cpu_s:.3f} s")
+
+        # ---- long reads: chains outrun a 64 KiB halo ---------------------
+        geo = (256 << 10, 64 << 10)
+        long_reads = long_manifest["reads"]
+        for fused in (True, False):
+            lc = port.StreamChecker(long_bam, port.Config(fused_count=fused),
+                                    *geo)
+            retries = []
+            via_spans = lc._count_via_spans
+            lc._count_via_spans = lambda: retries.append(1) or via_spans()
+            got = lc.count_reads()
+            require(got == long_reads, f"long-read count {got} != "
+                                       f"{long_reads} (fused={fused})")
+            require(retries == [1], f"expected one escape retry, got "
+                                    f"{len(retries)}")
+        lc = port.StreamChecker(long_bam, port.Config(), *geo)
+        tiled, zeros, deferred = tile_full_spans(lc)
+        require(tiled == lc.total, (tiled, lc.total))
+        require(deferred > 0, "long reads must defer")
+        require(zeros == long_reads, (zeros, long_reads))
+        long_card = port.full_check_summary_streaming(long_bam, port.Config(),
+                                                      *geo)
+        long_cpu = port.full_check_summary_streaming(
+            long_bam, port.Config(), *geo, device="cpu")
+        require(summaries_equal(long_card, long_cpu),
+                "long-read card and CPU summaries differ")
+        log(f"long reads: {long_reads} reads counted exactly on both loops "
+            f"through the escape retry; full_spans {deferred} deferred "
+            f"re-emissions; card summary equals CPU")
+
         for row in rows:
             row["launches"] = launches[row["name"]]
         print(json.dumps({"kernels": rows}), flush=True)

@@ -1,7 +1,8 @@
 """Synthetic BAMs of any size with an exact read count.
 
-A unit of records (short mapped reads, 80-150 bp, on two contigs with the
-GRCh38 chr1/chr2 lengths) is encoded and BGZF-compressed once; the
+A unit of records (mapped reads, 80-150 bp unless ``read_len`` says
+otherwise, on two contigs with the GRCh38 chr1/chr2 lengths) is encoded
+and BGZF-compressed once; the
 compressed unit is then byte-repeated. Each repeat starts on a block and a
 record boundary, so the file is a valid BAM with exactly
 ``reps * records_per_unit`` reads, and a multi-GiB file costs one small
@@ -86,8 +87,9 @@ def encode_record(ref_id: int, pos: int, name: bytes, seq_codes: np.ndarray,
     return struct.pack("<i", len(body)) + body
 
 
-def record_unit(seed: int, reads: int) -> bytes:
-    """``reads`` coordinate-sorted records split over the two contigs."""
+def record_unit(seed: int, reads: int, read_len=(80, 151)) -> bytes:
+    """``reads`` coordinate-sorted records split over the two contigs, of
+    ``read_len`` = [lo, hi) bases each."""
     rng = np.random.default_rng(seed)
     out = []
     per_contig = -(-reads // len(CONTIGS))
@@ -96,7 +98,7 @@ def record_unit(seed: int, reads: int) -> bytes:
         pos = 0
         for _ in range(min(per_contig, reads - i)):
             pos += int(rng.integers(1, 400))
-            n = int(rng.integers(80, 151))
+            n = int(rng.integers(*read_len))
             seq = rng.choice(np.array([1, 2, 4, 8], np.uint8), n)
             quals = rng.integers(2, 41, n)
             out.append(encode_record(ref_id, pos, b"syn%08d" % i, seq, quals,
@@ -106,12 +108,15 @@ def record_unit(seed: int, reads: int) -> bytes:
 
 
 def synth_bam(out_path, min_uncompressed: int, seed: int = 0,
-              unit_reads: int = 16384, level: int = 6) -> dict:
-    """Write a BAM of at least ``min_uncompressed`` uncompressed bytes;
-    returns its manifest (reads, reps, sizes), also written beside it."""
+              unit_reads: int = 16384, level: int = 6,
+              read_len=(80, 151)) -> dict:
+    """Write a BAM of at least ``min_uncompressed`` uncompressed bytes with
+    reads of ``read_len`` = [lo, hi) bases (e.g. ``(60_000, 110_000)`` for
+    long reads); returns its manifest (reads, reps, sizes), also written
+    beside it."""
     out_path = Path(out_path)
     hdr = encode_header()
-    unit = record_unit(seed, unit_reads)
+    unit = record_unit(seed, unit_reads, read_len)
     hdr_blob = compress_blocks(hdr, level)
     unit_blob = compress_blocks(unit, level)
     reps = max(1, -(-(min_uncompressed - len(hdr)) // len(unit)))
@@ -130,6 +135,7 @@ def synth_bam(out_path, min_uncompressed: int, seed: int = 0,
         "uncompressed_bytes": len(hdr) + reps * len(unit),
         "seed": seed,
         "level": level,
+        "read_len": list(read_len),
     }
     out_path.with_suffix(".manifest.json").write_text(json.dumps(manifest))
     return manifest

@@ -1,5 +1,6 @@
 """Flat views of runs of BGZF blocks: raw payloads for the device
-tokenizer, and host-zlib inflation for the classic count loop."""
+tokenizer, host-zlib inflation for the classic loop, and the block table
+that maps a flat offset back to ``block:offset``."""
 
 from __future__ import annotations
 
@@ -105,3 +106,22 @@ def inflate_blocks(ch, metas: list[Metadata], threads: int = 8) -> FlatView:
         for j in jobs:
             _inflate_into(*j)
     return FlatView(out)
+
+
+def metas_block_table(metas) -> tuple[np.ndarray, np.ndarray]:
+    """``(block_starts, block_flat)``: each block's compressed offset and
+    the flat (uncompressed) offset of its first byte, without inflating."""
+    block_starts = np.array([m.start for m in metas], dtype=np.int64)
+    usizes = np.array([m.uncompressed_size for m in metas], dtype=np.int64)
+    block_flat = np.zeros(len(metas), dtype=np.int64)
+    if len(metas):
+        np.cumsum(usizes[:-1], out=block_flat[1:])
+    return block_starts, block_flat
+
+
+def pos_of_flat_tables(block_starts: np.ndarray, block_flat: np.ndarray,
+                       flat: int) -> tuple[int, int]:
+    """Flat offset → ``(block_pos, offset in the block)``: a position at a
+    block boundary belongs to the block that starts there."""
+    i = int(np.searchsorted(block_flat, flat, side="right")) - 1
+    return int(block_starts[i]), int(flat - block_flat[i])

@@ -1,7 +1,10 @@
 """The 19-check error model's bit layout (reference full/error/Flags.scala
-bit order) and the two masks the chain walk splits it into."""
+bit order), the two masks the chain walk splits it into, and the
+full-check report's per-position rules and bit counts."""
 
 from __future__ import annotations
+
+import numpy as np
 
 FLAG_NAMES = (
     "tooFewFixedBlockBytes",        # bit 0
@@ -35,3 +38,32 @@ ESCAPE_MASK = (
     | BIT["tooFewBytesForCigarOps"]
 )
 DEFINITIVE_MASK = (1 << 19) - 1 - ESCAPE_MASK
+
+
+def considered_mask(fail_mask, reads_before):
+    """FullCheck's "considered" rule over numpy arrays: failing positions
+    minus the bare at-EOF marker (reference FullCheck.scala:144-147)."""
+    bit0 = BIT["tooFewFixedBlockBytes"]
+    return (fail_mask != 0) & ~((fail_mask == bit0) & (reads_before == 0))
+
+
+_NBITS = len(FLAG_NAMES)
+# Set bits of every 19-bit mask value (512 KiB).
+_POPCOUNT = sum((np.arange(1 << _NBITS) >> i) & 1
+                for i in range(_NBITS)).astype(np.uint8)
+
+
+def bit_counts(masks) -> np.ndarray:
+    """(19,) int64: how many of the 19-bit ``masks`` set each flag bit, from
+    one histogram over all mask values viewed as a 2 x ... x 2 array (its
+    last axis is bit 0)."""
+    hist = np.bincount(np.asarray(masks), minlength=1 << _NBITS)
+    hist = hist.reshape((2,) * _NBITS)
+    return np.array([hist.take(1, axis=_NBITS - 1 - i).sum()
+                     for i in range(_NBITS)], dtype=np.int64)
+
+
+def num_failing_fields(fail_mask, reads_before):
+    """Failing-field count per position: the mask's popcount plus one when
+    records chained before the failure (reference Flags.scala:118-124)."""
+    return _POPCOUNT[fail_mask] + (np.asarray(reads_before) > 0)

@@ -1,22 +1,86 @@
-"""Command line: ``python -m spark_bam_tpu_torch count-reads [-n N] PATH``.
+"""Command line: ``python -m spark_bam_tpu_torch count-reads [-n N] PATH``
+and ``python -m spark_bam_tpu_torch full-check [-l N] PATH``.
 
-Prints the reference CLI's standalone count lines (``spark-bam read-count
-time: MS`` and ``Read count: N`` per iteration) and its ``funnel:`` line.
-Runs on the CUDA device unless ``--device`` names another.
+``count-reads`` prints the reference CLI's standalone count lines
+(``spark-bam read-count time: MS`` and ``Read count: N`` per iteration) and
+its ``funnel:`` line. ``full-check`` prints the reference's streaming
+full-check report (``full-check --streaming``): the critical and two-check
+sections with ``block:offset`` positions, the total error counts and the
+``funnel:`` line. Both run on the CUDA device unless ``--device`` names
+another.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
+import numpy as np
+
+from spark_bam_tpu_torch.bgzf.flat import metas_block_table, pos_of_flat_tables
+from spark_bam_tpu_torch.bgzf.index_blocks import blocks_metadata
+from spark_bam_tpu_torch.check.flags import FLAG_NAMES, bit_counts
 from spark_bam_tpu_torch.core.config import Config
-from spark_bam_tpu_torch.tpu.stream_check import StreamChecker
+from spark_bam_tpu_torch.tpu.stream_check import (
+    StreamChecker,
+    full_check_summary_streaming,
+)
 
 
-def funnel_status_line(config: Config, stats: dict | None) -> str:
+class Printer:
+    """The reference CLI's output helpers: echo, indentation, and sampled
+    lists that print ``{total} things:`` when everything fits the print
+    limit, else the truncated header, the first ``limit`` items and a
+    tab-ellipsis line."""
+
+    def __init__(self, out=None, limit: int = 10):
+        self.out = out or sys.stdout
+        self.limit = limit
+        self._indent = 0
+
+    def echo(self, *lines: str) -> None:
+        for line in lines:
+            for part in str(line).split("\n"):
+                self.out.write(("\t" * self._indent + part + "\n") if part
+                               else "\n")
+
+    @contextlib.contextmanager
+    def indent(self):
+        self._indent += 1
+        try:
+            yield
+        finally:
+            self._indent -= 1
+
+    def print_limited(self, items: list, total: int | None = None,
+                      header: str | None = None, truncated_header=None,
+                      item_indent: int = 1) -> None:
+        total = total if total is not None else len(items)
+        if self.limit and total > self.limit:
+            shown = items[: self.limit]
+            if truncated_header:
+                self.echo(truncated_header(len(shown)))
+            for item in shown:
+                self.echo("\t" * item_indent + str(item))
+            self.echo("\t…")
+        else:
+            if header:
+                self.echo(header)
+            for item in items[:total]:
+                self.echo("\t" * item_indent + str(item))
+
+
+def funnel_status_line(config: Config, stats: dict | None = None,
+                       full_masks: bool = False) -> str:
+    """The ``funnel: …`` line: the configured mode, whether the two-stage
+    prefilter ran on this path, and its measured reduction."""
     mode = config.funnel
+    if not config.funnel_enabled(full_masks):
+        why = "disabled" if mode == "off" else (
+            "full per-position flag masks requested")
+        return f"funnel: off ({mode}: {why})"
     if stats and stats.get("screened"):
         screened = int(stats["screened"])
         survivors = int(stats["survivors"])
@@ -42,14 +106,133 @@ def count_reads(path, iterations: int = 1, device=None, out=None) -> int:
     return count
 
 
+def _counts_lines(counts: dict[str, int], hide_bit0: bool = False,
+                  include_zeros: bool = False) -> list[str]:
+    items = [
+        (name, counts.get(name, 0))
+        for name in FLAG_NAMES
+        if (include_zeros or counts.get(name, 0))
+        and not (hide_bit0 and name == "tooFewFixedBlockBytes")
+    ]
+    if not items:
+        return []
+    items.sort(key=lambda kv: -kv[1])
+    name_w = max(len(n) for n, _ in items)
+    count_w = max(len(str(c)) for _, c in items)
+    return [f"{name:>{name_w}}:\t{str(count):>{count_w}}"
+            for name, count in items]
+
+
+def _mask_counts(masks: np.ndarray) -> dict[str, int]:
+    return {name: c for name, c in zip(FLAG_NAMES, bit_counts(masks).tolist())
+            if c}
+
+
+def _render_report(p: Printer, crit_idx, crit_masks, two_idx, two_masks,
+                   total_counts, fmt_pos) -> None:
+    """The critical / two-check / total sections of the full-check report
+    (reference FullCheck.scala); ``fmt_pos(flat)`` renders a position."""
+
+    def limited(idx):
+        return idx if not p.limit else idx[: p.limit]
+
+    if len(crit_idx) == 0:
+        p.echo("No positions where only one check failed")
+    else:
+        p.echo("Critical error counts (true negatives where only one check "
+               "failed):")
+        p.echo(*("\t" + ln for ln in _counts_lines(_mask_counts(crit_masks))))
+        p.echo("")
+        p.print_limited(
+            [fmt_pos(int(i)) for i in limited(crit_idx)],
+            total=len(crit_idx),
+            header=f"{len(crit_idx)} critical positions:",
+            truncated_header=lambda n: (
+                f"{n} of {len(crit_idx)} critical positions:"),
+        )
+
+    p.echo("")
+
+    if len(two_idx) == 0:
+        p.echo("No positions where exactly two checks failed", "")
+    else:
+        p.print_limited(
+            [fmt_pos(int(i)) for i in limited(two_idx)],
+            total=len(two_idx),
+            header=f"{len(two_idx)} positions where exactly two checks "
+                   "failed:",
+            truncated_header=lambda n: (
+                f"{n} of {len(two_idx)} positions where exactly two checks "
+                "failed:"),
+        )
+        p.echo("")
+        # Masks by count, ties in order of first occurrence.
+        masks, first, counts = np.unique(two_masks, return_index=True,
+                                         return_counts=True)
+        order = np.argsort(first, kind="stable")
+        order = order[np.argsort(-counts[order], kind="stable")]
+        top = [(int(masks[i]), int(counts[i])) for i in order]
+
+        def combo_str(mask: int) -> str:
+            return ",".join(n for i, n in enumerate(FLAG_NAMES)
+                            if mask & (1 << i))
+
+        if top[0][1] > 1:
+            with p.indent():
+                p.print_limited(
+                    [f"{count}:\t{combo_str(mask)}" for mask, count in top],
+                    header="Histogram:",
+                    truncated_header=lambda n: "Histogram:",
+                )
+            p.echo("")
+        with p.indent():
+            p.echo("Per-flag totals:")
+            p.echo(*("\t" + ln
+                     for ln in _counts_lines(_mask_counts(two_masks))))
+        p.echo("")
+
+    p.echo("Total error counts:")
+    p.echo(*(
+        "\t" + ln
+        for ln in _counts_lines(total_counts, hide_bit0=True,
+                                include_zeros=True)
+    ))
+    p.echo("")
+
+
+def full_check(path, print_limit: int = 10, device=None, out=None) -> dict:
+    """The streaming full-check report of one BAM; returns its summary."""
+    p = Printer(out=out, limit=print_limit)
+    config = Config()
+    s = full_check_summary_streaming(path, config, device=device)
+    block_starts, block_flat = metas_block_table(blocks_metadata(path))
+
+    def pos_str(i: int) -> str:
+        b, o = pos_of_flat_tables(block_starts, block_flat, i)
+        return f"{b}:{o}"
+
+    _render_report(p, s["critical_positions"], s["critical_masks"],
+                   s["two_check_positions"], s["two_check_masks"],
+                   s["per_flag"], pos_str)
+    p.echo(funnel_status_line(config, full_masks=True))
+    return s
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m spark_bam_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     cr = sub.add_parser("count-reads", help="count the records of a BAM")
     cr.add_argument("-n", "--num-iterations", type=int, default=1)
-    cr.add_argument("--device", default=None,
-                    help="torch device (default: the current CUDA device)")
-    cr.add_argument("path")
+    fc = sub.add_parser("full-check",
+                        help="all 19 checks at every position of a BAM")
+    fc.add_argument("-l", "--print-limit", type=int, default=10)
+    for p in (cr, fc):
+        p.add_argument("--device", default=None,
+                       help="torch device (default: the current CUDA device)")
+        p.add_argument("path")
     args = ap.parse_args(argv)
-    count_reads(args.path, args.num_iterations, args.device)
+    if args.cmd == "count-reads":
+        count_reads(args.path, args.num_iterations, args.device)
+    else:
+        full_check(args.path, args.print_limit, args.device)
     return 0

@@ -1,5 +1,6 @@
 """Typed configuration: the subset of the ``spark.bam.*`` knobs that the
-count-reads path reads, under the reference package's names and defaults.
+count-reads and full-check paths read, under the reference package's names
+and defaults.
 
 Values this port cannot serve yet raise ``ValueError`` naming what will
 serve them, so a run never silently takes another path than asked for.
@@ -99,16 +100,18 @@ class Config:
             raise ValueError(
                 f"Bad funnel mode: {self.funnel!r} (expected on | off | auto)"
             )
-        if self.funnel == "off":
-            raise ValueError(
-                "funnel=off needs the full 19-flag pass (full_check_flags), "
-                "which the full-check slice of the port will serve"
-            )
         InflateConfig.parse(self.inflate)
 
     @property
     def inflate_config(self) -> InflateConfig:
         return InflateConfig.parse(self.inflate)
+
+    def funnel_enabled(self, full_masks: bool = False) -> bool:
+        """Whether a projection runs the two-stage candidate funnel.
+        Projections whose product is the per-position flag mask
+        (``full_masks``, full-check) always take the full pass: under the
+        funnel, rejected positions carry only the prefilter bits."""
+        return self.funnel != "off" and not full_masks
 
     def flush_every_for(self, kernel_window: int) -> int:
         """Windows between flushes of the device accumulators: the explicit

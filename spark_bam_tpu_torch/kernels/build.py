@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels and bind them with ctypes.
 
-Every ``csrc/*.cu`` file of the package is compiled by ``nvcc`` for
+Every ``csrc/*.cu`` file of the package (with the ``csrc/*.cuh`` headers
+they share) is compiled by ``nvcc`` for
 ``sm_90a`` (Hopper) on first use, each source in its own ``nvcc`` process,
 all started together, then linked into one shared library with a plain C
 interface. The library lands in ``spark_bam_tpu_torch/_build/``, named by a
@@ -31,6 +32,7 @@ _I = ctypes.c_int
 # C entry points: name → argtypes (pointers, ints and the stream last).
 SIGNATURES = {
     "sbt_prefilter": [_P, _I, _P, _I, _I, _I, _P, _P],
+    "sbt_full_flags": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
     "sbt_lz77_resolve": [_P, _P, _I, _P, _P, _P],
     "sbt_tokenize": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
 }
@@ -58,6 +60,7 @@ def _nvcc() -> str:
 
 
 def _digest(srcs: list[Path]) -> str:
+    """Hash of the flags and of every source and header in ``csrc/``."""
     h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
     for s in srcs:
         h.update(s.name.encode())
@@ -78,7 +81,8 @@ def build() -> Path:
     """Compile (when the sources changed) and return the library's path."""
     global build_log
     srcs = sorted(CSRC.glob("*.cu"))
-    lib_path = BUILD_DIR / f"libsbt_kernels-{_digest(srcs)}.so"
+    headers = sorted(CSRC.glob("*.cuh"))
+    lib_path = BUILD_DIR / f"libsbt_kernels-{_digest(srcs + headers)}.so"
     if lib_path.exists():
         return lib_path
     nvcc = _nvcc()

@@ -1,12 +1,18 @@
-"""Record-boundary checker over one window, funnel form (reference
-``spark_bam_tpu/tpu/checker.py``).
+"""Record-boundary checker over one window (reference ``spark_bam_tpu/tpu/
+checker.py``), in two forms that give the same verdicts:
 
-Stage 0 screens every offset with the fixed-block prefilter (the CUDA kernel
-``prefilter_check_flags``); survivors compact into a fixed-capacity lane
-buffer, get their full 19-bit mask from word-level hierarchical tables, and
-walk ``reads_to_check`` chained records. Verdicts equal the reference's at
-every position. The full single-pass flag kernel (funnel off) belongs to the
-full-check slice and is not here.
+- the funnel (``funnel=True``, the count path): stage 0 screens every
+  offset with the fixed-block prefilter (the CUDA kernel
+  ``prefilter_check_flags``); survivors compact into a fixed-capacity lane
+  buffer, get their full 19-bit mask from word-level hierarchical tables,
+  and walk ``reads_to_check`` chained records;
+- the full pass (``funnel=False``, full-check's per-position masks): the
+  CUDA kernel ``full_check_flags`` gives all 19 bits at every offset, its
+  survivors compact the same way and walk with plain lookups into it.
+
+``TpuChecker`` windows a flat buffer through ``check_window`` (full pass)
+and re-checks escaped lanes on the host, the reference's ``Checker``
+plug-in face.
 
 Scalars the reference traces (``n``, ``at_eof``, ``lo``, ``own``,
 ``carry_len``, ``num_contigs``) are plain Python values here: the host knows
@@ -18,14 +24,22 @@ is applied explicitly.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
 from spark_bam_tpu_torch.check.flags import BIT, DEFINITIVE_MASK, ESCAPE_MASK
+from spark_bam_tpu_torch.check.vectorized import check_flat
+from spark_bam_tpu_torch.device import resolve_device
 from spark_bam_tpu_torch.tpu.kernels import (
     PAD,
+    _fixed_bits,
+    _misc_at,
     _prefilter_flags,
-    _ref_pos_bits,
+    _take,
     _wrap32,
+    full_check_flags,
     lz77_resolve,
     prefilter_check_flags,
     tokenize,
@@ -33,8 +47,8 @@ from spark_bam_tpu_torch.tpu.kernels import (
 from spark_bam_tpu_torch.tpu.tokenize_device import STRIDE
 
 __all__ = [
-    "PAD", "_prefilter_flags", "check_window", "count_window",
-    "count_window_raw",
+    "PAD", "TpuChecker", "WindowResult", "_prefilter_flags", "check_window",
+    "count_window", "count_window_raw", "inflate_window_raw", "next_carry",
 ]
 
 _M32 = 0xFFFFFFFF
@@ -46,33 +60,6 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F
     return ((x * 0x01010101) & _M32) >> 24
-
-
-def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``jnp.take(t, idx, mode="clip")``."""
-    return t[idx.clamp(0, t.numel() - 1)]
-
-
-def _misc_at(p, n: int, pos):
-    """``remaining`` and ``body_end`` of the record at each position (K,)
-    (pre-clipped to [0, w)): what the chain walk needs to step."""
-    def byte(off):
-        return _take(p, pos + off).long()
-
-    remaining = _wrap32(byte(0) | (byte(1) << 8) | (byte(2) << 16)
-                        | (byte(3) << 24))
-    name_len = byte(12)
-    n_cigar = byte(16) | (byte(17) << 8)
-    has_name = name_len >= 2
-    name_eof = has_name & (pos + 36 + name_len > n)
-    name_in = has_name & ~name_eof
-    cig_start = pos + 36 + torch.where(name_in, name_len, 0)
-    few_fixed = pos > n - 36
-    body_end = torch.where(
-        few_fixed, pos + 36,
-        cig_start + torch.where(~name_eof, 4 * n_cigar, 0),
-    )
-    return remaining, body_end
 
 
 def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -145,23 +132,8 @@ def _deep_flags_at(p, lengths, num_contigs: int, n: int, tables, pos):
     next_ref_idx = _wrap32(u32at(24))
     next_ref_pos = _wrap32(u32at(28))
 
-    cmax = lengths.numel()
-    lens = lengths.long()
-    f = _ref_pos_bits(
-        ref_idx, ref_pos, num_contigs, lens[ref_idx.clamp(0, cmax - 1)],
-        BIT["negativeReadIdx"], BIT["tooLargeReadIdx"],
-        BIT["negativeReadPos"], BIT["tooLargeReadPos"],
-    ) | _ref_pos_bits(
-        next_ref_idx, next_ref_pos, num_contigs,
-        lens[next_ref_idx.clamp(0, cmax - 1)],
-        BIT["negativeNextReadIdx"], BIT["tooLargeNextReadIdx"],
-        BIT["negativeNextReadPos"], BIT["tooLargeNextReadPos"],
-    )
-    half = torch.div(_wrap32(seq_len + 1), 2, rounding_mode="trunc")
-    rhs = _wrap32(32 + name_len + 4 * n_cigar + half + seq_len)
-    f |= (remaining < rhs).long() * BIT["tooFewRemainingBytesImplied"]
-    f |= (name_len == 0).long() * BIT["noReadName"]
-    f |= (name_len == 1).long() * BIT["emptyReadName"]
+    f = _fixed_bits(remaining, ref_idx, ref_pos, name_len, n_cigar, seq_len,
+                    next_ref_idx, next_ref_pos, lengths, num_contigs)
 
     name_start = pos + 36
     name_end = name_start + name_len
@@ -224,21 +196,24 @@ def _compact_mask(mask: torch.Tensor, capacity: int):
 
 
 def _check_lanes(padded, lengths, num_contigs: int, n: int, at_eof: bool,
-                 reads_to_check: int = 10) -> dict:
-    """Prefilter + survivor compaction + chain walk, without scattering the
-    lanes back to full width (the shared core of ``check_window`` and
-    ``count_window``)."""
+                 reads_to_check: int = 10, funnel: bool = True) -> dict:
+    """Flag pass (prefilter, or the full pass with ``funnel=False``) +
+    survivor compaction + chain walk, without scattering the lanes back to
+    full width (the shared core of ``check_window`` and ``count_window``)."""
     dev = padded.device
     w = padded.numel() - PAD
     ae = torch.tensor(bool(at_eof), device=dev)
-    F = prefilter_check_flags(padded, lengths, num_contigs, n)
+    if funnel:
+        F = prefilter_check_flags(padded, lengths, num_contigs, n)
+    else:
+        F = full_check_flags(padded, lengths, num_contigs, n)
     in_range = torch.arange(w, device=dev) < n
     definitive0 = F & DEFINITIVE_MASK
     boundary0 = F & ESCAPE_MASK
     survivor = (F == 0) & in_range
-    # Prefilter-rejected positions resolve straight from F: every prefilter
-    # bit is definitive except the tooFewFixedBlockBytes overwrite, where
-    # the prefilter mask equals the full mask.
+    # Rejected positions resolve straight from F. Under the funnel F is the
+    # prefilter mask: every prefilter bit is definitive except the
+    # tooFewFixedBlockBytes overwrite, where it equals the full mask.
     fail0 = (F != 0) & ((definitive0 != 0) | (ae & (boundary0 != 0)))
     esc0 = (F != 0) & ~ae & (definitive0 == 0) & (boundary0 != 0)
     inexact0 = (F != 0) & ~ae & (definitive0 != 0) & (boundary0 != 0)
@@ -249,17 +224,24 @@ def _check_lanes(padded, lengths, num_contigs: int, n: int, at_eof: bool,
     cand, n_survivors = _compact_mask(survivor, capacity)
     overflow = n_survivors > capacity
     live = cand >= 0
-    tables = _funnel_tables(padded, n)
-    F_cand = _deep_flags_at(padded, lengths, num_contigs, n, tables,
-                            torch.where(live, cand, 0))
-    F_cand = torch.where(live, F_cand, 0)
-    F_deep = torch.zeros(w + 1, dtype=torch.int32, device=dev)
-    F_deep[torch.where(live, cand, w)] = F_cand
-    F_deep = F_deep[:w]
+    if funnel:
+        # Stage 1: the full mask at the survivors, looked up by position in
+        # the walk; a walked position the prefilter rejects resolves from
+        # its prefilter bits alone.
+        tables = _funnel_tables(padded, n)
+        F_cand = _deep_flags_at(padded, lengths, num_contigs, n, tables,
+                                torch.where(live, cand, 0))
+        F_cand = torch.where(live, F_cand, 0)
+        F_deep = torch.zeros(w + 1, dtype=torch.int32, device=dev)
+        F_deep[torch.where(live, cand, w)] = F_cand
+        F_deep = F_deep[:w]
 
-    def flags_lookup(pi):
-        pre = F[pi]
-        return torch.where(pre == 0, F_deep[pi], pre)
+        def flags_lookup(pi):
+            pre = F[pi]
+            return torch.where(pre == 0, F_deep[pi], pre)
+    else:
+        def flags_lookup(pi):
+            return F[pi]
 
     logical = torch.where(live, cand, 0)
     physical = logical
@@ -330,13 +312,21 @@ def _check_lanes(padded, lengths, num_contigs: int, n: int, at_eof: bool,
 
 
 def check_window(padded, lengths, num_contigs: int, n: int, at_eof: bool,
-                 reads_to_check: int = 10) -> dict:
+                 reads_to_check: int = 10, funnel: bool = True) -> dict:
     """Verdicts for every offset of a (W + PAD,) u8 window (zeros past
     ``n``): (W,) ``verdict``, ``fail_mask``, ``reads_parsed``,
     ``reads_before``, ``exact``, ``escaped`` and the () ``survivors`` count
-    of stage 0. A survivor-capacity overflow escapes the whole window."""
+    (of stage 0 under the funnel, of the full pass without it). A
+    survivor-capacity overflow escapes the whole window.
+
+    The two forms give the same verdicts. Under the funnel, ``fail_mask``
+    at a prefilter-rejected position holds only the prefilter bits, and
+    ``exact`` may be True where the full pass reports a definitively
+    failing lane inexact; the full pass (``funnel=False``) gives every
+    position its whole mask."""
     w = padded.numel() - PAD
-    L = _check_lanes(padded, lengths, num_contigs, n, at_eof, reads_to_check)
+    L = _check_lanes(padded, lengths, num_contigs, n, at_eof, reads_to_check,
+                     funnel)
     live, survivor = L["live"], L["survivor"]
     tgt = torch.where(live, L["cand"], w)
 
@@ -371,12 +361,14 @@ def check_window(padded, lengths, num_contigs: int, n: int, at_eof: bool,
 
 
 def count_window(padded, lengths, num_contigs: int, n: int, at_eof: bool,
-                 lo: int, own: int, reads_to_check: int = 10) -> dict:
+                 lo: int, own: int, reads_to_check: int = 10,
+                 funnel: bool = True) -> dict:
     """``check_window`` reduced over the owned span [lo, own) without the
     full-width scatters: () ``count`` of record starts, ``esc_count`` of
     escaped owned positions (all of them on a capacity overflow), and
     ``survivors``."""
-    L = _check_lanes(padded, lengths, num_contigs, n, at_eof, reads_to_check)
+    L = _check_lanes(padded, lengths, num_contigs, n, at_eof, reads_to_check,
+                     funnel)
     w = padded.numel() - PAD
     i = torch.arange(w, device=padded.device)
     m = (i >= lo) & (i < own)
@@ -413,42 +405,142 @@ def _assemble(resolved, out_lens, carry, carry_len: int, n: int, *,
     return torch.cat([val, torch.zeros(PAD, dtype=torch.uint8, device=dev)])
 
 
-def _count_from_planes(resolved, rounds, out_lens, carry, lengths,
-                       num_contigs: int, carry_len: int, n: int, at_eof: bool,
-                       lo: int, own: int, *, window: int, halo: int,
-                       reads_to_check: int = 10) -> dict:
-    """Assemble the window (``_assemble``), count it, and slice the next
-    carry ``val[own : own + halo]``."""
-    dev = resolved.device
-    padded = _assemble(resolved, out_lens, carry, carry_len, n,
+def next_carry(padded, own: int, halo: int) -> torch.Tensor:
+    """The next window's halo carry: ``padded[own : own + halo]``, zero-filled
+    to ``halo`` bytes."""
+    carry = padded[own: own + halo]
+    short = halo - carry.numel()
+    if short:
+        carry = torch.cat([carry, torch.zeros(short, dtype=torch.uint8,
+                                              device=padded.device)])
+    return carry.clone()
+
+
+def inflate_window_raw(staged, clens, exp_lens, carry, carry_len: int, n: int,
+                       *, window: int, halo: int):
+    """The device inflate of one window: tokenize the staged raw-DEFLATE
+    rows, resolve LZ77 in place over the literal plane, and assemble the
+    (window + PAD,) window behind the halo carry (``_assemble``). Returns
+    ``(padded, rounds, tok_ok)``; ``tok_ok`` is True iff every real row
+    (``clens > 0``) decoded cleanly to exactly its footer ISIZE. The
+    assembly uses the footer lengths, so a lying row cannot shift its
+    neighbours' bytes; callers discard the window when tok_ok is False."""
+    lit, dist, olens, ok = tokenize(staged, clens)
+    pad = clens == 0
+    tok_ok = ((ok | pad) & ((olens == exp_lens) | pad)).all()
+    resolved, rounds = lz77_resolve(lit, dist, out=lit)
+    padded = _assemble(resolved, exp_lens, carry, carry_len, n,
                        window=window, halo=halo)
-    val = padded[:window]
-    r = count_window(padded, lengths, num_contigs, n, at_eof, lo, own,
-                     reads_to_check)
-    new_carry = torch.cat(
-        [val[own: own + halo],
-         torch.zeros(max(own + halo - window, 0), dtype=torch.uint8,
-                     device=dev)])
-    return {**r, "carry": new_carry, "rounds": rounds}
+    return padded, rounds, tok_ok
 
 
 def count_window_raw(staged, clens, exp_lens, carry, lengths,
                      num_contigs: int, carry_len: int, n: int, at_eof: bool,
                      lo: int, own: int, *, window: int, halo: int,
-                     reads_to_check: int = 10) -> dict:
-    """The device-resident window: tokenize the staged raw-DEFLATE rows,
-    resolve LZ77 in place over the literal plane, assemble and count. Adds
-    ``tok_ok``: True iff every real row (``clens > 0``) decoded cleanly to
-    exactly its footer ISIZE. The assembly uses the footer lengths, so a
-    lying row cannot shift its neighbours' bytes; callers discard the
-    window's counts when tok_ok is False."""
-    lit, dist, olens, ok = tokenize(staged, clens)
-    pad = clens == 0
-    tok_ok = ((ok | pad) & ((olens == exp_lens) | pad)).all()
-    resolved, rounds = lz77_resolve(lit, dist, out=lit)
-    out = _count_from_planes(
-        resolved, rounds, exp_lens, carry, lengths, num_contigs, carry_len,
-        n, at_eof, lo, own, window=window, halo=halo,
-        reads_to_check=reads_to_check,
-    )
-    return {**out, "tok_ok": tok_ok}
+                     reads_to_check: int = 10, funnel: bool = True) -> dict:
+    """The device-resident count of one window: ``inflate_window_raw``, then
+    ``count_window`` over the owned span and the next ``carry``; adds
+    ``rounds`` and ``tok_ok``. Callers discard the window's counts when
+    tok_ok is False."""
+    padded, rounds, tok_ok = inflate_window_raw(
+        staged, clens, exp_lens, carry, carry_len, n, window=window,
+        halo=halo)
+    r = count_window(padded, lengths, num_contigs, n, at_eof, lo, own,
+                     reads_to_check, funnel)
+    return {**r, "carry": next_carry(padded, own, halo), "rounds": rounds,
+            "tok_ok": tok_ok}
+
+
+@dataclass
+class WindowResult:
+    verdict: np.ndarray
+    fail_mask: np.ndarray
+    reads_parsed: np.ndarray
+    reads_before: np.ndarray
+    exact: np.ndarray
+    escaped: np.ndarray
+
+
+class TpuChecker:
+    """The reference's ``Checker`` plug-in face: windows a flat buffer
+    through ``check_window`` (full pass) on the device, and re-checks
+    escaped or inexact lanes with the host engine, so results are exact.
+    ``device=None`` runs on the current CUDA device and raises without
+    one."""
+
+    def __init__(
+        self,
+        contig_lengths: np.ndarray,
+        window: int = 16 << 20,
+        halo: int = 4 << 20,
+        reads_to_check: int = 10,
+        cmax: int = 1024,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.window = window
+        self.halo = halo
+        self.reads_to_check = reads_to_check
+        self.num_contigs = len(contig_lengths)
+        self.lengths = np.zeros(max(cmax, len(contig_lengths)), dtype=np.int32)
+        self.lengths[: len(contig_lengths)] = contig_lengths
+
+    def check_buffer(self, buf: np.ndarray, at_eof: bool = True) -> WindowResult:
+        """Check every position of ``buf``; exact everywhere except possibly
+        within the final chain reach when ``at_eof=False`` (those escape)."""
+        n_total = len(buf)
+        out = {
+            k: np.empty(n_total, dtype=d)
+            for k, d in [
+                ("verdict", bool), ("fail_mask", np.int32),
+                ("reads_parsed", np.int32), ("reads_before", np.int32),
+                ("exact", bool), ("escaped", bool),
+            ]
+        }
+        w = self.window
+        step = max(w - self.halo, 1)
+        lens = torch.from_numpy(self.lengths).to(self.device)
+        s = 0
+        while True:
+            e = min(s + w, n_total)
+            chunk_eof = at_eof and e == n_total
+            padded = torch.zeros(w + PAD, dtype=torch.uint8, device=self.device)
+            padded[: e - s] = torch.from_numpy(np.ascontiguousarray(buf[s:e]))
+            res = check_window(padded, lens, self.num_contigs, e - s,
+                               chunk_eof, self.reads_to_check, funnel=False)
+            # Own [s, s + step): the halo tail belongs to the next window,
+            # except in the last one, which owns through the end.
+            own_end = e if e == n_total else min(s + step, n_total)
+            for k in out:
+                out[k][s:own_end] = res[k][: own_end - s].cpu().numpy()
+            if e == n_total:
+                break
+            s += step
+        result = WindowResult(**out)
+        self._host_recheck(buf, result, at_eof)
+        return result
+
+    def _host_recheck(self, buf, result: WindowResult, at_eof: bool):
+        """Resolve escaped and inexact lanes with the host engine over the
+        suffix that can influence them (halo-outrunning chains, cursor
+        overflows)."""
+        bad = result.escaped | ~result.exact
+        if at_eof:
+            idxs = np.flatnonzero(bad)
+        else:
+            # In windowed mode the tail's escapes are legitimate output.
+            idxs = np.flatnonzero(bad[: max(len(buf) - self.halo, 0)])
+        if len(idxs) == 0:
+            return
+        base = int(idxs.min())
+        res = check_flat(
+            buf[base:], self.lengths[: self.num_contigs],
+            candidates=(idxs - base).astype(np.int64),
+            at_eof=at_eof, reads_to_check=self.reads_to_check,
+        )
+        result.verdict[idxs] = res.verdict
+        result.fail_mask[idxs] = res.fail_mask
+        result.reads_parsed[idxs] = res.reads_parsed
+        result.reads_before[idxs] = res.reads_before
+        result.exact[idxs] = res.exact | res.verdict | (res.fail_mask != 0)
+        result.escaped[idxs] = res.escaped

@@ -1,4 +1,4 @@
-"""The port's three hand-written CUDA kernels, their wrappers, and the plain
+"""The port's hand-written CUDA kernels, their wrappers, and the plain
 PyTorch versions of the same functions.
 
 Each wrapper takes its plain version only for tensors that lie on the CPU.
@@ -9,6 +9,7 @@ For CUDA tensors it launches its kernel (``csrc/*.cu``, built by
 | wrapper                 | CUDA source           | replaces (spark_bam_tpu/tpu/pallas_kernels.py) |
 | ----------------------- | --------------------- | ---------------------------------------------- |
 | ``prefilter_check_flags`` | ``csrc/prefilter.cu`` | ``prefilter_check_flags`` (``:436``)          |
+| ``full_check_flags``    | ``csrc/full_flags.cu`` | ``full_check_flags`` (``:470``)               |
 | ``lz77_resolve``        | ``csrc/lz77.cu``      | ``lz77_resolve_pallas`` (``:250``)             |
 | ``tokenize``            | ``csrc/tokenize.cu``  | ``tokenize_pallas`` (``:299``)                 |
 
@@ -28,10 +29,14 @@ from spark_bam_tpu_torch.tpu.tokenize_device import STRIDE, tokenize_plain
 # Padding beyond any index a flag pass can touch (36 fixed + 255 name +
 # 4*65535 cigar + slack), as in the reference checker: 257*1024 = 263168.
 PAD = 257 * 1024
+#: Bytes per row of the full pass's first-bad-cigar-op table
+#: (``kChunk`` in ``csrc/full_flags.cu``).
+FULL_FLAGS_CHUNK = 1024
 #: log2(64 Ki): pointer doubling collapses any chain inside a token row.
 DOUBLING_ROUNDS = (STRIDE - 1).bit_length()
 
-LAUNCHES = {"prefilter_check_flags": 0, "lz77_resolve": 0, "tokenize": 0}
+LAUNCHES = {"prefilter_check_flags": 0, "full_check_flags": 0,
+            "lz77_resolve": 0, "tokenize": 0}
 
 
 def reset_launch_counts() -> None:
@@ -62,31 +67,20 @@ def _ref_pos_bits(idx, pos, c, len_at, b_neg_idx, b_large_idx, b_neg_pos,
     )
 
 
-def _prefilter_flags(p, lengths, num_contigs: int, n: int) -> torch.Tensor:
-    """Plain version of the stage-0 funnel pass: the fixed-block subset of
-    the 19 bits at every offset of the (W + PAD,) window ``p``, including
-    the ``tooFewFixedBlockBytes`` overwrite. Returns (W,) int32."""
-    w = p.numel() - PAD
-    u = _u32_fields(p, w)
-    i32 = _wrap32(u)
-    remaining = i32[0:w]
-    ref_idx = i32[4: w + 4]
-    ref_pos = i32[8: w + 8]
-    name_len = p[12: w + 12].long()
-    n_cigar = u[16: w + 16] & 0xFFFF
-    seq_len = i32[20: w + 20]
-    next_ref_idx = i32[24: w + 24]
-    next_ref_pos = i32[28: w + 28]
+def _fixed_bits(remaining, ref_idx, ref_pos, name_len, n_cigar, seq_len,
+                next_ref_idx, next_ref_pos, lengths, num_contigs: int):
+    """The flag bits that the fixed 36-byte block alone decides (contig
+    bounds of both positions, the implied record size, the name length),
+    as int64, without the ``tooFewFixedBlockBytes`` overwrite."""
     cmax = lengths.numel()
     lens = lengths.long()
-    len_r = lens[ref_idx.clamp(0, cmax - 1)]
-    len_n = lens[next_ref_idx.clamp(0, cmax - 1)]
     f = _ref_pos_bits(
-        ref_idx, ref_pos, num_contigs, len_r,
+        ref_idx, ref_pos, num_contigs, lens[ref_idx.clamp(0, cmax - 1)],
         BIT["negativeReadIdx"], BIT["tooLargeReadIdx"],
         BIT["negativeReadPos"], BIT["tooLargeReadPos"],
     ) | _ref_pos_bits(
-        next_ref_idx, next_ref_pos, num_contigs, len_n,
+        next_ref_idx, next_ref_pos, num_contigs,
+        lens[next_ref_idx.clamp(0, cmax - 1)],
         BIT["negativeNextReadIdx"], BIT["tooLargeNextReadIdx"],
         BIT["negativeNextReadPos"], BIT["tooLargeNextReadPos"],
     )
@@ -95,9 +89,120 @@ def _prefilter_flags(p, lengths, num_contigs: int, n: int) -> torch.Tensor:
     f |= (remaining < rhs).long() * BIT["tooFewRemainingBytesImplied"]
     f |= (name_len == 0).long() * BIT["noReadName"]
     f |= (name_len == 1).long() * BIT["emptyReadName"]
+    return f
+
+
+def _window_fields(p, w: int) -> dict:
+    """The fixed-block fields of the record at every offset [0, w) of the
+    padded window ``p``, as int64 (JVM int32 values where the reference
+    reads an int)."""
+    u = _u32_fields(p, w)
+    i32 = _wrap32(u)
+    return {
+        "remaining": i32[0:w], "ref_idx": i32[4: w + 4],
+        "ref_pos": i32[8: w + 8], "name_len": p[12: w + 12].long(),
+        "fnc": u[16: w + 16], "seq_len": i32[20: w + 20],
+        "next_ref_idx": i32[24: w + 24], "next_ref_pos": i32[28: w + 28],
+    }
+
+
+def _window_fixed_bits(fx: dict, lengths, num_contigs: int):
+    return _fixed_bits(
+        fx["remaining"], fx["ref_idx"], fx["ref_pos"], fx["name_len"],
+        fx["fnc"] & 0xFFFF, fx["seq_len"], fx["next_ref_idx"],
+        fx["next_ref_pos"], lengths, num_contigs,
+    )
+
+
+def _prefilter_flags(p, lengths, num_contigs: int, n: int) -> torch.Tensor:
+    """Plain version of the stage-0 funnel pass: the fixed-block subset of
+    the 19 bits at every offset of the (W + PAD,) window ``p``, including
+    the ``tooFewFixedBlockBytes`` overwrite. Returns (W,) int32."""
+    w = p.numel() - PAD
+    f = _window_fixed_bits(_window_fields(p, w), lengths, num_contigs)
     few_fixed = torch.arange(w, device=p.device) > n - 36
-    f = torch.where(few_fixed, BIT["tooFewFixedBlockBytes"], f)
-    return f.int()
+    return torch.where(few_fixed, BIT["tooFewFixedBlockBytes"], f).int()
+
+
+def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(t, idx, mode="clip")``."""
+    return t[idx.clamp(0, t.numel() - 1)]
+
+
+def _misc_at(p, n: int, pos):
+    """``remaining`` and ``body_end`` of the record at each position (K,)
+    (pre-clipped to [0, w)) of the padded window ``p`` holding ``n`` valid
+    bytes: what a chain walk needs to step."""
+    def byte(off):
+        return _take(p, pos + off).long()
+
+    remaining = _wrap32(byte(0) | (byte(1) << 8) | (byte(2) << 16)
+                        | (byte(3) << 24))
+    name_len = byte(12)
+    n_cigar = byte(16) | (byte(17) << 8)
+    has_name = name_len >= 2
+    name_eof = has_name & (pos + 36 + name_len > n)
+    name_in = has_name & ~name_eof
+    cig_start = pos + 36 + torch.where(name_in, name_len, 0)
+    few_fixed = pos > n - 36
+    body_end = torch.where(
+        few_fixed, pos + 36,
+        cig_start + torch.where(~name_eof, 4 * n_cigar, 0),
+    )
+    return remaining, body_end
+
+
+def _compute_flags(p, lengths, num_contigs: int, n: int) -> torch.Tensor:
+    """Plain version of the full pass: all 19 flag bits at every offset of
+    the (W + PAD,) window ``p`` (zeros past ``n``), line for line the
+    reference's ``checker._compute_flags``: read-name validity from a
+    cumulative allowed-byte count, cigar-op validity from stride-4 suffix
+    sums of bad-op indicators. Returns (W,) int32."""
+    total = p.numel()
+    w = total - PAD
+    fx = _window_fields(p, w)
+    name_len, fnc, seq_len = fx["name_len"], fx["fnc"], fx["seq_len"]
+    n_cigar = fnc & 0xFFFF
+    mapped = ((fnc >> 18) & 1) == 0
+    f = _window_fixed_bits(fx, lengths, num_contigs)
+
+    idx = torch.arange(w, device=p.device)
+    name_start = idx + 36
+    name_end = name_start + name_len
+    has_name = name_len >= 2
+    name_eof = has_name & (name_end > n)
+    f |= name_eof.long() * BIT["tooFewBytesForReadName"]
+    name_in = has_name & ~name_eof
+    last_idx = name_end - 1
+    non_null = name_in & (_take(p, last_idx) != 0)
+    f |= non_null.long() * BIT["nonNullTerminatedReadName"]
+    allowed = (p >= 0x21) & (p <= 0x7E) & (p != 0x40)
+    acc = torch.cat([torch.zeros(1, dtype=torch.int64, device=p.device),
+                     torch.cumsum(allowed, 0)])
+    good = _take(acc, last_idx) - _take(acc, name_start)
+    bad_chars = name_in & ~non_null & (good != name_len - 1)
+    f |= bad_chars.long() * BIT["nonASCIIReadName"]
+
+    # Stride-4 suffix sums, one 1-D scan per class (a scan down dim 0 of a
+    # (N/4, 4) view runs PyTorch's slow outer-dim scan kernel on the card).
+    j = torch.arange(total, device=p.device)
+    bad_op = ((p & 0xF) > 8) & (j + 4 <= n)
+    B = torch.empty(total, dtype=torch.int64, device=p.device)
+    for c in range(4):
+        B[c::4] = bad_op[c::4].flip(0).cumsum(0).flip(0)
+    cig_start = name_start + torch.where(name_in, name_len, 0)
+    cig_end = cig_start + 4 * n_cigar
+    cig_considered = ~name_eof
+    has_bad = cig_considered & ((_take(B, cig_start) - _take(B, cig_end)) > 0)
+    f |= has_bad.long() * BIT["invalidCigarOp"]
+    cig_eof = cig_considered & ~has_bad & (cig_end > n)
+    f |= cig_eof.long() * BIT["tooFewBytesForCigarOps"]
+    empty_ok = cig_considered & ~has_bad & ~cig_eof & mapped
+    # Swapped on purpose: reference quirk (EmptyMapped binds its fields in
+    # the other order).
+    f |= (empty_ok & (seq_len == 0)).long() * BIT["emptyMappedCigar"]
+    f |= (empty_ok & (n_cigar == 0)).long() * BIT["emptyMappedSeq"]
+    return torch.where(idx > n - 36, BIT["tooFewFixedBlockBytes"], f).int()
 
 
 def _resolve_body(lit: torch.Tensor, dist: torch.Tensor):
@@ -173,6 +278,40 @@ def prefilter_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
     _launch("prefilter_check_flags", "sbt_prefilter", padded.data_ptr(), w,
             lengths.data_ptr(), lengths.numel(), int(num_contigs), int(n),
             out.data_ptr(), device=dev)
+    return out
+
+
+def full_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
+                     num_contigs: int, n: int) -> torch.Tensor:
+    """All 19 flag bits at every offset of a (W + PAD,) u8 window (zeros
+    past ``n``); ``lengths`` is the padded (Cmax,) i32 contig table.
+    Returns (W,) i32.
+
+    Replaces ``pallas_kernels.py::full_check_flags``. Bound by bytes (one
+    in, four out per offset); three launches: first bad cigar op per
+    stride-4 class in each 1 KiB chunk, a suffix-min over the chunks, then
+    the flag pass over 8 KiB tiles held in shared memory with 1 KiB of
+    lookahead. No offset loops over its cigar or its name."""
+    if not _on_cuda(padded):
+        return _compute_flags(padded, lengths, num_contigs, n)
+    dev = padded.device
+    _check(padded, "padded", torch.uint8, 1, dev)
+    _check(lengths, "lengths", torch.int32, 1, dev)
+    w = padded.numel() - PAD
+    if w <= 0 or w % 4 or lengths.numel() == 0:
+        raise ValueError("padded must be PAD plus a positive multiple of 4 "
+                         "bytes; lengths non-empty")
+    if padded.numel() >= 1 << 31:
+        raise ValueError("the window must hold fewer than 2^31 bytes")
+    if padded.data_ptr() % 4:
+        raise ValueError("padded must start on a 4-byte boundary")
+    chunks = -(-padded.numel() // FULL_FLAGS_CHUNK)
+    # Per-chunk first bad ops, then their suffix-min (one more row: none).
+    scratch = torch.empty((2 * chunks + 1, 4), dtype=torch.int32, device=dev)
+    out = torch.empty(w, dtype=torch.int32, device=dev)
+    _launch("full_check_flags", "sbt_full_flags", padded.data_ptr(),
+            padded.numel(), w, lengths.data_ptr(), lengths.numel(), int(num_contigs), int(n),
+            scratch.data_ptr(), out.data_ptr(), device=dev)
     return out
 
 

@@ -1,5 +1,5 @@
-"""Whole-file streaming count (reference ``spark_bam_tpu/tpu/
-stream_check.py``): the count-reads path.
+"""Whole-file streaming check (reference ``spark_bam_tpu/tpu/
+stream_check.py``): the count-reads and full-check paths.
 
 Each kernel buffer is ``carry + window``, where the carry is the previous
 buffer's trailing ``halo`` bytes, so every owned position has at least
@@ -7,21 +7,39 @@ buffer's trailing ``halo`` bytes, so every owned position has at least
 its halo tail; the final one owns through EOF; ``lo`` keeps the BAM header
 out of the owned span.
 
+Windows are inflated on the device unless ``Config.device_inflate`` is
+False: worker threads stage each window group's raw BGZF payloads there,
+and the ``tokenize`` and ``lz77_resolve`` kernels inflate it behind a halo
+carry that stays on the device. With ``device_inflate=False`` host zlib
+inflates each window and it is copied to the device.
+
 Two loops count, with the same pacing (``ring_depth`` windows un-synced),
 flushes (``flush_every`` windows between device→host transfers) and escape
 checkpoints (window 4, then every flush):
 
-- ``_count_reads_fused`` (the default): worker threads stage each window
-  group's raw BGZF payloads on the device, and ``checker.count_window_raw``
-  tokenizes, resolves, assembles and counts there; the halo carry stays on
-  the device. A window whose tokenizer verdict (``tok_ok``) is False demotes
-  the whole count to the classic loop, counted in ``tokenize_demotions``.
+- ``_count_reads_fused`` (the default): ``checker.count_window_raw``
+  inflates and counts each window on the device. A window whose tokenizer
+  verdict (``tok_ok``) is False demotes the whole count to the classic
+  loop, counted in ``tokenize_demotions``.
 - the classic loop in ``count_reads``: host zlib inflates, and each padded
   window goes to the device for ``checker.count_window``.
 
-Escapes (chains longer than the halo) are resolved by the reference with a
-deferral path that is not ported yet; here they raise ``CountEscaped``
-rather than return a guessed count.
+``spans()`` and ``full_spans()`` run ``check_window`` on each window, one
+window in flight; there a refused group or a tokenizer verdict of False
+demotes that window alone to host zlib (also counted).
+
+Positions whose chains outrun the halo *escape*. A count that saw an
+escape re-runs the file through ``spans()``, which is exact: escaped owned
+positions (and, for the flag projection ``full_spans()``, inexact ones) are
+deferred into a side buffer of raw bytes that grows until their chains can
+complete, then resolve with the host engine (``check/vectorized.py``).
+
+The span contract: ``spans()`` yields ``(base, verdict)`` pairs whose True
+positions are exactly the record starts of the file. Window spans tile
+``[0, total)`` in order; a deferred position is False in its covering span
+and is re-emitted later in a span whose ``base`` lies strictly behind the
+tiling frontier. ``full_spans()`` yields ``(base, fail_mask,
+reads_before)`` under the same contract, from the full pass.
 """
 
 from __future__ import annotations
@@ -33,26 +51,26 @@ import torch
 
 from spark_bam_tpu_torch.bam.header import read_header
 from spark_bam_tpu_torch.bgzf.block import BgzfError
+from spark_bam_tpu_torch.bgzf.flat import inflate_blocks
+from spark_bam_tpu_torch.check.flags import (
+    FLAG_NAMES,
+    bit_counts,
+    considered_mask,
+    num_failing_fields,
+)
+from spark_bam_tpu_torch.check.vectorized import check_flat
 from spark_bam_tpu_torch.core.channel import open_channel
 from spark_bam_tpu_torch.core.config import Config
 from spark_bam_tpu_torch.device import resolve_device
-from spark_bam_tpu_torch.tpu.checker import PAD, count_window, count_window_raw
+from spark_bam_tpu_torch.tpu.checker import (
+    PAD,
+    check_window,
+    count_window,
+    count_window_raw,
+    inflate_window_raw,
+    next_carry,
+)
 from spark_bam_tpu_torch.tpu.inflate import InflatePipeline, stage_group_device
-
-
-class CountEscaped(RuntimeError):
-    """Owned positions escaped (their chains outran the halo); the exact
-    deferral path that resolves them is not ported yet. ``base`` is the flat
-    offset of the first window of the flush interval that counted them."""
-
-    def __init__(self, base: int, esc_count: int):
-        super().__init__(
-            f"{esc_count} owned position(s) escaped in the flush interval "
-            f"starting at flat offset {base}: chains outran the halo, and "
-            "the deferral path that resolves them is not ported yet"
-        )
-        self.base = base
-        self.esc_count = esc_count
 
 
 def _next_pow2(n: int) -> int:
@@ -119,7 +137,7 @@ class _Ring:
 
 
 class StreamChecker:
-    """Whole-file streaming count over a fixed kernel window.
+    """Whole-file streaming checker over a fixed kernel window.
 
     ``device=None`` runs on the current CUDA device and raises without one;
     ``device="cpu"`` runs every kernel's plain version."""
@@ -157,6 +175,10 @@ class StreamChecker:
         self.funnel_stats: dict | None = None
         self.tokenize_demotions = 0
 
+    def _device_inflate(self) -> bool:
+        """``Config.device_inflate``, whose ``None`` means on."""
+        return self.config.device_inflate is not False
+
     def _lengths_dev(self):
         lens = torch.from_numpy(pad_contig_lengths(self.lengths))
         return lens.to(self.device), len(self.lengths)
@@ -170,10 +192,12 @@ class StreamChecker:
     def count_reads(self) -> int:
         """Record count: the fused device loop unless configured off or
         demoted, else the classic host-zlib loop. ``fused_count=None``
-        follows ``device_inflate``, whose ``None`` means on."""
+        follows ``device_inflate``, whose ``None`` means on. Either loop
+        re-runs the file through the exact ``spans()`` path when an owned
+        position escaped (chains longer than the halo)."""
         fused = self.config.fused_count
         if fused is None:
-            fused = self.config.device_inflate is not False
+            fused = self._device_inflate()
         if fused:
             res = self._count_reads_fused()
             if res is not None:
@@ -193,13 +217,18 @@ class StreamChecker:
             out = count_window(
                 torch.from_numpy(padded).to(self.device), lens_dev, nc,
                 len(buf), at_eof, lo, own_end, self.config.reads_to_check,
+                self.config.funnel_enabled(),
             )
             ring.push()
             if len(ring) > self.ring_depth:
                 ring.wait_oldest()
-            if acc.add(out, base, len(buf)):
+            if acc.add(out, len(buf)):
                 break
-        return acc.finish()
+        return self._finish(acc)
+
+    def _finish(self, acc: "_Accumulator") -> int:
+        total = acc.finish()
+        return self._count_via_spans() if total is None else total
 
     def _count_reads_fused(self) -> int | None:
         """The device-resident loop; None demotes to the classic loop (a
@@ -244,6 +273,7 @@ class StreamChecker:
                     carry, lens_dev, nc, carry_len, n, at_eof, lo, own_end,
                     window=w, halo=halo,
                     reads_to_check=self.config.reads_to_check,
+                    funnel=self.config.funnel_enabled(),
                 )
                 ok_ring.append(out["tok_ok"])
                 carry = out["carry"]
@@ -256,7 +286,7 @@ class StreamChecker:
                     if not bool(ok_ring.pop(0)):
                         demoted = True
                         break
-                stop = acc.add(out, base, n)
+                stop = acc.add(out, n)
                 base += own_end
                 if stop:
                     break
@@ -268,7 +298,288 @@ class StreamChecker:
         if demoted:
             self.tokenize_demotions += 1
             return None
-        return acc.finish()
+        return self._finish(acc)
+
+    # ---------------------------------------------------- the window loop
+    def _host_windows(self):
+        """``(padded, n, base, own_end, at_eof, buf)`` per window from the
+        host-zlib pipeline (``device_inflate=False``): the window goes to
+        the device, and ``buf`` keeps its bytes on the host."""
+        w = self.kernel_window
+        for buf, base, own_end, _lo, at_eof in halo_windows(
+            self.pipeline, self.halo, self.header_end_abs
+        ):
+            padded = torch.zeros(w + PAD, dtype=torch.uint8,
+                                 device=self.device)
+            padded[: len(buf)] = torch.from_numpy(buf)
+            yield padded, len(buf), base, own_end, at_eof, buf
+
+    def _device_windows(self):
+        """``(padded, n, base, own_end, at_eof, None)`` per window, inflated
+        on the device: worker threads stage each group's raw payloads there,
+        and ``inflate_window_raw`` tokenizes, resolves and assembles it
+        behind the halo carry, which stays on the device. A group the
+        staging refuses, or whose tokenizer verdict is False, demotes that
+        window alone to host zlib (as the reference's pipeline does),
+        counted in ``tokenize_demotions``."""
+        groups = self.pipeline.groups
+        w, halo = self.kernel_window, self.halo
+        carry = torch.zeros(halo, dtype=torch.uint8, device=self.device)
+        carry_len = base = 0
+        depth = self.pipeline.depth
+        ch = open_channel(self.path)
+        pool = ThreadPoolExecutor(max_workers=depth)
+
+        def stage(group):
+            try:
+                return stage_group_device(ch, group, self.device)
+            except (BgzfError, EOFError):
+                return None
+
+        try:
+            pending = [pool.submit(stage, g) for g in groups[:depth]]
+            for gi, group in enumerate(groups):
+                staged = pending.pop(0).result()
+                if gi + depth < len(groups):
+                    pending.append(pool.submit(stage, groups[gi + depth]))
+                n = carry_len + sum(m.uncompressed_size for m in group)
+                padded = None
+                if staged is not None:
+                    rows, clens, usizes = staged
+                    exp = np.zeros(rows.shape[0], dtype=np.int32)
+                    exp[: len(usizes)] = usizes
+                    padded, _, tok_ok = inflate_window_raw(
+                        rows, clens, torch.from_numpy(exp).to(self.device),
+                        carry, carry_len, n, window=w, halo=halo)
+                    if not bool(tok_ok):
+                        padded = None
+                if padded is None:
+                    self.tokenize_demotions += 1
+                    data = inflate_blocks(ch, group,
+                                          self.pipeline.threads).data
+                    padded = torch.zeros(w + PAD, dtype=torch.uint8,
+                                         device=self.device)
+                    padded[:carry_len] = carry[:carry_len]
+                    padded[carry_len:n] = torch.from_numpy(data).to(
+                        self.device)
+                at_eof = gi == len(groups) - 1
+                own_end = n if at_eof else max(n - halo, 0)
+                yield padded, n, base, own_end, at_eof, None
+                carry = next_carry(padded, own_end, halo)
+                carry_len = n - own_end
+                base += own_end
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+            ch.close()
+
+    def _windows(self, launch):
+        """``(base, own_end, at_eof, launched)`` one window behind the
+        device: window k + 1 is launched before window k is yielded, so the
+        consumer's host work overlaps the device's. Windows are inflated on
+        the device unless ``device_inflate`` is False."""
+        source = (self._device_windows() if self._device_inflate()
+                  else self._host_windows())
+        prev = None
+        for padded, n, base, own_end, at_eof, buf in source:
+            out = launch(padded, n, at_eof, buf)
+            if prev is not None:
+                yield prev
+            prev = (base, own_end, at_eof, out)
+        if prev is not None:
+            yield prev
+
+    def _launcher(self, keys: tuple[str, ...], full_masks: bool = False):
+        """One window's launch: ``check_window`` on the device window (the
+        full pass when ``full_masks``, else as configured), and the outputs
+        named in ``keys``, plus the window's bytes when the host does not
+        hold them, copied to pinned host memory without waiting, behind a
+        CUDA event."""
+        lens_dev, nc = self._lengths_dev()
+        funnel = self.config.funnel_enabled(full_masks)
+        cuda = self.device.type == "cuda"
+
+        def launch(padded, n, at_eof, buf):
+            res = check_window(padded, lens_dev, nc, n, at_eof,
+                               self.config.reads_to_check, funnel)
+            res = {k: res[k] for k in keys}
+            if buf is None:
+                res["window"] = padded[:n]
+            if not cuda:
+                return res, buf, None
+            host = {}
+            for k, v in res.items():
+                host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                host[k].copy_(v, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            return host, buf, done
+
+        return launch
+
+    @staticmethod
+    def _materialize(out) -> dict:
+        """One launched window's outputs, and its bytes as ``window``, as
+        host arrays."""
+        host, buf, done = out
+        if done is not None:
+            done.synchronize()
+        res = {k: v.numpy() for k, v in host.items()}
+        if buf is not None:
+            res["window"] = buf
+        return res
+
+    # ------------------------------------------------ deferred candidates
+    class _Deferred:
+        """Escaped (or inexact) owned positions and the byte stream that
+        will resolve them. ``buf`` holds the raw bytes from ``base`` (the
+        earliest pending position) through the newest window's end; it
+        grows as windows arrive and is trimmed as pendings resolve. Every
+        operation is vectorized over the pending set."""
+
+        def __init__(self, lengths: np.ndarray, reads_to_check: int):
+            self.lengths = lengths
+            self.rtc = reads_to_check
+            self.pending = np.empty(0, dtype=np.int64)
+            self.base = 0
+            self.buf = np.empty(0, dtype=np.uint8)
+            # Stream tip at the last attempt: a re-check reruns the flag
+            # pass over the whole retained span, so attempts wait for real
+            # growth.
+            self._gate_tip = 0
+
+        def __len__(self):
+            return len(self.pending)
+
+        def extend(self, win_buf: np.ndarray, win_base: int):
+            """Grow the byte stream with a window's newly seen bytes."""
+            if not len(self.pending):
+                return
+            tip = self.base + len(self.buf)
+            if win_base + len(win_buf) > tip:
+                self.buf = np.concatenate(
+                    [self.buf, win_buf[max(tip - win_base, 0):]]
+                )
+
+        def add(self, positions: np.ndarray, win_buf: np.ndarray,
+                win_base: int):
+            if not len(positions):
+                return
+            if not len(self.pending):
+                self.base = int(positions.min())
+                self.buf = win_buf[self.base - win_base:].copy()
+            self.pending = np.concatenate([self.pending, positions])
+
+        def _retire(self, done: np.ndarray) -> np.ndarray:
+            """Drop resolved pendings and trim the buffer to the earliest
+            survivor; returns the retired positions."""
+            positions = self.pending[done]
+            self.pending = self.pending[~done]
+            if not len(self.pending):
+                self.buf = np.empty(0, dtype=np.uint8)
+            else:
+                lo = int(self.pending.min())
+                self.buf = self.buf[lo - self.base:]
+                self.base = lo
+            return positions
+
+        @staticmethod
+        def _emit_runs(positions: np.ndarray, rows: tuple):
+            """Ascending resolved positions grouped into contiguous runs:
+            one ``(run_start, per-field arrays)`` per run."""
+            if not len(positions):
+                return
+            breaks = np.flatnonzero(np.diff(positions) != 1) + 1
+            for seg in np.split(np.arange(len(positions)), breaks):
+                yield int(positions[seg[0]]), tuple(r[seg] for r in rows)
+
+        def resolve(self, at_eof: bool, fields: tuple[str, ...]):
+            """Re-check pendings against the grown stream; yield ``(pos,
+            row)`` for each run of pendings now resolved with certainty
+            (``row`` holds one array per field). A lane retires only when
+            exact: an inexact lane's flags may still change as the buffer
+            grows past its chain, and at EOF everything is definitive.
+            Attempts run at EOF or once the stream grew by a quarter of the
+            retained span since the last one; ungated, windows shorter than
+            a record would redo the span every window (quadratic)."""
+            if not len(self.pending):
+                return
+            tip = self.base + len(self.buf)
+            if not at_eof and tip - self._gate_tip < (tip - self.base) // 4:
+                return
+            self._gate_tip = tip
+            res = check_flat(
+                self.buf, self.lengths, candidates=self.pending - self.base,
+                at_eof=at_eof, reads_to_check=self.rtc,
+            )
+            done = (~res.escaped) & res.exact
+            positions = self._retire(done)
+            rows = tuple(np.asarray(getattr(res, f))[done] for f in fields)
+            yield from self._emit_runs(positions, rows)
+
+    # ------------------------------------------------------- consumers
+    def _stream(self, fields: tuple[str, ...], defer_inexact: bool):
+        """The window loop behind ``spans`` and ``full_spans``: project
+        ``fields`` from each window, defer unresolved owned lanes (escaped,
+        plus inexact ones when the projection is the flag masks), and
+        re-emit them as contiguous-run spans once exact."""
+        deferred = self._Deferred(self.lengths, self.config.reads_to_check)
+        funnel = self.config.funnel_enabled(defer_inexact)
+        keys = (*fields, "escaped")
+        if defer_inexact:
+            keys += ("exact",)
+        if funnel:
+            keys += ("survivors",)
+        for base, own_end, at_eof, out in self._windows(
+            self._launcher(keys, full_masks=defer_inexact)
+        ):
+            res = self._materialize(out)
+            buf = res["window"]
+            if funnel:
+                self._funnel_add(len(buf), int(res["survivors"]))
+            spans = [res[f][:own_end].copy() for f in fields]
+            bad = res["escaped"][:own_end]
+            if defer_inexact:
+                bad = bad | ~res["exact"][:own_end]
+            deferred.extend(buf, base)
+            bad_idx = np.flatnonzero(bad)
+            if len(bad_idx):
+                for s in spans:
+                    s[bad_idx] = 0  # re-emitted by the deferral path
+                deferred.add(base + bad_idx, buf, base)
+            yield (base, *spans)
+            for pos, row in deferred.resolve(at_eof, fields):
+                yield (pos, *row)
+        if len(deferred):
+            raise RuntimeError(
+                f"{len(deferred)} deferred position(s) unresolved at EOF")
+
+    def spans(self):
+        """Yield ``(base, verdict)`` spans; see the module contract."""
+        yield from self._stream(("verdict",), defer_inexact=False)
+
+    def full_spans(self):
+        """Yield ``(base, fail_mask, reads_before)`` spans tiling the file:
+        the full checker's 19-bit mask at every position (reference
+        full/Checker.scala) in O(window) memory. Lanes whose masks may be
+        incomplete (escaped chains, failures that touch the buffer end)
+        defer until a re-check is exact; their slots in the covering span
+        hold mask 0 and reads_before 0."""
+        yield from self._stream(("fail_mask", "reads_before"),
+                                defer_inexact=True)
+
+    def record_starts(self):
+        """Absolute flat offsets of record starts, one array per span, in
+        stream order (deferred resolutions may come out of order)."""
+        he = self.header_end_abs
+        for base, verdict in self.spans():
+            idx = base + np.flatnonzero(verdict)
+            idx = idx[idx >= he]
+            if len(idx):
+                yield idx
+
+    def _count_via_spans(self) -> int:
+        he = self.header_end_abs
+        return sum(int(v[max(he - b, 0):].sum()) for b, v in self.spans())
 
 
 class _Accumulator:
@@ -277,16 +588,15 @@ class _Accumulator:
 
     def __init__(self, checker: StreamChecker):
         self.checker = checker
+        self.funnel = checker.config.funnel_enabled()
         self.total = 0
         self.dev_total = self.dev_esc = self.dev_surv = None
         self.windows = self.chunk = self.screened = 0
-        self.chunk_base = 0
-        self.escaped: CountEscaped | None = None
+        self.escaped = False
 
-    def add(self, out: dict, base: int, screened: int) -> bool:
+    def add(self, out: dict, screened: int) -> bool:
         """Fold one window in; True when an escape ends the count."""
         if self.dev_total is None:
-            self.chunk_base = base
             self.dev_total, self.dev_esc, self.dev_surv = (
                 out["count"], out["esc_count"], out["survivors"])
         else:
@@ -306,21 +616,79 @@ class _Accumulator:
         return False
 
     def _check_escape(self) -> bool:
-        esc = int(self.dev_esc)
-        if esc:
-            self.escaped = CountEscaped(self.chunk_base, esc)
-        return bool(esc)
+        self.escaped = bool(int(self.dev_esc))
+        return self.escaped
 
     def _flush(self) -> None:
         self.total += int(self.dev_total)
-        self.checker._funnel_add(self.screened, int(self.dev_surv))
+        if self.funnel:
+            self.checker._funnel_add(self.screened, int(self.dev_surv))
         self.dev_total = self.dev_esc = self.dev_surv = None
         self.chunk = self.screened = 0
 
-    def finish(self) -> int:
-        if self.escaped is None and self.dev_total is not None:
+    def finish(self) -> int | None:
+        """The count, or None when an owned position escaped."""
+        if not self.escaped and self.dev_total is not None:
             if not self._check_escape():
                 self._flush()
-        if self.escaped is not None:
-            raise self.escaped
-        return self.total
+        return None if self.escaped else self.total
+
+
+def full_check_summary_streaming(
+    path,
+    config: Config = Config(),
+    window_uncompressed: int | None = None,
+    halo: int | None = None,
+    device=None,
+) -> dict:
+    """The full-check aggregations over a whole file from ``full_spans``
+    in O(window) memory (reference FullCheck.scala): per-flag totals over
+    the considered positions, their count, and the critical (exactly one
+    failing field) and two-check positions with their masks, in ascending
+    position order."""
+    checker = StreamChecker(path, config, window_uncompressed, halo, device)
+    per_flag = np.zeros(len(FLAG_NAMES), dtype=np.int64)
+    considered_total = 0
+    crit_pos: list[np.ndarray] = []
+    crit_mask: list[np.ndarray] = []
+    two_pos: list[np.ndarray] = []
+    two_mask: list[np.ndarray] = []
+    for base, fm, rb in checker.full_spans():
+        cidx = np.flatnonzero(considered_mask(fm, rb))
+        considered_total += len(cidx)
+        masked = fm[cidx]
+        per_flag += bit_counts(masked)
+        nf = num_failing_fields(masked, rb[cidx])
+        ones = cidx[nf == 1]
+        twos = cidx[nf == 2]
+        if len(ones):
+            crit_pos.append(base + ones)
+            crit_mask.append(fm[ones])
+        if len(twos):
+            two_pos.append(base + twos)
+            two_mask.append(fm[twos])
+
+    def cat_sorted(pos_parts, mask_parts):
+        """Site arrays concatenated and put back in ascending position
+        order: deferred re-emissions land behind the tiling frontier."""
+        pos = (np.concatenate(pos_parts) if pos_parts
+               else np.empty(0, dtype=np.int64))
+        mask = (np.concatenate(mask_parts) if mask_parts
+                else np.empty(0, dtype=np.int32))
+        if len(pos) > 1 and np.any(np.diff(pos) < 0):
+            order = np.argsort(pos, kind="stable")
+            pos, mask = pos[order], mask[order]
+        return pos, mask
+
+    crit_pos_a, crit_mask_a = cat_sorted(crit_pos, crit_mask)
+    two_pos_a, two_mask_a = cat_sorted(two_pos, two_mask)
+    return {
+        "per_flag": {name: int(per_flag[i])
+                     for i, name in enumerate(FLAG_NAMES)},
+        "considered": considered_total,
+        "critical_positions": crit_pos_a,
+        "critical_masks": crit_mask_a,
+        "two_check_positions": two_pos_a,
+        "two_check_masks": two_mask_a,
+        "positions": checker.total,
+    }

@@ -1,9 +1,10 @@
-"""The port's funnel checker against the JAX package's, at every position.
+"""The port's window checker against the JAX package's, at every position.
 
-``check_window``/``count_window`` (funnel form) and the device-resident
-window ``count_window_raw`` run in both packages on identical windows,
-contig tables and scalars; every output must be equal (exact integers and
-booleans). The port runs its plain versions on the CPU.
+``check_window``/``count_window`` (funnel form and full pass), the
+device-resident window ``count_window_raw`` and ``TpuChecker`` run in both
+packages on identical windows, contig tables and scalars; every output must
+be equal (exact integers and booleans). The port runs its plain versions on
+the CPU.
 """
 
 import struct
@@ -41,12 +42,12 @@ def _table(lengths, cmax=1024, fill=0):
     return lens
 
 
-def _both_check(padded, lens, nc, n, at_eof):
+def _both_check(padded, lens, nc, n, at_eof, funnel=True):
     want = jck.check_window(
         jnp.asarray(padded), jnp.asarray(lens), jnp.int32(nc), jnp.int32(n),
-        jnp.bool_(at_eof), funnel=True)
+        jnp.bool_(at_eof), funnel=funnel)
     got = ck.check_window(torch.from_numpy(padded), torch.from_numpy(lens),
-                          nc, n, at_eof)
+                          nc, n, at_eof, funnel=funnel)
     return ({k: np.asarray(v) for k, v in want.items()},
             {k: v.numpy() for k, v in got.items()})
 
@@ -81,6 +82,84 @@ def test_check_window_matches_jax(corpus, idx, at_eof):
     want, got = _both_check(padded, _table(lengths), len(lengths), n, at_eof)
     _assert_equal(want, got, f"corpus {idx} at_eof={at_eof}")
     assert got["verdict"].any()
+
+
+@pytest.mark.parametrize("idx", [0, 1, 2])
+@pytest.mark.parametrize("at_eof", [True, False])
+def test_check_window_full_pass_matches_jax(corpus, idx, at_eof):
+    """Funnel off: the full pass at every offset, then the walk over its
+    survivors; all seven outputs, masks included, equal the JAX ones."""
+    _, data, lengths = corpus[idx]
+    padded, n = _window(data)
+    want, got = _both_check(padded, _table(lengths), len(lengths), n, at_eof,
+                            funnel=False)
+    _assert_equal(want, got, f"full pass, corpus {idx} at_eof={at_eof}")
+    assert got["verdict"].any()
+    on = ck.check_window(torch.from_numpy(padded),
+                         torch.from_numpy(_table(lengths)), len(lengths), n,
+                         at_eof)
+    np.testing.assert_array_equal(on["verdict"].numpy(), got["verdict"])
+
+
+# A 60-byte period in which three offsets pass the full pass (given a
+# contig table that accepts any index and position): 1/20 of the window
+# survives, more than the lane capacity (w/32).
+_FULL_SURVIVOR_PERIOD = bytes([
+    65, 33, 169, 0, 0, 0, 65, 114, 4, 4, 2, 1, 2, 4, 126, 0, 65, 1, 65, 126,
+    1, 255, 255, 126, 0, 0, 245, 2, 2, 65, 2, 255, 2, 65, 126, 0, 104, 126,
+    65, 2, 33, 126, 126, 65, 0, 0, 33, 4, 240, 126, 2, 33, 34, 65, 33, 0, 1,
+    1, 0, 2,
+])
+
+
+@pytest.mark.parametrize("at_eof", [True, False])
+def test_full_pass_capacity_overflow_escapes_whole_window(at_eof):
+    reps = -(-W // len(_FULL_SURVIVOR_PERIOD))
+    soup = np.frombuffer(_FULL_SURVIVOR_PERIOD * reps, dtype=np.uint8)[:W]
+    padded, n = _window(soup)
+    lens = np.full(1024, 0x7FFFFFFF, dtype=np.int32)
+    want, got = _both_check(padded, lens, 0x7FFFFFFF, n, at_eof,
+                            funnel=False)
+    _assert_equal(want, got, f"full-pass overflow at_eof={at_eof}")
+    assert int(got["survivors"]) > max(W // 32, 4096)
+    assert got["escaped"].all() and not got["verdict"].any()
+
+
+def test_tpu_checker_matches_jax(corpus):
+    """``TpuChecker.check_buffer`` (windows, halo ownership, host re-check)
+    against the JAX TpuChecker on a buffer of several windows."""
+    _, data, lengths = corpus[2]
+    buf = np.asarray(data)
+    want = jck.TpuChecker(lengths, window=1 << 14, halo=1 << 12).check_buffer(
+        buf, at_eof=True)
+    got = ck.TpuChecker(lengths, window=1 << 14, halo=1 << 12,
+                        device="cpu").check_buffer(buf, at_eof=True)
+    assert len(buf) > 3 * (1 << 14)
+    for k in ("verdict", "fail_mask", "reads_parsed", "reads_before", "exact",
+              "escaped"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k),
+                                      err_msg=k)
+    assert got.verdict.any()
+
+
+def test_tpu_checker_matches_jax_on_bam2(bam2):
+    """As ``tests/test_pallas.py`` drives it: 256 KiB of bam2 at a 256 KiB
+    window and 64 KiB halo."""
+    lens = np.array(contig_lengths(bam2).lengths_list(), dtype=np.int32)
+    buf = flatten_file(bam2).data[: 256 << 10]
+    want = jck.TpuChecker(lens, window=1 << 18, halo=1 << 16).check_buffer(
+        buf, at_eof=True)
+    got = ck.TpuChecker(lens, window=1 << 18, halo=1 << 16,
+                        device="cpu").check_buffer(buf, at_eof=True)
+    for k in ("verdict", "fail_mask", "reads_parsed", "reads_before"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k),
+                                      err_msg=k)
+
+
+def test_tpu_checker_requires_cuda_by_default(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ck.TpuChecker(np.array([100], dtype=np.int32))
 
 
 @pytest.mark.parametrize("idx", [0, 2])

@@ -1,5 +1,6 @@
-"""``python -m spark_bam_tpu_torch count-reads``: the output format of the
-reference CLI's standalone count, and its refusal to run without CUDA."""
+"""``python -m spark_bam_tpu_torch count-reads`` and ``full-check``: the
+output of the reference CLI (the standalone count, and ``full-check
+--streaming`` byte for byte), and the refusal to run without CUDA."""
 
 import io
 import os
@@ -10,6 +11,7 @@ from pathlib import Path
 
 import pytest
 
+from spark_bam_tpu.cli.main import main as jax_main
 from spark_bam_tpu.core.config import Config as JaxConfig
 from spark_bam_tpu.tpu.stream_check import count_reads_streaming
 from spark_bam_tpu_torch import cli
@@ -47,6 +49,49 @@ def test_funnel_line_without_stats():
     assert cli.funnel_status_line(cli.Config(), None) == "funnel: on (auto)"
 
 
+@pytest.mark.parametrize("mode,full_masks,want", [
+    ("auto", True, "funnel: off (auto: full per-position flag masks "
+                   "requested)"),
+    ("on", True, "funnel: off (on: full per-position flag masks requested)"),
+    ("off", False, "funnel: off (off: disabled)"),
+    ("on", False, "funnel: on (on)"),
+])
+def test_funnel_line_matches_jax(mode, full_masks, want):
+    from spark_bam_tpu.cli.app import funnel_status_line as jax_line
+
+    got = cli.funnel_status_line(cli.Config(funnel=mode), None, full_masks)
+    assert got == want == jax_line(JaxConfig(funnel=mode),
+                                   full_masks=full_masks)
+
+
+def _jax_full_check(path, tmp_path, *extra) -> str:
+    out = tmp_path / "jax.txt"
+    assert jax_main(["full-check", "--streaming", *extra, str(path),
+                     "-o", str(out)]) == 0
+    return out.read_text()
+
+
+@pytest.mark.parametrize("fixture", ["bam1", "bam2", "bam"])
+@pytest.mark.parametrize("limit", [None, 3, 0])
+def test_full_check_output_matches_jax(request, tmp_path, fixture, limit):
+    path = request.getfixturevalue(fixture)
+    extra = [] if limit is None else ["-l", str(limit)]
+    want = _jax_full_check(path, tmp_path, *extra)
+    out = io.StringIO()
+    cli.full_check(path, 10 if limit is None else limit, device="cpu",
+                   out=out)
+    assert out.getvalue() == want
+    assert want.rstrip("\n").endswith(
+        "funnel: off (auto: full per-position flag masks requested)")
+
+
+def test_full_check_main_prints_report(bam, capsys, tmp_path):
+    assert cli.main(["full-check", "-l", "2", "--device", "cpu",
+                     str(bam)]) == 0
+    assert capsys.readouterr().out == _jax_full_check(bam, tmp_path, "-l",
+                                                      "2")
+
+
 def test_count_reads_returns_count(bam):
     out = io.StringIO()
     got = cli.count_reads(bam, device="cpu", out=out)
@@ -65,3 +110,10 @@ def test_module_entry_point_refuses_without_cuda(bam):
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
     assert "Read count" not in proc.stdout
+    proc = subprocess.run(
+        [sys.executable, "-m", "spark_bam_tpu_torch", "full-check", str(bam)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert proc.stdout == ""

@@ -44,6 +44,7 @@ def test_defaults_match_reference():
     dict(), dict(reads_to_check=5, window_size=1 << 20, halo_size=1 << 18),
     dict(flush_every=3, ring_depth=1, fused_count=False),
     dict(inflate="tokenize=device,donate=on", funnel="on"),
+    dict(funnel="off"),
 ])
 def test_from_reference(kw):
     ref = JaxConfig(**kw)
@@ -57,7 +58,7 @@ def test_from_reference(kw):
 
 
 @pytest.mark.parametrize("kw,needle", [
-    (dict(funnel="off"), "full_check_flags"),
+    (dict(funnel="OFF"), "Bad funnel mode"),
     (dict(funnel="maybe"), "Bad funnel mode"),
     (dict(inflate="tokenize=host"), "host DEFLATE tokenizer"),
     (dict(inflate="kernel=pallas"), "one device tokenizer"),
@@ -67,6 +68,15 @@ def test_from_reference(kw):
 def test_unserved_values_raise(kw, needle):
     with pytest.raises(ValueError, match=needle):
         Config(**kw)
+
+
+@pytest.mark.parametrize("mode", ["on", "off", "auto"])
+@pytest.mark.parametrize("full_masks", [False, True])
+def test_funnel_enabled_matches_reference(mode, full_masks):
+    """``funnel="off"`` parses now that the full pass exists, and the
+    funnel's truth table is the reference's."""
+    assert Config(funnel=mode).funnel_enabled(full_masks) == \
+        JaxConfig(funnel=mode).funnel_enabled(full_masks)
 
 
 def test_inflate_config_parse():
@@ -93,6 +103,31 @@ def test_blocks_header_and_staging_match_reference(bam):
         np.testing.assert_array_equal(clens, jclens)
         flat = inflate_blocks(ch, metas, threads=4)
     np.testing.assert_array_equal(flat.data, flatten_file(bam).data)
+
+
+def test_synth_long_reads_count_is_exact(tmp_path):
+    """``read_len``: 60-110 kb reads, counted exactly by the JAX package."""
+    p = tmp_path / "long.bam"
+    m = synth_bam(p, 1 << 20, seed=2, unit_reads=4,
+                  read_len=(60_000, 110_000))
+    assert m["read_len"] == [60_000, 110_000] and m["reps"] >= 2
+    assert count_reads_streaming(p, JaxConfig(), use_device=False) == m["reads"]
+
+
+def test_block_table_matches_reference(bam):
+    from spark_bam_tpu.bgzf.flat import metas_block_table as jax_table
+    from spark_bam_tpu.bgzf.flat import pos_of_flat_tables as jax_pos
+    from spark_bam_tpu_torch.bgzf.flat import (
+        metas_block_table,
+        pos_of_flat_tables,
+    )
+
+    starts, flat = metas_block_table(blocks_metadata(bam))
+    jstarts, jflat = jax_table(list(jax_blocks(bam)))
+    np.testing.assert_array_equal(starts, jstarts)
+    np.testing.assert_array_equal(flat, jflat)
+    for i in (0, 1, int(flat[1]) - 1, int(flat[1]), int(flat[-1]) + 7):
+        assert pos_of_flat_tables(starts, flat, i) == jax_pos(jstarts, jflat, i)
 
 
 def test_synth_bam_count_is_exact(tmp_path):

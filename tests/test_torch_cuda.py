@@ -12,12 +12,19 @@ import numpy as np
 import pytest
 import torch
 
-from spark_bam_tpu_torch import Config, StreamChecker
+from spark_bam_tpu_torch import (
+    Config,
+    StreamChecker,
+    full_check_summary_streaming,
+)
 from spark_bam_tpu_torch.benchmarks.synth import synth_bam
 from spark_bam_tpu_torch.tpu import kernels as K
 from spark_bam_tpu_torch.tpu.tokenize_device import STRIDE
 
 pytestmark = pytest.mark.cuda
+
+COUNT_KERNELS = ("tokenize", "lz77_resolve", "prefilter_check_flags")
+FULL_CHECK_KERNELS = ("tokenize", "lz77_resolve", "full_check_flags")
 
 
 @pytest.fixture
@@ -113,7 +120,7 @@ def test_count_on_gpu_equals_cpu(gpu, tmp_path):
     sc = StreamChecker(p, Config(), window_uncompressed=1 << 20,
                        halo=256 << 10)
     assert sc.count_reads() == m["reads"]
-    assert all(v > 0 for v in K.LAUNCHES.values())
+    assert all(K.LAUNCHES[k] > 0 for k in COUNT_KERNELS)
     cpu = StreamChecker(p, Config(fused_count=False),
                         window_uncompressed=1 << 20, halo=256 << 10,
                         device="cpu")
@@ -129,4 +136,52 @@ def test_default_geometry_small_file_launches_every_kernel(gpu, tmp_path):
     sc = StreamChecker(p, Config())
     assert sc.count_reads() == m["reads"]
     assert sc.tokenize_demotions == 0
-    assert all(v > 0 for v in K.LAUNCHES.values()), K.LAUNCHES
+    assert all(K.LAUNCHES[k] > 0 for k in COUNT_KERNELS), K.LAUNCHES
+
+
+@pytest.mark.parametrize("kind", ["random", "0x88", "bam"])
+def test_full_flags_kernel_matches_plain(gpu, kind, tmp_path):
+    rng = np.random.default_rng(4)
+    w = 1 << 20
+    if kind == "random":
+        data = rng.integers(0, 256, w + K.PAD, dtype=np.uint8)
+    elif kind == "0x88":
+        data = np.full(w + K.PAD, 0x88, dtype=np.uint8)
+    else:
+        from spark_bam_tpu_torch.bgzf.flat import inflate_blocks
+        from spark_bam_tpu_torch.bgzf.index_blocks import blocks_metadata
+        from spark_bam_tpu_torch.core.channel import open_channel
+
+        p = tmp_path / "f.bam"
+        synth_bam(p, 2 << 20, seed=4, unit_reads=2000)
+        with open_channel(p) as ch:
+            flat = inflate_blocks(ch, blocks_metadata(p)).data
+        data = np.zeros(w + K.PAD, dtype=np.uint8)
+        data[:w] = flat[:w]
+    padded = torch.from_numpy(data).to(gpu)
+    lens = torch.zeros(1024, dtype=torch.int32)
+    lens[:2] = torch.tensor([248_956_422, 242_193_529])
+    lens = lens.to(gpu)
+    for n in (w, w - 12345):
+        got = K.full_check_flags(padded, lens, 2, n)
+        want = K._compute_flags(padded, lens, 2, n)
+        assert torch.equal(got, want), (kind, n)
+
+
+def test_full_check_on_gpu_equals_cpu(gpu, tmp_path):
+    p = tmp_path / "fc.bam"
+    synth_bam(p, 3 << 20, seed=5, unit_reads=2000)
+    K.reset_launch_counts()
+    kw = dict(window_uncompressed=1 << 20, halo=256 << 10)
+    card = full_check_summary_streaming(p, Config(), **kw)
+    assert all(K.LAUNCHES[k] > 0 for k in FULL_CHECK_KERNELS), K.LAUNCHES
+    host_zlib = full_check_summary_streaming(
+        p, Config(device_inflate=False), **kw)
+    cpu = full_check_summary_streaming(p, Config(), device="cpu", **kw)
+    for other in (cpu, host_zlib):
+        assert card.keys() == other.keys()
+        for k in card:
+            if isinstance(card[k], np.ndarray):
+                np.testing.assert_array_equal(card[k], other[k])
+            else:
+                assert card[k] == other[k], k

@@ -3,7 +3,8 @@
 Both of the port's loops (the fused device-resident loop and the classic
 host-zlib loop, run on the CPU with the plain kernel versions) must return
 exactly ``count_reads_streaming(..., use_device=False)`` at several
-window/halo geometries, including seams that fall inside records.
+window/halo geometries, including seams that fall inside records and
+chains that outrun the halo (the escape retry through ``spans()``).
 """
 
 import numpy as np
@@ -12,7 +13,7 @@ import torch
 
 from spark_bam_tpu.core.config import Config as JaxConfig
 from spark_bam_tpu.tpu.stream_check import count_reads_streaming
-from spark_bam_tpu_torch import Config, CountEscaped, StreamChecker
+from spark_bam_tpu_torch import Config, StreamChecker
 from spark_bam_tpu_torch.tpu import checker as ck
 from tests.bam_factories import random_bam
 
@@ -103,16 +104,18 @@ def test_rejected_row_demotes_with_equal_count(bam, monkeypatch):
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "classic"])
 def test_escapes_raise_count_escaped(long_bam, fused):
-    """Chains longer than the halo escape; the port has no deferral path yet
-    and must raise, never return a guessed count."""
+    """Chains longer than the halo escape; the count no longer raises on
+    them but re-runs the file through the exact spans/deferral path, and
+    equals the reference's count at the same geometry (one retry)."""
     sc = StreamChecker(long_bam, Config(fused_count=fused),
                        window_uncompressed=64 << 10, halo=16 << 10,
                        device="cpu")
-    with pytest.raises(CountEscaped) as info:
-        sc.count_reads()
-    assert info.value.esc_count > 0 and info.value.base >= 0
-    # The reference resolves the same escapes exactly through its deferral
-    # path; the halo that covers the chains gives the port that count too.
+    retries = []
+    via_spans = sc._count_via_spans
+    sc._count_via_spans = lambda: retries.append(1) or via_spans()
+    assert sc.count_reads() == _reference(long_bam, 64 << 10, 16 << 10)
+    assert retries == [1]
+    assert sc.tokenize_demotions == 0
     big = StreamChecker(long_bam, Config(fused_count=fused),
                         window_uncompressed=256 << 10, halo=128 << 10,
                         device="cpu")
