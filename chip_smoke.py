@@ -7,9 +7,12 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
 2. Writes a synthetic BAM (≥ 1 GiB uncompressed, short reads on GRCh38
    chr1/chr2, exact read count) and holds each kernel against its plain
    PyTorch version, bit for bit, at the shapes of the main path's first
-   window: ``tokenize`` on the window's staged payload rows (plus seeded
-   byte-mutants of 16 of them), ``lz77_resolve`` on the resulting token
-   planes (plus a distance-1 RLE row, the 16-round worst case),
+   window: ``tokenize`` on the window's staged payload rows (with its
+   symbols per row and cycles per symbol), on the shared DEFLATE edge set
+   (``benchmarks/deflate_cases.py``) with 1,000 seeded mutants, and on
+   seeded byte-mutants of 16 window rows; ``lz77_resolve`` on the
+   resulting token planes (plus a distance-1 RLE row, the 16-round worst
+   case),
    ``prefilter_check_flags`` on the inflated 32 MiB window (plus a window
    of seeded random bytes) and ``full_check_flags`` on that window at two
    valid lengths, on random bytes, on constant 0x88 bytes (every int a
@@ -148,6 +151,8 @@ def main() -> int:
         raise RuntimeError(f"imported {port.__file__}, not this checkout's")
     import numpy as np
 
+    from spark_bam_tpu_torch.benchmarks import deflate_cases
+    from spark_bam_tpu_torch.benchmarks.profile_tokenize import symbol_counts
     from spark_bam_tpu_torch.benchmarks.synth import synth_bam
     from spark_bam_tpu_torch.bgzf.flat import inflate_blocks
     from spark_bam_tpu_torch.bgzf.index_blocks import blocks_metadata
@@ -213,7 +218,46 @@ def main() -> int:
         log(f"tokenize: {b_pad}x{c_pad} rows, bit-identical; kernel "
             f"{tok_ms:.3f} ms, plain (CPU Python) {tok_plain_ms:.0f} ms")
 
-        # Error paths: 16 real rows and 32 seeded byte-mutants of them.
+        # Symbols per row, estimated from the plain planes (literals plus
+        # match runs), and the kernel's cycles per symbol of the longest
+        # row at the card's top SM clock.
+        lits, runs = symbol_counts(p_tok[1].view(torch.int16).numpy()[real],
+                                   p_tok[2].numpy()[real])
+        syms = lits + runs
+        sm_mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True,
+        ).stdout.split()[0])
+        cycles = tok_ms * 1e-3 * sm_mhz * 1e6 / int(syms.max())
+        log(f"tokenize symbols per row ({len(syms)} rows): literals mean "
+            f"{lits.mean():.0f} max {lits.max()}, match runs mean "
+            f"{runs.mean():.0f} max {runs.max()}, symbols max {syms.max()}; "
+            f"{cycles:.0f} cycles per symbol at {sm_mhz:.0f} MHz")
+
+        # Error paths: the shared DEFLATE edge set and 1,000 seeded mutants
+        # of it, at a row width that puts rows at every alignment; then 16
+        # real rows and 32 seeded byte-mutants of them.
+        cases = deflate_cases.edge_cases()
+        cases.update(deflate_cases.mutants(cases, 1000, seed=7))
+        estaged, eclens, enames = deflate_cases.stage(cases, 16387)
+        estaged_d = torch.from_numpy(estaged).to(dev)
+        eclens_d = torch.from_numpy(eclens).to(dev)
+        k_edge = K.tokenize(estaged_d, eclens_d)
+        sync(dev)
+        p_edge = tokenize_plain(torch.from_numpy(estaged),
+                                torch.from_numpy(eclens))
+        edge_err = max_abs_err(zip(k_edge, p_edge))
+        require(edge_err == 0, f"tokenize differs on the edge set: {edge_err}")
+        for i, name in enumerate(enames):
+            if name in deflate_cases.EXPECT_REJECT:
+                require(not bool(p_edge[3][i]), f"{name} must be rejected")
+            elif not name.startswith("mutant_"):
+                require(bool(p_edge[3][i]), f"{name} must decode")
+        log(f"tokenize edge set: {len(enames) - 1000} streams and 1000 "
+            f"mutants, {int((~p_edge[3]).sum())} rejected, bit-identical")
+        del k_edge, p_edge, estaged_d
+
         rng = np.random.default_rng(7)
         sample = staged[:16].cpu().numpy()
         sample_clens = clens[:16].cpu().numpy()
@@ -232,12 +276,14 @@ def main() -> int:
         mut_err = max_abs_err(zip(k_mut, p_mut))
         n_rej = int((~p_mut[3]).sum())
         require(mut_err == 0, f"tokenize differs on mutants: {mut_err}")
-        log(f"tokenize mutants: 48 rows, {n_rej} rejected, bit-identical")
+        log(f"tokenize window mutants: 48 rows, {n_rej} rejected, "
+            f"bit-identical")
         rows.append(dict(
             name="tokenize", route="cuda",
             source="spark_bam_tpu_torch/csrc/tokenize.cu",
             replaces="spark_bam_tpu/tpu/pallas_kernels.py:299",
-            parity="bit-identical", max_abs_err=max(tok_err, mut_err),
+            parity="bit-identical",
+            max_abs_err=max(tok_err, edge_err, mut_err),
             ms=tok_ms,
             plain_ms=tok_plain_ms, bound_ms=tok_bytes / HBM_BYTES_PER_S * 1e3,
             bound_by="bytes", library_ms=None,

@@ -24,8 +24,9 @@ rows (batch padding) come back ``ok=False`` with ``out_len=0``.
 
 This module holds the plain version: a row-at-a-time Python decoder. A
 bit-serial decoder has no tensor form, so it is table-driven Python over
-the CPU bytes. The CUDA kernel (``csrc/tokenize.cu``) runs the same
-decoder with one thread per row; ``tpu/kernels.py::tokenize`` dispatches.
+the CPU bytes. The CUDA kernel (``csrc/tokenize.cu``) reproduces it
+decision for decision with a warp per row; ``tpu/kernels.py::tokenize``
+dispatches.
 """
 
 from __future__ import annotations

@@ -17,6 +17,12 @@ from spark_bam_tpu_torch import (
     StreamChecker,
     full_check_summary_streaming,
 )
+from spark_bam_tpu_torch.benchmarks.deflate_cases import (
+    EXPECT_REJECT,
+    edge_cases,
+    mutants,
+    stage,
+)
 from spark_bam_tpu_torch.benchmarks.synth import synth_bam
 from spark_bam_tpu_torch.tpu import kernels as K
 from spark_bam_tpu_torch.tpu.tokenize_device import STRIDE
@@ -69,6 +75,25 @@ def test_lz77_kernel_matches_plain(gpu):
     assert torch.equal(donor, want)
 
 
+def _tokenize_both(staged, clens, gpu):
+    """(kernel, plain) outputs on CPU tensors for one staged batch."""
+    staged, clens = torch.from_numpy(staged), torch.from_numpy(clens)
+    want = K.tokenize(staged, clens)
+    got = K.tokenize(staged.to(gpu), clens.to(gpu))
+    torch.cuda.synchronize()
+    return [t.cpu() for t in got], want
+
+
+def _assert_tokens_equal(got, want, names):
+    for what, g, w in zip(("lit", "dist", "out_len", "ok"), got, want):
+        if g.dtype == torch.uint16:
+            g, w = _u16(g), _u16(w)
+        bad = (g != w).reshape(g.shape[0], -1).any(1).nonzero().flatten()
+        assert bad.numel() == 0, (
+            f"{what} differs on rows "
+            f"{[names[i] if i < len(names) else 'pad' for i in bad[:8]]}")
+
+
 def test_tokenize_kernel_matches_plain(gpu):
     rng = np.random.default_rng(3)
     datas = [b"the quick brown fox " * 300, b"z" * 60_000, b"",
@@ -89,14 +114,25 @@ def test_tokenize_kernel_matches_plain(gpu):
     for r, c in enumerate(comps):
         staged[r, : len(c)] = np.frombuffer(c, dtype=np.uint8)
         clens[r] = len(c)
-    want = K.tokenize(torch.from_numpy(staged), torch.from_numpy(clens))
-    got = K.tokenize(torch.from_numpy(staged).to(gpu),
-                     torch.from_numpy(clens).to(gpu))
-    assert torch.equal(got[0].cpu(), want[0])
-    assert torch.equal(_u16(got[1]), _u16(want[1]))
-    assert torch.equal(got[2].cpu(), want[2])
-    assert torch.equal(got[3].cpu(), want[3])
+    got, want = _tokenize_both(staged, clens, gpu)
+    _assert_tokens_equal(got, want, [f"stream {i}" for i in range(32)])
     assert bool(want[3][:4].all()) and not bool(want[3][4])
+
+    # The shared edge set and 300 seeded mutants, at a row width that is
+    # not a multiple of 4 (rows start at every byte alignment) and at the
+    # least one (the last row's slack ends the tensor).
+    cases = edge_cases()
+    cases.update(mutants(cases, 300, seed=11))
+    tight = max(clen for _, clen in cases.values()) + 8
+    for c_pad in (16384, 16387, tight):
+        staged, clens, names = stage(cases, c_pad, len(cases) + 3)
+        got, want = _tokenize_both(staged, clens, gpu)
+        _assert_tokens_equal(got, want, names)
+        for i, name in enumerate(names):
+            if name in EXPECT_REJECT:
+                assert not want[3][i], name
+            elif not name.startswith("mutant_"):
+                assert want[3][i], name
 
 
 def test_wrappers_check_their_inputs(gpu):
@@ -108,6 +144,10 @@ def test_wrappers_check_their_inputs(gpu):
         K.prefilter_check_flags(
             torch.zeros(K.PAD + 65, dtype=torch.uint8, device=gpu)[1:],
             torch.zeros(4, dtype=torch.int32, device=gpu), 1, 1)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        K.tokenize(
+            torch.zeros(132, dtype=torch.uint8, device=gpu)[4:].view(2, 64),
+            torch.zeros(2, dtype=torch.int32, device=gpu))
     with pytest.raises(ValueError):
         K.lz77_resolve(torch.zeros((1, 100), dtype=torch.uint8, device=gpu),
                        torch.zeros((1, 100), dtype=torch.uint16, device=gpu))

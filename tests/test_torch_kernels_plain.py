@@ -8,7 +8,6 @@ flag masks, lengths, verdict flags and round counts must be equal.
 """
 
 import struct
-import zlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,13 +16,19 @@ import torch
 
 from spark_bam_tpu.bam.header import contig_lengths
 from spark_bam_tpu.bgzf.flat import flatten_file
-from spark_bam_tpu.tools.fuzz_decode import _mutate, _Rng
 from spark_bam_tpu.tpu import checker as jck
 from spark_bam_tpu.tpu.inflate import resolve_lz77
 from spark_bam_tpu.tpu.pallas_kernels import (
     prefilter_check_flags as pallas_prefilter,
 )
 from spark_bam_tpu.tpu.tokenize_device import tokenize_planes
+from spark_bam_tpu_torch.benchmarks.deflate_cases import (
+    EXPECT_OUT_LEN,
+    EXPECT_REJECT,
+    edge_cases,
+    mutants,
+    stage,
+)
 from spark_bam_tpu_torch.tpu import kernels as K
 from spark_bam_tpu_torch.tpu.tokenize_device import STRIDE
 from tests.bam_factories import random_bam
@@ -130,134 +135,20 @@ def test_resolve_plain_matches_jax(seed, kind):
 # ------------------------------------------------------------- tokenizer
 
 
-def _deflate(data: bytes, level: int = 6,
-             strategy: int = zlib.Z_DEFAULT_STRATEGY) -> bytes:
-    co = zlib.compressobj(level, zlib.DEFLATED, -15, 8, strategy)
-    return co.compress(data) + co.flush()
-
-
-class _BitWriter:
-    """LSB-first DEFLATE bit emitter for hand-built streams."""
-
-    def __init__(self):
-        self.bits: list[int] = []
-
-    def put(self, value: int, n: int):
-        self.bits += [(value >> i) & 1 for i in range(n)]
-
-    def put_code(self, code: int, n: int):      # Huffman codes: MSB first
-        self.bits += [(code >> i) & 1 for i in reversed(range(n))]
-
-    def align(self):
-        while len(self.bits) % 8:
-            self.bits.append(0)
-
-    def bytes(self) -> bytes:
-        self.align()
-        return bytes(
-            sum(b << j for j, b in enumerate(self.bits[i: i + 8]))
-            for i in range(0, len(self.bits), 8)
-        )
-
-
-def _fixed_lit_code(sym: int) -> tuple[int, int]:
-    if sym < 144:
-        return 0x30 + sym, 8
-    if sym < 256:
-        return 0x190 + (sym - 144), 9
-    if sym < 280:
-        return sym - 256, 7
-    return 0xC0 + (sym - 280), 8
-
-
-def _fixed_stream(syms, tail=b"\x00" * 4, final=True) -> bytes:
-    w = _BitWriter()
-    w.put(int(final), 1)
-    w.put(1, 2)
-    for s in syms:
-        if isinstance(s, tuple):
-            w.put_code(*s)
-        else:
-            w.put_code(*_fixed_lit_code(s))
-    return w.bytes() + tail
-
-
-def _hand_built() -> dict[str, bytes]:
-    rng = np.random.default_rng(3)
-    fox = b"the quick brown fox " * 200
-    skew = bytes(rng.choice([32, 101, 116, 97, 10, 200], size=20_000,
-                            p=[.3, .25, .2, .15, .05, .05]).astype(np.uint8))
-    streams = {
-        "fox_default": _deflate(fox),
-        "random_stored": _deflate(rng.integers(0, 256, 8_000,
-                                               dtype=np.uint8).tobytes()),
-        "rle_z": _deflate(b"z" * 50_000),
-        "tail": _deflate(b"tail"),
-        "empty": _deflate(b""),
-        "level0_stored": _deflate(fox, level=0),
-        "fixed_level9": _deflate(fox, level=9, strategy=zlib.Z_FIXED),
-        "cl_runs_dynamic": _deflate(skew, level=9),
-        "sym286": _fixed_stream([ord("A"), 286]),
-        "sym287": _fixed_stream([ord("A"), 287]),
-        "dist_before_start": _fixed_stream([ord("A"), 257, (3, 5), 256]),
-        "garbage": b"\x07" + b"\x00" * 8,
-        "truncated": _deflate(fox)[:-5],
-        "output_past_64k": _deflate(b"z" * 70_000),
-    }
-    # A fixed block, then an empty stored final block.
-    w = _BitWriter()
-    w.put(0, 1)
-    w.put(1, 2)
-    for ch in b"abc":
-        w.put_code(*_fixed_lit_code(ch))
-    w.put_code(*_fixed_lit_code(256))
-    w.put(1, 1)
-    w.put(0, 2)
-    streams["zero_len_final_stored"] = w.bytes() + b"\x00\x00\xff\xff"
-    # Stored block whose NLEN is not ~LEN.
-    streams["stored_nlen_mismatch"] = b"\x01" + struct.pack("<HH", 5, 5) + b"x" * 5
-    # Stored block claiming 2000 bytes with 900 present: the first 512-byte
-    # chunk lands, the second does not fit.
-    streams["stored_short_chunk"] = (b"\x01" + struct.pack("<HH", 2000, 2000 ^ 0xFFFF)
-                                     + rng.integers(0, 256, 900, dtype=np.uint8).tobytes())
-    # BTYPE = 3 is reserved.
-    w = _BitWriter()
-    w.put(1, 1)
-    w.put(3, 2)
-    streams["btype3"] = w.bytes() + b"\x00" * 4
-    # Dynamic header with HLIT = 287 (> 286).
-    w = _BitWriter()
-    w.put(1, 1)
-    w.put(2, 2)
-    w.put(30, 5)
-    w.put(0, 5)
-    w.put(0, 4)
-    streams["hlit_too_big"] = w.bytes() + b"\x00" * 8
-    return streams
+#: Token batch: every edge stream, seeded mutants, then zero-length pads.
+TOKEN_ROWS = 128
+TOKEN_MUTANTS = 90
 
 
 @pytest.fixture(scope="module")
 def token_rows():
-    """Hand-built edge streams plus seeded mutants of four bases, staged in
-    one (64, 16384) batch so the JAX bit-reader compiles once."""
-    streams = _hand_built()
-    rng = np.random.default_rng(9)
-    bases = {
-        "fox": streams["fox_default"], "stored": streams["random_stored"],
-        "rle": streams["rle_z"], "dynamic": streams["cl_runs_dynamic"],
-    }
-    for bi, (name, comp) in enumerate(bases.items()):
-        for i in range(11):
-            r = _Rng(1000 * bi + i + int(rng.integers(0, 7)))
-            streams[f"mutant_{name}_{i}"] = _mutate(comp, r.below(len(comp)), r)
-    names = list(streams)
-    assert len(names) <= 64
-    staged = np.zeros((64, 16384), dtype=np.uint8)
-    clens = np.zeros(64, dtype=np.int32)
-    for i, name in enumerate(names):
-        c = streams[name]
-        staged[i, : len(c)] = np.frombuffer(c, dtype=np.uint8)
-        clens[i] = len(c)
+    """The shared edge streams plus seeded mutants of them (truncations keep
+    their cut bytes as slack), staged in one (128, 16384) batch so the JAX
+    bit-reader compiles once."""
+    cases = edge_cases()
+    cases.update(mutants(cases, TOKEN_MUTANTS, seed=9))
+    assert len(cases) < TOKEN_ROWS, "the batch must keep padding rows"
+    staged, clens, names = stage(cases, 16384, TOKEN_ROWS)
     want = [np.asarray(a) for a in tokenize_planes(jnp.asarray(staged),
                                                    jnp.asarray(clens))]
     got = [a.numpy() for a in K.tokenize(torch.from_numpy(staged),
@@ -265,12 +156,7 @@ def token_rows():
     return names, want, got
 
 
-_EXPECT_REJECT = {"sym286", "sym287", "dist_before_start", "garbage",
-                  "truncated", "output_past_64k", "stored_nlen_mismatch",
-                  "stored_short_chunk", "btype3", "hlit_too_big"}
-
-
-@pytest.mark.parametrize("row", range(64))
+@pytest.mark.parametrize("row", range(TOKEN_ROWS))
 def test_tokenize_plain_matches_jax(token_rows, row):
     names, want, got = token_rows
     for w, g, what in zip(want, got, ("lit", "dist", "out_len", "ok")):
@@ -280,18 +166,24 @@ def test_tokenize_plain_matches_jax(token_rows, row):
                     f"({names[row] if row < len(names) else 'batch pad'})")
     if row >= len(names):                     # batch pad: clen == 0
         assert not got[3][row] and got[2][row] == 0
-    elif names[row] in _EXPECT_REJECT:
+    elif names[row] in EXPECT_REJECT:
         assert not got[3][row], names[row]
     elif not names[row].startswith("mutant_"):
         assert got[3][row], names[row]
+    if row < len(names) and names[row] in EXPECT_OUT_LEN:
+        assert got[2][row] == EXPECT_OUT_LEN[names[row]], names[row]
 
 
 def test_tokenize_partial_writes_on_rejection(token_rows):
     """Rejected rows keep what was written before the failing symbol: the
-    stored short chunk leaves exactly one 512-byte chunk, and the stream
-    that outgrows 64 KiB stops below the row width."""
+    stored short chunk leaves exactly one 512-byte chunk, the stream that
+    outgrows 64 KiB stops below the row width, and a match through a
+    missing distance code leaves the literals before it."""
     names, _, got = token_rows
     short = names.index("stored_short_chunk")
     assert got[2][short] == 512
     big = names.index("output_past_64k")
     assert 0 < got[2][big] <= STRIDE
+    miss = names.index("zero_dist_code_match")
+    assert got[2][miss] == 1 and got[0][miss][0] == ord("x")
+    assert not got[1][miss].any()
