@@ -318,6 +318,40 @@ def edge_cases() -> dict[str, tuple[bytes, int]]:
             for k, v in streams.items()}
 
 
+def random_streams(n: int, seed: int) -> dict[str, tuple[bytes, int]]:
+    """``n`` valid raw-DEFLATE streams of up to 70,000 bytes (some inflate
+    past one row) from zlib at random levels, window sizes, memory levels
+    and strategies, over uniform, few-symbol, skewed, sequence-like and
+    run-heavy bytes: the code shapes real compressors emit."""
+    rng = np.random.default_rng(seed)
+    strategies = (zlib.Z_DEFAULT_STRATEGY, zlib.Z_FILTERED,
+                  zlib.Z_HUFFMAN_ONLY, zlib.Z_RLE, zlib.Z_FIXED)
+    out = {}
+    for i in range(n):
+        size, kind = int(rng.integers(0, 70_000)), i % 5
+        if kind == 0:
+            data = rng.integers(0, 256, size, dtype=np.uint8)
+        elif kind == 1:
+            data = rng.integers(0, int(rng.integers(2, 40)), size,
+                                dtype=np.uint8)
+        elif kind == 2:
+            p = rng.dirichlet(np.full(256, rng.uniform(0.02, 2)))
+            data = rng.choice(256, size=size, p=p).astype(np.uint8)
+        elif kind == 3:
+            data = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=size,
+                              p=[.24, .26, .26, .23, .01])
+        else:
+            data = np.repeat(rng.integers(0, 256, size // 50 + 1,
+                                          dtype=np.uint8), 50)[:size]
+        co = zlib.compressobj(int(rng.integers(0, 10)), zlib.DEFLATED,
+                              -int(rng.integers(9, 16)),
+                              int(rng.integers(1, 10)),
+                              strategies[int(rng.integers(0, 5))])
+        comp = co.compress(data.tobytes()) + co.flush()
+        out[f"random_{i}"] = (comp, len(comp))
+    return out
+
+
 def mutate(data: bytes, clen: int, rng) -> tuple[bytes, int]:
     """One seeded structural mutation of a stream: a bit flip, a byte set
     to 0/0x80/0xFF, a 0xFFFF or i32 poison write, or a truncation that keeps

@@ -21,6 +21,7 @@ from spark_bam_tpu_torch.benchmarks.deflate_cases import (
     EXPECT_REJECT,
     edge_cases,
     mutants,
+    random_streams,
     stage,
 )
 from spark_bam_tpu_torch.benchmarks.synth import synth_bam
@@ -133,6 +134,18 @@ def test_tokenize_kernel_matches_plain(gpu):
                 assert not want[3][i], name
             elif not name.startswith("mutant_"):
                 assert want[3][i], name
+
+
+def test_tokenize_kernel_on_random_zlib_streams(gpu):
+    """zlib's own code shapes (random levels, windows, memory levels and
+    strategies over varied bytes) and seeded mutants of them."""
+    cases = random_streams(200, seed=5)
+    cases.update(mutants(cases, 800, seed=6))
+    c_pad = max(clen for _, clen in cases.values()) + 11
+    staged, clens, names = stage(cases, c_pad)
+    got, want = _tokenize_both(staged, clens, gpu)
+    _assert_tokens_equal(got, want, names)
+    assert int(want[3][:200].sum()) > 150   # most valid streams fit a row
 
 
 def test_wrappers_check_their_inputs(gpu):
