@@ -338,9 +338,7 @@ struct BitReader {
     if (used + n > clen8) return -1;
     if (cnt < n) refill();
     int v = (int)((uint32_t)buf & ((1u << n) - 1u));
-    buf >>= n;
-    cnt -= n;
-    used += n;
+    consume(n);
     return v;
   }
 
