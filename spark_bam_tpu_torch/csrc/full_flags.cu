@@ -57,6 +57,30 @@ constexpr int kClassWords = kRegion / 128;  // bitmap words per class
 constexpr int32_t kNone = INT_MAX;
 constexpr unsigned kAll = 0xFFFFFFFFu;
 
+// profile launches: first_bad, suffix_min, flag pass
+// profile phases: load, bitmaps and scans, flags
+#ifdef SBT_PROFILE
+// Profiling build only (benchmarks/profile_resolve_flags.py): CUDA events
+// around each launch, and per-tile clock64 marks of the flag pass (start,
+// region loaded, bitmaps and scans done, flags written).
+__device__ long long g_ff_marks[4 * 8192];
+cudaEvent_t g_ff_events[4];
+#define SBT_MARK(k)                                                   \
+  do {                                                                \
+    __syncthreads();                                                  \
+    if (threadIdx.x == 0 && blockIdx.x < 8192)                        \
+      g_ff_marks[4 * blockIdx.x + (k)] = clock64();                   \
+  } while (0)
+#define SBT_EVENT(k, stream)                                          \
+  do {                                                                \
+    if (!g_ff_events[k]) cudaEventCreate(&g_ff_events[k]);            \
+    cudaEventRecord(g_ff_events[k], stream);                          \
+  } while (0)
+#else
+#define SBT_MARK(k)
+#define SBT_EVENT(k, stream)
+#endif
+
 static_assert(kTile % kChunk == 0 && kLook % kChunk == 0,
               "the region must end on a table chunk");
 static_assert(kNameWords % 32 == 0, "one warp scans the name bitmap");
@@ -147,6 +171,7 @@ full_flags_kernel(const uint32_t* __restrict__ words, int w, int total_words,
   const int base = blockIdx.x * kTile;
   const int base_w = base >> 2;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  SBT_MARK(0);
   for (int k = t; k < kRegionWords; k += kThreads) {
     const int wi = base_w + k;
     region[k] = wi < total_words ? __ldg(words + wi) : 0u;
@@ -156,6 +181,7 @@ full_flags_kernel(const uint32_t* __restrict__ words, int w, int total_words,
     beyond[t] = t == 0 ? e.x : t == 1 ? e.y : t == 2 ? e.z : e.w;
   }
   __syncthreads();
+  SBT_MARK(1);
   const uint8_t* bytes = reinterpret_cast<const uint8_t*>(region);
 
   // Bitmaps by warp ballot: name_bits bit b of word m is byte 32m + b;
@@ -226,6 +252,7 @@ full_flags_kernel(const uint32_t* __restrict__ words, int w, int total_words,
     }
   }
   __syncthreads();
+  SBT_MARK(2);
 
   for (int rel = t; rel < kTile; rel += kThreads) {
     const int i = base + rel;
@@ -287,6 +314,7 @@ full_flags_kernel(const uint32_t* __restrict__ words, int w, int total_words,
     if (i > n - 36) f = sbt::kTooFewFixedBlockBytes;
     out[i] = f;
   }
+  SBT_MARK(3);
 }
 
 }  // namespace
@@ -305,15 +333,33 @@ extern "C" int sbt_full_flags(const uint8_t* padded, int total, int w,
   const uint32_t* words = reinterpret_cast<const uint32_t*>(padded);
   int4* first = reinterpret_cast<int4*>(scratch);
   int4* table = first + chunks;
+  SBT_EVENT(0, stream);
   first_bad_kernel<<<(chunks + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
       words, total_words, chunks, n, first);
   int err = (int)cudaGetLastError();
   if (err) return err;
+  SBT_EVENT(1, stream);
   suffix_min_kernel<<<1, 1024, 0, stream>>>(first, chunks, table);
   err = (int)cudaGetLastError();
   if (err) return err;
+  SBT_EVENT(2, stream);
   full_flags_kernel<<<(w + kTile - 1) / kTile, kThreads, 0, stream>>>(
       words, w, total_words, lengths, cmax, num_contigs, n, table, chunks,
       out);
+  SBT_EVENT(3, stream);
   return (int)cudaGetLastError();
 }
+
+#ifdef SBT_PROFILE
+// Milliseconds of each launch of the last call, and the flag pass's marks.
+extern "C" int sbt_full_flags_profile(float* ms, long long* marks, int tiles) {
+  for (int k = 0; k < 3; ++k) {
+    cudaError_t err = cudaEventSynchronize(g_ff_events[k + 1]);
+    if (err == cudaSuccess)
+      err = cudaEventElapsedTime(&ms[k], g_ff_events[k], g_ff_events[k + 1]);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaMemcpyFromSymbol(marks, g_ff_marks,
+                                   4 * tiles * sizeof(long long));
+}
+#endif

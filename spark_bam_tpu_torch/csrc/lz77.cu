@@ -32,14 +32,32 @@ constexpr int kStride = 65536;
 constexpr int kThreads = 1024;
 constexpr int kMaxRounds = 16;  // log2(64 Ki): any chain in a row collapses
 
+// profile phases: load, jumping, gather/store
+#ifdef SBT_PROFILE
+// Profiling build only (benchmarks/profile_resolve_flags.py): per-row
+// clock64 marks (start, rows staged, rounds done, row written) and rounds.
+__device__ long long g_lz77_marks[4 * 4096];
+__device__ int g_lz77_rounds[4096];
+#define SBT_MARK(k)                                                   \
+  do {                                                                \
+    __syncthreads();                                                  \
+    if (threadIdx.x == 0 && blockIdx.x < 4096)                        \
+      g_lz77_marks[4 * blockIdx.x + (k)] = clock64();                 \
+  } while (0)
+#else
+#define SBT_MARK(k)
+#endif
+
 __global__ void __launch_bounds__(kThreads)
 lz77_kernel(const uint8_t* lit, const uint16_t* __restrict__ dist,
             uint8_t* out, int32_t* __restrict__ rounds_out) {
   extern __shared__ uint16_t parent[];
   const size_t row = (size_t)blockIdx.x * kStride;
+  SBT_MARK(0);
   for (int i = threadIdx.x; i < kStride; i += kThreads)
     parent[i] = (uint16_t)(i - dist[row + i]);
   __syncthreads();
+  SBT_MARK(1);
   int rounds = 0;
   while (rounds < kMaxRounds) {
     int changed = 0;
@@ -54,9 +72,14 @@ lz77_kernel(const uint8_t* lit, const uint16_t* __restrict__ dist,
     ++rounds;
     if (!__syncthreads_or(changed)) break;
   }
+  SBT_MARK(2);
   for (int i = threadIdx.x; i < kStride; i += kThreads)
     out[row + i] = lit[row + parent[i]];
   if (threadIdx.x == 0) atomicMax(rounds_out, rounds);
+  SBT_MARK(3);
+#ifdef SBT_PROFILE
+  if (threadIdx.x == 0 && blockIdx.x < 4096) g_lz77_rounds[blockIdx.x] = rounds;
+#endif
 }
 
 }  // namespace
@@ -71,3 +94,12 @@ extern "C" int sbt_lz77_resolve(const uint8_t* lit, const uint16_t* dist,
   if (b > 0) lz77_kernel<<<b, kThreads, smem, stream>>>(lit, dist, out, rounds);
   return (int)cudaGetLastError();
 }
+
+#ifdef SBT_PROFILE
+extern "C" int sbt_lz77_profile(long long* marks, int* rounds, int rows) {
+  cudaError_t err = cudaMemcpyFromSymbol(marks, g_lz77_marks,
+                                         4 * rows * sizeof(long long));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemcpyFromSymbol(rounds, g_lz77_rounds, rows * sizeof(int));
+}
+#endif
