@@ -12,12 +12,15 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    (``benchmarks/deflate_cases.py``) with 1,000 seeded mutants, and on
    seeded byte-mutants of 16 window rows; ``lz77_resolve`` on the
    resulting token planes (plus a distance-1 RLE row, the 16-round worst
-   case),
+   case, and the shared token-row edge set of
+   ``benchmarks/resolve_flag_cases.py``), with the rounds each row took,
    ``prefilter_check_flags`` on the inflated 32 MiB window (plus a window
    of seeded random bytes) and ``full_check_flags`` on that window at two
    valid lengths, on random bytes, on constant 0x88 bytes (every int a
-   valid cigar op) and on a long-read window. Kernel times are CUDA-event
-   medians.
+   valid cigar op), on a long-read window and on the shared flag-window
+   edge set at W = 2^25. Kernel times are CUDA-event medians. Then
+   ``benchmarks/profile_resolve_flags.py`` on the same window: the
+   clock64 phase split of both kernels and the rounds histogram.
 3. count-reads: counts the BAM through ``StreamChecker.count_reads`` at the
    default geometry (24 MiB window, 4 MiB halo, 32 MiB kernel window) on
    the fused device path, then through the classic host-zlib loop, and
@@ -152,6 +155,8 @@ def main() -> int:
     import numpy as np
 
     from spark_bam_tpu_torch.benchmarks import deflate_cases
+    from spark_bam_tpu_torch.benchmarks import profile_resolve_flags as prf
+    from spark_bam_tpu_torch.benchmarks import resolve_flag_cases
     from spark_bam_tpu_torch.benchmarks.profile_tokenize import symbol_counts
     from spark_bam_tpu_torch.benchmarks.synth import synth_bam
     from spark_bam_tpu_torch.bgzf.flat import inflate_blocks
@@ -313,6 +318,29 @@ def main() -> int:
         require(rle_err == 0 and bool((k_rle == 0x41).all()),
                 "RLE row must resolve to its one literal")
         require(int(k_rle_r) <= int(p_rle_r) == 16, (k_rle_r, p_rle_r))
+        edge_rows = resolve_flag_cases.token_rows(7)
+        names = list(edge_rows)
+        e_lit, e_dist = (torch.from_numpy(a).to(dev) for a in
+                         resolve_flag_cases.stack_rows(edge_rows))
+        k_edge, k_edge_r = K.lz77_resolve(e_lit, e_dist)
+        p_edge, p_edge_r = K._resolve_body(e_lit, e_dist)
+        res_edge_err = max_abs_err([(k_edge, p_edge)])
+        donor = e_lit.clone()
+        K.lz77_resolve(donor, e_dist, out=donor)
+        res_edge_err = max(res_edge_err, max_abs_err([(donor, p_edge)]))
+        require(res_edge_err == 0, f"lz77_resolve differs on the edge set: "
+                                   f"{res_edge_err}")
+        require(int(k_edge_r) <= int(p_edge_r) <= 16, (k_edge_r, p_edge_r))
+        edge_rounds = []
+        for r, name in enumerate(names):
+            _, kr = K.lz77_resolve(e_lit[r:r + 1], e_dist[r:r + 1])
+            _, pr = K._resolve_body(e_lit[r:r + 1], e_dist[r:r + 1])
+            require(int(kr) <= int(pr), (name, int(kr), int(pr)))
+            edge_rounds.append(f"{name} {int(kr)}/{int(pr)}")
+        log(f"lz77_resolve edge set: {len(names)} rows, bit-identical out of "
+            f"place and in place; rounds kernel/plain: "
+            f"{', '.join(edge_rounds)}")
+        del e_lit, e_dist, k_edge, p_edge, donor
         res_ms = cuda_ms(lambda: K.lz77_resolve(lit, dist))
         res_plain_ms = cuda_ms(lambda: K._resolve_body(lit, dist), reps=3)
         res_bytes = 4 * lit.numel() + 4
@@ -324,7 +352,8 @@ def main() -> int:
             name="lz77_resolve", route="cuda",
             source="spark_bam_tpu_torch/csrc/lz77.cu",
             replaces="spark_bam_tpu/tpu/pallas_kernels.py:250",
-            parity="bit-identical", max_abs_err=max(res_err, rle_err),
+            parity="bit-identical",
+            max_abs_err=max(res_err, rle_err, res_edge_err),
             ms=res_ms,
             plain_ms=res_plain_ms, bound_ms=res_bytes / HBM_BYTES_PER_S * 1e3,
             bound_by="bytes", library_ms=None,
@@ -386,6 +415,18 @@ def main() -> int:
                 lambda: K.full_check_flags(buf, lens_dev, nc, n), reps=20)
             log(f"full_check_flags [{label}]: W={w}, n={n}, max_abs_err "
                 f"{err}, kernel {case_ms:.3f} ms")
+        edge_windows = resolve_flag_cases.flag_windows(w, seed=7)
+        for label, (buf_np, n) in edge_windows.items():
+            buf = torch.from_numpy(buf_np).to(dev)
+            err = 0
+            for _ in range(2):   # twice: the status records are reused
+                got = K.full_check_flags(buf, lens_dev, nc, n)
+                want = K._compute_flags(buf, lens_dev, nc, n)
+                err = max(err, max_abs_err([(got, want)]))
+            full_err = max(full_err, err)
+            log(f"full_check_flags edge [{label}]: W={buf.numel() - K.PAD}, "
+                f"n={n}, max_abs_err {err}")
+        del buf, edge_windows
         require(full_err == 0, f"full_check_flags differs from plain: "
                                f"{full_err}")
         full_ms = cuda_ms(
@@ -404,6 +445,12 @@ def main() -> int:
             bound_ms=full_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
             library_ms=None,
         ))
+        # The profile script's split of both kernels on this window, and the
+        # rounds each of its rows took (kernel and plain version).
+        prof_dir = work / "profile"
+        prof_dir.mkdir(exist_ok=True)
+        prf.profile_lz77([], prof_dir, lit, dist, sm_mhz)
+        prf.profile_full_flags([], prof_dir, padded, lens_dev, nc, n0, sm_mhz)
         del padded, soup, const88, long_pad, k_tok, p_tok, k_res, p_res
         del lit, dist, staged
         torch.cuda.empty_cache()

@@ -278,8 +278,11 @@ def profile_full_flags(srcs: list[Path], work: Path, padded, lens, nc: int,
     launch_med = {k: statistics.median(v) for k, v in per_launch.items()}
     print(f"  launches of the profiling build (event medians, ms): "
           f"{launch_med}")
+    occupancy = calls["full_flags.cu"].lib.sbt_full_flags_occupancy()
+    print(f"  CTAs an SM holds: {occupancy}")
     split = _split(splits[-1], phases, mhz)
-    return {"ms": ms, "launch_ms": launch_med, "split": split}
+    return {"ms": ms, "launch_ms": launch_med, "ctas_per_sm": occupancy,
+            "split": split}
 
 
 def main(argv=None) -> None:

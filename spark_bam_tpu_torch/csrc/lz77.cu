@@ -6,22 +6,40 @@
 // traced spark_bam_tpu/tpu/inflate.py::_resolve_body. The plain version is
 // spark_bam_tpu_torch/tpu/kernels.py::_resolve_body.
 //
-// What bounds it on the H100: bytes, ~4 B of device traffic per output
-// byte (lit 1 + dist 2 in, 1 out); the pointer jumping itself stays on
-// chip. Design: one CTA of 1024 threads per row. Parents fit in uint16
-// (0..65535), so a row's parent array is 128 KiB of dynamic shared memory
-// (the TPU's int32 row, 256 KiB, would not fit in the 227 KB a block may
-// use). Pointer jumping runs in place in shared memory with
-// __syncthreads_or as the convergence test, then each thread gathers the
-// literal at its positions' roots.
+// What bounds it on the H100: bytes, 4 B of device traffic per output byte
+// (lit 1 + dist 2 in, 1 out); the pointer jumping itself stays on chip.
+//
+// Design: one CTA of 1024 threads per row, the whole row in shared memory.
+// 1. One thread starts two bulk async copies (TMA, cp.async.bulk on an
+//    mbarrier) of the row's 128 KiB of distances and 64 KiB of literals,
+//    so the SM has the whole row in flight at once.
+// 2. Distances become uint16 parents in place (parent = i - dist; the
+//    TPU's int32 row, 256 KiB, would not fit in the 227 KB a block may
+//    use), and a warp ballot per 32 positions builds an 8 KiB bitmap of
+//    the positions that are not roots (dist != 0).
+// 3. Pointer jumping in place, over active positions only: a warp takes
+//    four bitmap words at once (their dependent shared-memory loads
+//    overlap), skips them when all are zero, and jumps each set position
+//    once (parent = parent[parent]). A position drops out once its parent
+//    is a root, which never changes; the ballot rewrites the word. The row
+//    is done when no word is left: a __syncthreads_or. (On real windows
+//    ~40 % of positions are matches spread over nearly every word, so the
+//    skipping saves less than the per-position bookkeeping costs: PERF.md.)
+// 4. Each warp gathers its 2,048 output bytes from the literals in shared
+//    memory, 4 consecutive bytes a lane (a literal run then reads 32
+//    different banks), stages them in its own slice of the parent array
+//    (which no other warp reads any more), and stores 16 B a lane.
 //
 // In-place jumping reads pointers that are at least as far along their
 // chains as the reference's synchronous doubling would hold, so it reaches
-// the same roots (the bytes are identical) in at most as many rounds:
-// rounds <= the plain version's rounds <= 16. ``rounds`` is telemetry.
+// the same roots (the bytes are identical) in at most as many rounds. The
+// kernel counts the rounds it ran until no position was left; the plain
+// version also counts the round that found nothing to change, so rounds
+// <= the plain version's rounds <= 16. ``rounds`` is telemetry: the
+// slowest row's count.
 //
-// The output may alias ``lit``: a position's output is the literal at its
-// root, only roots are read, and a root (dist 0) writes back its own byte.
+// The output may alias ``lit``: the whole literal row is in shared memory
+// before anything is stored.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -30,75 +48,198 @@ namespace {
 
 constexpr int kStride = 65536;
 constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kWords = kStride / 32;        // bitmap words, one bit a position
 constexpr int kMaxRounds = 16;  // log2(64 Ki): any chain in a row collapses
+constexpr int kDistBytes = kStride * 2;
+constexpr int kSmem = kDistBytes + kStride + kWords * 4;
+constexpr int kChunk = kStride / kWarps;    // output bytes per warp
+constexpr int kIlp = 4;                     // bitmap words a warp takes at once
+constexpr unsigned kAll = 0xFFFFFFFFu;
 
-// profile phases: load, jumping, gather/store
+static_assert(kChunk == 2048, "a warp's gather covers 16 words a lane");
+static_assert(kWords % (kWarps * kIlp) == 0, "whole steps of kIlp words");
+static_assert(kSmem + 8 <= 232448, "a block's shared memory");
+
+// profile phases: load, parents, jumping, gather/store
 #ifdef SBT_PROFILE
 // Profiling build only (benchmarks/profile_resolve_flags.py): per-row
-// clock64 marks (start, rows staged, rounds done, row written) and rounds.
-__device__ long long g_lz77_marks[4 * 4096];
+// clock64 marks at the phases' edges, and rounds.
+__device__ long long g_lz77_marks[5 * 4096];
 __device__ int g_lz77_rounds[4096];
 #define SBT_MARK(k)                                                   \
   do {                                                                \
     __syncthreads();                                                  \
     if (threadIdx.x == 0 && blockIdx.x < 4096)                        \
-      g_lz77_marks[4 * blockIdx.x + (k)] = clock64();                 \
+      g_lz77_marks[5 * blockIdx.x + (k)] = clock64();                 \
   } while (0)
 #else
 #define SBT_MARK(k)
 #endif
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A bulk async copy global → shared that completes ``bytes`` on ``bar``.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
 __global__ void __launch_bounds__(kThreads)
-lz77_kernel(const uint8_t* lit, const uint16_t* __restrict__ dist,
-            uint8_t* out, int32_t* __restrict__ rounds_out) {
-  extern __shared__ uint16_t parent[];
+lz77_kernel(const uint8_t* lit, const uint16_t* dist, uint8_t* out,
+            int32_t* __restrict__ rounds_out) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ __align__(8) uint64_t bar_s;
+  uint16_t* parent = reinterpret_cast<uint16_t*>(smem);
+  uint8_t* lit_s = smem + kDistBytes;
+  uint32_t* active = reinterpret_cast<uint32_t*>(smem + kDistBytes + kStride);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const size_t row = (size_t)blockIdx.x * kStride;
+  const uint32_t bar = smem_addr(&bar_s);
   SBT_MARK(0);
-  for (int i = threadIdx.x; i < kStride; i += kThreads)
-    parent[i] = (uint16_t)(i - dist[row + i]);
-  __syncthreads();
+
+  // 1. Stage the row.
+  if (t == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+        "r"(kDistBytes + kStride)
+        : "memory");
+    bulk_load(parent, dist + row, kDistBytes, bar);
+    bulk_load(lit_s, lit + row, kStride, bar);
+  }
+  __syncthreads();  // the barrier is initialised before anyone waits on it
+  mbar_wait(bar, 0);
   SBT_MARK(1);
+
+  // 2. Parents in place, and the bitmap of positions that are not roots.
+  // A warp takes kIlp words at a time so their loads overlap.
+  for (int k0 = warp; k0 < kWords; k0 += kWarps * kIlp) {
+    uint16_t d[kIlp];
+#pragma unroll
+    for (int j = 0; j < kIlp; ++j) d[j] = parent[32 * (k0 + kWarps * j) + lane];
+#pragma unroll
+    for (int j = 0; j < kIlp; ++j) {
+      const int i = 32 * (k0 + kWarps * j) + lane;
+      parent[i] = (uint16_t)(i - d[j]);
+      const uint32_t bits = __ballot_sync(kAll, d[j] != 0);
+      if (lane == 0) active[k0 + kWarps * j] = bits;
+    }
+  }
+  __syncthreads();
+  SBT_MARK(2);
+
+  // 3. Jump the active positions until none is left, kIlp words at a time:
+  // each step (parent, its parent, the write, the root test) issues for
+  // all of them before the next.
   int rounds = 0;
   while (rounds < kMaxRounds) {
-    int changed = 0;
-    for (int i = threadIdx.x; i < kStride; i += kThreads) {
-      uint16_t p = parent[i];
-      uint16_t pp = parent[p];
-      if (pp != p) {
-        parent[i] = pp;
-        changed = 1;
+    bool live = false;
+    for (int k0 = warp; k0 < kWords; k0 += kWarps * kIlp) {
+      uint32_t bits[kIlp];
+      uint32_t any = 0;
+#pragma unroll
+      for (int j = 0; j < kIlp; ++j) {
+        bits[j] = active[k0 + kWarps * j];
+        any |= bits[j];
+      }
+      if (!any) continue;
+      bool on[kIlp];
+      uint16_t p[kIlp], pp[kIlp];
+#pragma unroll
+      for (int j = 0; j < kIlp; ++j) {
+        on[j] = (bits[j] >> lane) & 1u;
+        p[j] = on[j] ? parent[32 * (k0 + kWarps * j) + lane] : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < kIlp; ++j) pp[j] = on[j] ? parent[p[j]] : 0;
+#pragma unroll
+      for (int j = 0; j < kIlp; ++j) {
+        on[j] = on[j] && pp[j] != p[j];
+        if (on[j]) parent[32 * (k0 + kWarps * j) + lane] = pp[j];
+      }
+#pragma unroll
+      for (int j = 0; j < kIlp; ++j) on[j] = on[j] && parent[pp[j]] != pp[j];
+#pragma unroll
+      for (int j = 0; j < kIlp; ++j) {
+        const uint32_t next = __ballot_sync(kAll, on[j]);
+        if (lane == 0 && bits[j]) active[k0 + kWarps * j] = next;
+        live |= next != 0;
       }
     }
     ++rounds;
-    if (!__syncthreads_or(changed)) break;
+    if (!__syncthreads_or(live)) break;
   }
-  SBT_MARK(2);
-  for (int i = threadIdx.x; i < kStride; i += kThreads)
-    out[row + i] = lit[row + parent[i]];
-  if (threadIdx.x == 0) atomicMax(rounds_out, rounds);
   SBT_MARK(3);
+
+  // 4. Gather, stage in this warp's own parent slice, store 16 B a lane.
+  const int c0 = warp * kChunk;
+  uint32_t word[kChunk / 128];
+#pragma unroll
+  for (int m = 0; m < kChunk / 128; ++m) {
+    const int q = c0 + 4 * (lane + 32 * m);
+    const uint2 pq = *reinterpret_cast<const uint2*>(parent + q);
+    word[m] = (uint32_t)lit_s[pq.x & 0xFFFFu] |
+              (uint32_t)lit_s[pq.x >> 16] << 8 |
+              (uint32_t)lit_s[pq.y & 0xFFFFu] << 16 |
+              (uint32_t)lit_s[pq.y >> 16] << 24;
+  }
+  __syncwarp();
+  uint32_t* stage = reinterpret_cast<uint32_t*>(parent + c0);
+#pragma unroll
+  for (int m = 0; m < kChunk / 128; ++m) stage[lane + 32 * m] = word[m];
+  __syncwarp();
+  const uint4* s4 = reinterpret_cast<const uint4*>(stage);
+  uint4* o4 = reinterpret_cast<uint4*>(out + row + c0);
+#pragma unroll
+  for (int m = 0; m < kChunk / 512; ++m) o4[lane + 32 * m] = s4[lane + 32 * m];
+  if (t == 0) atomicMax(rounds_out, rounds);
+  SBT_MARK(4);
 #ifdef SBT_PROFILE
-  if (threadIdx.x == 0 && blockIdx.x < 4096) g_lz77_rounds[blockIdx.x] = rounds;
+  if (t == 0 && blockIdx.x < 4096) g_lz77_rounds[blockIdx.x] = rounds;
 #endif
 }
 
 }  // namespace
 
+// ``lit``, ``dist`` and ``out`` start on 16-byte boundaries (the wrapper
+// checks); ``out`` may be ``lit``.
 extern "C" int sbt_lz77_resolve(const uint8_t* lit, const uint16_t* dist,
                                 int b, uint8_t* out, int32_t* rounds,
                                 cudaStream_t stream) {
-  const int smem = kStride * (int)sizeof(uint16_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      lz77_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (b > 0) lz77_kernel<<<b, kThreads, smem, stream>>>(lit, dist, out, rounds);
+  // Once per process (a function-local static is initialised once).
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      lz77_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  if (b > 0) lz77_kernel<<<b, kThreads, kSmem, stream>>>(lit, dist, out, rounds);
   return (int)cudaGetLastError();
 }
 
 #ifdef SBT_PROFILE
 extern "C" int sbt_lz77_profile(long long* marks, int* rounds, int rows) {
   cudaError_t err = cudaMemcpyFromSymbol(marks, g_lz77_marks,
-                                         4 * rows * sizeof(long long));
+                                         5 * rows * sizeof(long long));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaMemcpyFromSymbol(rounds, g_lz77_rounds, rows * sizeof(int));
 }

@@ -20,6 +20,8 @@ top of its source. The tokenizer's plain version is the Python decoder in
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from spark_bam_tpu_torch.check.flags import BIT
@@ -29,9 +31,12 @@ from spark_bam_tpu_torch.tpu.tokenize_device import STRIDE, tokenize_plain
 # Padding beyond any index a flag pass can touch (36 fixed + 255 name +
 # 4*65535 cigar + slack), as in the reference checker: 257*1024 = 263168.
 PAD = 257 * 1024
-#: Bytes per row of the full pass's first-bad-cigar-op table
-#: (``kChunk`` in ``csrc/full_flags.cu``).
-FULL_FLAGS_CHUNK = 1024
+#: Bytes per tile of the full pass (``kTile`` in ``csrc/full_flags.cu``).
+FULL_FLAGS_TILE = 16384
+#: int32 per tile status record of the full pass (``kRecord`` there).
+_RECORD = 16
+#: Status words hold the epoch in 32 bits.
+_EPOCHS = 1 << 32
 #: log2(64 Ki): pointer doubling collapses any chain inside a token row.
 DOUBLING_ROUNDS = (STRIDE - 1).bit_length()
 
@@ -224,6 +229,42 @@ def _resolve_body(lit: torch.Tensor, dist: torch.Tensor):
     return torch.gather(lit, 1, p), torch.tensor(rounds, dtype=torch.int32)
 
 
+class TileStatus:
+    """The full pass's tile status records, kept per CUDA stream between
+    launches: a ticket counter, then one record per tile. Zeroed once; each
+    launch on a stream gets the next epoch and the ticket base where the
+    previous launch's tickets ended (launches on one stream run one after
+    another), so the kernel never needs the records cleared."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._streams: dict = {}   # (device, stream) → [records, base, epoch]
+
+    def next(self, device: torch.device, stream: int, tiles: int):
+        """``(records, ticket_base, epoch)`` for a launch of ``tiles``
+        tiles on ``stream`` (PyTorch's current stream of ``device``)."""
+        key = (device.index, stream)
+        with self._lock:
+            st = self._streams.get(key)
+            if (st is None or st[0].numel() < _RECORD * (1 + tiles)
+                    or st[2] + 1 >= _EPOCHS):
+                st = [torch.zeros(_RECORD * (1 + tiles), dtype=torch.int32,
+                                  device=device), 0, 0]
+                self._streams[key] = st
+            records, base, epoch = st
+            st[1] = (base + tiles) & 0xFFFFFFFF
+            st[2] = epoch + 1
+            return records, base, epoch + 1
+
+    def drop(self, device: torch.device, stream: int) -> None:
+        """Forget a stream's records (after a launch that did not run)."""
+        with self._lock:
+            self._streams.pop((device.index, stream), None)
+
+
+_TILE_STATUS = TileStatus()
+
+
 def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
     if t.dtype != dtype or t.dim() != ndim:
         raise TypeError(
@@ -288,10 +329,11 @@ def full_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
     Returns (W,) i32.
 
     Replaces ``pallas_kernels.py::full_check_flags``. Bound by bytes (one
-    in, four out per offset); three launches: first bad cigar op per
-    stride-4 class in each 1 KiB chunk, a suffix-min over the chunks, then
-    the flag pass over 8 KiB tiles held in shared memory with 1 KiB of
-    lookahead. No offset loops over its cigar or its name."""
+    in, four out per offset); one launch over 16 KiB tiles held in shared
+    memory with 512 bytes of lookahead, the first bad cigar op past each
+    tile's region from the status records of the 17 tiles after it (kept
+    per stream, ``TileStatus``), 4 offsets a thread. No offset loops over
+    its cigar or its name. ``padded`` must start on a 16-byte boundary."""
     if not _on_cuda(padded):
         return _compute_flags(padded, lengths, num_contigs, n)
     dev = padded.device
@@ -303,15 +345,20 @@ def full_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
                          "bytes; lengths non-empty")
     if padded.numel() >= 1 << 31:
         raise ValueError("the window must hold fewer than 2^31 bytes")
-    if padded.data_ptr() % 4:
-        raise ValueError("padded must start on a 4-byte boundary")
-    chunks = -(-padded.numel() // FULL_FLAGS_CHUNK)
-    # Per-chunk first bad ops, then their suffix-min (one more row: none).
-    scratch = torch.empty((2 * chunks + 1, 4), dtype=torch.int32, device=dev)
+    if padded.data_ptr() % 16:
+        raise ValueError("padded must start on a 16-byte boundary")
+    tiles = -(-padded.numel() // FULL_FLAGS_TILE)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    records, base, epoch = _TILE_STATUS.next(dev, stream, tiles)
     out = torch.empty(w, dtype=torch.int32, device=dev)
-    _launch("full_check_flags", "sbt_full_flags", padded.data_ptr(),
-            padded.numel(), w, lengths.data_ptr(), lengths.numel(), int(num_contigs), int(n),
-            scratch.data_ptr(), out.data_ptr(), device=dev)
+    try:
+        _launch("full_check_flags", "sbt_full_flags", padded.data_ptr(),
+                padded.numel(), w, lengths.data_ptr(), lengths.numel(),
+                int(num_contigs), int(n), records.data_ptr(), base, epoch,
+                out.data_ptr(), device=dev)
+    except RuntimeError:
+        _TILE_STATUS.drop(dev, stream)
+        raise
     return out
 
 
@@ -322,9 +369,12 @@ def lz77_resolve(lit: torch.Tensor, dist: torch.Tensor,
     itself (the kernel resolves in place safely).
 
     Replaces ``pallas_kernels.py::lz77_resolve_pallas``. Bound by bytes
-    (~4 per output byte); one CTA per row with uint16 parents in shared
-    memory, so the pointer jumping never touches device memory. Its
-    ``rounds`` may be fewer than the plain version's (in-place jumping)."""
+    (~4 per output byte); one CTA per row holds the row (bulk async
+    copies) with uint16 parents in shared memory and jumps only the
+    positions whose parent is not yet a root, so the pointer jumping never
+    touches device memory. Its ``rounds`` may be fewer than the plain
+    version's (in-place jumping). The three tensors must start on 16-byte
+    boundaries (fresh tensors do)."""
     if not _on_cuda(lit):
         res, rounds = _resolve_body(lit, dist)
         if out is not None:
@@ -342,6 +392,8 @@ def lz77_resolve(lit: torch.Tensor, dist: torch.Tensor,
     _check(out, "out", torch.uint8, 2, dev)
     if out.shape != lit.shape:
         raise ValueError("out must have lit's shape")
+    if any(t.data_ptr() % 16 for t in (lit, dist, out)):
+        raise ValueError("lit, dist and out must start on 16-byte boundaries")
     rounds = torch.zeros(1, dtype=torch.int32, device=dev)
     _launch("lz77_resolve", "sbt_lz77_resolve", lit.data_ptr(),
             dist.data_ptr(), lit.shape[0], out.data_ptr(), rounds.data_ptr(),

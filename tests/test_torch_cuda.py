@@ -17,6 +17,7 @@ from spark_bam_tpu_torch import (
     StreamChecker,
     full_check_summary_streaming,
 )
+from spark_bam_tpu_torch.benchmarks import resolve_flag_cases
 from spark_bam_tpu_torch.benchmarks.deflate_cases import (
     EXPECT_REJECT,
     edge_cases,
@@ -74,6 +75,52 @@ def test_lz77_kernel_matches_plain(gpu):
     donor = lit.clone()                      # in place, as the main path does
     K.lz77_resolve(donor, dist, out=donor)
     assert torch.equal(donor, want)
+
+
+@pytest.mark.parametrize("b", [1, 133, 512])
+def test_lz77_kernel_on_edge_rows(gpu, b):
+    """The shared token-row edge set in batches of 1, 133 and 512 rows (not
+    multiples of the SM count), out of place and in place; rounds never
+    exceed the plain version's, batch and row by row."""
+    rows = resolve_flag_cases.token_rows(b)
+    names = list(rows)
+    pick = [names[k % len(names)] for k in range(b)]
+    if b == 1:
+        pick = ["rle_distance_1"]
+    lit, dist = (torch.from_numpy(a).to(gpu)
+                 for a in resolve_flag_cases.stack_rows(rows, pick))
+    want, want_rounds = K._resolve_body(lit, dist)
+    got, rounds = K.lz77_resolve(lit, dist)
+    assert torch.equal(got, want)
+    assert int(rounds) <= int(want_rounds) <= 16
+    donor = lit.clone()
+    _, in_place_rounds = K.lz77_resolve(donor, dist, out=donor)
+    assert torch.equal(donor, want)
+    assert int(in_place_rounds) <= int(want_rounds)
+    if b == 133:
+        for name in names:
+            one = [torch.from_numpy(a[None]).to(gpu) for a in rows[name]]
+            w1, r1 = K._resolve_body(*one)
+            g1, k1 = K.lz77_resolve(*one)
+            assert torch.equal(g1, w1), name
+            assert int(k1) <= int(r1), name
+
+
+@pytest.mark.parametrize("w", [1 << 20, 1 << 25])
+def test_full_flags_kernel_on_edge_windows(gpu, w):
+    """The shared flag-window edge set at 2^20 and 2^25 bytes (at 2^25
+    most tiles are not yet resident when the first ones look ahead), each
+    window run twice in a row on the same stream's status records."""
+    lens = torch.zeros(1024, dtype=torch.int32)
+    lens[:2] = torch.tensor([248_956_422, 242_193_529])
+    lens = lens.to(gpu)
+    for name, (padded, n) in resolve_flag_cases.flag_windows(w).items():
+        buf = torch.from_numpy(padded).to(gpu)
+        want = K._compute_flags(buf, lens, 2, n)
+        first = K.full_check_flags(buf, lens, 2, n)
+        second = K.full_check_flags(buf, lens, 2, n)
+        assert torch.equal(first, want), name
+        assert torch.equal(second, want), name
 
 
 def _tokenize_both(staged, clens, gpu):
@@ -164,6 +211,15 @@ def test_wrappers_check_their_inputs(gpu):
     with pytest.raises(ValueError):
         K.lz77_resolve(torch.zeros((1, 100), dtype=torch.uint8, device=gpu),
                        torch.zeros((1, 100), dtype=torch.uint16, device=gpu))
+    with pytest.raises(ValueError, match="16-byte boundar"):
+        K.full_check_flags(
+            torch.zeros(K.PAD + 68, dtype=torch.uint8, device=gpu)[4:],
+            torch.zeros(4, dtype=torch.int32, device=gpu), 1, 1)
+    with pytest.raises(ValueError, match="16-byte boundar"):
+        K.lz77_resolve(
+            torch.zeros(STRIDE + 8, dtype=torch.uint8, device=gpu)[8:]
+            .view(1, STRIDE),
+            torch.zeros((1, STRIDE), dtype=torch.uint16, device=gpu))
 
 
 def test_count_on_gpu_equals_cpu(gpu, tmp_path):

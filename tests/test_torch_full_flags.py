@@ -18,6 +18,7 @@ from spark_bam_tpu.bgzf.flat import flatten_file
 from spark_bam_tpu.tpu import checker as jck
 from spark_bam_tpu.tpu.pallas_kernels import TILE
 from spark_bam_tpu.tpu.pallas_kernels import full_check_flags as pallas_full
+from spark_bam_tpu_torch.benchmarks import resolve_flag_cases
 from spark_bam_tpu_torch.benchmarks.synth import synth_bam
 from spark_bam_tpu_torch.tpu import kernels as K
 from tests.bam_factories import random_bam
@@ -107,6 +108,56 @@ def test_full_flags_plain_matches_pallas_interpret(windows):
         np.testing.assert_array_equal(got, want, err_msg=f"n={n}")
 
 
+@pytest.fixture(scope="module")
+def edge_windows():
+    return resolve_flag_cases.flag_windows(W)
+
+
+@pytest.mark.parametrize("name", list(resolve_flag_cases.flag_windows(W)))
+def test_full_flags_plain_matches_jax_on_edge_windows(edge_windows, name):
+    """The shared flag-window edge set: bad cigar ops on the CUDA kernel's
+    tile and lookahead edges, ``n`` around a tile boundary and below 36, a
+    window that is not a whole number of tiles."""
+    padded, n = edge_windows[name]
+    lens = _table([248_956_422, 242_193_529])
+    want, got = _both(padded, lens, 2, n)
+    np.testing.assert_array_equal(got, want)
+    assert got.shape == (padded.size - K.PAD,)
+
+
+@pytest.mark.parametrize("name", ["cigar_reach_last_op",
+                                  "cigar_reach_past_end"])
+def test_full_flags_plain_matches_jax_at_cigar_reach(name):
+    """A cigar of 65,535 ops after a 255-byte name, its last op bad (or the
+    one after it), at a window wide enough to hold it."""
+    padded, n = resolve_flag_cases.flag_windows(1 << 19)[name]
+    lens = _table([248_956_422, 242_193_529])
+    want, got = _both(padded, lens, 2, n)
+    np.testing.assert_array_equal(got, want)
+    i0 = resolve_flag_cases.TILE - 1
+    from spark_bam_tpu_torch.check.flags import BIT
+
+    bad = bool(got[i0] & BIT["invalidCigarOp"])
+    assert bad == (name == "cigar_reach_last_op")
+
+
+def test_full_flags_edge_windows_match_pallas_interpret():
+    """Once against the Pallas kernel (interpret mode): two edge windows
+    at four Pallas tiles."""
+    w = 4 * TILE
+    cases = resolve_flag_cases.flag_windows(w)
+    lens = _table([248_956_422, 242_193_529])
+    for name in ("bad_at_tile_end", "bad_past_lookahead"):
+        padded, n = cases[name]
+        want = np.asarray(pallas_full(
+            jnp.asarray(padded), jnp.asarray(lens),
+            jnp.asarray(np.array([2], dtype=np.int32)),
+            jnp.asarray(np.array([n], dtype=np.int32)), interpret=True))
+        got = K.full_check_flags(torch.from_numpy(padded),
+                                 torch.from_numpy(lens), 2, n).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
 @pytest.mark.parametrize("short", [False, True], ids=["n_full", "n_short"])
 def test_full_flags_plain_matches_jax_on_bam2(bam2, short):
     data = flatten_file(bam2).data
@@ -162,3 +213,55 @@ def test_report_rules_match_jax(seed):
     want = [int(((masked >> i) & 1).sum()) for i in range(19)]
     assert tflags.bit_counts(masked).tolist() == want
     assert tflags.bit_counts(masked[:0]).tolist() == [0] * 19
+
+
+def test_tile_status_bookkeeping():
+    """The full pass's per-stream status records: each launch's tickets
+    start where the previous launch's ended, epochs only grow, a larger
+    window or a dropped stream starts again from zeroed records."""
+    st = K.TileStatus()
+    cpu = torch.device("cpu")
+    rec, base, epoch = st.next(cpu, 7, 5)
+    assert (base, epoch) == (0, 1) and rec.numel() == 16 * 6
+    assert not rec.any()
+    again, base, epoch = st.next(cpu, 7, 5)
+    assert again is rec and (base, epoch) == (5, 2)
+    _, base, epoch = st.next(cpu, 8, 5)          # another stream: its own
+    assert (base, epoch) == (0, 1)
+    bigger, base, epoch = st.next(cpu, 7, 9)
+    assert bigger is not rec and bigger.numel() == 16 * 10
+    assert (base, epoch) == (0, 1)
+    st.drop(cpu, 7)
+    assert st.next(cpu, 7, 9)[1:] == (0, 1)
+
+
+def test_tile_status_threads():
+    """Threads taking launches on one stream's records at once: every
+    launch gets its own epoch and a ticket range that follows the one
+    before it, none lost or repeated."""
+    import sys
+    import threading
+
+    st = K.TileStatus()
+    cpu = torch.device("cpu")
+    got = []
+    lock = threading.Lock()
+
+    def work():
+        for _ in range(200):
+            _, base, epoch = st.next(cpu, 7, 3)
+            with lock:
+                got.append((epoch, base))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(16)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert sorted(got) == [(e, 3 * (e - 1)) for e in range(1, 3201)]

@@ -22,6 +22,7 @@ from spark_bam_tpu.tpu.pallas_kernels import (
     prefilter_check_flags as pallas_prefilter,
 )
 from spark_bam_tpu.tpu.tokenize_device import tokenize_planes
+from spark_bam_tpu_torch.benchmarks import resolve_flag_cases
 from spark_bam_tpu_torch.benchmarks.deflate_cases import (
     EXPECT_OUT_LEN,
     EXPECT_REJECT,
@@ -130,6 +131,21 @@ def test_resolve_plain_matches_jax(seed, kind):
     assert int(rounds) == int(want_rounds)
     if kind in ("rle", "mixed"):
         assert int(rounds) == 16
+
+
+@pytest.fixture(scope="module")
+def edge_rows():
+    return resolve_flag_cases.token_rows(0)
+
+
+@pytest.mark.parametrize("name", list(resolve_flag_cases.token_rows(0)))
+def test_resolve_plain_matches_jax_on_edge_rows(edge_rows, name):
+    """The shared token-row edge set, one row at a time: bytes and rounds."""
+    lit, dist = (a[None] for a in edge_rows[name])
+    want, want_rounds = resolve_lz77(jnp.asarray(lit), jnp.asarray(dist))
+    got, rounds = K.lz77_resolve(torch.from_numpy(lit), torch.from_numpy(dist))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(rounds) == int(want_rounds) <= 16
 
 
 # ------------------------------------------------------------- tokenizer
