@@ -15,28 +15,28 @@
 //    so the SM has the whole row in flight at once.
 // 2. Distances become uint16 parents in place (parent = i - dist; the
 //    TPU's int32 row, 256 KiB, would not fit in the 227 KB a block may
-//    use), and a warp ballot per 32 positions builds an 8 KiB bitmap of
-//    the positions that are not roots (dist != 0).
-// 3. Pointer jumping in place, over active positions only: a warp takes
-//    four bitmap words at once (their dependent shared-memory loads
-//    overlap), skips them when all are zero, and jumps each set position
-//    once (parent = parent[parent]). A position drops out once its parent
-//    is a root, which never changes; the ballot rewrites the word. The row
-//    is done when no word is left: a __syncthreads_or. (On real windows
-//    ~40 % of positions are matches spread over nearly every word, so the
-//    skipping saves less than the per-position bookkeeping costs: PERF.md.)
+//    use).
+// 3. Pointer jumping in place, chunk by chunk in increasing position
+//    order, 4,096 positions (four a thread) at a time. Every position
+//    before a chunk already points at a root, so a parent there settles
+//    in one jump; the chunk runs more rounds only while some position's
+//    new parent is not yet a root (a chain inside the chunk), a
+//    __syncthreads_or. On real windows most chunks settle in one round,
+//    where jumping the whole row costs a full sweep per doubling round.
+//    (An active-position bitmap skipped little: ~40 % of a real row's
+//    positions are matches, spread over nearly every word; PERF.md.)
 // 4. Each warp gathers its 2,048 output bytes from the literals in shared
 //    memory, 4 consecutive bytes a lane (a literal run then reads 32
 //    different banks), stages them in its own slice of the parent array
 //    (which no other warp reads any more), and stores 16 B a lane.
 //
-// In-place jumping reads pointers that are at least as far along their
-// chains as the reference's synchronous doubling would hold, so it reaches
-// the same roots (the bytes are identical) in at most as many rounds. The
-// kernel counts the rounds it ran until no position was left; the plain
-// version also counts the round that found nothing to change, so rounds
-// <= the plain version's rounds <= 16. ``rounds`` is telemetry: the
-// slowest row's count.
+// Every position ends at the root of its chain, so the bytes are the
+// plain version's. A chunk's rounds jump chains no deeper than the row's,
+// in place (each pointer read is at least as far along as synchronous
+// doubling would hold), and stop as soon as no new parent is a non-root,
+// where the plain version also counts the round that finds nothing to
+// change: so the most rounds any chunk took <= the plain version's rounds
+// <= 16. ``rounds`` is telemetry: the largest such count of the batch.
 //
 // The output may alias ``lit``: the whole literal row is in shared memory
 // before anything is stored.
@@ -49,16 +49,15 @@ namespace {
 constexpr int kStride = 65536;
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr int kWords = kStride / 32;        // bitmap words, one bit a position
 constexpr int kMaxRounds = 16;  // log2(64 Ki): any chain in a row collapses
 constexpr int kDistBytes = kStride * 2;
-constexpr int kSmem = kDistBytes + kStride + kWords * 4;
+constexpr int kSmem = kDistBytes + kStride;
 constexpr int kChunk = kStride / kWarps;    // output bytes per warp
-constexpr int kIlp = 4;                     // bitmap words a warp takes at once
-constexpr unsigned kAll = 0xFFFFFFFFu;
+constexpr int kIlp = 4;                     // positions a thread jumps at once
+constexpr int kSweep = kThreads * kIlp;     // positions settled per chunk
 
 static_assert(kChunk == 2048, "a warp's gather covers 16 words a lane");
-static_assert(kWords % (kWarps * kIlp) == 0, "whole steps of kIlp words");
+static_assert(kStride % kSweep == 0, "whole chunks");
 static_assert(kSmem + 8 <= 232448, "a block's shared memory");
 
 // profile phases: load, parents, jumping, gather/store
@@ -104,6 +103,11 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// Two parents (positions i, i + 1) from two distances in one word.
+__device__ __forceinline__ uint32_t parent_pair(uint32_t i, uint32_t d) {
+  return ((i - (d & 0xFFFFu)) & 0xFFFFu) | (i + 1 - (d >> 16)) << 16;
+}
+
 __global__ void __launch_bounds__(kThreads)
 lz77_kernel(const uint8_t* lit, const uint16_t* dist, uint8_t* out,
             int32_t* __restrict__ rounds_out) {
@@ -111,7 +115,6 @@ lz77_kernel(const uint8_t* lit, const uint16_t* dist, uint8_t* out,
   __shared__ __align__(8) uint64_t bar_s;
   uint16_t* parent = reinterpret_cast<uint16_t*>(smem);
   uint8_t* lit_s = smem + kDistBytes;
-  uint32_t* active = reinterpret_cast<uint32_t*>(smem + kDistBytes + kStride);
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const size_t row = (size_t)blockIdx.x * kStride;
   const uint32_t bar = smem_addr(&bar_s);
@@ -133,63 +136,45 @@ lz77_kernel(const uint8_t* lit, const uint16_t* dist, uint8_t* out,
   mbar_wait(bar, 0);
   SBT_MARK(1);
 
-  // 2. Parents in place, and the bitmap of positions that are not roots.
-  // A warp takes kIlp words at a time so their loads overlap.
-  for (int k0 = warp; k0 < kWords; k0 += kWarps * kIlp) {
-    uint16_t d[kIlp];
-#pragma unroll
-    for (int j = 0; j < kIlp; ++j) d[j] = parent[32 * (k0 + kWarps * j) + lane];
-#pragma unroll
-    for (int j = 0; j < kIlp; ++j) {
-      const int i = 32 * (k0 + kWarps * j) + lane;
-      parent[i] = (uint16_t)(i - d[j]);
-      const uint32_t bits = __ballot_sync(kAll, d[j] != 0);
-      if (lane == 0) active[k0 + kWarps * j] = bits;
-    }
+  // 2. Parents in place, eight positions a thread at a time.
+  for (int v = t; v < kStride / 8; v += kThreads) {
+    uint4 d = reinterpret_cast<const uint4*>(parent)[v];
+    const uint32_t i = 8 * v;
+    d.x = parent_pair(i, d.x);
+    d.y = parent_pair(i + 2, d.y);
+    d.z = parent_pair(i + 4, d.z);
+    d.w = parent_pair(i + 6, d.w);
+    reinterpret_cast<uint4*>(parent)[v] = d;
   }
   __syncthreads();
   SBT_MARK(2);
 
-  // 3. Jump the active positions until none is left, kIlp words at a time:
-  // each step (parent, its parent, the write, the root test) issues for
-  // all of them before the next.
+  // 3. Jump chunk by chunk in increasing position order: every position
+  // before the chunk already points at a root, so one jump settles a
+  // parent there, and rounds continue only while some position's new
+  // parent is not a root (a chain inside the chunk).
   int rounds = 0;
-  while (rounds < kMaxRounds) {
-    bool live = false;
-    for (int k0 = warp; k0 < kWords; k0 += kWarps * kIlp) {
-      uint32_t bits[kIlp];
-      uint32_t any = 0;
-#pragma unroll
-      for (int j = 0; j < kIlp; ++j) {
-        bits[j] = active[k0 + kWarps * j];
-        any |= bits[j];
-      }
-      if (!any) continue;
-      bool on[kIlp];
+  for (int lo = 0; lo < kStride; lo += kSweep) {
+    int r = 0;
+    bool more;
+    do {
       uint16_t p[kIlp], pp[kIlp];
 #pragma unroll
-      for (int j = 0; j < kIlp; ++j) {
-        on[j] = (bits[j] >> lane) & 1u;
-        p[j] = on[j] ? parent[32 * (k0 + kWarps * j) + lane] : 0;
-      }
+      for (int j = 0; j < kIlp; ++j) p[j] = parent[lo + t + kThreads * j];
 #pragma unroll
-      for (int j = 0; j < kIlp; ++j) pp[j] = on[j] ? parent[p[j]] : 0;
+      for (int j = 0; j < kIlp; ++j) pp[j] = parent[p[j]];
+      bool need = false;
 #pragma unroll
       for (int j = 0; j < kIlp; ++j) {
-        on[j] = on[j] && pp[j] != p[j];
-        if (on[j]) parent[32 * (k0 + kWarps * j) + lane] = pp[j];
+        if (pp[j] != p[j]) {
+          parent[lo + t + kThreads * j] = pp[j];
+          need |= parent[pp[j]] != pp[j];
+        }
       }
-#pragma unroll
-      for (int j = 0; j < kIlp; ++j) on[j] = on[j] && parent[pp[j]] != pp[j];
-#pragma unroll
-      for (int j = 0; j < kIlp; ++j) {
-        const uint32_t next = __ballot_sync(kAll, on[j]);
-        if (lane == 0 && bits[j]) active[k0 + kWarps * j] = next;
-        live |= next != 0;
-      }
-    }
-    ++rounds;
-    if (!__syncthreads_or(live)) break;
+      ++r;
+      more = __syncthreads_or(need);
+    } while (more && r < kMaxRounds);
+    rounds = max(rounds, r);
   }
   SBT_MARK(3);
 
