@@ -370,11 +370,11 @@ def lz77_resolve(lit: torch.Tensor, dist: torch.Tensor,
 
     Replaces ``pallas_kernels.py::lz77_resolve_pallas``. Bound by bytes
     (~4 per output byte); one CTA per row holds the row (bulk async
-    copies) with uint16 parents in shared memory and jumps only the
-    positions whose parent is not yet a root, so the pointer jumping never
-    touches device memory. Its ``rounds`` may be fewer than the plain
-    version's (in-place jumping). The three tensors must start on 16-byte
-    boundaries (fresh tensors do)."""
+    copies) with uint16 parents in shared memory and jumps it in chunks of
+    4,096 positions in increasing order, so the pointer jumping never
+    touches device memory. Its ``rounds`` (the most any chunk took) may
+    be fewer than the plain version's. The three tensors must start on
+    16-byte boundaries (fresh tensors do)."""
     if not _on_cuda(lit):
         res, rounds = _resolve_body(lit, dist)
         if out is not None:
