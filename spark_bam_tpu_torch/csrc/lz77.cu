@@ -21,10 +21,12 @@
 //    before a chunk already points at a root, so a parent there settles
 //    in one jump; the chunk runs more rounds only while some position's
 //    new parent is not yet a root (a chain inside the chunk), a
-//    __syncthreads_or. On real windows most chunks settle in one round,
-//    where jumping the whole row costs a full sweep per doubling round.
-//    (An active-position bitmap skipped little: ~40 % of a real row's
-//    positions are matches, spread over nearly every word; PERF.md.)
+//    __syncthreads_or. On real windows a chunk still takes 4-5 rounds
+//    (matches of recent matches chain inside it): about four sweeps of
+//    the row in all, against one sweep per doubling round (six there)
+//    when the whole row jumps at once. (An active-position bitmap skipped
+//    little: ~40 % of a real row's positions are matches, spread over
+//    nearly every word; PERF.md.)
 // 4. Each warp gathers its 2,048 output bytes from the literals in shared
 //    memory, 4 consecutive bytes a lane (a literal run then reads 32
 //    different banks), stages them in its own slice of the parent array
