@@ -58,11 +58,13 @@ SYNTH_BYTES = 96 << 20
 #: CTAs whose marks a profiling build keeps (``g_*_marks`` in the sources).
 MAX_CTAS = 8192
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: ``sbt_full_flags`` by arity: the three-launch design (a chunk table as
-#: scratch) and the one-launch design (tile status records, ticket base and
-#: epoch).
-_FLAGS_ARGTYPES = {10: [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
-                   12: build.SIGNATURES["sbt_full_flags"]}
+#: Entry points whose argument list changed between designs, by arity:
+#: ``sbt_full_flags`` with three launches (a chunk table as scratch) or one
+#: (tile status records, ticket base and epoch); ``sbt_prefilter`` with the
+#: flags only or with the survivor compaction. Others take
+#: ``build.SIGNATURES``.
+_ARGTYPES = {("sbt_full_flags", 10): [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
+             ("sbt_prefilter", 8): [_P, _I, _P, _I, _I, _I, _P, _P]}
 
 
 def _smi(query: str) -> str:
@@ -94,8 +96,7 @@ def _compile(src: Path, out: Path, entry: str, profile: bool = False):
     lib = ctypes.CDLL(str(out))
     fn = getattr(lib, entry)
     arity = _arity(src, entry)
-    fn.argtypes = (_FLAGS_ARGTYPES[arity] if entry == "sbt_full_flags"
-                   else build.SIGNATURES[entry])
+    fn.argtypes = _ARGTYPES.get((entry, arity), build.SIGNATURES[entry])
     fn.restype = _I
     return lib, arity
 

@@ -32,6 +32,37 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// profile launches: prefilter
+// profile phases: loads, field extraction and checks, store
+#ifdef SBT_PROFILE
+// Profiling build only (benchmarks/profile_prefilter.py): CUDA events
+// around the launch, and per-CTA clock64 marks at the phases' edges. The
+// loads phase ends when every loaded word has arrived (their XOR is
+// consumed before the mark).
+__device__ long long g_pf_marks[4 * 8192];
+__device__ uint32_t g_pf_sink;
+cudaEvent_t g_pf_events[2];
+#define SBT_MARK(k)                                                   \
+  do {                                                                \
+    __syncthreads();                                                  \
+    if (threadIdx.x == 0 && blockIdx.x < 8192)                        \
+      g_pf_marks[4 * blockIdx.x + (k)] = clock64();                   \
+  } while (0)
+#define SBT_EVENT(k, stream)                                          \
+  do {                                                                \
+    if (!g_pf_events[k]) cudaEventCreate(&g_pf_events[k]);            \
+    cudaEventRecord(g_pf_events[k], stream);                          \
+  } while (0)
+#define SBT_CONSUME(val)                                              \
+  do {                                                                \
+    if ((val) == 0x9E3779B9u && threadIdx.x == 1023) g_pf_sink = (val); \
+  } while (0)
+#else
+#define SBT_MARK(k)
+#define SBT_EVENT(k, stream)
+#define SBT_CONSUME(val)
+#endif
+
 // ``words`` is the 4-byte-aligned window; every offset below ``w`` has its
 // 36 bytes (and the word that ends them) inside the padded buffer.
 __global__ void prefilter_kernel(const uint32_t* __restrict__ words, int w,
@@ -39,15 +70,26 @@ __global__ void prefilter_kernel(const uint32_t* __restrict__ words, int w,
                                  int cmax, int num_contigs, int n,
                                  int32_t* __restrict__ out) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= w) return;
-  const uint32_t* q = words + (i >> 2);
+  const bool live = i < w;
+  SBT_MARK(0);
+  const uint32_t* q = words + (live ? i >> 2 : 0);
   uint32_t v[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) v[k] = __ldg(q + k);
+#ifdef SBT_PROFILE
+  uint32_t x = 0;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) x ^= v[k];
+  SBT_CONSUME(x);
+#endif
+  SBT_MARK(1);
   const sbt::FixedBlock b = sbt::fixed_block(v, 8u * (uint32_t)(i & 3));
   int32_t f = sbt::fixed_bits(b, lengths, cmax, num_contigs);
   if (i > n - 36) f = sbt::kTooFewFixedBlockBytes;
-  out[i] = f;
+  SBT_CONSUME((uint32_t)f);
+  SBT_MARK(2);
+  if (live) out[i] = f;
+  SBT_MARK(3);
 }
 
 }  // namespace
@@ -57,9 +99,23 @@ extern "C" int sbt_prefilter(const uint8_t* padded, int w,
                              int num_contigs, int n, int32_t* out,
                              cudaStream_t stream) {
   if (w > 0) {
+    SBT_EVENT(0, stream);
     prefilter_kernel<<<(w + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
         reinterpret_cast<const uint32_t*>(padded), w, lengths, cmax,
         num_contigs, n, out);
+    SBT_EVENT(1, stream);
   }
   return (int)cudaGetLastError();
 }
+
+#ifdef SBT_PROFILE
+// Milliseconds of the last call's launch, and the CTAs' marks.
+extern "C" int sbt_prefilter_profile(float* ms, long long* marks, int ctas) {
+  cudaError_t err = cudaEventSynchronize(g_pf_events[1]);
+  if (err == cudaSuccess)
+    err = cudaEventElapsedTime(&ms[0], g_pf_events[0], g_pf_events[1]);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemcpyFromSymbol(marks, g_pf_marks,
+                                   4 * ctas * sizeof(long long));
+}
+#endif
