@@ -14,13 +14,21 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    resulting token planes (plus a distance-1 RLE row, the 16-round worst
    case, and the shared token-row edge set of
    ``benchmarks/resolve_flag_cases.py``), with the rounds each row took,
-   ``prefilter_check_flags`` on the inflated 32 MiB window (plus a window
-   of seeded random bytes) and ``full_check_flags`` on that window at two
-   valid lengths, on random bytes, on constant 0x88 bytes (every int a
-   valid cigar op), on a long-read window and on the shared flag-window
-   edge set at W = 2^25. Kernel times are CUDA-event medians. Then
+   ``prefilter_check_flags`` (flags, survivor list and count in one
+   launch) on the inflated 32 MiB window at its length and at one short of
+   a tile edge, on seeded random bytes, on a window whose survivors
+   overflow the capacity and on the shared prefilter edge set
+   (``benchmarks/prefilter_cases.py``) at W = 2^25, each case twice back
+   to back on one stream and once on a second stream, then
+   ``benchmarks/profile_prefilter.py``'s phase split and the plain
+   compaction's and ``torch.nonzero``'s card times; and
+   ``full_check_flags`` on that window at two valid lengths, on random
+   bytes, on constant 0x88 bytes (every int a valid cigar op), on a
+   long-read window and on the shared flag-window edge set at W = 2^25.
+   Kernel times are CUDA-event medians. Then
    ``benchmarks/profile_resolve_flags.py`` on the same window: the
-   clock64 phase split of both kernels and the rounds histogram.
+   clock64 phase split of LZ77 and the full pass and the rounds
+   histogram.
 3. count-reads: counts the BAM through ``StreamChecker.count_reads`` at the
    default geometry (24 MiB window, 4 MiB halo, 32 MiB kernel window) on
    the fused device path, then through the classic host-zlib loop, and
@@ -154,7 +162,8 @@ def main() -> int:
         raise RuntimeError(f"imported {port.__file__}, not this checkout's")
     import numpy as np
 
-    from spark_bam_tpu_torch.benchmarks import deflate_cases
+    from spark_bam_tpu_torch.benchmarks import deflate_cases, prefilter_cases
+    from spark_bam_tpu_torch.benchmarks import profile_prefilter as pfp
     from spark_bam_tpu_torch.benchmarks import profile_resolve_flags as prf
     from spark_bam_tpu_torch.benchmarks import resolve_flag_cases
     from spark_bam_tpu_torch.benchmarks.profile_tokenize import symbol_counts
@@ -359,26 +368,56 @@ def main() -> int:
             bound_by="bytes", library_ms=None,
         ))
 
-        # ---- prefilter_check_flags: the 32 MiB window + random bytes ------
+        # ---- prefilter_check_flags (fused flags and compaction): the
+        # 32 MiB window at two lengths, random bytes, the overflowing soup
+        # and the shared edge set at W = 2^25; each twice back to back on
+        # one stream and once on a second stream -------------------------
         n0 = len(flat0)
         padded = torch.zeros(w + K.PAD, dtype=torch.uint8, device=dev)
         padded[:n0] = torch.from_numpy(flat0).to(dev)
         soup = torch.from_numpy(
             rng.integers(0, 256, size=w + K.PAD, dtype=np.uint8)).to(dev)
+        n_odd = (n0 // prefilter_cases.TILE) * prefilter_cases.TILE - 3
+        pre_cases = {"window": (padded, n0, lens_dev, nc),
+                     f"window, n = {n_odd}": (padded, n_odd, lens_dev, nc),
+                     "random bytes": (soup, w, lens_dev, nc)}
+        edge = prefilter_cases.prefilter_windows(w, seed=7)
+        edge["overflow_soup"] = prefilter_cases.overflow_soup(w)
+        side = torch.cuda.Stream(dev)
         pre_err = 0
-        for buf, n in ((padded, n0), (soup, w)):
-            got = K.prefilter_check_flags(buf, lens_dev, nc, n)
-            want = K._prefilter_flags(buf, lens_dev, nc, n)
-            pre_err = max(pre_err, max_abs_err([(got, want)]))
+        pre_log = []
+        for label in [*pre_cases, *edge]:
+            if label in pre_cases:
+                buf, n, lt, c = pre_cases[label]
+            else:
+                b_np, n, l_np, c = edge.pop(label)
+                buf, lt = (torch.from_numpy(a).to(dev) for a in (b_np, l_np))
+            cap = K.lane_capacity(buf.numel() - K.PAD)
+            want = K._prefilter_compact(buf, lt, c, n, cap)
+            runs = [K.prefilter_check_flags(buf, lt, c, n) for _ in range(2)]
+            sync(dev)
+            with torch.cuda.stream(side):
+                runs.append(K.prefilter_check_flags(buf, lt, c, n))
+            side.synchronize()
+            err = max(max_abs_err(zip(got, want)) for got in runs)
+            pre_err = max(pre_err, err)
+            pre_log.append(f"{label} {int(want[2])}")
+            require(err == 0, f"prefilter differs from plain on {label}")
         require(pre_err == 0, f"prefilter differs from plain: {pre_err}")
         pre_ms = cuda_ms(
             lambda: K.prefilter_check_flags(padded, lens_dev, nc, n0), reps=20)
-        pre_plain_ms = cuda_ms(
-            lambda: K._prefilter_flags(padded, lens_dev, nc, n0), reps=5)
-        pre_bytes = (w + 35) + 4 * lens_dev.numel() + 4 * w
-        log(f"prefilter_check_flags: W={w}, bit-identical on the window and "
-            f"on random bytes; kernel {pre_ms:.3f} ms, plain "
-            f"{pre_plain_ms:.3f} ms")
+        pre_plain_ms = cuda_ms(lambda: K._prefilter_compact(
+            padded, lens_dev, nc, n0, K.lane_capacity(w)), reps=5)
+        cap = K.lane_capacity(w)
+        pre_bytes = ((w + 35) + 4 * lens_dev.numel() + 4 * w + 4 * cap + 4)
+        log(f"prefilter_check_flags: W={w}, capacity {cap}; F, cand and "
+            f"n_set bit-identical, each case twice on one stream and once "
+            f"on a second; survivors: {', '.join(pre_log)}; kernel "
+            f"{pre_ms:.3f} ms, plain {pre_plain_ms:.3f} ms")
+        prof_dir = work / "profile"
+        prof_dir.mkdir(exist_ok=True)
+        pre_prof = pfp.profile_prefilter([], prof_dir, padded, lens_dev, nc,
+                                         n0, sm_mhz)
         rows.append(dict(
             name="prefilter_check_flags", route="cuda",
             source="spark_bam_tpu_torch/csrc/prefilter.cu",
@@ -386,8 +425,9 @@ def main() -> int:
             parity="bit-identical", max_abs_err=pre_err, ms=pre_ms,
             plain_ms=pre_plain_ms,
             bound_ms=pre_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            library_ms=None,
+            library_ms=pre_prof["compaction"]["nonzero_ms"],
         ))
+        del edge
         # ---- full_check_flags: the window at two lengths, random bytes,
         # constant 0x88 (n_cigar 34,952 of valid ops at every offset), and
         # a window of long reads ------------------------------------------
@@ -447,8 +487,6 @@ def main() -> int:
         ))
         # The profile script's split of both kernels on this window, and the
         # rounds each of its rows took (kernel and plain version).
-        prof_dir = work / "profile"
-        prof_dir.mkdir(exist_ok=True)
         prf.profile_lz77([], prof_dir, lit, dist, sm_mhz)
         prf.profile_full_flags([], prof_dir, padded, lens_dev, nc, n0, sm_mhz)
         del padded, soup, const88, long_pad, k_tok, p_tok, k_res, p_res

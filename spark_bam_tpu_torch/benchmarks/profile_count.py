@@ -7,9 +7,10 @@ Writes a synthetic BAM (``--mib`` MiB uncompressed) under the package's
 allocator), then again under ``torch.profiler`` and prints: the wall time,
 the device-busy share (kernel time over wall), the top operators by device
 time and by host time, and the card's name and power limit. Also times each
-stage of one window (staging, tokenize, resolve, assembly, prefilter,
-compaction, deep flags, walk) with a device synchronise around each, which
-serialises them but shows each one's cost. Prints one JSON line last.
+stage of one window (staging, tokenize, resolve, assembly, the prefilter
+with its survivor compaction, deep flags, walk) with a device synchronise
+around each, which serialises them but shows each one's cost. Prints one
+JSON line last.
 """
 
 from __future__ import annotations
@@ -70,11 +71,8 @@ def stage_breakdown(bam: Path, checker: StreamChecker) -> dict:
     carry = torch.zeros(halo, dtype=torch.uint8, device=dev)
     padded = _timed(st, "assemble", lambda: ck._assemble(
         res, exp, carry, 0, n, window=w, halo=halo))
-    F = _timed(st, "prefilter", lambda: K.prefilter_check_flags(
-        padded, lens, nc, n))
-    survivor = (F == 0) & (torch.arange(w, device=dev) < n)
-    cap = max(w // 32, 4096)
-    cand, _ = _timed(st, "compact", lambda: ck._compact_mask(survivor, cap))
+    _, cand, _ = _timed(st, "prefilter and compaction", lambda:
+                        K.prefilter_check_flags(padded, lens, nc, n))
     tables = _timed(st, "funnel_tables", lambda: ck._funnel_tables(padded, n))
     _timed(st, "deep_flags", lambda: ck._deep_flags_at(
         padded, lens, nc, n, tables, torch.where(cand >= 0, cand, 0)))

@@ -15,8 +15,9 @@ Then:
   ``// profile phases:`` line. Builds each ``--against`` source (a file
   defining ``sbt_prefilter``, for example a parent commit's) as it is. A
   source whose ``sbt_prefilter`` takes 8 arguments computes the flags
-  only; one that takes 14 also compacts the survivors (``cand``,
-  ``n_set``), and its timed call includes the ``-1`` fill of ``cand``;
+  only; one that takes 16 also compacts the survivors (``cand``,
+  ``n_set``), and its timed call includes the ``-1`` fill of ``cand``
+  and the allocation of its bitmap scratch;
 - times every build in turns (``a b b a`` order, three times, CUDA-event
   medians) and requires the flags, and where a build gives them ``cand``
   and ``n_set``, to equal the plain versions';
@@ -26,9 +27,9 @@ Then:
   host; the port never calls it), each with CUDA events, and the peak
   device memory of the compaction.
 
-Prints the medians, the launch time of the profiling build, each CTA's
-cycles split into the phases, then the card's name, power limit and top SM
-clock, and one JSON line last.
+Prints the medians, the launch time of the profiling build, the cycles of
+each CTA (or of each tile's steps) split into the phases, then the card's
+name, power limit and top SM clock, and one JSON line last.
 """
 
 from __future__ import annotations
@@ -53,19 +54,17 @@ from spark_bam_tpu_torch.tpu import kernels as K
 from spark_bam_tpu_torch.tpu.stream_check import pad_contig_lengths
 
 
-def lane_capacity(w: int) -> int:
-    """The check's survivor capacity for a window of ``w`` offsets."""
-    return max(w // 32, 4096)
-
-
 class _PrefilterCall:
     """One build of ``sbt_prefilter``: flags only (8 arguments) or flags
-    and the ordered survivor compaction (14 arguments, with its own tile
-    status records)."""
+    and the ordered survivor compaction (16 arguments, with its own tile
+    status records, bitmap scratch and a persistent grid)."""
 
     def __init__(self, lib, arity: int):
         self.lib, self.arity = lib, arity
-        self.status = K.TileStatus(4) if arity == 14 else None
+        self.status = K.TileStatus(4) if arity == 16 else None
+        if arity == 16:
+            lib.sbt_prefilter_ctas.argtypes = []
+            self.ctas = lib.sbt_prefilter_ctas()
 
     def __call__(self, padded, lens, nc: int, n: int, out, cand, n_set):
         w = padded.numel() - K.PAD
@@ -74,13 +73,17 @@ class _PrefilterCall:
                 padded.data_ptr(), w, lens.data_ptr(), lens.numel(), nc, n,
                 out.data_ptr(), prf._stream())
         tiles = -(-w // K.PREFILTER_TILE)
+        grid = min(tiles, self.ctas)
         records, base, epoch = self.status.next(padded.device,
-                                                prf._stream(), tiles)
+                                                prf._stream(), tiles + grid)
+        bitmaps = torch.empty(tiles * K.PREFILTER_TILE // 32,
+                              dtype=torch.int32, device=padded.device)
         cand.fill_(-1)
         return self.lib.sbt_prefilter(
             padded.data_ptr(), w, lens.data_ptr(), lens.numel(), nc, n,
-            records.data_ptr(), base, epoch, out.data_ptr(), cand.data_ptr(),
-            cand.numel(), n_set.data_ptr(), prf._stream())
+            records.data_ptr(), base, epoch, out.data_ptr(),
+            bitmaps.data_ptr(), cand.data_ptr(), cand.numel(),
+            n_set.data_ptr(), grid, prf._stream())
 
 
 def _event_ms(fn, reps: int = 10) -> float:
@@ -130,7 +133,7 @@ def time_compaction(F, n: int, capacity: int) -> dict:
 def profile_prefilter(srcs: list[Path], work: Path, padded, lens, nc: int,
                       n: int, mhz: float) -> dict:
     w = padded.numel() - K.PAD
-    cap = lane_capacity(w)
+    cap = K.lane_capacity(w)
     print(f"prefilter_check_flags W={w} n={n} capacity={cap}")
     src = build.CSRC / "prefilter.cu"
     calls = {"prefilter.cu": _PrefilterCall(*prf._compile(
@@ -160,7 +163,7 @@ def profile_prefilter(srcs: list[Path], work: Path, padded, lens, nc: int,
         if not torch.equal(o[0], want_f):
             raise AssertionError(f"{name}: flags differ from the plain "
                                  "version")
-        if c.arity == 14 and not (
+        if c.arity == 16 and not (
                 torch.equal(o[1].long(), want_cand)
                 and int(o[2][0]) == int(want_n)):
             raise AssertionError(f"{name}: cand or n_set differ from the "
@@ -169,8 +172,12 @@ def profile_prefilter(srcs: list[Path], work: Path, padded, lens, nc: int,
     for name, c in calls.items():
         check(name, c, outs[name])
 
-    phases = prf._names(src, "phases")
-    marks = np.zeros((prf.MAX_CTAS, len(phases) + 1), dtype=np.int64)
+    # Phase groups split by ';' (one mark more than phases each), in one
+    # row of marks per CTA or tile.
+    groups = [[x.strip() for x in g.split(",")]
+              for g in ", ".join(prf._names(src, "phases")).split(";")]
+    marks = np.zeros((prf.MAX_CTAS, sum(len(g) + 1 for g in groups)),
+                     dtype=np.int64)
     launch_ms = np.zeros(1, dtype=np.float32)
     prof_lib.sbt_prefilter_profile.argtypes = [prf._P, prf._P, prf._I]
     per_launch, p_out = [], outputs()
@@ -184,7 +191,11 @@ def profile_prefilter(srcs: list[Path], work: Path, padded, lens, nc: int,
     check("the profiling build", prof, p_out)
     print(f"  launch of the profiling build (event median, ms): "
           f"{statistics.median(per_launch):.4f}")
-    split = prf._split(marks, phases, mhz)
+    split, col = {}, 0
+    for g in groups:
+        split[", ".join(g)] = prf._split(marks[:, col: col + len(g) + 1], g,
+                                         mhz)
+        col += len(g) + 1
     survivors = int(want_n)
     print(f"  survivors {survivors} of {w} offsets "
           f"({100 * survivors / w:.2f} %)")

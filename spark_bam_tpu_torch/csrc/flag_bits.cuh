@@ -4,7 +4,7 @@
 // Each check is as in the reference: the implied record size wraps like a
 // JVM int32 (computed in uint32, then cast), seq_len + 1 divides with
 // truncation toward zero, the contig bound is a strict '>', and the contig
-// length is a clamped indexed load.
+// length is a clamped indexed load (made only where it decides a bit).
 
 #pragma once
 
@@ -61,31 +61,38 @@ __device__ __forceinline__ FixedBlock fixed_block(const uint32_t v[9],
   return b;
 }
 
+// The contig bits of one (index, position) pair, for ``c`` >= 0 contigs:
+// then an index >= c is never also < -1, and one in [0, c) is neither, so
+// the reference's chain of exclusions reduces to these compares.
+// ``len_at`` is read only where it counts: ``len_of(idx)`` runs for an
+// index in [0, c) alone, so most offsets (random bytes) load nothing.
+template <class LenOf>
 __device__ __forceinline__ int32_t ref_bits(int32_t idx, int32_t pos, int c,
-                                            int32_t len_at, int32_t b_neg_idx,
+                                            LenOf len_of, int32_t b_neg_idx,
                                             int32_t b_large_idx,
                                             int32_t b_neg_pos,
                                             int32_t b_large_pos) {
-  bool neg_idx = idx < -1;
-  bool large_idx = !neg_idx && idx >= c;
-  bool neg_pos = pos < -1;
-  bool large_pos = !neg_idx && !large_idx && !neg_pos && idx >= 0 &&
-                   pos > len_at;
-  return (neg_idx ? b_neg_idx : 0) | (large_idx ? b_large_idx : 0) |
-         (neg_pos ? b_neg_pos : 0) | (large_pos ? b_large_pos : 0);
+  const bool in_table = (uint32_t)idx < (uint32_t)c;
+  const bool large_pos = in_table && pos >= -1 && pos > len_of(idx);
+  return (idx < -1 ? b_neg_idx : 0) | (idx >= c ? b_large_idx : 0) |
+         (pos < -1 ? b_neg_pos : 0) | (large_pos ? b_large_pos : 0);
 }
 
 // The bits the fixed block alone decides, before the tooFewFixedBlockBytes
 // overwrite (which the caller applies: it replaces every other bit).
+// ``num_contigs`` >= 0 (the wrappers check); an index past the table
+// (num_contigs > cmax) reads its last entry, as the reference's clamped
+// take does.
 __device__ __forceinline__ int32_t fixed_bits(const FixedBlock& b,
                                               const int32_t* __restrict__ lengths,
                                               int cmax, int num_contigs) {
-  int32_t len_r = __ldg(lengths + min(max(b.ref_idx, 0), cmax - 1));
-  int32_t len_n = __ldg(lengths + min(max(b.next_ref_idx, 0), cmax - 1));
-  int32_t f = ref_bits(b.ref_idx, b.ref_pos, num_contigs, len_r,
+  const auto len_of = [&](int32_t idx) {
+    return __ldg(lengths + min(idx, cmax - 1));
+  };
+  int32_t f = ref_bits(b.ref_idx, b.ref_pos, num_contigs, len_of,
                        kNegativeReadIdx, kTooLargeReadIdx, kNegativeReadPos,
                        kTooLargeReadPos);
-  f |= ref_bits(b.next_ref_idx, b.next_ref_pos, num_contigs, len_n,
+  f |= ref_bits(b.next_ref_idx, b.next_ref_pos, num_contigs, len_of,
                 kNegativeNextReadIdx, kTooLargeNextReadIdx,
                 kNegativeNextReadPos, kTooLargeNextReadPos);
   int32_t t = (int32_t)((uint32_t)b.seq_len + 1u);

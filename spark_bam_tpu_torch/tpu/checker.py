@@ -2,13 +2,15 @@
 checker.py``), in two forms that give the same verdicts:
 
 - the funnel (``funnel=True``, the count path): stage 0 screens every
-  offset with the fixed-block prefilter (the CUDA kernel
-  ``prefilter_check_flags``); survivors compact into a fixed-capacity lane
-  buffer, get their full 19-bit mask from word-level hierarchical tables,
-  and walk ``reads_to_check`` chained records;
+  offset with the fixed-block prefilter and compacts the survivors into a
+  fixed-capacity lane buffer in the same launch (the CUDA kernel
+  ``prefilter_check_flags``); they get their full 19-bit mask from
+  word-level hierarchical tables and walk ``reads_to_check`` chained
+  records;
 - the full pass (``funnel=False``, full-check's per-position masks): the
   CUDA kernel ``full_check_flags`` gives all 19 bits at every offset, its
-  survivors compact the same way and walk with plain lookups into it.
+  survivors compact in PyTorch (``_compact_mask``) into the same lanes and
+  walk with plain lookups into it.
 
 ``TpuChecker`` windows a flat buffer through ``check_window`` (full pass)
 and re-checks escaped lanes on the host, the reference's ``Checker``
@@ -34,12 +36,16 @@ from spark_bam_tpu_torch.check.vectorized import check_flat
 from spark_bam_tpu_torch.device import resolve_device
 from spark_bam_tpu_torch.tpu.kernels import (
     PAD,
+    _compact_mask,
     _fixed_bits,
     _misc_at,
+    _pack_bits,
+    _popcount32,
     _prefilter_flags,
     _take,
     _wrap32,
     full_check_flags,
+    lane_capacity,
     lz77_resolve,
     prefilter_check_flags,
     tokenize,
@@ -50,28 +56,6 @@ __all__ = [
     "PAD", "TpuChecker", "WindowResult", "_prefilter_flags", "check_window",
     "count_window", "count_window_raw", "inflate_window_raw", "next_carry",
 ]
-
-_M32 = 0xFFFFFFFF
-
-
-def _popcount32(x: torch.Tensor) -> torch.Tensor:
-    """Set bits of each int64 holding a uint32 value (SWAR)."""
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return ((x * 0x01010101) & _M32) >> 24
-
-
-def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """Pack a bool vector into uint32 words held in int64 (lane = bit
-    index), zero-padding the tail to a word boundary."""
-    length = bits.numel()
-    full = -(-length // 32) * 32
-    if full != length:
-        bits = torch.cat([bits, bits.new_zeros(full - length)])
-    lanes = torch.arange(32, device=bits.device)
-    return (bits.view(-1, 32).long() << lanes).sum(1)
-
 
 def _funnel_tables(p, n: int):
     """Word-level prefix tables for the deep checks: packed indicator words
@@ -172,29 +156,6 @@ def _deep_flags_at(p, lengths, num_contigs: int, n: int, tables, pos):
     return f.int()
 
 
-def _compact_mask(mask: torch.Tensor, capacity: int):
-    """Set positions of ``mask`` compacted into a (capacity,) index buffer
-    (-1 past the population), via packed words, a word-level popcount prefix,
-    a binary search for the word holding the k-th set bit and masked
-    popcounts for its lane. Returns ``(cand, n_set)``."""
-    words = _pack_bits(mask)
-    wpc = _popcount32(words)
-    wcnt = torch.cumsum(wpc, 0)
-    n_set = wcnt[-1]
-    k = torch.arange(capacity, device=mask.device)
-    wi = torch.searchsorted(wcnt, k + 1, right=False)
-    excl = _take(wcnt - wpc, wi)
-    r = k + 1 - excl                              # rank inside the word: 1..32
-    word = _take(words, wi)
-    lanes = torch.arange(32, device=mask.device)
-    incl = (2 << lanes) - 1                       # inclusive lane masks
-    pcnt = _popcount32(word[:, None] & incl[None, :])
-    hit = (pcnt == r[:, None]) & (((word[:, None] >> lanes[None, :]) & 1) == 1)
-    lane = hit.int().argmax(dim=1)                # first hit
-    cand = torch.where(k < n_set, wi * 32 + lane, -1)
-    return cand, n_set
-
-
 def _check_lanes(padded, lengths, num_contigs: int, n: int, at_eof: bool,
                  reads_to_check: int = 10, funnel: bool = True) -> dict:
     """Flag pass (prefilter, or the full pass with ``funnel=False``) +
@@ -203,8 +164,11 @@ def _check_lanes(padded, lengths, num_contigs: int, n: int, at_eof: bool,
     dev = padded.device
     w = padded.numel() - PAD
     ae = torch.tensor(bool(at_eof), device=dev)
+    capacity = lane_capacity(w)
     if funnel:
-        F = prefilter_check_flags(padded, lengths, num_contigs, n)
+        F, cand, n_survivors = prefilter_check_flags(
+            padded, lengths, num_contigs, n, capacity)
+        n_survivors = n_survivors.long()
     else:
         F = full_check_flags(padded, lengths, num_contigs, n)
     in_range = torch.arange(w, device=dev) < n
@@ -220,8 +184,8 @@ def _check_lanes(padded, lengths, num_contigs: int, n: int, at_eof: bool,
     res0 = torch.where(esc0, 2, torch.where(fail0, -1, 0)).to(torch.int8)
     fail_mask0 = torch.where(fail0, F, 0)
 
-    capacity = max(w // 32, 4096)
-    cand, n_survivors = _compact_mask(survivor, capacity)
+    if not funnel:
+        cand, n_survivors = _compact_mask(survivor, capacity)
     overflow = n_survivors > capacity
     live = cand >= 0
     if funnel:

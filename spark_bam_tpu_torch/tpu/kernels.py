@@ -8,7 +8,7 @@ For CUDA tensors it launches its kernel (``csrc/*.cu``, built by
 
 | wrapper                 | CUDA source           | replaces (spark_bam_tpu/tpu/pallas_kernels.py) |
 | ----------------------- | --------------------- | ---------------------------------------------- |
-| ``prefilter_check_flags`` | ``csrc/prefilter.cu`` | ``prefilter_check_flags`` (``:436``)          |
+| ``prefilter_check_flags`` | ``csrc/prefilter.cu`` | ``prefilter_check_flags`` (``:436``), and the compaction ``tpu/checker.py::_compact_mask`` (``:414``) |
 | ``full_check_flags``    | ``csrc/full_flags.cu`` | ``full_check_flags`` (``:470``)               |
 | ``lz77_resolve``        | ``csrc/lz77.cu``      | ``lz77_resolve_pallas`` (``:250``)             |
 | ``tokenize``            | ``csrc/tokenize.cu``  | ``tokenize_pallas`` (``:299``)                 |
@@ -35,6 +35,10 @@ PAD = 257 * 1024
 FULL_FLAGS_TILE = 16384
 #: int32 per tile status record of the full pass (``kRecord`` there).
 _RECORD = 16
+#: Offsets per tile of the prefilter (``kTile`` in ``csrc/prefilter.cu``).
+PREFILTER_TILE = 16384
+#: int32 per tile status record of the prefilter (``kRecord`` there).
+_PREFILTER_RECORD = 4
 #: Status words hold the epoch in 32 bits.
 _EPOCHS = 1 << 32
 #: log2(64 Ki): pointer doubling collapses any chain inside a token row.
@@ -119,6 +123,11 @@ def _window_fixed_bits(fx: dict, lengths, num_contigs: int):
     )
 
 
+def lane_capacity(w: int) -> int:
+    """The check's survivor lanes for a window of ``w`` offsets."""
+    return max(w // 32, 4096)
+
+
 def _prefilter_flags(p, lengths, num_contigs: int, n: int) -> torch.Tensor:
     """Plain version of the stage-0 funnel pass: the fixed-block subset of
     the 19 bits at every offset of the (W + PAD,) window ``p``, including
@@ -132,6 +141,64 @@ def _prefilter_flags(p, lengths, num_contigs: int, n: int) -> torch.Tensor:
 def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``jnp.take(t, idx, mode="clip")``."""
     return t[idx.clamp(0, t.numel() - 1)]
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int64 holding a uint32 value (SWAR)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & _M32) >> 24
+
+
+def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Pack a bool vector into uint32 words held in int64 (lane = bit
+    index), zero-padding the tail to a word boundary."""
+    length = bits.numel()
+    full = -(-length // 32) * 32
+    if full != length:
+        bits = torch.cat([bits, bits.new_zeros(full - length)])
+    lanes = torch.arange(32, device=bits.device)
+    return (bits.view(-1, 32).long() << lanes).sum(1)
+
+
+def _compact_mask(mask: torch.Tensor, capacity: int):
+    """Set positions of ``mask`` compacted into a (capacity,) index buffer
+    (-1 past the population), via packed words, a word-level popcount prefix,
+    a binary search for the word holding the k-th set bit and masked
+    popcounts for its lane. Returns ``(cand, n_set)``."""
+    words = _pack_bits(mask)
+    wpc = _popcount32(words)
+    wcnt = torch.cumsum(wpc, 0)
+    n_set = wcnt[-1]
+    k = torch.arange(capacity, device=mask.device)
+    wi = torch.searchsorted(wcnt, k + 1, right=False)
+    excl = _take(wcnt - wpc, wi)
+    r = k + 1 - excl                              # rank inside the word: 1..32
+    word = _take(words, wi)
+    lanes = torch.arange(32, device=mask.device)
+    incl = (2 << lanes) - 1                       # inclusive lane masks
+    pcnt = _popcount32(word[:, None] & incl[None, :])
+    hit = (pcnt == r[:, None]) & (((word[:, None] >> lanes[None, :]) & 1) == 1)
+    lane = hit.int().argmax(dim=1)                # first hit
+    cand = torch.where(k < n_set, wi * 32 + lane, -1)
+    return cand, n_set
+
+
+def _prefilter_compact(p, lengths, num_contigs: int, n: int, capacity: int):
+    """Plain version of the fused stage-0 pass: ``_prefilter_flags``, then
+    the survivors (``F == 0`` at offsets below ``n``) compacted by
+    ``_compact_mask``. Returns ``(F (W,) i32, cand (capacity,) i32,
+    n_set () i32)``: the first ``capacity`` survivors in increasing order
+    then -1, and the exact survivor count (which may exceed the
+    capacity)."""
+    F = _prefilter_flags(p, lengths, num_contigs, n)
+    survivor = (F == 0) & (torch.arange(F.numel(), device=p.device) < n)
+    cand, n_set = _compact_mask(survivor, capacity)
+    return F, cand.int(), n_set.int()
 
 
 def _misc_at(p, n: int, pos):
@@ -230,13 +297,15 @@ def _resolve_body(lit: torch.Tensor, dist: torch.Tensor):
 
 
 class TileStatus:
-    """The full pass's tile status records, kept per CUDA stream between
-    launches: a ticket counter, then one record per tile. Zeroed once; each
-    launch on a stream gets the next epoch and the ticket base where the
-    previous launch's tickets ended (launches on one stream run one after
-    another), so the kernel never needs the records cleared."""
+    """A kernel's tile status records (``record`` int32 each), kept per
+    CUDA stream between launches: a ticket counter, then one record per
+    tile. Zeroed once; each launch on a stream gets the next epoch and the
+    ticket base where the previous launch's tickets ended (launches on one
+    stream run one after another), so the kernel never needs the records
+    cleared. Each kernel that keeps records has its own instance."""
 
-    def __init__(self):
+    def __init__(self, record: int = _RECORD):
+        self._record = record
         self._lock = threading.Lock()
         self._streams: dict = {}   # (device, stream) → [records, base, epoch]
 
@@ -246,10 +315,10 @@ class TileStatus:
         key = (device.index, stream)
         with self._lock:
             st = self._streams.get(key)
-            if (st is None or st[0].numel() < _RECORD * (1 + tiles)
-                    or st[2] + 1 >= _EPOCHS):
-                st = [torch.zeros(_RECORD * (1 + tiles), dtype=torch.int32,
-                                  device=device), 0, 0]
+            size = self._record * (1 + tiles)
+            if st is None or st[0].numel() < size or st[2] + 1 >= _EPOCHS:
+                st = [torch.zeros(size, dtype=torch.int32, device=device),
+                      0, 0]
                 self._streams[key] = st
             records, base, epoch = st
             st[1] = (base + tiles) & 0xFFFFFFFF
@@ -263,6 +332,7 @@ class TileStatus:
 
 
 _TILE_STATUS = TileStatus()
+_PREFILTER_STATUS = TileStatus(_PREFILTER_RECORD)
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
@@ -295,31 +365,76 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
-def prefilter_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
-                          num_contigs: int, n: int) -> torch.Tensor:
-    """Stage-0 funnel bits at every offset of a (W + PAD,) u8 window;
-    ``lengths`` is the padded (Cmax,) i32 contig table and ``n`` the valid
-    byte count. Returns (W,) i32.
+_CTAS: dict = {}
 
-    Replaces ``pallas_kernels.py::prefilter_check_flags``. Bound by bytes
-    (~5 per offset: one in, four out); one thread per offset reading its
-    fixed block from global memory as aligned words, contig lengths by
-    direct gather."""
+
+def _prefilter_ctas(dev: torch.device) -> int:
+    """One wave of the prefilter's persistent CTAs on ``dev``."""
+    if dev.index not in _CTAS:
+        lib = load()
+        with torch.cuda.device(dev):
+            _CTAS[dev.index] = int(lib.sbt_prefilter_ctas())
+        if _CTAS[dev.index] <= 0:
+            raise RuntimeError("sbt_prefilter_ctas found no room for a CTA")
+    return _CTAS[dev.index]
+
+
+def prefilter_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
+                          num_contigs: int, n: int,
+                          capacity: int | None = None):
+    """Stage-0 funnel bits at every offset of a (W + PAD,) u8 window and
+    its survivors, compacted; ``lengths`` is the padded (Cmax,) i32 contig
+    table, ``n`` the valid byte count and ``capacity`` the survivor lanes
+    (default ``lane_capacity(W)``). Returns ``(F (W,) i32, cand (capacity,)
+    i32, n_set () i32)``, as ``_prefilter_compact``.
+
+    Replaces ``pallas_kernels.py::prefilter_check_flags`` and the check's
+    ``_compact_mask`` behind it, in one launch. Bound by bytes and issue
+    about evenly (one byte in and four out an offset, ~60 integer
+    operations an offset): one wave of persistent CTAs takes 16 KiB tiles
+    by ticket, stages each in shared memory by one bulk async copy, 4
+    offsets a thread from nine shared words with one 16-byte store, and
+    packs the survivors by warp ballot into a bitmap (2 KiB a tile of
+    scratch) with its count; then, by a second ticket in tile order, ranks
+    each tile's survivors by a block scan and a decoupled look-back over
+    epoch-tagged tile records (kept per stream, ``TileStatus``) and writes
+    them in increasing order. ``padded`` must start on a 16-byte
+    boundary."""
+    w = padded.numel() - PAD
+    capacity = lane_capacity(w) if capacity is None else int(capacity)
     if not _on_cuda(padded):
-        return _prefilter_flags(padded, lengths, num_contigs, n)
+        return _prefilter_compact(padded, lengths, num_contigs, n, capacity)
     dev = padded.device
     _check(padded, "padded", torch.uint8, 1, dev)
     _check(lengths, "lengths", torch.int32, 1, dev)
-    w = padded.numel() - PAD
-    if w <= 0 or lengths.numel() == 0:
-        raise ValueError("padded must exceed PAD bytes; lengths non-empty")
-    if padded.data_ptr() % 4:
-        raise ValueError("padded must start on a 4-byte boundary")
+    if w <= 0 or lengths.numel() == 0 or capacity <= 0 or num_contigs < 0:
+        raise ValueError("padded must exceed PAD bytes; lengths non-empty; "
+                         "capacity positive; num_contigs not negative")
+    if padded.numel() >= 1 << 31 or capacity >= 1 << 31:
+        raise ValueError("the window and capacity must be below 2^31")
+    if padded.data_ptr() % 16:
+        raise ValueError("padded must start on a 16-byte boundary")
+    tiles = -(-w // PREFILTER_TILE)
+    grid = min(tiles, _prefilter_ctas(dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # In each of its two phases each CTA takes one ticket past the last
+    # tile.
+    records, base, epoch = _PREFILTER_STATUS.next(dev, stream, tiles + grid)
     out = torch.empty(w, dtype=torch.int32, device=dev)
-    _launch("prefilter_check_flags", "sbt_prefilter", padded.data_ptr(), w,
-            lengths.data_ptr(), lengths.numel(), int(num_contigs), int(n),
-            out.data_ptr(), device=dev)
-    return out
+    bitmaps = torch.empty(tiles * PREFILTER_TILE // 32, dtype=torch.int32,
+                          device=dev)
+    cand = torch.full((capacity,), -1, dtype=torch.int32, device=dev)
+    n_set = torch.empty((), dtype=torch.int32, device=dev)
+    try:
+        _launch("prefilter_check_flags", "sbt_prefilter", padded.data_ptr(),
+                w, lengths.data_ptr(), lengths.numel(), int(num_contigs),
+                int(n), records.data_ptr(), base, epoch, out.data_ptr(),
+                bitmaps.data_ptr(), cand.data_ptr(), capacity,
+                n_set.data_ptr(), grid, device=dev)
+    except RuntimeError:
+        _PREFILTER_STATUS.drop(dev, stream)
+        raise
+    return out, cand, n_set
 
 
 def full_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
@@ -340,9 +455,10 @@ def full_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
     _check(padded, "padded", torch.uint8, 1, dev)
     _check(lengths, "lengths", torch.int32, 1, dev)
     w = padded.numel() - PAD
-    if w <= 0 or w % 4 or lengths.numel() == 0:
+    if w <= 0 or w % 4 or lengths.numel() == 0 or num_contigs < 0:
         raise ValueError("padded must be PAD plus a positive multiple of 4 "
-                         "bytes; lengths non-empty")
+                         "bytes; lengths non-empty; num_contigs not "
+                         "negative")
     if padded.numel() >= 1 << 31:
         raise ValueError("the window must hold fewer than 2^31 bytes")
     if padded.data_ptr() % 16:

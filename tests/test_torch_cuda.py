@@ -17,7 +17,7 @@ from spark_bam_tpu_torch import (
     StreamChecker,
     full_check_summary_streaming,
 )
-from spark_bam_tpu_torch.benchmarks import resolve_flag_cases
+from spark_bam_tpu_torch.benchmarks import prefilter_cases, resolve_flag_cases
 from spark_bam_tpu_torch.benchmarks.deflate_cases import (
     EXPECT_REJECT,
     edge_cases,
@@ -46,6 +46,14 @@ def _u16(t):
     return t.cpu().view(torch.int16).long() & 0xFFFF
 
 
+def _assert_prefilter_equal(got, want, label):
+    """Kernel against plain: flags, candidates and survivor count."""
+    for what, g, w_ in zip(("F", "cand", "n_set"), got, want):
+        assert g.dtype == w_.dtype == torch.int32, (label, what)
+        assert g.shape == w_.shape, (label, what)
+        assert torch.equal(g, w_), (label, what)
+
+
 def test_prefilter_kernel_matches_plain(gpu):
     rng = np.random.default_rng(1)
     w = 1 << 20
@@ -56,8 +64,55 @@ def test_prefilter_kernel_matches_plain(gpu):
             rng.integers(0, 1 << 31, 1024, dtype=np.int64).astype(np.int32)
         ).to(gpu)
         got = K.prefilter_check_flags(padded, lens, 7, n)
-        want = K._prefilter_flags(padded, lens, 7, n)
-        assert torch.equal(got, want)
+        want = K._prefilter_compact(padded, lens, 7, n, K.lane_capacity(w))
+        _assert_prefilter_equal(got, want, n)
+        assert torch.equal(got[0], K._prefilter_flags(padded, lens, 7, n))
+
+
+@pytest.mark.parametrize("w", [1 << 17, 1 << 20])
+def test_prefilter_kernel_on_edge_windows(gpu, w):
+    """The shared prefilter edge set and the overflowing soup, each window
+    run twice back to back on one stream's tile records, and once more at
+    a capacity of 5 (the first five survivors, the exact count)."""
+    cases = prefilter_cases.prefilter_windows(w, seed=5)
+    cases["overflow_soup"] = prefilter_cases.overflow_soup(w)
+    for name, (padded, n, lens, nc) in cases.items():
+        buf = torch.from_numpy(padded).to(gpu)
+        lt = torch.from_numpy(lens).to(gpu)
+        cap = K.lane_capacity(buf.numel() - K.PAD)
+        want = K._prefilter_compact(buf, lt, nc, n, cap)
+        first = K.prefilter_check_flags(buf, lt, nc, n)
+        second = K.prefilter_check_flags(buf, lt, nc, n)
+        _assert_prefilter_equal(first, want, name)
+        _assert_prefilter_equal(second, want, name)
+        few = K.prefilter_check_flags(buf, lt, nc, n, 5)
+        _assert_prefilter_equal(
+            few, K._prefilter_compact(buf, lt, nc, n, 5), f"{name} cap 5")
+
+
+def test_prefilter_kernel_on_two_streams(gpu):
+    """Launches on two streams at once keep their own tile records; a
+    stream's second launch after the other's first still matches."""
+    cases = prefilter_cases.prefilter_windows(1 << 20, seed=6)
+    names = ["random_with_records", "count_capacity_plus_1",
+             "tail_crosses_tile", "count_2x_capacity"]
+    side = torch.cuda.Stream(gpu)
+    bufs = {k: (torch.from_numpy(cases[k][0]).to(gpu), cases[k][1],
+                torch.from_numpy(cases[k][2]).to(gpu), cases[k][3])
+            for k in names}
+    torch.cuda.synchronize()
+    got = {}
+    for rep in range(3):
+        for j, k in enumerate(names):
+            buf, n, lt, nc = bufs[k]
+            stream = side if j % 2 else torch.cuda.current_stream(gpu)
+            with torch.cuda.stream(stream):
+                got[(rep, k)] = K.prefilter_check_flags(buf, lt, nc, n)
+    torch.cuda.synchronize()
+    for (rep, k), out in got.items():
+        buf, n, lt, nc = bufs[k]
+        want = K._prefilter_compact(buf, lt, nc, n, K.lane_capacity(1 << 20))
+        _assert_prefilter_equal(out, want, (rep, k))
 
 
 def test_lz77_kernel_matches_plain(gpu):
@@ -200,10 +255,24 @@ def test_wrappers_check_their_inputs(gpu):
         K.prefilter_check_flags(torch.zeros(K.PAD + 64, device=gpu),
                                 torch.zeros(4, dtype=torch.int32, device=gpu),
                                 1, 1)
-    with pytest.raises(ValueError, match="4-byte boundary"):
+    with pytest.raises(ValueError, match="16-byte boundary"):
         K.prefilter_check_flags(
-            torch.zeros(K.PAD + 65, dtype=torch.uint8, device=gpu)[1:],
+            torch.zeros(K.PAD + 68, dtype=torch.uint8, device=gpu)[4:],
             torch.zeros(4, dtype=torch.int32, device=gpu), 1, 1)
+    with pytest.raises(ValueError, match="capacity"):
+        K.prefilter_check_flags(
+            torch.zeros(K.PAD + 64, dtype=torch.uint8, device=gpu),
+            torch.zeros(4, dtype=torch.int32, device=gpu), 1, 1, 0)
+    for kernel in (K.prefilter_check_flags, K.full_check_flags):
+        with pytest.raises(ValueError, match="num_contigs"):
+            kernel(torch.zeros(K.PAD + 64, dtype=torch.uint8, device=gpu),
+                   torch.zeros(4, dtype=torch.int32, device=gpu), -1, 1)
+    F, cand, n_set = K.prefilter_check_flags(
+        torch.zeros(K.PAD + 63, dtype=torch.uint8, device=gpu),
+        torch.zeros(4, dtype=torch.int32, device=gpu), 1, 63)
+    assert F.shape == (63,) and cand.shape == (4096,) and n_set.shape == ()
+    assert F.dtype == cand.dtype == n_set.dtype == torch.int32
+    assert int(n_set) == 0 and bool((cand == -1).all())
     with pytest.raises(ValueError, match="16-byte boundary"):
         K.tokenize(
             torch.zeros(132, dtype=torch.uint8, device=gpu)[4:].view(2, 64),

@@ -98,7 +98,7 @@ def test_prefilter_plain_matches_jax(windows, name, short):
         jnp.asarray(padded), jnp.asarray(lens), jnp.int32(nc).reshape(1),
         jnp.int32(n).reshape(1), interpret=True))
     got = K.prefilter_check_flags(
-        torch.from_numpy(padded), torch.from_numpy(lens), nc, n).numpy()
+        torch.from_numpy(padded), torch.from_numpy(lens), nc, n)[0].numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, want_pallas)
     assert got.dtype == np.int32 and got.shape == (W,)
