@@ -19,8 +19,10 @@ Then:
   ``n_set``), and its timed call includes the ``-1`` fill of ``cand``
   and the allocation of its bitmap scratch;
 - times every build in turns (``a b b a`` order, three times, CUDA-event
-  medians) and requires the flags, and where a build gives them ``cand``
-  and ``n_set``, to equal the plain versions';
+  medians of one call, host work included), then 20 calls in a row (``a
+  b b a``; the host's work per call overlaps the card's), and requires
+  the flags, and where a build gives them ``cand`` and ``n_set``, to
+  equal the plain versions';
 - times the plain compaction the check ran before the fused kernel (the
   survivor mask and ``checker._compact_mask``) and ``torch.nonzero(F ==
   0)``, the library call that computes the same positions (it syncs the
@@ -84,6 +86,21 @@ class _PrefilterCall:
             records.data_ptr(), base, epoch, out.data_ptr(),
             bitmaps.data_ptr(), cand.data_ptr(), cand.numel(),
             n_set.data_ptr(), grid, prf._stream())
+
+
+def _back_to_back_ms(fn, reps: int = 20) -> float:
+    """CUDA-event time of ``reps`` calls of ``fn`` in a row, over
+    ``reps``: the host enqueues ahead of the card, so its own time per call
+    stays out of the figure (unlike one call between two events)."""
+    fn()
+    torch.cuda.synchronize()
+    a, z = prf._events()
+    a.record()
+    for _ in range(reps):
+        fn()
+    z.record()
+    z.synchronize()
+    return a.elapsed_time(z) / reps
 
 
 def _event_ms(fn, reps: int = 10) -> float:
@@ -152,9 +169,16 @@ def profile_prefilter(srcs: list[Path], work: Path, padded, lens, nc: int,
                 torch.empty(1, dtype=torch.int32, device=dev))
 
     outs = {name: outputs() for name in calls}
-    ms = prf._in_turns({name: (lambda c=c, o=outs[name]: c(padded, lens, nc,
-                                                           n, *o))
-                        for name, c in calls.items()})
+    runs = {name: (lambda c=c, o=outs[name]: c(padded, lens, nc, n, *o))
+            for name, c in calls.items()}
+    ms = prf._in_turns(runs)
+    names = list(runs)
+    b2b = {name: [] for name in names}
+    for name in names + names[::-1]:
+        b2b[name].append(_back_to_back_ms(runs[name]))
+    b2b = {name: statistics.median(v) for name, v in b2b.items()}
+    for name, v in b2b.items():
+        print(f"  {name}: {v:.4f} ms a call, 20 calls back to back")
     want_f = K._prefilter_flags(padded, lens, nc, n)
     survivor = (want_f == 0) & (torch.arange(w, device=dev) < n)
     want_cand, want_n = ck._compact_mask(survivor, cap)
@@ -199,7 +223,8 @@ def profile_prefilter(srcs: list[Path], work: Path, padded, lens, nc: int,
     survivors = int(want_n)
     print(f"  survivors {survivors} of {w} offsets "
           f"({100 * survivors / w:.2f} %)")
-    return {"ms": ms, "profile_launch_ms": statistics.median(per_launch),
+    return {"ms": ms, "back_to_back_ms": b2b,
+            "profile_launch_ms": statistics.median(per_launch),
             "survivors": survivors, "capacity": cap, "split": split,
             "compaction": time_compaction(want_f, n, cap)}
 

@@ -166,8 +166,8 @@ def _check_lanes(padded, lengths, num_contigs: int, n: int, at_eof: bool,
     ae = torch.tensor(bool(at_eof), device=dev)
     capacity = lane_capacity(w)
     if funnel:
-        F, cand, n_survivors = prefilter_check_flags(
-            padded, lengths, num_contigs, n, capacity)
+        F, cand, n_survivors = prefilter_check_flags(padded, lengths,
+                                                     num_contigs, n)
         n_survivors = n_survivors.long()
     else:
         F = full_check_flags(padded, lengths, num_contigs, n)

@@ -380,13 +380,12 @@ def _prefilter_ctas(dev: torch.device) -> int:
 
 
 def prefilter_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
-                          num_contigs: int, n: int,
-                          capacity: int | None = None):
+                          num_contigs: int, n: int):
     """Stage-0 funnel bits at every offset of a (W + PAD,) u8 window and
-    its survivors, compacted; ``lengths`` is the padded (Cmax,) i32 contig
-    table, ``n`` the valid byte count and ``capacity`` the survivor lanes
-    (default ``lane_capacity(W)``). Returns ``(F (W,) i32, cand (capacity,)
-    i32, n_set () i32)``, as ``_prefilter_compact``.
+    its survivors, compacted into ``lane_capacity(W)`` lanes; ``lengths``
+    is the padded (Cmax,) i32 contig table and ``n`` the valid byte count.
+    Returns ``(F (W,) i32, cand (capacity,) i32, n_set () i32)``, as
+    ``_prefilter_compact``.
 
     Replaces ``pallas_kernels.py::prefilter_check_flags`` and the check's
     ``_compact_mask`` behind it, in one launch. Bound by bytes and issue
@@ -401,17 +400,17 @@ def prefilter_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
     them in increasing order. ``padded`` must start on a 16-byte
     boundary."""
     w = padded.numel() - PAD
-    capacity = lane_capacity(w) if capacity is None else int(capacity)
+    capacity = lane_capacity(w)
     if not _on_cuda(padded):
         return _prefilter_compact(padded, lengths, num_contigs, n, capacity)
     dev = padded.device
     _check(padded, "padded", torch.uint8, 1, dev)
     _check(lengths, "lengths", torch.int32, 1, dev)
-    if w <= 0 or lengths.numel() == 0 or capacity <= 0 or num_contigs < 0:
+    if w <= 0 or lengths.numel() == 0 or num_contigs < 0:
         raise ValueError("padded must exceed PAD bytes; lengths non-empty; "
-                         "capacity positive; num_contigs not negative")
-    if padded.numel() >= 1 << 31 or capacity >= 1 << 31:
-        raise ValueError("the window and capacity must be below 2^31")
+                         "num_contigs not negative")
+    if padded.numel() >= 1 << 31:
+        raise ValueError("the window must hold fewer than 2^31 bytes")
     if padded.data_ptr() % 16:
         raise ValueError("padded must start on a 16-byte boundary")
     tiles = -(-w // PREFILTER_TILE)

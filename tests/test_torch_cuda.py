@@ -72,8 +72,7 @@ def test_prefilter_kernel_matches_plain(gpu):
 @pytest.mark.parametrize("w", [1 << 17, 1 << 20])
 def test_prefilter_kernel_on_edge_windows(gpu, w):
     """The shared prefilter edge set and the overflowing soup, each window
-    run twice back to back on one stream's tile records, and once more at
-    a capacity of 5 (the first five survivors, the exact count)."""
+    run twice back to back on one stream's tile records."""
     cases = prefilter_cases.prefilter_windows(w, seed=5)
     cases["overflow_soup"] = prefilter_cases.overflow_soup(w)
     for name, (padded, n, lens, nc) in cases.items():
@@ -85,9 +84,6 @@ def test_prefilter_kernel_on_edge_windows(gpu, w):
         second = K.prefilter_check_flags(buf, lt, nc, n)
         _assert_prefilter_equal(first, want, name)
         _assert_prefilter_equal(second, want, name)
-        few = K.prefilter_check_flags(buf, lt, nc, n, 5)
-        _assert_prefilter_equal(
-            few, K._prefilter_compact(buf, lt, nc, n, 5), f"{name} cap 5")
 
 
 def test_prefilter_kernel_on_two_streams(gpu):
@@ -259,10 +255,6 @@ def test_wrappers_check_their_inputs(gpu):
         K.prefilter_check_flags(
             torch.zeros(K.PAD + 68, dtype=torch.uint8, device=gpu)[4:],
             torch.zeros(4, dtype=torch.int32, device=gpu), 1, 1)
-    with pytest.raises(ValueError, match="capacity"):
-        K.prefilter_check_flags(
-            torch.zeros(K.PAD + 64, dtype=torch.uint8, device=gpu),
-            torch.zeros(4, dtype=torch.int32, device=gpu), 1, 1, 0)
     for kernel in (K.prefilter_check_flags, K.full_check_flags):
         with pytest.raises(ValueError, match="num_contigs"):
             kernel(torch.zeros(K.PAD + 64, dtype=torch.uint8, device=gpu),
