@@ -75,7 +75,7 @@ constexpr unsigned kSleepNs = 200;           // between reads of a record
 constexpr unsigned kAll = 0xFFFFFFFFu;
 
 static_assert(kRegion % 16 == 0 && kRegion >= kTile + 39, "bulk copy size");
-static_assert(kBitWords == 2 * kThreads, "two bitmap words a thread");
+static_assert(kBitWords == 2 * kThreads, "a thread ranks 64 offsets");
 
 // profile launches: prefilter
 // profile phases: load, flags; look-back, expansion

@@ -373,9 +373,10 @@ def _prefilter_ctas(dev: torch.device) -> int:
     if dev.index not in _CTAS:
         lib = load()
         with torch.cuda.device(dev):
-            _CTAS[dev.index] = int(lib.sbt_prefilter_ctas())
-        if _CTAS[dev.index] <= 0:
+            ctas = int(lib.sbt_prefilter_ctas())
+        if ctas <= 0:
             raise RuntimeError("sbt_prefilter_ctas found no room for a CTA")
+        _CTAS[dev.index] = ctas
     return _CTAS[dev.index]
 
 
@@ -388,17 +389,17 @@ def prefilter_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
     ``_prefilter_compact``.
 
     Replaces ``pallas_kernels.py::prefilter_check_flags`` and the check's
-    ``_compact_mask`` behind it, in one launch. Bound by bytes and issue
-    about evenly (one byte in and four out an offset, ~60 integer
-    operations an offset): one wave of persistent CTAs takes 16 KiB tiles
-    by ticket, stages each in shared memory by one bulk async copy, 4
-    offsets a thread from nine shared words with one 16-byte store, and
-    packs the survivors by warp ballot into a bitmap (2 KiB a tile of
-    scratch) with its count; then, by a second ticket in tile order, ranks
-    each tile's survivors by a block scan and a decoupled look-back over
-    epoch-tagged tile records (kept per stream, ``TileStatus``) and writes
-    them in increasing order. ``padded`` must start on a 16-byte
-    boundary."""
+    ``_compact_mask`` behind it, in one launch. Bound by issue slots (~69
+    instructions an offset; its bytes, one in and four out an offset,
+    would take 0.051 ms at W = 2^25): one wave of persistent CTAs takes
+    16 KiB tiles by ticket, stages each in shared memory by one bulk async
+    copy, 4 offsets a thread from nine shared words with one 16-byte
+    store, and packs the survivors by warp ballot into a bitmap (2 KiB a
+    tile of scratch) with its count; then, by a second ticket in tile
+    order, ranks each tile's survivors by a block scan and a decoupled
+    look-back over epoch-tagged tile records (kept per stream,
+    ``TileStatus``) and writes them in increasing order. ``padded`` must
+    start on a 16-byte boundary."""
     w = padded.numel() - PAD
     capacity = lane_capacity(w)
     if not _on_cuda(padded):
