@@ -30,7 +30,9 @@ Then:
   device memory of the compaction.
 
 Prints the medians, the launch time of the profiling build, the cycles of
-each CTA (or of each tile's steps) split into the phases, then the card's
+each CTA (or of each tile's steps) split into the phases, for the fused
+kernel its flags loop's SASS instructions an offset (``cuobjdump``) and
+the share of the SMs' issue slots the flags phase uses, then the card's
 name, power limit and top SM clock, and one JSON line last.
 """
 
@@ -38,8 +40,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
 import shutil
 import statistics
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -86,6 +91,51 @@ class _PrefilterCall:
             records.data_ptr(), base, epoch, out.data_ptr(),
             bitmaps.data_ptr(), cand.data_ptr(), cand.numel(),
             n_set.data_ptr(), grid, prf._stream())
+
+
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+                        r"([^;]*);")
+
+
+def loop_sass(sass: str, kernel: str = "prefilter_kernel",
+              store: str = "STG.E.128") -> tuple[int, int] | None:
+    """``(instructions, 16-byte stores)`` of the innermost loop of
+    ``kernel`` in ``cuobjdump -sass`` text whose body holds ``store``
+    instructions: the flags loop, whose store writes 4 offsets' flags.
+    None when the dump has no such kernel or loop."""
+    blocks = sass.split("Function : ")
+    body = next((b for b in blocks[1:] if kernel in b.split("\n", 1)[0]),
+                None)
+    if body is None:
+        return None
+    ins = [(int(m.group(1), 16), m.group(3), m.group(4))
+           for m in _SASS_LINE.finditer(body)]
+    best = None
+    for addr, op, rest in ins:
+        target = re.match(r"\s*(0x[0-9a-f]+)", rest)
+        if not op.startswith("BRA") or not target:
+            continue
+        lo = int(target.group(1), 16)
+        if lo >= addr:
+            continue
+        span = [o for a, o, _ in ins if lo <= a <= addr]
+        stores = sum(o == store for o in span)
+        if stores and (best is None or len(span) < best[0]):
+            best = (len(span), stores)
+    return best
+
+
+def _sass_per_offset(so: Path) -> float | None:
+    """SASS instructions an offset in the built kernel's flags loop, from
+    ``cuobjdump -sass`` (None where the toolkit lacks it)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                         text=True).stdout
+    loop = loop_sass(out)
+    return None if loop is None else loop[0] / (4 * loop[1])
 
 
 def _back_to_back_ms(fn, reps: int = 20) -> float:
@@ -223,9 +273,25 @@ def profile_prefilter(srcs: list[Path], work: Path, padded, lens, nc: int,
     survivors = int(want_n)
     print(f"  survivors {survivors} of {w} offsets "
           f"({100 * survivors / w:.2f} %)")
+    # The flags loop against the SM's issue rate (4 warp-instructions a
+    # cycle): CTAs an SM x offsets a tile / the flags phase's cycles.
+    issue = {}
+    per_offset = _sass_per_offset(work / "pf.so")
+    if per_offset is not None and calls["prefilter.cu"].arity == 16:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        ctas_per_sm = calls["prefilter.cu"].ctas / sms
+        flags = split[", ".join(groups[0])]["phases"]
+        rate = ctas_per_sm * K.PREFILTER_TILE / flags["flags"]["cycles_mean"]
+        issue = {"sass_per_offset": per_offset, "ctas_per_sm": ctas_per_sm,
+                 "offsets_per_cycle_per_sm": rate,
+                 "issue_share": rate * per_offset / 128}
+        print(f"  flags loop: {per_offset:.2f} SASS instructions an offset, "
+              f"{ctas_per_sm:g} CTAs an SM, {rate:.3f} offsets a cycle an "
+              f"SM: {100 * issue['issue_share']:.1f} % of issue")
     return {"ms": ms, "back_to_back_ms": b2b,
             "profile_launch_ms": statistics.median(per_launch),
             "survivors": survivors, "capacity": cap, "split": split,
+            "flags_loop": issue,
             "compaction": time_compaction(want_f, n, cap)}
 
 
