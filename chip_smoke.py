@@ -45,9 +45,19 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    chains outrun: both count loops must still be exact (through the escape
    retry), ``full_spans`` must defer, and the card's summary must equal
    the CPU's.
+6. The load path: ``stream_read_batches`` over the 1 GiB BAM at the
+   default geometry (each window's records parsed on the device window
+   the check holds; rows = the generator's reads, no spills, no
+   demotions; reads/s and the per-window ``parse_records`` time, CUDA
+   events), then with a loci and flag filter (the mask equals a NumPy
+   filter over the unfiltered columns); the load edge corpus
+   (``benchmarks/load_cases.py``) on the card, on the CPU and with the
+   funnel off (``full_check_flags``), equal batches under every filter,
+   tags included; the long reads' exact spills; ``load_reads_columnar``
+   and ``record_starts`` on the small BAM, card against CPU.
 
-Launch counters are set to 0 just before each main path (3, 4) and read
-just after. Prints one JSON line per kernel set (``{"kernels": [...]}``)
+Launch counters are set to 0 just before each main path (3, 4, 6) and
+read just after. Prints one JSON line per kernel set (``{"kernels": [...]}``)
 and, last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero; without CUDA, or without the package beside
 it, it exits non-zero before printing a result.
@@ -63,6 +73,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -151,6 +162,203 @@ def summaries_equal(a: dict, b: dict) -> bool:
     return True
 
 
+def batches_equal(got, want, label) -> None:
+    """Two ``(abs_base, ReadBatch)`` sequences, column for column."""
+    require([b for b, _ in got] == [b for b, _ in want], f"{label}: bases")
+    for (base, g), (_, w) in zip(got, want):
+        require(list(g.columns) == list(w.columns), f"{label}: columns")
+        require((g.starts == w.starts).all() and len(g.starts) == len(w.starts)
+                and (g.buf == w.buf).all(), f"{label}: starts/buf at {base}")
+        for k in w.columns:
+            require(g.columns[k].dtype == w.columns[k].dtype
+                    and (g.columns[k] == w.columns[k]).all(),
+                    f"{label}: column {k} at {base}")
+
+
+def numpy_filter(cols, intervals, required: int, forbidden: int):
+    """The interval/flag filter in plain NumPy (int64, no wrap: the
+    synthetic reads' ends stay far inside int32)."""
+    pos = cols["pos"].astype(np.int64)
+    end = pos + np.maximum(cols["ref_span"].astype(np.int64), 1)
+    ref, flag = cols["ref_id"], cols["flag"]
+    hit = np.zeros(len(pos), dtype=bool)
+    for r, lo, hi in intervals:
+        hit |= (ref == r) & (pos < hi) & (lo < end)
+    ok = ((flag & required) == required) & ((flag & forbidden) == 0)
+    return ((flag & 4) == 0) & (ref >= 0) & hit & ok
+
+
+def load_phase(port, bam, manifest, long_bam, long_manifest, small, work,
+               card) -> dict:
+    """Phase 6, the load path; returns its kernel launch counts on the
+    1 GiB load and on the edge corpus's funnel-off load."""
+    import weakref
+
+    from spark_bam_tpu_torch.benchmarks import load_cases
+    from spark_bam_tpu_torch.benchmarks.synth import record_positions
+    from spark_bam_tpu_torch.load import tpu_load
+    from spark_bam_tpu_torch.tpu import kernels as K
+    from spark_bam_tpu_torch.tpu import parser, stream_check
+
+    dev = torch.device("cuda", 0)
+    checked, timed, host_parses, made = [], [], [], []
+    real_check = stream_check.check_window
+    real_parse = parser.parse_records
+    real_flat = stream_check.parse_flat_records
+    real_checker = tpu_load.StreamChecker
+
+    def spy_check(padded, *a, **kw):
+        checked.append(weakref.ref(padded))
+        return real_check(padded, *a, **kw)
+
+    def timed_parse(padded, starts, *a, **kw):
+        s = torch.cuda.current_stream(padded.device)
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record(s)
+        out = real_parse(padded, starts, *a, **kw)
+        t1.record(s)
+        resident = any(r() is padded for r in checked)
+        timed.append((t0, t1, starts.numel(), padded.numel(), resident))
+        return out
+
+    def spy_flat(buf, starts, *a, **kw):
+        host_parses.append(len(buf))
+        return real_flat(buf, starts, *a, **kw)
+
+    class Recording(real_checker):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    stream_check.check_window = spy_check
+    parser.parse_records = timed_parse
+    stream_check.parse_flat_records = spy_flat
+    tpu_load.StreamChecker = Recording
+    try:
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = spills = batches = 0
+        for base, batch in port.stream_read_batches(bam, port.Config()):
+            batches += 1
+            rows += len(batch)
+            spills += len(batch) if base == -1 else 0
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_launches = dict(K.LAUNCHES)
+        checker = made[-1]
+        w = checker.kernel_window
+        require(all(load_launches[k] > 0 for k in COUNT_KERNELS),
+                f"load path launches {load_launches}")
+        require(rows == manifest["reads"], f"load rows {rows} != "
+                                           f"{manifest['reads']}")
+        require(spills == 0 and not host_parses, f"{spills} spills")
+        require(checker.tokenize_demotions == 0, "load demoted a window")
+        require(len(timed) == batches, (len(timed), batches))
+        require(all(t[4] and t[3] == w + K.PAD for t in timed),
+                "a window parse ran on another tensor than the checked one")
+        parse_ms = [a.elapsed_time(b) for a, b, *_ in timed]
+        per_row = [ms / n for (ms, (_, _, n, _, _)) in zip(parse_ms, timed)]
+        log(f"load: stream_read_batches {rows} reads in {batches} windows, "
+            f"{load_s:.3f} s = {rows / load_s:.0f} reads/s "
+            f"({manifest['uncompressed_bytes'] / 1e9 / load_s:.3f} GB/s); "
+            f"parse_records per window (CUDA events) median "
+            f"{statistics.median(parse_ms):.3f} ms, max {max(parse_ms):.3f} "
+            f"ms ({statistics.median(per_row) * 1e6:.1f} ns a record), "
+            f"every window parsed on its checked device tensor, 0 spills, "
+            f"0 host parses; launches {load_launches} ({card})")
+
+        # Filtered: a loci + flag filter, held against NumPy on the CPU.
+        loci = "chr1:100000-900000,chr2:500000-1500000"
+        header = checker.header
+        ivs = tpu_load._interval_table(header, loci)
+        kept = 0
+        t0 = time.perf_counter()
+        for base, batch in port.stream_read_batches(
+                bam, port.Config(), loci=loci, flags_forbidden=0x10):
+            want = numpy_filter(batch.columns, ivs, 0, 0x10)
+            require((batch.columns["valid"] == want).all(),
+                    f"filtered mask differs at {base}")
+            kept += int(want.sum())
+        filt_s = time.perf_counter() - t0
+        require(0 < kept < rows, kept)
+        log(f"load filtered ({loci}, forbid 0x10): {kept} of {rows} reads "
+            f"kept, masks equal to NumPy on the CPU; {filt_s:.3f} s")
+    finally:
+        stream_check.check_window = real_check
+        parser.parse_records = real_parse
+        stream_check.parse_flat_records = real_flat
+        tpu_load.StreamChecker = real_checker
+
+    # The edge corpus: card, CPU and funnel off, under every filter.
+    edges = work / "edges.bam"
+    em = load_cases.write_bam(edges, seed=0)
+    w0, h0 = load_cases.GEOMETRY
+    cfg = port.Config(window_size=w0, halo_size=h0)
+    off = port.Config(window_size=w0, halo_size=h0, funnel="off")
+    off_launches: dict = {}
+    t0 = time.perf_counter()
+    for loci in (None,) + load_cases.LOCI:
+        for fr, ff in ((0, 0),) + load_cases.FLAG_FILTERS:
+            kw = dict(loci=loci, flags_required=fr, flags_forbidden=ff)
+            on_card = list(port.stream_read_batches(edges, cfg, **kw))
+            on_cpu = list(port.stream_read_batches(edges, cfg, device="cpu",
+                                                   **kw))
+            label = f"edges {loci} {fr:#x}/{ff:#x}"
+            batches_equal(on_card, on_cpu, label)
+            if loci is None and not fr and not ff:
+                before = dict(K.LAUNCHES)
+                funnel_off = list(port.stream_read_batches(edges, off))
+                off_launches = {k: v - before[k]
+                                for k, v in K.LAUNCHES.items()}
+                batches_equal(funnel_off, on_card, label + " funnel off")
+                spilled = sum(len(b) for base, b in on_card if base == -1)
+                found = sum(len(b) for _, b in on_card)
+                require(spilled >= load_cases.LONG_READS, spilled)
+                require(found == em["records"] - len(em["refused"]),
+                        (found, em["records"]))
+            for tags in load_cases.TAG_FILTERS:
+                for (_, a), (_, b) in zip(on_card, on_cpu):
+                    require((tpu_load._tag_presence_mask(a, tags)
+                             == tpu_load._tag_presence_mask(b, tags)).all(),
+                            f"{label} tags {tags}")
+    require(off_launches["full_check_flags"] > 0
+            and not off_launches["prefilter_check_flags"],
+            f"funnel off must run the full pass alone: {off_launches}")
+    log(f"load edge corpus: {em['records']} records "
+        f"({em['uncompressed_bytes']} bytes), card = CPU under "
+        f"{len(load_cases.LOCI) + 1} loci x {len(load_cases.FLAG_FILTERS) + 1}"
+        f" flag filters x {len(load_cases.TAG_FILTERS)} tag sets, funnel off "
+        f"(launches {off_launches}) = funnel on; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # Long reads: exact spills at 256 KiB / 64 KiB.
+    lcfg = port.Config(window_size=256 << 10, halo_size=64 << 10)
+    got = list(port.stream_read_batches(long_bam, lcfg))
+    spilled = sum(len(b) for base, b in got if base == -1)
+    pos = sorted(np.concatenate([b["pos"] for _, b in got]).tolist())
+    require(spilled > 0, "long reads must spill")
+    require(pos == sorted(record_positions(long_manifest)),
+            "long-read positions differ from the generator's")
+    log(f"load long reads: {len(pos)} reads, {spilled} decoded exactly from "
+        f"the stream, positions = the generator's")
+
+    # Whole file: record_starts and load_reads_columnar, card against CPU.
+    t0 = time.perf_counter()
+    rs_card = port.record_starts(small)
+    rs_cpu = port.record_starts(small, device="cpu")
+    require((rs_card.starts == rs_cpu.starts).all()
+            and len(rs_card.starts) == len(rs_cpu.starts), "record_starts")
+    for kw in ({}, {"loci": "chr1:0-1000000", "flags_forbidden": 0x400}):
+        a = port.load_reads_columnar(small, **kw)
+        b = port.load_reads_columnar(small, device="cpu", **kw)
+        batches_equal([(0, a)], [(0, b)], f"load_reads_columnar {kw}")
+    log(f"load whole file: record_starts ({len(rs_card.starts)} starts) and "
+        f"load_reads_columnar equal on card and CPU; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return load_launches, off_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -160,7 +368,6 @@ def main() -> int:
 
     if Path(port.__file__).resolve().parent != ROOT / "spark_bam_tpu_torch":
         raise RuntimeError(f"imported {port.__file__}, not this checkout's")
-    import numpy as np
 
     from spark_bam_tpu_torch.benchmarks import deflate_cases, prefilter_cases
     from spark_bam_tpu_torch.benchmarks import profile_prefilter as pfp
@@ -502,6 +709,7 @@ def main() -> int:
         sync(dev)
         fused_s = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
+        count_launches = dict(launches)
         classic_checker = port.StreamChecker(
             bam, port.Config(fused_count=False))
         t0 = time.perf_counter()
@@ -606,8 +814,17 @@ def main() -> int:
             f"through the escape retry; full_spans {deferred} deferred "
             f"re-emissions; card summary equals CPU")
 
+        load_launches, off_launches = load_phase(
+            port, bam, manifest, long_bam, long_manifest, small, work, card)
+
         for row in rows:
             row["launches"] = launches[row["name"]]
+            row["launches_by_path"] = {
+                "count_reads": count_launches[row["name"]],
+                "full_check": fc_launches[row["name"]],
+                "load": load_launches[row["name"]],
+                "load_funnel_off_edge_corpus": off_launches[row["name"]],
+            }
         print(json.dumps({"kernels": rows}), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -1,7 +1,13 @@
-"""spark-bam on PyTorch and CUDA: the count-reads and full-check paths of
-``spark_bam_tpu`` with their DEFLATE tokenizer, LZ77 resolve, funnel
-prefilter and full flag pass as CUDA kernels written for Hopper
+"""spark-bam on PyTorch and CUDA: the count-reads, full-check and load
+paths of ``spark_bam_tpu`` with their DEFLATE tokenizer, LZ77 resolve,
+funnel prefilter and full flag pass as CUDA kernels written for Hopper
 (``csrc/``).
+
+The load path (``load/tpu_load.py``) parses each window's records on the
+device window the check already holds, filters them by loci, flags and
+tags, and decodes records that outrun their window exactly on the host:
+``stream_read_batches``, ``load_reads_columnar``, ``record_starts``,
+``record_starts_streaming`` and ``count_reads_tpu``.
 
 The package imports torch, numpy and the standard library only; entry
 points run on the CUDA device unless the caller passes ``device="cpu"``,
@@ -9,11 +15,21 @@ which runs each kernel's plain PyTorch version instead.
 """
 
 from spark_bam_tpu_torch.core.config import Config
+from spark_bam_tpu_torch.core.pos import Pos
+from spark_bam_tpu_torch.load.tpu_load import (
+    count_reads_tpu,
+    load_reads_columnar,
+    record_starts,
+    record_starts_streaming,
+    stream_read_batches,
+)
 from spark_bam_tpu_torch.tpu.checker import TpuChecker
 from spark_bam_tpu_torch.tpu.stream_check import (
     StreamChecker,
     full_check_summary_streaming,
 )
 
-__all__ = ["Config", "StreamChecker", "TpuChecker",
-           "full_check_summary_streaming"]
+__all__ = ["Config", "Pos", "StreamChecker", "TpuChecker",
+           "count_reads_tpu", "full_check_summary_streaming",
+           "load_reads_columnar", "record_starts", "record_starts_streaming",
+           "stream_read_batches"]

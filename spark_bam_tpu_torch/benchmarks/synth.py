@@ -139,3 +139,16 @@ def synth_bam(out_path, min_uncompressed: int, seed: int = 0,
     }
     out_path.with_suffix(".manifest.json").write_text(json.dumps(manifest))
     return manifest
+
+
+def record_positions(manifest: dict) -> list[int]:
+    """The positions of a ``synth_bam`` file's records, in file order,
+    rebuilt from its manifest."""
+    unit = record_unit(manifest["seed"], manifest["unit_reads"],
+                       tuple(manifest["read_len"]))
+    pos, off = [], 0
+    while off < len(unit):
+        size, _, p = struct.unpack_from("<iii", unit, off)
+        pos.append(p)
+        off += 4 + size
+    return pos * manifest["reps"]

@@ -1,6 +1,7 @@
 """Flat views of runs of BGZF blocks: raw payloads for the device
-tokenizer, host-zlib inflation for the classic loop, and the block table
-that maps a flat offset back to ``block:offset``."""
+tokenizer, host-zlib inflation for the classic loop and the whole-file
+load (``flatten_file``), and the block tables that map a flat offset to
+``block:offset`` and back."""
 
 from __future__ import annotations
 
@@ -17,14 +18,38 @@ from spark_bam_tpu_torch.bgzf.block import (
     Metadata,
     parse_header,
 )
+from spark_bam_tpu_torch.bgzf.index_blocks import blocks_metadata
+from spark_bam_tpu_torch.core.channel import open_channel
 
 
 @dataclass
 class FlatView:
-    """The uncompressed bytes of a run of blocks."""
+    """The uncompressed bytes of a run of blocks, flat-addressable through
+    its block tables."""
 
     data: np.ndarray          # uint8, concatenated uncompressed payloads
     at_eof: bool = False      # the run ends at the file's uncompressed end
+    block_starts: np.ndarray | None = None  # int64 compressed offset per block
+    block_flat: np.ndarray | None = None    # int64 flat offset of its 1st byte
+    file_total: int | None = None  # flat size of the whole file, if known
+
+    @property
+    def size(self) -> int:
+        return int(self.data.shape[0])
+
+    def flat_of_pos(self, block_pos: int, offset: int) -> int:
+        i = int(np.searchsorted(self.block_starts, block_pos))
+        if i >= len(self.block_starts) or self.block_starts[i] != block_pos:
+            raise KeyError(f"block {block_pos} not in view")
+        return int(self.block_flat[i]) + offset
+
+    def pos_of_flat(self, flat: int) -> tuple[int, int]:
+        return pos_of_flat_tables(self.block_starts, self.block_flat, flat)
+
+    def pos_of_flat_many(self, flat: np.ndarray
+                         ) -> tuple[np.ndarray, np.ndarray]:
+        idx = np.searchsorted(self.block_flat, flat, side="right") - 1
+        return self.block_starts[idx], flat - self.block_flat[idx]
 
 
 def _next_pow2(n: int) -> int:
@@ -105,7 +130,19 @@ def inflate_blocks(ch, metas: list[Metadata], threads: int = 8) -> FlatView:
     else:
         for j in jobs:
             _inflate_into(*j)
-    return FlatView(out)
+    block_starts, block_flat = metas_block_table(metas)
+    return FlatView(out, block_starts=block_starts, block_flat=block_flat)
+
+
+def flatten_file(path, threads: int = 8) -> FlatView:
+    """Inflate a whole BAM into one flat buffer with its block tables (the
+    whole-file load; small files)."""
+    metas = blocks_metadata(path)
+    with open_channel(path) as ch:
+        view = inflate_blocks(ch, metas, threads)
+    view.file_total = view.size
+    view.at_eof = True
+    return view
 
 
 def metas_block_table(metas) -> tuple[np.ndarray, np.ndarray]:

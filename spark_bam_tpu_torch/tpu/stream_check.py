@@ -1,5 +1,5 @@
 """Whole-file streaming check (reference ``spark_bam_tpu/tpu/
-stream_check.py``): the count-reads and full-check paths.
+stream_check.py``): the count-reads, full-check and load paths.
 
 Each kernel buffer is ``carry + window``, where the carry is the previous
 buffer's trailing ``halo`` bytes, so every owned position has at least
@@ -40,6 +40,12 @@ positions are exactly the record starts of the file. Window spans tile
 and is re-emitted later in a span whose ``base`` lies strictly behind the
 tiling frontier. ``full_spans()`` yields ``(base, fail_mask,
 reads_before)`` under the same contract, from the full pass.
+
+``read_batches()`` turns the verdict spans into columnar ``ReadBatch``es:
+each window's record starts parse on the device window the check ran on
+(kept by the launcher, never written after it is assembled), and starts
+whose records outrun the window, or whose verdicts came through the
+deferral path, decode exactly from a seekable host stream.
 """
 
 from __future__ import annotations
@@ -51,7 +57,15 @@ import torch
 
 from spark_bam_tpu_torch.bam.header import read_header
 from spark_bam_tpu_torch.bgzf.block import BgzfError
-from spark_bam_tpu_torch.bgzf.flat import inflate_blocks
+from spark_bam_tpu_torch.bgzf.flat import (
+    inflate_blocks,
+    metas_block_table,
+    pos_of_flat_tables,
+)
+from spark_bam_tpu_torch.bgzf.stream import (
+    SeekableBlockStream,
+    SeekableUncompressedBytes,
+)
 from spark_bam_tpu_torch.check.flags import (
     FLAG_NAMES,
     bit_counts,
@@ -61,6 +75,7 @@ from spark_bam_tpu_torch.check.flags import (
 from spark_bam_tpu_torch.check.vectorized import check_flat
 from spark_bam_tpu_torch.core.channel import open_channel
 from spark_bam_tpu_torch.core.config import Config
+from spark_bam_tpu_torch.core.pos import Pos
 from spark_bam_tpu_torch.device import resolve_device
 from spark_bam_tpu_torch.tpu.checker import (
     PAD,
@@ -71,6 +86,7 @@ from spark_bam_tpu_torch.tpu.checker import (
     next_carry,
 )
 from spark_bam_tpu_torch.tpu.inflate import InflatePipeline, stage_group_device
+from spark_bam_tpu_torch.tpu.parser import parse_flat_records, parse_window
 
 
 def _next_pow2(n: int) -> int:
@@ -153,7 +169,7 @@ class StreamChecker:
         self.device = resolve_device(device)
         self.path = path
         self.config = config
-        header = read_header(path)
+        self.header = header = read_header(path)
         self.lengths = header.contig_lengths
         fresh = window_uncompressed or config.window_size
         halo = config.halo_size if halo is None else halo
@@ -393,7 +409,8 @@ class StreamChecker:
         full pass when ``full_masks``, else as configured), and the outputs
         named in ``keys``, plus the window's bytes when the host does not
         hold them, copied to pinned host memory without waiting, behind a
-        CUDA event."""
+        CUDA event. The device window itself stays in the output, for work
+        that reads it after the check (the load's parse)."""
         lens_dev, nc = self._lengths_dev()
         funnel = self.config.funnel_enabled(full_masks)
         cuda = self.device.type == "cuda"
@@ -405,27 +422,29 @@ class StreamChecker:
             if buf is None:
                 res["window"] = padded[:n]
             if not cuda:
-                return res, buf, None
+                return res, buf, None, padded
             host = {}
             for k, v in res.items():
                 host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
                 host[k].copy_(v, non_blocking=True)
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))
-            return host, buf, done
+            return host, buf, done, padded
 
         return launch
 
     @staticmethod
     def _materialize(out) -> dict:
         """One launched window's outputs, and its bytes as ``window``, as
-        host arrays."""
-        host, buf, done = out
+        host arrays; the device window stays a tensor (``padded``), whose
+        bytes are complete once this returns."""
+        host, buf, done, padded = out
         if done is not None:
             done.synchronize()
         res = {k: v.numpy() for k, v in host.items()}
         if buf is not None:
             res["window"] = buf
+        res["padded"] = padded
         return res
 
     # ------------------------------------------------ deferred candidates
@@ -517,11 +536,15 @@ class StreamChecker:
             yield from self._emit_runs(positions, rows)
 
     # ------------------------------------------------------- consumers
-    def _stream(self, fields: tuple[str, ...], defer_inexact: bool):
-        """The window loop behind ``spans`` and ``full_spans``: project
-        ``fields`` from each window, defer unresolved owned lanes (escaped,
-        plus inexact ones when the projection is the flag masks), and
-        re-emit them as contiguous-run spans once exact."""
+    def _stream(self, fields: tuple[str, ...], defer_inexact: bool,
+                with_buf: bool = False):
+        """The window loop behind ``spans``, ``full_spans`` and
+        ``read_batches``: project ``fields`` from each window, defer
+        unresolved owned lanes (escaped, plus inexact ones when the
+        projection is the flag masks), and re-emit them as contiguous-run
+        spans once exact. ``with_buf`` appends the window's host bytes and
+        its device tensor to each window tuple (``None, None`` on deferred
+        re-emissions)."""
         deferred = self._Deferred(self.lengths, self.config.reads_to_check)
         funnel = self.config.funnel_enabled(defer_inexact)
         keys = (*fields, "escaped")
@@ -546,9 +569,12 @@ class StreamChecker:
                 for s in spans:
                     s[bad_idx] = 0  # re-emitted by the deferral path
                 deferred.add(base + bad_idx, buf, base)
-            yield (base, *spans)
+            if with_buf:
+                yield (base, *spans, buf, res["padded"])
+            else:
+                yield (base, *spans)
             for pos, row in deferred.resolve(at_eof, fields):
-                yield (pos, *row)
+                yield (pos, *row, None, None) if with_buf else (pos, *row)
         if len(deferred):
             raise RuntimeError(
                 f"{len(deferred)} deferred position(s) unresolved at EOF")
@@ -566,6 +592,88 @@ class StreamChecker:
         hold mask 0 and reads_before 0."""
         yield from self._stream(("fail_mask", "reads_before"),
                                 defer_inexact=True)
+
+    def read_batches(self):
+        """Columnar ``ReadBatch``es per streaming window: the load path in
+        O(window) host memory (reference CanLoadBam.scala:173-243 loads per
+        split, here per window).
+
+        Yields ``(abs_base, batch)``; batch ``starts`` are window-relative
+        (int64). Each window's records parse on the device tensor the check
+        already holds: only the starts go up, only the columns come back.
+        Records that start in an owned span but run past the window's bytes
+        (longer than the halo), and record starts that resolved through the
+        deferral path, are decoded exactly from a seekable stream and
+        yielded as batches with ``abs_base = -1`` (their ``starts`` index
+        their own buffer): whenever 4,096 such positions are pending, and
+        the rest at the end."""
+        he = self.header_end_abs
+        spill_abs: list[int] = []
+        for base, verdict, buf, padded in self._stream(
+            ("verdict",), defer_inexact=False, with_buf=True
+        ):
+            if buf is None:  # a deferred contiguous-run re-emission
+                idx = base + np.flatnonzero(verdict)
+                spill_abs.extend(idx[idx >= he].tolist())
+            else:
+                starts = np.flatnonzero(verdict)
+                starts = starts[base + starts >= he]
+                if len(starts):
+                    # A record must fit the buffer to parse in the window;
+                    # the others decode exactly from the stream.
+                    sizes = (
+                        buf[starts].astype(np.int64)
+                        | (buf[starts + 1].astype(np.int64) << 8)
+                        | (buf[starts + 2].astype(np.int64) << 16)
+                        | (buf[starts + 3].astype(np.int64) << 24)
+                    )
+                    fits = starts + 4 + sizes <= len(buf)
+                    spill_abs.extend((base + starts[~fits]).tolist())
+                    starts = starts[fits]
+                    if len(starts):
+                        yield base, parse_window(padded, buf, starts)
+            # Bound spill memory: flush in chunks during the stream.
+            if len(spill_abs) >= 4096:
+                for batch in self._decode_spills(sorted(spill_abs)):
+                    yield -1, batch
+                spill_abs = []
+        if spill_abs:
+            for batch in self._decode_spills(sorted(spill_abs)):
+                yield -1, batch
+
+    def _decode_spills(self, positions: list[int],
+                       chunk_bytes: int = 64 << 20):
+        """Exact decode of records whose bytes outran their window: each
+        record is read through the seekable stream, and the records parse
+        in buffers of at most about ``chunk_bytes`` (bounded memory;
+        offsets stay far inside the parser's int32 range)."""
+        block_starts, block_flat = metas_block_table(self.pipeline.metas)
+        stream = SeekableUncompressedBytes(
+            SeekableBlockStream(open_channel(self.path)))
+        try:
+            parts: list[bytes] = []
+            starts: list[int] = []
+            off = 0
+            for pos in positions:
+                stream.seek(Pos(*pos_of_flat_tables(block_starts, block_flat,
+                                                    pos)))
+                size_bytes = stream.read(4)
+                size = int.from_bytes(size_bytes, "little")
+                parts.append(size_bytes + stream.read(size))
+                starts.append(off)
+                off += 4 + size
+                if off >= chunk_bytes:
+                    yield self._parse_spills(parts, starts)
+                    parts, starts, off = [], [], 0
+            if parts:
+                yield self._parse_spills(parts, starts)
+        finally:
+            stream.close()
+
+    def _parse_spills(self, parts: list[bytes], starts: list[int]):
+        buf = np.frombuffer(b"".join(parts), dtype=np.uint8)
+        return parse_flat_records(buf, np.array(starts, dtype=np.int64),
+                                  device=self.device)
 
     def record_starts(self):
         """Absolute flat offsets of record starts, one array per span, in

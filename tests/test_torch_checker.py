@@ -42,12 +42,12 @@ def _table(lengths, cmax=1024, fill=0):
     return lens
 
 
-def _both_check(padded, lens, nc, n, at_eof, funnel=True):
+def _both_check(padded, lens, nc, n, at_eof, funnel=True, reads_to_check=10):
     want = jck.check_window(
         jnp.asarray(padded), jnp.asarray(lens), jnp.int32(nc), jnp.int32(n),
-        jnp.bool_(at_eof), funnel=funnel)
+        jnp.bool_(at_eof), reads_to_check=reads_to_check, funnel=funnel)
     got = ck.check_window(torch.from_numpy(padded), torch.from_numpy(lens),
-                          nc, n, at_eof, funnel=funnel)
+                          nc, n, at_eof, reads_to_check, funnel=funnel)
     return ({k: np.asarray(v) for k, v in want.items()},
             {k: v.numpy() for k, v in got.items()})
 
@@ -99,6 +99,44 @@ def test_check_window_full_pass_matches_jax(corpus, idx, at_eof):
                          torch.from_numpy(_table(lengths)), len(lengths), n,
                          at_eof)
     np.testing.assert_array_equal(on["verdict"].numpy(), got["verdict"])
+
+
+@pytest.mark.parametrize("reads_to_check", [1, 3, 20])
+@pytest.mark.parametrize("funnel", [True, False], ids=["funnel", "full"])
+@pytest.mark.parametrize("at_eof", [True, False])
+def test_check_window_reads_to_check_matches_jax(corpus, reads_to_check,
+                                                 funnel, at_eof):
+    """Chains of 1, 3 and 20 records, both check forms: all seven outputs
+    equal the JAX ones."""
+    _, data, lengths = corpus[1]
+    padded, n = _window(data, w=128 << 10)
+    want, got = _both_check(padded, _table(lengths), len(lengths), n, at_eof,
+                            funnel, reads_to_check)
+    _assert_equal(want, got, f"rtc={reads_to_check} funnel={funnel} "
+                             f"at_eof={at_eof}")
+    assert got["verdict"].any()
+
+
+@pytest.mark.parametrize("reads_to_check", [1, 3])
+@pytest.mark.parametrize("funnel", [True, False], ids=["funnel", "full"])
+def test_count_window_reads_to_check_matches_jax(corpus, reads_to_check,
+                                                 funnel):
+    """The owned-span count at chains of 1 and 3 records (the JAX compile
+    of a 20-record count alone takes about half a minute on a CPU)."""
+    _, data, lengths = corpus[1]
+    padded, n = _window(data, w=128 << 10)
+    lens = _table(lengths)
+    lo, own = 100, n - 1000
+    want = jck.count_window(
+        jnp.asarray(padded), jnp.asarray(lens), jnp.int32(len(lengths)),
+        jnp.int32(n), jnp.bool_(False), jnp.int32(lo), jnp.int32(own),
+        reads_to_check=reads_to_check, funnel=funnel)
+    got = ck.count_window(torch.from_numpy(padded), torch.from_numpy(lens),
+                          len(lengths), n, False, lo, own, reads_to_check,
+                          funnel)
+    for k in ("count", "esc_count", "survivors"):
+        assert int(got[k]) == int(want[k]), k
+    assert int(got["count"]) > 0
 
 
 # A 60-byte period in which three offsets pass the full pass (given a

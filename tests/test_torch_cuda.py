@@ -355,3 +355,103 @@ def test_full_check_on_gpu_equals_cpu(gpu, tmp_path):
                 np.testing.assert_array_equal(card[k], other[k])
             else:
                 assert card[k] == other[k], k
+
+
+def _assert_load_equal(got, want):
+    """Two ``(abs_base, ReadBatch)`` sequences, column for column."""
+    assert [b for b, _ in got] == [b for b, _ in want]
+    for (_, g), (_, w) in zip(got, want):
+        np.testing.assert_array_equal(g.starts, w.starts)
+        np.testing.assert_array_equal(g.buf, w.buf)
+        assert list(g.columns) == list(w.columns)
+        for k in w.columns:
+            assert g.columns[k].dtype == w.columns[k].dtype, k
+            np.testing.assert_array_equal(g.columns[k], w.columns[k], k)
+
+
+def test_parse_on_device_window_equals_cpu(gpu):
+    from spark_bam_tpu_torch.benchmarks import load_cases
+    from spark_bam_tpu_torch.tpu import parser
+
+    recs = load_cases.edge_records(0)
+    del recs["cigar_64_overflow"]
+    buf = np.frombuffer(b"".join(recs.values()), dtype=np.uint8)
+    starts = np.cumsum([0] + [len(r) for r in recs.values()])[:-1]
+    padded = torch.zeros((1 << 20) + K.PAD, dtype=torch.uint8, device=gpu)
+    padded[: len(buf)] = torch.from_numpy(buf.copy()).to(gpu)
+    got = parser.parse_window(padded, buf, starts)
+    want = parser.parse_window(padded.cpu(), buf, starts)
+    _assert_load_equal([(0, got)], [(0, want)])
+    assert got.columns["span_exact"].all()
+
+
+@pytest.mark.parametrize("reads_to_check", [1, 3, 20])
+def test_check_window_reads_to_check_on_gpu_equals_cpu(gpu, reads_to_check,
+                                                      tmp_path):
+    from spark_bam_tpu_torch.bgzf.flat import flatten_file
+    from spark_bam_tpu_torch.tpu.checker import check_window
+
+    p = tmp_path / "rtc.bam"
+    synth_bam(p, 2 << 20, seed=4, unit_reads=2000)
+    flat = flatten_file(p).data
+    w = 1 << 20
+    padded = torch.zeros(w + K.PAD, dtype=torch.uint8)
+    padded[:w] = torch.from_numpy(flat[:w].copy())
+    lens = torch.zeros(1024, dtype=torch.int32)
+    lens[:2] = torch.tensor([248_956_422, 242_193_529])
+    for funnel in (True, False):
+        want = check_window(padded, lens, 2, w, False, reads_to_check, funnel)
+        got = check_window(padded.to(gpu), lens.to(gpu), 2, w, False,
+                           reads_to_check, funnel)
+        for k in want:
+            assert torch.equal(got[k].cpu(), want[k]), (k, funnel)
+
+
+def test_stream_read_batches_on_gpu_equals_cpu(gpu, tmp_path):
+    """The synthetic BAM and the load edge corpus load equal on the card
+    (funnel on and off) and on the CPU; the load path launches the
+    inflate kernels and the prefilter, and the full pass with the funnel
+    off."""
+    from spark_bam_tpu_torch import stream_read_batches
+    from spark_bam_tpu_torch.benchmarks import load_cases
+
+    p = tmp_path / "ld.bam"
+    m = synth_bam(p, 3 << 20, seed=5, unit_reads=2000)
+    cfg = Config(window_size=1 << 20, halo_size=256 << 10)
+    K.reset_launch_counts()
+    card = list(stream_read_batches(p, cfg))
+    assert all(K.LAUNCHES[k] > 0 for k in COUNT_KERNELS), K.LAUNCHES
+    assert sum(len(b) for _, b in card) == m["reads"]
+    _assert_load_equal(card, list(stream_read_batches(p, cfg, device="cpu")))
+
+    e = tmp_path / "edges.bam"
+    load_cases.write_bam(e, seed=0)
+    w, h = load_cases.GEOMETRY
+    ecfg = Config(window_size=w, halo_size=h)
+    card = list(stream_read_batches(e, ecfg, loci=load_cases.LOCI[-1],
+                                    flags_forbidden=0x400))
+    cpu = list(stream_read_batches(e, ecfg, loci=load_cases.LOCI[-1],
+                                   flags_forbidden=0x400, device="cpu"))
+    _assert_load_equal(card, cpu)
+    K.reset_launch_counts()
+    off = list(stream_read_batches(
+        e, Config(window_size=w, halo_size=h, funnel="off"),
+        loci=load_cases.LOCI[-1], flags_forbidden=0x400))
+    assert K.LAUNCHES["full_check_flags"] > 0, K.LAUNCHES
+    _assert_load_equal(off, card)
+
+
+def test_load_reads_columnar_on_gpu_equals_cpu(gpu, tmp_path):
+    from spark_bam_tpu_torch import load_reads_columnar, record_starts
+
+    p = tmp_path / "wf.bam"
+    synth_bam(p, 3 << 20, seed=6, unit_reads=2000)
+    K.reset_launch_counts()
+    got = record_starts(p)
+    assert K.LAUNCHES["full_check_flags"] > 0
+    np.testing.assert_array_equal(got.starts,
+                                  record_starts(p, device="cpu").starts)
+    for kw in ({}, {"loci": "chr1:0-100000,chr2", "flags_required": 0}):
+        card = load_reads_columnar(p, **kw)
+        cpu = load_reads_columnar(p, device="cpu", **kw)
+        _assert_load_equal([(0, card)], [(0, cpu)])
