@@ -45,7 +45,18 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    chains outrun: both count loops must still be exact (through the escape
    retry), ``full_spans`` must defer, and the card's summary must equal
    the CPU's.
-6. The load path: ``stream_read_batches`` over the 1 GiB BAM at the
+6. The resident count: ``StreamChecker.count_reads_resident`` over the
+   1 GiB BAM at the default geometry (host-zlib windows packed four to a
+   resident chunk, each chunk one CUDA graph replay of its window bodies):
+   the generator's count, its wall beside the fused and classic counts,
+   the graphs captured, replays and launches a replay runs, then again
+   on the same checker (graphs reused); the long reads exact through the
+   escape retry; the small BAM counted equally on the card and the CPU.
+   Both flag kernels were also captured in a graph at W = 2^25 in step 2
+   and replayed over four windows of different bytes and lengths, on one
+   stream and on a second, bit-identical to their plain versions on every
+   replay (``benchmarks/replay_cases.py``).
+7. The load path: ``stream_read_batches`` over the 1 GiB BAM at the
    default geometry (each window's records parsed on the device window
    the check holds; rows = the generator's reads, no spills, no
    demotions; reads/s and the per-window ``parse_records`` time, CUDA
@@ -56,8 +67,8 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    tags included; the long reads' exact spills; ``load_reads_columnar``
    and ``record_starts`` on the small BAM, card against CPU.
 
-Launch counters are set to 0 just before each main path (3, 4, 6) and
-read just after. Prints one JSON line per kernel set (``{"kernels": [...]}``)
+Launch counters are set to 0 just before each main path (3, 4, 6, 7) and
+read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
 and, last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero; without CUDA, or without the package beside
 it, it exits non-zero before printing a result.
@@ -188,9 +199,74 @@ def numpy_filter(cols, intervals, required: int, forbidden: int):
     return ((flag & 4) == 0) & (ref >= 0) & hit & ok
 
 
+def resident_phase(port, bam, manifest, long_bam, long_manifest, small,
+                   small_manifest, card, fused_s, classic_s) -> dict:
+    """Phase 6, the resident count; returns its kernel launch counts on
+    the 1 GiB count."""
+    from spark_bam_tpu_torch.tpu import kernels as K
+
+    want = manifest["reads"]
+    checker = port.StreamChecker(bam, port.Config(resident_scan=True))
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = checker.count_reads_resident()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    funnel = dict(checker.funnel_stats)
+    runner = checker.scan_runner
+    require(got == want, f"resident count {got} != generator's {want}")
+    require(launches["prefilter_check_flags"] > 0, launches)
+    require(isinstance(runner, port.CountScanGraphs), type(runner))
+    windows = len(checker.pipeline.groups)
+    rows = checker.resident_chunk_rows()
+    chunks = runner.replays
+    require(chunks == -(-windows // rows) and chunks < windows,
+            f"{chunks} replays for {windows} windows at {rows} a chunk")
+    captures = runner.captures
+    per_replay = {f"{kp} rows": v for (kp, _), v in
+                  runner.launches_per_replay().items()}
+    t0 = time.perf_counter()
+    again = checker.count_reads_resident()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    require(again == want and runner.captures == captures,
+            "the second resident count must reuse the graphs")
+    gb = manifest["uncompressed_bytes"] / 1e9
+    for name, s in (("resident (captures included)", first_s),
+                    ("resident (graphs reused)", warm_s),
+                    ("fused device", fused_s), ("classic host-zlib", classic_s)):
+        log(f"count-reads {name}: {want} reads in {s:.3f} s = "
+            f"{want / s:.0f} reads/s, {gb / s:.3f} GB/s inflated ({card})")
+    log(f"resident: {windows} windows, {rows} rows a chunk, {chunks} graph "
+        f"replays a count, {captures} graphs captured ({per_replay} launched "
+        f"a replay); launches {launches}; funnel {funnel}")
+
+    geo = (256 << 10, 64 << 10)
+    lc = port.StreamChecker(long_bam, port.Config(), *geo)
+    retries = []
+    via_spans = lc._count_via_spans
+    lc._count_via_spans = lambda: retries.append(1) or via_spans()
+    got = lc.count_reads_resident(chunk_windows=4)
+    require(got == long_manifest["reads"] and retries == [1],
+            f"long-read resident count {got}, {len(retries)} escape retries")
+    t0 = time.perf_counter()
+    on_card = port.StreamChecker(small, port.Config()).count_reads_resident()
+    on_cpu = port.StreamChecker(small, port.Config(),
+                                device="cpu").count_reads_resident()
+    require(on_card == on_cpu == small_manifest["reads"],
+            f"small BAM resident count card {on_card}, CPU {on_cpu}")
+    log(f"resident long reads: {got} reads exact through one escape retry; "
+        f"small BAM: card = CPU = {on_cpu}; {time.perf_counter() - t0:.1f} s")
+    del checker, runner, lc
+    torch.cuda.empty_cache()
+    return launches
+
+
 def load_phase(port, bam, manifest, long_bam, long_manifest, small, work,
                card) -> dict:
-    """Phase 6, the load path; returns its kernel launch counts on the
+    """Phase 7, the load path; returns its kernel launch counts on the
     1 GiB load and on the edge corpus's funnel-off load."""
     import weakref
 
@@ -372,7 +448,7 @@ def main() -> int:
     from spark_bam_tpu_torch.benchmarks import deflate_cases, prefilter_cases
     from spark_bam_tpu_torch.benchmarks import profile_prefilter as pfp
     from spark_bam_tpu_torch.benchmarks import profile_resolve_flags as prf
-    from spark_bam_tpu_torch.benchmarks import resolve_flag_cases
+    from spark_bam_tpu_torch.benchmarks import replay_cases, resolve_flag_cases
     from spark_bam_tpu_torch.benchmarks.profile_tokenize import symbol_counts
     from spark_bam_tpu_torch.benchmarks.synth import synth_bam
     from spark_bam_tpu_torch.bgzf.flat import inflate_blocks
@@ -692,6 +768,23 @@ def main() -> int:
             bound_ms=full_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
             library_ms=None,
         ))
+        # Both flag kernels captured in a CUDA graph once and replayed over
+        # four windows of different bytes and lengths, on this stream and
+        # on a second one, with eager launches between the replays.
+        replay_windows = [(padded, n0), (soup, w), (long_pad, long_n),
+                          (padded, n_odd)]
+        replay_log = []
+        for label, stream in (("current", None), ("second", side)):
+            rep = replay_cases.replay_flag_kernels(replay_windows, lens_dev,
+                                                   nc, stream)
+            for name, r in rep.items():
+                require(r["replays"] >= 3 and r["max_abs_err"] == 0
+                        and r["eager_err"] == 0,
+                        f"{name} replayed on the {label} stream: {r}")
+                replay_log.append(f"{name} {r['replays']} replays on the "
+                                  f"{label} stream")
+        log(f"graph replays at W={w}: {', '.join(replay_log)}; every replay "
+            f"and every eager launch between them bit-identical to plain")
         # The profile script's split of both kernels on this window, and the
         # rounds each of its rows took (kernel and plain version).
         prf.profile_lz77([], prof_dir, lit, dist, sm_mhz)
@@ -814,6 +907,10 @@ def main() -> int:
             f"through the escape retry; full_spans {deferred} deferred "
             f"re-emissions; card summary equals CPU")
 
+        resident_launches = resident_phase(
+            port, bam, manifest, long_bam, long_manifest, small,
+            small_manifest, card, fused_s, classic_s)
+
         load_launches, off_launches = load_phase(
             port, bam, manifest, long_bam, long_manifest, small, work, card)
 
@@ -822,6 +919,7 @@ def main() -> int:
             row["launches_by_path"] = {
                 "count_reads": count_launches[row["name"]],
                 "full_check": fc_launches[row["name"]],
+                "resident": resident_launches[row["name"]],
                 "load": load_launches[row["name"]],
                 "load_funnel_off_edge_corpus": off_launches[row["name"]],
             }

@@ -9,6 +9,11 @@ tags, and decodes records that outrun their window exactly on the host:
 ``stream_read_batches``, ``load_reads_columnar``, ``record_starts``,
 ``record_starts_streaming`` and ``count_reads_tpu``.
 
+The resident count (``StreamChecker.count_reads_resident``) packs windows
+into device-resident chunks and counts each chunk with one dispatch:
+``count_scan``, which ``make_count_scan`` runs on a CUDA device as one
+CUDA graph replay a chunk (``CountScanGraphs``).
+
 The package imports torch, numpy and the standard library only; entry
 points run on the CUDA device unless the caller passes ``device="cpu"``,
 which runs each kernel's plain PyTorch version instead.
@@ -23,13 +28,19 @@ from spark_bam_tpu_torch.load.tpu_load import (
     record_starts_streaming,
     stream_read_batches,
 )
-from spark_bam_tpu_torch.tpu.checker import TpuChecker
+from spark_bam_tpu_torch.tpu.checker import (
+    CountScanGraphs,
+    TpuChecker,
+    count_scan,
+    make_count_scan,
+)
 from spark_bam_tpu_torch.tpu.stream_check import (
     StreamChecker,
     full_check_summary_streaming,
 )
 
-__all__ = ["Config", "Pos", "StreamChecker", "TpuChecker",
-           "count_reads_tpu", "full_check_summary_streaming",
-           "load_reads_columnar", "record_starts", "record_starts_streaming",
+__all__ = ["Config", "CountScanGraphs", "Pos", "StreamChecker",
+           "TpuChecker", "count_reads_tpu", "count_scan",
+           "full_check_summary_streaming", "load_reads_columnar",
+           "make_count_scan", "record_starts", "record_starts_streaming",
            "stream_read_batches"]

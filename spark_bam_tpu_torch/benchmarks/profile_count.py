@@ -1,16 +1,25 @@
 """Where the time of one count-reads run goes on the GPU.
 
-    python -m spark_bam_tpu_torch.benchmarks.profile_count [--mib 256]
+    python -m spark_bam_tpu_torch.benchmarks.profile_count [--mib 256] [--resident]
 
 Writes a synthetic BAM (``--mib`` MiB uncompressed) under the package's
 ``_build/`` directory, runs the fused count once to warm up (kernel build,
 allocator), then again under ``torch.profiler`` and prints: the wall time,
-the device-busy share (kernel time over wall), the top operators by device
-time and by host time, and the card's name and power limit. Also times each
-stage of one window (staging, tokenize, resolve, assembly, the prefilter
-with its survivor compaction, deep flags, walk) with a device synchronise
-around each, which serialises them but shows each one's cost. Prints one
-JSON line last.
+the device-busy share (kernel time over wall), the host's kernel launches
+(``cudaLaunchKernel`` calls and CPU time) and graph launches per window,
+the top operators by device time and by host time, and the card's name and
+power limit. Also times each stage of one window (staging, tokenize,
+resolve, assembly, the prefilter with its survivor compaction, deep flags,
+walk) with a device synchronise around each, which serialises them but
+shows each one's cost.
+
+``--resident`` adds the resident count (``count_reads_resident``, one CUDA
+graph replay per chunk) in the same call: a first count (graph captures
+included) split on the host clock into host inflate (waiting for the
+host-zlib windows), packing the pinned chunk, and the copies and replay
+(host enqueue, and their device time by CUDA events); a second count on
+the same checker, graphs reused, split the same way; and a third under
+``torch.profiler``, read like the fused leg. Prints one JSON line last.
 """
 
 from __future__ import annotations
@@ -81,9 +90,112 @@ def stage_breakdown(bam: Path, checker: StreamChecker) -> dict:
     return st
 
 
+def _profiled(count_fn, windows: int) -> dict:
+    """One count under ``torch.profiler``: wall, device busy share, and the
+    host's launch calls per window; prints the top operators."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        count = count_fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    attr = ("self_device_time_total" if hasattr(ka[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    dev_us = sum(getattr(e, attr) for e in ka
+                 if getattr(e, "device_type", None) == DeviceType.CUDA)
+    print(ka.table(sort_by=attr, row_limit=25))
+    print(ka.table(sort_by="self_cpu_time_total", row_limit=15))
+    host = {}
+    for e in ka:
+        if e.key in ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync",
+                     "cudaLaunchKernelExC"):
+            host[e.key] = {"calls_per_window": e.count / windows,
+                           "cpu_ms_per_window":
+                               e.cpu_time_total / 1e3 / windows}
+    return {"count": count, "wall_s": wall,
+            "device_busy_share": dev_us / 1e6 / wall,
+            "device_ms": dev_us / 1e3,
+            "ms_per_window": wall * 1e3 / windows, "host_calls": host}
+
+
+def resident_split(checker: StreamChecker) -> dict:
+    """One ``count_reads_resident`` on ``checker`` split on the host clock:
+    waiting for host-zlib windows, packing rows into the pinned chunk, and
+    the runner's calls (copies in, replay, clones out: host enqueue), the
+    rest being the waits for each chunk's sums; plus the device time of the
+    runner's calls (CUDA events around each)."""
+    from spark_bam_tpu_torch.tpu import stream_check as scm
+
+    ms = {"host inflate": 0.0, "packing": 0.0,
+          "copies and replay (host enqueue)": 0.0}
+    marks = []
+    real_windows, real_pack = scm.halo_windows, scm._Staging.pack
+
+    def windows(*a, **kw):
+        it = real_windows(*a, **kw)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            finally:
+                ms["host inflate"] += (time.perf_counter() - t0) * 1e3
+            yield item
+
+    def pack(self, rows):
+        t0 = time.perf_counter()
+        real_pack(self, rows)
+        ms["packing"] += (time.perf_counter() - t0) * 1e3
+
+    if checker.scan_runner is None:
+        checker.scan_runner = ck.make_count_scan(
+            checker.kernel_window, checker.config.reads_to_check,
+            checker.config.funnel_enabled(), checker.device)
+    runner = checker.scan_runner
+    before = runner.captures
+
+    def call(*a):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        t0 = time.perf_counter()
+        out = runner(*a)
+        ms["copies and replay (host enqueue)"] += (
+            time.perf_counter() - t0) * 1e3
+        e1.record()
+        marks.append((e0, e1))
+        return out
+
+    scm.halo_windows, scm._Staging.pack = windows, pack
+    checker.scan_runner = call
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        count = checker.count_reads_resident()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        scm.halo_windows, scm._Staging.pack = real_windows, real_pack
+        checker.scan_runner = runner
+    ms["waiting for sums, other"] = wall - sum(ms.values())
+    return {"count": count, "wall_ms": wall, "host_ms": ms,
+            "host_share": {k: v / wall for k, v in ms.items()},
+            "device_ms_copies_and_replays": sum(
+                a.elapsed_time(b) for a, b in marks),
+            "chunks": len(marks), "captures": runner.captures - before,
+            "launches_per_replay": {
+                f"{kp} rows": v
+                for (kp, _), v in runner.launches_per_replay().items()}}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mib", type=int, default=256)
+    ap.add_argument("--resident", action="store_true",
+                    help="also profile count_reads_resident in this call")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_count needs a CUDA device")
@@ -100,30 +212,26 @@ def main(argv=None) -> None:
         for k, v in stages.items():
             print(f"stage {k}: {v:.3f} ms")
         checker = StreamChecker(bam, Config())
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            count = checker.count_reads()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        assert count == manifest["reads"]
-        ka = prof.key_averages()
-        attr = ("self_device_time_total" if hasattr(ka[0], "self_device_time_total")
-                else "self_cuda_time_total")
-        dev_us = sum(getattr(e, attr) for e in ka
-                     if getattr(e, "device_type", None) == DeviceType.CUDA)
-        print(ka.table(sort_by=attr, row_limit=25))
-        print(ka.table(sort_by="self_cpu_time_total", row_limit=15))
         windows = len(checker.pipeline.groups)
-        print(json.dumps({
-            "card": card, "mib": args.mib, "windows": windows,
-            "reads": count, "wall_s": wall,
-            "device_busy_share": dev_us / 1e6 / wall,
-            "ms_per_window": wall * 1e3 / windows,
-            "stages_ms": stages,
-        }))
+        fused = _profiled(checker.count_reads, windows)
+        assert fused["count"] == manifest["reads"]
+        result = {"card": card, "mib": args.mib, "windows": windows,
+                  "reads": fused["count"], "wall_s": fused["wall_s"],
+                  "device_busy_share": fused["device_busy_share"],
+                  "ms_per_window": fused["ms_per_window"],
+                  "host_calls": fused["host_calls"], "stages_ms": stages}
+        if args.resident:
+            rc = StreamChecker(bam, Config(resident_scan=True))
+            first = resident_split(rc)
+            warm = resident_split(rc)
+            prof = _profiled(rc.count_reads_resident, windows)
+            for leg in (first, warm, prof):
+                assert leg["count"] == manifest["reads"], leg["count"]
+            print(f"resident split, first count: {first}")
+            print(f"resident split, graphs reused: {warm}")
+            result["resident"] = {"first": first, "reused": warm,
+                                  "profiled": prof}
+        print(json.dumps(result))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

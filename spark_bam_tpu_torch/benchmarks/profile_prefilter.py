@@ -64,12 +64,13 @@ from spark_bam_tpu_torch.tpu.stream_check import pad_contig_lengths
 class _PrefilterCall:
     """One build of ``sbt_prefilter``: flags only (8 arguments) or flags
     and the ordered survivor compaction (16 arguments, with its own tile
-    status records, bitmap scratch and a persistent grid)."""
+    status records, bitmap scratch and a persistent grid; 17 where ``n``
+    may also come from device memory, passed here by value)."""
 
     def __init__(self, lib, arity: int):
         self.lib, self.arity = lib, arity
-        self.status = K.TileStatus(4) if arity == 16 else None
-        if arity == 16:
+        self.status = K.TileStatus(4) if arity >= 16 else None
+        if arity >= 16:
             lib.sbt_prefilter_ctas.argtypes = []
             self.ctas = lib.sbt_prefilter_ctas()
 
@@ -86,8 +87,9 @@ class _PrefilterCall:
         bitmaps = torch.empty(tiles * K.PREFILTER_TILE // 32,
                               dtype=torch.int32, device=padded.device)
         cand.fill_(-1)
+        n_args = (n,) if self.arity == 16 else (n, None)
         return self.lib.sbt_prefilter(
-            padded.data_ptr(), w, lens.data_ptr(), lens.numel(), nc, n,
+            padded.data_ptr(), w, lens.data_ptr(), lens.numel(), nc, *n_args,
             records.data_ptr(), base, epoch, out.data_ptr(),
             bitmaps.data_ptr(), cand.data_ptr(), cand.numel(),
             n_set.data_ptr(), grid, prf._stream())

@@ -58,13 +58,19 @@ SYNTH_BYTES = 96 << 20
 #: CTAs whose marks a profiling build keeps (``g_*_marks`` in the sources).
 MAX_CTAS = 8192
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_U = ctypes.c_uint
 #: Entry points whose argument list changed between designs, by arity:
 #: ``sbt_full_flags`` with three launches (a chunk table as scratch) or one
-#: (tile status records, ticket base and epoch); ``sbt_prefilter`` with the
-#: flags only or with the survivor compaction. Others take
+#: (tile status records, ticket base and epoch), first with ``n`` by value
+#: only (12 arguments); ``sbt_prefilter`` with the flags only, or with the
+#: survivor compaction and ``n`` by value only (16). Others take
 #: ``build.SIGNATURES``.
 _ARGTYPES = {("sbt_full_flags", 10): [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
-             ("sbt_prefilter", 8): [_P, _I, _P, _I, _I, _I, _P, _P]}
+             ("sbt_full_flags", 12): [_P, _I, _I, _P, _I, _I, _I, _P, _U, _U,
+                                      _P, _P],
+             ("sbt_prefilter", 8): [_P, _I, _P, _I, _I, _I, _P, _P],
+             ("sbt_prefilter", 16): [_P, _I, _P, _I, _I, _I, _P, _U, _U, _P,
+                                     _P, _P, _I, _P, _I, _P]}
 
 
 def _smi(query: str) -> str:
@@ -211,11 +217,12 @@ def profile_lz77(srcs: list[Path], work: Path, lit, dist, mhz: float):
 class _FlagsCall:
     """One build of ``sbt_full_flags``, called with its own scratch: the
     three-launch design's chunk table (10 arguments) or the one-launch
-    design's tile status records (12 arguments)."""
+    design's tile status records (12 arguments; 13 where ``n`` may also
+    come from device memory, passed here by value)."""
 
     def __init__(self, lib, arity: int):
         self.lib, self.arity = lib, arity
-        self.status = K.TileStatus() if arity == 12 else None
+        self.status = K.TileStatus() if arity >= 12 else None
 
     def __call__(self, padded, lens, nc: int, n: int, out):
         total, w = padded.numel(), padded.numel() - K.PAD
@@ -229,9 +236,10 @@ class _FlagsCall:
             scratch, base, epoch = self.status.next(
                 dev, _stream(), -(-total // K.FULL_FLAGS_TILE))
             extra = (scratch.data_ptr(), base, epoch)
+        n_args = (n, None) if self.arity == 13 else (n,)
         return self.lib.sbt_full_flags(
             padded.data_ptr(), total, w, lens.data_ptr(), lens.numel(), nc,
-            n, *extra, out.data_ptr(), _stream())
+            *n_args, *extra, out.data_ptr(), _stream())
 
 
 def profile_full_flags(srcs: list[Path], work: Path, padded, lens, nc: int,

@@ -1,13 +1,16 @@
-"""Command line: ``python -m spark_bam_tpu_torch count-reads [-n N] PATH``
-and ``python -m spark_bam_tpu_torch full-check [-l N] PATH``.
+"""Command line: ``python -m spark_bam_tpu_torch count-reads [-n N]
+[--resident] PATH`` and ``python -m spark_bam_tpu_torch full-check [-l N]
+PATH``.
 
 ``count-reads`` prints the reference CLI's standalone count lines
 (``spark-bam read-count time: MS`` and ``Read count: N`` per iteration) and
-its ``funnel:`` line. ``full-check`` prints the reference's streaming
-full-check report (``full-check --streaming``): the critical and two-check
-sections with ``block:offset`` positions, the total error counts and the
-``funnel:`` line. Both run on the CUDA device unless ``--device`` names
-another.
+its ``funnel:`` line; ``--resident`` (or ``Config.resident_scan``) counts
+with one device dispatch per resident chunk
+(``StreamChecker.count_reads_resident``). ``full-check`` prints the
+reference's streaming full-check report (``full-check --streaming``): the
+critical and two-check sections with ``block:offset`` positions, the
+total error counts and the ``funnel:`` line. Both run on the CUDA device
+unless ``--device`` names another.
 """
 
 from __future__ import annotations
@@ -91,14 +94,17 @@ def funnel_status_line(config: Config, stats: dict | None = None,
     return f"funnel: on ({mode})"
 
 
-def count_reads(path, iterations: int = 1, device=None, out=None) -> int:
+def count_reads(path, iterations: int = 1, device=None, out=None,
+                resident: bool = False, config: Config | None = None) -> int:
     out = sys.stdout if out is None else out
-    config = Config()
+    config = Config() if config is None else config
     checker = StreamChecker(path, config, device=device)
+    count_fn = (checker.count_reads_resident
+                if resident or config.resident_scan else checker.count_reads)
     count = 0
     for _ in range(max(iterations, 1)):
         t0 = time.perf_counter()
-        count = checker.count_reads()
+        count = count_fn()
         ms = int((time.perf_counter() - t0) * 1e3)
         out.write(f"spark-bam read-count time: {ms}\n")
         out.write(f"Read count: {count}\n\n")
@@ -223,6 +229,8 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     cr = sub.add_parser("count-reads", help="count the records of a BAM")
     cr.add_argument("-n", "--num-iterations", type=int, default=1)
+    cr.add_argument("--resident", action="store_true",
+                    help="one device dispatch per resident chunk of windows")
     fc = sub.add_parser("full-check",
                         help="all 19 checks at every position of a BAM")
     fc.add_argument("-l", "--print-limit", type=int, default=10)
@@ -232,7 +240,8 @@ def main(argv=None) -> int:
         p.add_argument("path")
     args = ap.parse_args(argv)
     if args.cmd == "count-reads":
-        count_reads(args.path, args.num_iterations, args.device)
+        count_reads(args.path, args.num_iterations, args.device,
+                    resident=args.resident)
     else:
         full_check(args.path, args.print_limit, args.device)
     return 0

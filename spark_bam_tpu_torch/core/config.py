@@ -94,6 +94,17 @@ class Config:
     inflate: str = ""                   # InflateConfig spec
     flush_every: int | None = None      # windows between device→host flushes
     ring_depth: int = 2                 # un-synced windows in the count ring
+    # Resident-scan counting (StreamChecker.count_reads_resident): host-zlib
+    # windows packed into device-resident chunks, one dispatch per chunk
+    # through checker.make_count_scan (on the GPU one CUDA graph replay of
+    # the chunk's window bodies) instead of one per window. Opt-in: a
+    # chunk holds hundreds of MiB of device memory, and the count is the
+    # only projection the chunk counter serves.
+    resident_scan: bool = False
+    # Device memory budget for one resident chunk, bytes: clamped to at
+    # most 1 GiB (int32 row offsets and per-chunk sums) and at least one
+    # window row, then floored to a power of two of rows.
+    resident_chunk_bytes: int = 256 << 20
 
     def __post_init__(self):
         if self.funnel not in ("on", "off", "auto"):

@@ -222,7 +222,8 @@ __device__ __forceinline__ int32_t flags_at(
 __global__ void __launch_bounds__(kThreads)
 full_flags_kernel(const uint8_t* __restrict__ padded, int total, int w,
                   const int32_t* __restrict__ lengths, int cmax,
-                  int num_contigs, int n, int32_t* status,
+                  int num_contigs, int n_val,
+                  const int32_t* __restrict__ n_ptr, int32_t* status,
                   uint32_t ticket_base, uint32_t epoch, int tiles,
                   int32_t* __restrict__ out) {
   __shared__ __align__(128) uint32_t region[kRegionWords];
@@ -232,6 +233,7 @@ full_flags_kernel(const uint8_t* __restrict__ padded, int total, int w,
   __shared__ __align__(8) uint64_t bar_s;
 
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int n = n_ptr ? __ldg(n_ptr) : n_val;
   const uint32_t bar = smem_addr(&bar_s);
   if (t == 0) {
     const uint32_t ticket = atomicAdd(reinterpret_cast<uint32_t*>(status), 1u);
@@ -400,15 +402,19 @@ full_flags_kernel(const uint8_t* __restrict__ padded, int total, int w,
 
 // ``padded`` holds ``total`` bytes (a multiple of 4, starting on a 16-byte
 // boundary): the window's ``w`` offsets (a multiple of 4) and the padding
-// past them. ``status`` holds 16 * (1 + ceil(total / 16384)) int32: the
+// past them. The valid byte count is ``n`` or, when ``n_ptr`` is not
+// null, the int32 it points to in device memory (a launch captured in a
+// CUDA graph then reads each replay's value). ``status`` holds
+// 16 * (1 + ceil(total / 16384)) int32: the
 // ticket counter, then one record per tile. It belongs to one stream; this
 // launch's tickets start at ``ticket_base`` and its records carry
 // ``epoch`` (non-zero), larger than any epoch already there.
 extern "C" int sbt_full_flags(const uint8_t* padded, int total, int w,
                               const int32_t* lengths, int cmax,
-                              int num_contigs, int n, int32_t* status,
-                              unsigned ticket_base, unsigned epoch,
-                              int32_t* out, cudaStream_t stream) {
+                              int num_contigs, int n, const int32_t* n_ptr,
+                              int32_t* status, unsigned ticket_base,
+                              unsigned epoch, int32_t* out,
+                              cudaStream_t stream) {
   if (w <= 0) return (int)cudaGetLastError();
   // Once per process: all of the SM's shared memory, so that eight CTAs
   // fit (25 KB each).
@@ -419,8 +425,8 @@ extern "C" int sbt_full_flags(const uint8_t* padded, int total, int w,
   const int tiles = (total + kTile - 1) / kTile;
   SBT_EVENT(0, stream);
   full_flags_kernel<<<tiles, kThreads, 0, stream>>>(
-      padded, total, w, lengths, cmax, num_contigs, n, status, ticket_base,
-      epoch, tiles, out);
+      padded, total, w, lengths, cmax, num_contigs, n, n_ptr, status,
+      ticket_base, epoch, tiles, out);
   SBT_EVENT(1, stream);
   return (int)cudaGetLastError();
 }

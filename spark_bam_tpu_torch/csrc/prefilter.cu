@@ -284,7 +284,8 @@ __device__ __forceinline__ int2 tile_ranks(int mine, int* warp_sum, int lane,
 __global__ void __launch_bounds__(kThreads)
 prefilter_kernel(const uint8_t* __restrict__ padded, int w,
                  const int32_t* __restrict__ lengths, int cmax,
-                 int num_contigs, int n, int32_t* status,
+                 int num_contigs, int n_val,
+                 const int32_t* __restrict__ n_ptr, int32_t* status,
                  uint32_t ticket_base, uint32_t epoch, int tiles,
                  int32_t* __restrict__ out, uint4* __restrict__ bitmaps,
                  int32_t* __restrict__ cand, int capacity,
@@ -297,6 +298,7 @@ prefilter_kernel(const uint8_t* __restrict__ padded, int w,
   __shared__ __align__(8) uint64_t bar_s;
 
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int n = n_ptr ? __ldg(n_ptr) : n_val;
   const uint32_t bar = smem_addr(&bar_s);
   if (t == 0) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
@@ -426,7 +428,10 @@ prefilter_kernel(const uint8_t* __restrict__ padded, int w,
 // starting on a 16-byte boundary, fewer than 2^31 bytes in all; ``out``
 // holds ``w`` int32 and starts on a 16-byte boundary; ``bitmaps`` holds
 // 512 uint32 per tile (scratch; 16-byte aligned); ``cand`` holds
-// ``capacity`` int32, all -1; ``n_set`` one int32. ``status`` holds
+// ``capacity`` int32, all -1; ``n_set`` one int32. The valid byte count
+// is ``n`` or, when ``n_ptr`` is not null, the int32 it points to in
+// device memory (a launch captured in a CUDA graph then reads each
+// replay's value). ``status`` holds
 // 4 * (1 + ceil(w / 16384)) int32: the two ticket counters, then one
 // record per tile. It belongs to one stream; this launch's tickets (of
 // both counters) start at ``ticket_base`` and its records carry ``epoch``
@@ -436,7 +441,8 @@ prefilter_kernel(const uint8_t* __restrict__ padded, int w,
 // tickets of each counter.
 extern "C" int sbt_prefilter(const uint8_t* padded, int w,
                              const int32_t* lengths, int cmax,
-                             int num_contigs, int n, int32_t* status,
+                             int num_contigs, int n, const int32_t* n_ptr,
+                             int32_t* status,
                              unsigned ticket_base, unsigned epoch,
                              int32_t* out, uint32_t* bitmaps, int32_t* cand,
                              int capacity, int32_t* n_set, int grid,
@@ -445,8 +451,9 @@ extern "C" int sbt_prefilter(const uint8_t* padded, int w,
   const int tiles = (w + kTile - 1) / kTile;
   SBT_EVENT(0, stream);
   prefilter_kernel<<<grid, kThreads, 0, stream>>>(
-      padded, w, lengths, cmax, num_contigs, n, status, ticket_base, epoch,
-      tiles, out, reinterpret_cast<uint4*>(bitmaps), cand, capacity, n_set);
+      padded, w, lengths, cmax, num_contigs, n, n_ptr, status, ticket_base,
+      epoch, tiles, out, reinterpret_cast<uint4*>(bitmaps), cand, capacity,
+      n_set);
   SBT_EVENT(1, stream);
   return (int)cudaGetLastError();
 }

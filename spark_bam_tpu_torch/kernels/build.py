@@ -32,10 +32,10 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 # C entry points: name → argtypes (pointers, ints and the stream last).
 SIGNATURES = {
-    "sbt_prefilter": [_P, _I, _P, _I, _I, _I, _P, _U, _U, _P, _P, _P, _I, _P,
-                      _I, _P],
+    "sbt_prefilter": [_P, _I, _P, _I, _I, _I, _P, _P, _U, _U, _P, _P, _P, _I,
+                      _P, _I, _P],
     "sbt_prefilter_ctas": [],
-    "sbt_full_flags": [_P, _I, _I, _P, _I, _I, _I, _P, _U, _U, _P, _P],
+    "sbt_full_flags": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _U, _U, _P, _P],
     "sbt_lz77_resolve": [_P, _P, _I, _P, _P, _P],
     "sbt_tokenize": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
 }

@@ -14,11 +14,16 @@ checker.py``), in two forms that give the same verdicts:
 
 ``TpuChecker`` windows a flat buffer through ``check_window`` (full pass)
 and re-checks escaped lanes on the host, the reference's ``Checker``
-plug-in face.
+plug-in face. ``count_scan`` counts the windows of a resident chunk
+(reference ``checker.count_scan``); on a CUDA device ``make_count_scan``
+gives ``CountScanGraphs``, which runs a chunk as one CUDA graph replay.
 
 Scalars the reference traces (``n``, ``at_eof``, ``lo``, ``own``,
 ``carry_len``, ``num_contigs``) are plain Python values here: the host knows
-them when it queues a window. Everything else is tensor code on the
+them when it queues a window. ``n``, ``at_eof``, ``lo`` and ``own`` may also
+be 0-d tensors on the window's device (``n`` int32), with the same results:
+a CUDA graph needs them so, since a Python value is frozen into the graph
+at capture. Everything else is tensor code on the
 window's device. PyTorch has no popcount and thin uint32 support, so packed
 words live in int64 with a SWAR popcount, and the reference's JVM int32 wrap
 is applied explicitly.
@@ -34,6 +39,7 @@ import torch
 from spark_bam_tpu_torch.check.flags import BIT, DEFINITIVE_MASK, ESCAPE_MASK
 from spark_bam_tpu_torch.check.vectorized import check_flat
 from spark_bam_tpu_torch.device import resolve_device
+from spark_bam_tpu_torch.tpu import kernels
 from spark_bam_tpu_torch.tpu.kernels import (
     PAD,
     _compact_mask,
@@ -53,11 +59,12 @@ from spark_bam_tpu_torch.tpu.kernels import (
 from spark_bam_tpu_torch.tpu.tokenize_device import STRIDE
 
 __all__ = [
-    "PAD", "TpuChecker", "WindowResult", "_prefilter_flags", "check_window",
-    "count_window", "count_window_raw", "inflate_window_raw", "next_carry",
+    "PAD", "CountScanGraphs", "TpuChecker", "WindowResult",
+    "_prefilter_flags", "check_window", "count_scan", "count_window",
+    "count_window_raw", "inflate_window_raw", "make_count_scan", "next_carry",
 ]
 
-def _funnel_tables(p, n: int):
+def _funnel_tables(p, n):
     """Word-level prefix tables for the deep checks: packed indicator words
     plus exclusive per-word popcount prefixes (allowed read-name bytes; bad
     cigar-op bytes per stride-4 class)."""
@@ -92,7 +99,7 @@ def _badops_before(cwords, cwpre4, q, c):
     return _take(cwpre4, wi * 4 + c) + part
 
 
-def _deep_flags_at(p, lengths, num_contigs: int, n: int, tables, pos):
+def _deep_flags_at(p, lengths, num_contigs: int, n, tables, pos):
     """The full 19-bit mask at positions (K,), field for field the reference
     full pass (same overwrite, same quirks)."""
     nwords, nwpre, cwords, cwpre4 = tables
@@ -156,14 +163,17 @@ def _deep_flags_at(p, lengths, num_contigs: int, n: int, tables, pos):
     return f.int()
 
 
-def _check_lanes(padded, lengths, num_contigs: int, n: int, at_eof: bool,
+def _check_lanes(padded, lengths, num_contigs: int, n, at_eof,
                  reads_to_check: int = 10, funnel: bool = True) -> dict:
     """Flag pass (prefilter, or the full pass with ``funnel=False``) +
     survivor compaction + chain walk, without scattering the lanes back to
     full width (the shared core of ``check_window`` and ``count_window``)."""
     dev = padded.device
     w = padded.numel() - PAD
-    ae = torch.tensor(bool(at_eof), device=dev)
+    if isinstance(at_eof, torch.Tensor):
+        ae = at_eof if at_eof.dtype == torch.bool else at_eof != 0
+    else:
+        ae = torch.tensor(bool(at_eof), device=dev)
     capacity = lane_capacity(w)
     if funnel:
         F, cand, n_survivors = prefilter_check_flags(padded, lengths,
@@ -275,7 +285,7 @@ def _check_lanes(padded, lengths, num_contigs: int, n: int, at_eof: bool,
     }
 
 
-def check_window(padded, lengths, num_contigs: int, n: int, at_eof: bool,
+def check_window(padded, lengths, num_contigs: int, n, at_eof,
                  reads_to_check: int = 10, funnel: bool = True) -> dict:
     """Verdicts for every offset of a (W + PAD,) u8 window (zeros past
     ``n``): (W,) ``verdict``, ``fail_mask``, ``reads_parsed``,
@@ -324,9 +334,8 @@ def check_window(padded, lengths, num_contigs: int, n: int, at_eof: bool,
     }
 
 
-def count_window(padded, lengths, num_contigs: int, n: int, at_eof: bool,
-                 lo: int, own: int, reads_to_check: int = 10,
-                 funnel: bool = True) -> dict:
+def count_window(padded, lengths, num_contigs: int, n, at_eof, lo, own,
+                 reads_to_check: int = 10, funnel: bool = True) -> dict:
     """``check_window`` reduced over the owned span [lo, own) without the
     full-width scatters: () ``count`` of record starts, ``esc_count`` of
     escaped owned positions (all of them on a capacity overflow), and
@@ -345,6 +354,191 @@ def count_window(padded, lengths, num_contigs: int, n: int, at_eof: bool,
         "esc_count": torch.where(overflow, m.sum(), esc),
         "survivors": L["n_survivors"],
     }
+
+
+def _host_ints(x) -> np.ndarray:
+    """A (K,) row scalar column (array, list or tensor) as host int64."""
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    return np.asarray(x).astype(np.int64)
+
+
+def count_scan(chunk, lengths, num_contigs: int, starts, ns, at_eofs, los,
+               owns, *, window: int, reads_to_check: int = 10,
+               funnel: bool = False) -> dict:
+    """``count_window`` over the K windows packed in one resident chunk
+    (reference ``checker.count_scan``), one after another on the chunk's
+    device. Window k is ``chunk[starts[k] : starts[k] + window + PAD]``
+    (zeros past its ``ns[k]`` valid bytes) with ``at_eofs[k]`` and the
+    owned span ``[los[k], owns[k])``; the row scalars are host arrays or
+    tensors. A row with ``own == lo`` contributes nothing, which is how
+    callers pad K to a bucket. Returns the () int32 ``count``,
+    ``esc_count`` and ``survivors`` summed over the rows (a chunk holds
+    fewer than 2^31 positions).
+
+    The plain version of ``CountScanGraphs``, which ``make_count_scan``
+    returns for a CUDA device."""
+    stride = window + PAD
+    starts, ns, aes, los, owns = (_host_ints(c) for c in
+                                  (starts, ns, at_eofs, los, owns))
+    total = torch.zeros(3, dtype=torch.int64, device=chunk.device)
+    for s, n, ae, lo, own in zip(starts, ns, aes, los, owns):
+        if s < 0 or s + stride > chunk.numel():
+            raise ValueError(f"row at {s} runs past the {chunk.numel()}-byte "
+                             f"chunk (rows are {stride} bytes)")
+        r = count_window(chunk[s: s + stride], lengths, num_contigs, int(n),
+                         bool(ae), int(lo), int(own), reads_to_check, funnel)
+        total += torch.stack([r["count"].long(), r["esc_count"].long(),
+                              r["survivors"].long()])
+    total = total.int()
+    return {"count": total[0], "esc_count": total[1], "survivors": total[2]}
+
+
+class CountScanGraphs:
+    """``count_scan`` on a CUDA device as one CUDA graph replay per chunk.
+
+    The runner owns a static chunk buffer of Kp rows at stride
+    ``window + PAD`` (16-byte aligned, since PAD is), a static (4, Kp)
+    int32 table of the rows' ``n``, ``at_eof``, ``lo`` and ``own``, a
+    static contig table, and one ``torch.cuda.CUDAGraph`` per
+    power-of-two row count Kp (the reference's recompile bound) and
+    contig count: each captures Kp ``count_window`` bodies in sequence
+    over the static rows, with the row scalars as 0-d views of the table.
+    Before its first capture the runner runs one body eagerly on a side
+    stream, so the kernels are built and loaded and their launch set-up
+    is done outside any capture.
+
+    A call copies the chunk's rows and scalars in on the current stream
+    (pinned host tensors let the copies overlap the previous replay),
+    gives the rows from K to Kp ``n = lo = own = 0`` (they count
+    nothing), replays the bucket's graph and returns clones of its three
+    sums, which the next replay would overwrite. Inside the graph the flag
+    kernels read ``n`` from the table and start from tile records zeroed
+    by a captured memset (``kernels.TileStatus``); every replay adds the
+    graph's captured launches to ``kernels.LAUNCHES``. A failed capture
+    or replay raises: nothing falls back to the eager loop."""
+
+    def __init__(self, window: int, reads_to_check: int = 10,
+                 funnel: bool = False, device=None):
+        self.device = resolve_device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"CountScanGraphs runs on a CUDA device, not "
+                             f"{self.device}; count_scan is the plain loop")
+        self.window = window
+        self.stride = window + PAD
+        self.reads_to_check = reads_to_check
+        self.funnel = funnel
+        self.rows = 0
+        self.chunk = self.table = self.lengths = None
+        #: (Kp, num_contigs) → (graph, static (3,) int32 sums, launches of
+        #: each kernel that one replay runs).
+        self.graphs: dict = {}
+        self.captures = 0
+        self.replays = 0
+        self._warm = False
+
+    def _buffers(self, kp: int, cmax: int) -> None:
+        """Static buffers for ``kp`` rows and a ``cmax`` contig table; a
+        buffer that grows drops the graphs that read the old one."""
+        dev = self.device
+        if kp > self.rows:
+            self.graphs.clear()
+            self.chunk = torch.zeros(kp * self.stride, dtype=torch.uint8,
+                                     device=dev)
+            self.table = torch.zeros((4, kp), dtype=torch.int32, device=dev)
+            self.rows = kp
+        if self.lengths is None or self.lengths.numel() != cmax:
+            self.graphs.clear()
+            self.lengths = torch.zeros(cmax, dtype=torch.int32, device=dev)
+
+    def _body(self, kp: int, num_contigs: int) -> torch.Tensor:
+        """Kp window bodies over the static rows: the (3,) int32 sums."""
+        total = None
+        for j in range(kp):
+            row = self.chunk[j * self.stride: (j + 1) * self.stride]
+            n, ae, lo, own = self.table[:, j]
+            r = count_window(row, self.lengths, num_contigs, n, ae, lo, own,
+                             self.reads_to_check, self.funnel)
+            v = torch.stack([r["count"].long(), r["esc_count"].long(),
+                             r["survivors"].long()])
+            total = v if total is None else total + v
+        return total.int()
+
+    def _graph(self, kp: int, num_contigs: int):
+        key = (kp, num_contigs)
+        if key in self.graphs:
+            return self.graphs[key]
+        dev = self.device
+        current = torch.cuda.current_stream(dev)
+        if not self._warm:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self._body(1, num_contigs)
+            current.wait_stream(side)
+            self._warm = True
+        before = dict(kernels.CAPTURED)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            sums = self._body(kp, num_contigs)
+        launches = {k: kernels.CAPTURED[k] - before[k] for k in before
+                    if kernels.CAPTURED[k] != before[k]}
+        self.graphs[key] = (graph, sums, launches)
+        self.captures += 1
+        return self.graphs[key]
+
+    def launches_per_replay(self) -> dict:
+        """Kernel launches one replay runs, per captured (Kp, num_contigs)."""
+        return {key: dict(g[2]) for key, g in self.graphs.items()}
+
+    def __call__(self, chunk, lengths, num_contigs: int, starts, ns, at_eofs,
+                 los, owns) -> dict:
+        k = len(ns)
+        if k == 0:
+            raise ValueError("a chunk holds at least one row")
+        kp = 1 << (k - 1).bit_length()
+        if not np.array_equal(_host_ints(starts),
+                              np.arange(k, dtype=np.int64) * self.stride):
+            raise ValueError(f"rows must lie at stride window + PAD = "
+                             f"{self.stride}")
+        nbytes = k * self.stride
+        if chunk.dim() != 1 or chunk.dtype != torch.uint8 \
+                or chunk.numel() < nbytes:
+            raise ValueError(f"chunk must be a 1-D uint8 tensor of at least "
+                             f"{nbytes} bytes")
+        self._buffers(kp, lengths.numel())
+        self.chunk[:nbytes].copy_(chunk[:nbytes], non_blocking=True)
+        self.lengths.copy_(lengths, non_blocking=True)
+        for i, col in enumerate((ns, at_eofs, los, owns)):
+            self.table[i, :k].copy_(torch.as_tensor(col), non_blocking=True)
+        if kp > k:
+            self.table[:, k:kp].zero_()
+        graph, sums, launches = self._graph(kp, int(num_contigs))
+        graph.replay()
+        self.replays += 1
+        for name, c in launches.items():
+            kernels.LAUNCHES[name] += c
+        out = sums.clone()
+        return {"count": out[0], "esc_count": out[1], "survivors": out[2]}
+
+
+def make_count_scan(window: int, reads_to_check: int = 10,
+                    funnel: bool = False, device=None):
+    """The resident-chunk counter for a fixed ``window`` (reference
+    ``checker.make_count_scan``), called as ``(chunk, lengths,
+    num_contigs, starts, ns, at_eofs, los, owns)``: ``count_scan`` on the
+    CPU, a ``CountScanGraphs`` runner on a CUDA device (``device=None`` is
+    the current CUDA device and raises without one)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return CountScanGraphs(window, reads_to_check, funnel, dev)
+
+    def run(chunk, lengths, num_contigs, starts, ns, at_eofs, los, owns):
+        return count_scan(chunk, lengths, num_contigs, starts, ns, at_eofs,
+                          los, owns, window=window,
+                          reads_to_check=reads_to_check, funnel=funnel)
+
+    return run
 
 
 def _assemble(resolved, out_lens, carry, carry_len: int, n: int, *,

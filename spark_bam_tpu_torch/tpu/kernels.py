@@ -4,7 +4,17 @@ PyTorch versions of the same functions.
 Each wrapper takes its plain version only for tensors that lie on the CPU.
 For CUDA tensors it launches its kernel (``csrc/*.cu``, built by
 ``kernels/build.py``) on the current stream or raises; nothing falls back.
-``LAUNCHES`` counts kernel launches per wrapper, and only those.
+``LAUNCHES`` counts kernel launches per wrapper, and only those. A launch
+captured into a CUDA graph runs only when the graph is replayed: it is
+counted in ``CAPTURED`` instead, and the graph's owner adds its captured
+launches to ``LAUNCHES`` at every replay (``checker.CountScanGraphs``).
+
+The two flag kernels take the valid byte count ``n`` by value from a
+Python int, or read it from device memory when it is a 0-d int32 tensor
+on the window's device, so that a captured launch reads each replay's
+value. Their tile status records are kept per stream between eager
+launches (``TileStatus``); a captured launch gets records of its own,
+zeroed by a captured memset just before it.
 
 | wrapper                 | CUDA source           | replaces (spark_bam_tpu/tpu/pallas_kernels.py) |
 | ----------------------- | --------------------- | ---------------------------------------------- |
@@ -46,6 +56,8 @@ DOUBLING_ROUNDS = (STRIDE - 1).bit_length()
 
 LAUNCHES = {"prefilter_check_flags": 0, "full_check_flags": 0,
             "lz77_resolve": 0, "tokenize": 0}
+#: Launches recorded into CUDA graphs being captured (none of them ran).
+CAPTURED = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launch_counts() -> None:
@@ -128,7 +140,7 @@ def lane_capacity(w: int) -> int:
     return max(w // 32, 4096)
 
 
-def _prefilter_flags(p, lengths, num_contigs: int, n: int) -> torch.Tensor:
+def _prefilter_flags(p, lengths, num_contigs: int, n) -> torch.Tensor:
     """Plain version of the stage-0 funnel pass: the fixed-block subset of
     the 19 bits at every offset of the (W + PAD,) window ``p``, including
     the ``tooFewFixedBlockBytes`` overwrite. Returns (W,) int32."""
@@ -188,7 +200,7 @@ def _compact_mask(mask: torch.Tensor, capacity: int):
     return cand, n_set
 
 
-def _prefilter_compact(p, lengths, num_contigs: int, n: int, capacity: int):
+def _prefilter_compact(p, lengths, num_contigs: int, n, capacity: int):
     """Plain version of the fused stage-0 pass: ``_prefilter_flags``, then
     the survivors (``F == 0`` at offsets below ``n``) compacted by
     ``_compact_mask``. Returns ``(F (W,) i32, cand (capacity,) i32,
@@ -201,7 +213,7 @@ def _prefilter_compact(p, lengths, num_contigs: int, n: int, capacity: int):
     return F, cand.int(), n_set.int()
 
 
-def _misc_at(p, n: int, pos):
+def _misc_at(p, n, pos):
     """``remaining`` and ``body_end`` of the record at each position (K,)
     (pre-clipped to [0, w)) of the padded window ``p`` holding ``n`` valid
     bytes: what a chain walk needs to step."""
@@ -224,7 +236,7 @@ def _misc_at(p, n: int, pos):
     return remaining, body_end
 
 
-def _compute_flags(p, lengths, num_contigs: int, n: int) -> torch.Tensor:
+def _compute_flags(p, lengths, num_contigs: int, n) -> torch.Tensor:
     """Plain version of the full pass: all 19 flag bits at every offset of
     the (W + PAD,) window ``p`` (zeros past ``n``), line for line the
     reference's ``checker._compute_flags``: read-name validity from a
@@ -302,7 +314,13 @@ class TileStatus:
     tile. Zeroed once; each launch on a stream gets the next epoch and the
     ticket base where the previous launch's tickets ended (launches on one
     stream run one after another), so the kernel never needs the records
-    cleared. Each kernel that keeps records has its own instance."""
+    cleared. Each kernel that keeps records has its own instance.
+
+    A launch captured into a CUDA graph cannot take tickets and epochs from
+    the host: every replay would reuse the captured base and epoch while
+    the ticket counters and the records moved on. It gets records of its
+    own instead, zeroed by a memset captured just before it, with ticket
+    base 0 and epoch 1, so each replay starts from clean records."""
 
     def __init__(self, record: int = _RECORD):
         self._record = record
@@ -312,6 +330,9 @@ class TileStatus:
     def next(self, device: torch.device, stream: int, tiles: int):
         """``(records, ticket_base, epoch)`` for a launch of ``tiles``
         tiles on ``stream`` (PyTorch's current stream of ``device``)."""
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            return (torch.zeros(self._record * (1 + tiles), dtype=torch.int32,
+                                device=device), 0, 1)
         key = (device.index, stream)
         with self._lock:
             st = self._streams.get(key)
@@ -354,7 +375,10 @@ def _launch(name: str, fn, *args, device: torch.device) -> None:
         err = getattr(lib, fn)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[name] += 1
+    else:
+        LAUNCHES[name] += 1
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -363,6 +387,17 @@ def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel for device {t.device}")
+
+
+def _n_arg(n, dev: torch.device):
+    """The valid byte count for a flag kernel: ``(n, None)`` by value for
+    an int, ``(0, pointer)`` for a 0-d int32 tensor on ``dev``."""
+    if not isinstance(n, torch.Tensor):
+        return int(n), None
+    if n.dim() != 0 or n.dtype != torch.int32 or n.device != dev:
+        raise TypeError(f"n: expected an int or a 0-d int32 tensor on {dev}, "
+                        f"got a {n.dim()}-D {n.dtype} tensor on {n.device}")
+    return 0, n.data_ptr()
 
 
 _CTAS: dict = {}
@@ -381,10 +416,11 @@ def _prefilter_ctas(dev: torch.device) -> int:
 
 
 def prefilter_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
-                          num_contigs: int, n: int):
+                          num_contigs: int, n):
     """Stage-0 funnel bits at every offset of a (W + PAD,) u8 window and
     its survivors, compacted into ``lane_capacity(W)`` lanes; ``lengths``
-    is the padded (Cmax,) i32 contig table and ``n`` the valid byte count.
+    is the padded (Cmax,) i32 contig table and ``n`` the valid byte count
+    (an int, or a 0-d int32 tensor on the window's device).
     Returns ``(F (W,) i32, cand (capacity,) i32, n_set () i32)``, as
     ``_prefilter_compact``.
 
@@ -414,6 +450,7 @@ def prefilter_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
         raise ValueError("the window must hold fewer than 2^31 bytes")
     if padded.data_ptr() % 16:
         raise ValueError("padded must start on a 16-byte boundary")
+    n_val, n_ptr = _n_arg(n, dev)
     tiles = -(-w // PREFILTER_TILE)
     grid = min(tiles, _prefilter_ctas(dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -428,7 +465,7 @@ def prefilter_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
     try:
         _launch("prefilter_check_flags", "sbt_prefilter", padded.data_ptr(),
                 w, lengths.data_ptr(), lengths.numel(), int(num_contigs),
-                int(n), records.data_ptr(), base, epoch, out.data_ptr(),
+                n_val, n_ptr, records.data_ptr(), base, epoch, out.data_ptr(),
                 bitmaps.data_ptr(), cand.data_ptr(), capacity,
                 n_set.data_ptr(), grid, device=dev)
     except RuntimeError:
@@ -438,9 +475,10 @@ def prefilter_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
 
 
 def full_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
-                     num_contigs: int, n: int) -> torch.Tensor:
+                     num_contigs: int, n) -> torch.Tensor:
     """All 19 flag bits at every offset of a (W + PAD,) u8 window (zeros
-    past ``n``); ``lengths`` is the padded (Cmax,) i32 contig table.
+    past ``n``, an int or a 0-d int32 tensor on the window's device);
+    ``lengths`` is the padded (Cmax,) i32 contig table.
     Returns (W,) i32.
 
     Replaces ``pallas_kernels.py::full_check_flags``. Bound by bytes (one
@@ -463,6 +501,7 @@ def full_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
         raise ValueError("the window must hold fewer than 2^31 bytes")
     if padded.data_ptr() % 16:
         raise ValueError("padded must start on a 16-byte boundary")
+    n_val, n_ptr = _n_arg(n, dev)
     tiles = -(-padded.numel() // FULL_FLAGS_TILE)
     stream = torch.cuda.current_stream(dev).cuda_stream
     records, base, epoch = _TILE_STATUS.next(dev, stream, tiles)
@@ -470,8 +509,8 @@ def full_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
     try:
         _launch("full_check_flags", "sbt_full_flags", padded.data_ptr(),
                 padded.numel(), w, lengths.data_ptr(), lengths.numel(),
-                int(num_contigs), int(n), records.data_ptr(), base, epoch,
-                out.data_ptr(), device=dev)
+                int(num_contigs), n_val, n_ptr, records.data_ptr(), base,
+                epoch, out.data_ptr(), device=dev)
     except RuntimeError:
         _TILE_STATUS.drop(dev, stream)
         raise

@@ -24,6 +24,11 @@ checkpoints (window 4, then every flush):
 - the classic loop in ``count_reads``: host zlib inflates, and each padded
   window goes to the device for ``checker.count_window``.
 
+``count_reads_resident`` (``Config.resident_scan``) packs host-zlib
+windows into resident chunks and counts each chunk with one dispatch of
+``checker.make_count_scan``'s counter: on a CUDA device one CUDA graph
+replay of the chunk's window bodies.
+
 ``spans()`` and ``full_spans()`` run ``check_window`` on each window, one
 window in flight; there a refused group or a tokenizer verdict of False
 demotes that window alone to host zlib (also counted).
@@ -83,6 +88,7 @@ from spark_bam_tpu_torch.tpu.checker import (
     count_window,
     count_window_raw,
     inflate_window_raw,
+    make_count_scan,
     next_carry,
 )
 from spark_bam_tpu_torch.tpu.inflate import InflatePipeline, stage_group_device
@@ -125,6 +131,41 @@ def halo_windows(pipeline, halo: int, header_end: int):
         yield buf, base, own_end, lo, view.at_eof
         carry = buf[own_end:]
         base_next = base + own_end
+
+
+class _Staging:
+    """A host buffer of resident chunk rows at ``stride`` and their (4,
+    rows) int32 table of ``n``, ``at_eof``, ``lo`` and ``own``: pinned on
+    a CUDA device, where ``mark`` records an event after the copies out of
+    it and ``pack`` waits for it before writing again. Bytes past each
+    row's ``n`` are zeroed, as the check requires."""
+
+    def __init__(self, rows: int, stride: int, device: torch.device):
+        pin = device.type == "cuda"
+        self.device = device
+        self.stride = stride
+        self.chunk = torch.zeros(rows * stride, dtype=torch.uint8,
+                                 pin_memory=pin)
+        self.table = torch.zeros((4, rows), dtype=torch.int32,
+                                 pin_memory=pin)
+        self.done = None
+
+    def pack(self, rows) -> None:
+        if self.done is not None:
+            self.done.synchronize()
+        data = self.chunk.numpy()
+        table = self.table.numpy()
+        for j, (buf, at_eof, lo, own) in enumerate(rows):
+            at = j * self.stride
+            n = len(buf)
+            data[at: at + n] = buf
+            data[at + n: at + self.stride] = 0
+            table[:, j] = (n, at_eof, lo, own)
+
+    def mark(self) -> None:
+        if self.device.type == "cuda":
+            self.done = torch.cuda.Event()
+            self.done.record(torch.cuda.current_stream(self.device))
 
 
 class _Ring:
@@ -190,6 +231,8 @@ class StreamChecker:
         self.ring_depth = max(1, config.ring_depth)
         self.funnel_stats: dict | None = None
         self.tokenize_demotions = 0
+        #: The resident count's chunk counter, kept for later counts.
+        self.scan_runner = None
 
     def _device_inflate(self) -> bool:
         """``Config.device_inflate``, whose ``None`` means on."""
@@ -219,6 +262,103 @@ class StreamChecker:
             if res is not None:
                 return res
         return self._count_reads_classic()
+
+    def resident_chunk_rows(self) -> int:
+        """The most window rows a resident chunk holds: its bytes at stride
+        ``kernel_window + PAD`` are ``Config.resident_chunk_bytes`` clamped
+        to at most 1 GiB (int32 row offsets and per-chunk sums) and at least
+        one row, floored to a power of two of rows."""
+        stride = self.kernel_window + PAD
+        cap_bytes = min(1 << 30, max(self.config.resident_chunk_bytes,
+                                     stride))
+        return 1 << ((cap_bytes // stride).bit_length() - 1)
+
+    def count_reads_resident(self, chunk_windows: int | None = None,
+                             first_chunk_windows: int = 4) -> int:
+        """Record count with one device dispatch per resident chunk
+        (reference ``StreamChecker.count_reads_resident``).
+
+        Host-zlib windows (``halo_windows``) are packed into chunks of rows
+        at stride ``kernel_window + PAD`` (zeros past each row's bytes), and
+        ``checker.make_count_scan``'s counter counts each chunk at once: on
+        a CUDA device one CUDA graph replay of the chunk's window bodies
+        (``CountScanGraphs``), on the CPU the plain loop. A chunk holds at
+        most ``resident_chunk_rows()`` rows and at most ``chunk_windows``;
+        the first holds ``first_chunk_windows`` (within the same bound) and
+        is read back at once, so escape-prone inputs abort early, then
+        results are read one chunk behind (at most two chunks in flight).
+        On the device rows go through two pinned staging buffers, each
+        reused once the copy out of it has run.
+
+        Any escaped owned position re-runs the file through the exact
+        ``spans()`` path; a window larger than the kernel window (which
+        ``_largest_window`` rules out) goes to ``count_reads``."""
+        w = self.kernel_window
+        stride = w + PAD
+        max_windows = self.resident_chunk_rows()
+        chunk_windows = max_windows if chunk_windows is None else max(
+            1, min(chunk_windows, max_windows))
+        first = max(1, min(first_chunk_windows, max_windows))
+        funnel = self.config.funnel_enabled()
+        if self.scan_runner is None:
+            self.scan_runner = make_count_scan(
+                w, self.config.reads_to_check, funnel, self.device)
+        runner = self.scan_runner
+        lens_dev, nc = self._lengths_dev()
+        rows_max = max(first, chunk_windows)
+        slots = [_Staging(rows_max, stride, self.device)
+                 for _ in range(2 if self.device.type == "cuda" else 1)]
+        total = 0
+        pend: list = []
+        chunks = 0
+
+        def flush(rows):
+            st = slots[chunks % len(slots)]
+            st.pack(rows)
+            k = len(rows)
+            m = st.table
+            out = runner(st.chunk, lens_dev, nc, np.arange(k) * stride,
+                         m[0, :k], m[1, :k], m[2, :k], m[3, :k])
+            st.mark()
+            return out, sum(len(r[0]) for r in rows)
+
+        def fold(p) -> bool:
+            """Add one chunk's sums; True when it escaped."""
+            nonlocal total
+            out, screened = p
+            if int(out["esc_count"]):
+                return True
+            total += int(out["count"])
+            if funnel:
+                self._funnel_add(screened, int(out["survivors"]))
+            return False
+
+        escaped = False
+        rows: list = []
+        cap = first
+        gen = halo_windows(self.pipeline, self.halo, self.header_end_abs)
+        try:
+            for buf, _base, own_end, lo, at_eof in gen:
+                if len(buf) > w:
+                    return self.count_reads()
+                rows.append((buf, at_eof, lo, own_end))
+                if len(rows) >= cap:
+                    pend.append(flush(rows))
+                    rows = []
+                    chunks += 1
+                    cap = chunk_windows
+                    # The first chunk at once, then one chunk behind.
+                    if chunks == 1 or len(pend) > 1:
+                        if fold(pend.pop(0)):
+                            escaped = True
+                            break
+        finally:
+            gen.close()
+        if not escaped:
+            if rows:
+                pend.append(flush(rows))
+            escaped = any(fold(p) for p in pend)
+        return self._count_via_spans() if escaped else total
 
     def _count_reads_classic(self) -> int:
         lens_dev, nc = self._lengths_dev()

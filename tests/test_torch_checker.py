@@ -23,6 +23,7 @@ from spark_bam_tpu.bgzf.flat import stage_run_payloads as jax_stage
 from spark_bam_tpu_torch.check.flags import BIT
 from spark_bam_tpu_torch.tpu import checker as ck
 from tests.bam_factories import random_bam
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 W = 256 << 10
 KEYS = ("verdict", "fail_mask", "reads_parsed", "reads_before", "exact",

@@ -455,3 +455,111 @@ def test_load_reads_columnar_on_gpu_equals_cpu(gpu, tmp_path):
         card = load_reads_columnar(p, **kw)
         cpu = load_reads_columnar(p, device="cpu", **kw)
         _assert_load_equal([(0, card)], [(0, cpu)])
+
+
+def _replay_windows(gpu, w):
+    """Four windows of one W whose bytes and valid lengths all differ."""
+    cases = prefilter_cases.prefilter_windows(w, seed=8)
+    rng = np.random.default_rng(9)
+    wins = [(cases[k][0], cases[k][1]) for k in
+            ("random_with_records", "count_capacity_plus_1",
+             "tail_crosses_tile")]
+    wins.append((rng.integers(0, 256, w + K.PAD, dtype=np.uint8), w - 4097))
+    return [(torch.from_numpy(b).to(gpu), n) for b, n in wins]
+
+
+@pytest.mark.parametrize("side", [False, True], ids=["current", "second"])
+def test_flag_kernels_replayed_in_a_graph_match_plain(gpu, side):
+    """Both flag kernels captured once, replayed over four windows of
+    different bytes and lengths (on the current stream, then on a second
+    one), with eager launches between the replays: every replay and every
+    eager launch is bit-identical to the plain version."""
+    from spark_bam_tpu_torch.benchmarks.replay_cases import (
+        replay_flag_kernels,
+    )
+
+    w = 1 << 20
+    lens = torch.from_numpy(prefilter_cases.LENGTHS).to(gpu)
+    stream = torch.cuda.Stream(gpu) if side else None
+    out = replay_flag_kernels(_replay_windows(gpu, w), lens,
+                              prefilter_cases.NUM_CONTIGS, stream)
+    for name, r in out.items():
+        assert r["replays"] >= 3, name
+        assert r["max_abs_err"] == 0 and r["eager_err"] == 0, (name, r)
+
+
+def _resident_rows(path, window, halo):
+    """Three halo windows of ``path`` packed at stride kernel window + PAD
+    (host numpy), with the checker's contig table."""
+    from spark_bam_tpu_torch.tpu.stream_check import (
+        halo_windows,
+        pad_contig_lengths,
+    )
+
+    sc = StreamChecker(path, Config(), window_uncompressed=window, halo=halo,
+                       device="cpu")
+    w = sc.kernel_window
+    stride = w + K.PAD
+    rows = list(halo_windows(sc.pipeline, sc.halo, sc.header_end_abs))[:3]
+    chunk = np.zeros(3 * stride, dtype=np.uint8)
+    cols = np.zeros((4, 3), dtype=np.int32)
+    for j, (buf, _base, own, lo, ae) in enumerate(rows):
+        chunk[j * stride: j * stride + len(buf)] = buf
+        cols[:, j] = (len(buf), ae, lo, own)
+    return sc, chunk, cols, pad_contig_lengths(sc.lengths)
+
+
+@pytest.mark.parametrize("funnel", [True, False], ids=["funnel", "full"])
+def test_count_scan_graph_equals_eager(gpu, tmp_path, funnel):
+    """The graph runner's sums equal the eager ``count_window`` loop over
+    the same rows, replay after replay over changing chunks (3 rows in a
+    4-row bucket, then 1 row in a 1-row bucket, then 3 rows again), and
+    each replay adds its captured launches to the counters."""
+    from spark_bam_tpu_torch import count_scan, make_count_scan
+
+    p = tmp_path / "r.bam"
+    synth_bam(p, 5 << 20, seed=12, unit_reads=2000)
+    sc, chunk, cols, lens = _resident_rows(p, 1 << 20, 256 << 10)
+    w = sc.kernel_window
+    stride = w + K.PAD
+    lens_d = torch.from_numpy(lens).to(gpu)
+    nc = len(sc.lengths)
+    runner = make_count_scan(w, 10, funnel, gpu)
+    mutated = chunk.copy()
+    rng = np.random.default_rng(3)
+    mutated[rng.integers(0, len(chunk), 5000)] ^= 0x5A
+    kernel = "prefilter_check_flags" if funnel else "full_check_flags"
+    for data, k in ((chunk, 3), (mutated, 1), (mutated, 3), (chunk, 3)):
+        host = torch.from_numpy(data).pin_memory()
+        starts = np.arange(k) * stride
+        before = K.LAUNCHES[kernel]
+        got = runner(host, lens_d, nc, starts, *cols[:, :k])
+        launched = K.LAUNCHES[kernel] - before
+        want = count_scan(torch.from_numpy(data).to(gpu), lens_d, nc, starts,
+                          *cols[:, :k], window=w, funnel=funnel)
+        for key in ("count", "esc_count", "survivors"):
+            assert int(got[key]) == int(want[key]), (k, key)
+        assert launched >= k   # one per real row, more with the warm-up
+    assert runner.captures == 2 and runner.replays == 4
+    per = runner.launches_per_replay()
+    assert per[(4, nc)][kernel] == 4 and per[(1, nc)][kernel] == 1
+
+
+def test_count_reads_resident_on_gpu_equals_cpu(gpu, tmp_path):
+    p = tmp_path / "r.bam"
+    m = synth_bam(p, 6 << 20, seed=13, unit_reads=2000)
+    geo = dict(window_uncompressed=1 << 20, halo=256 << 10)
+    sc = StreamChecker(p, Config(), **geo)
+    K.reset_launch_counts()
+    assert sc.count_reads_resident(chunk_windows=3, first_chunk_windows=2) \
+        == m["reads"]
+    assert K.LAUNCHES["prefilter_check_flags"] >= len(sc.pipeline.groups)
+    assert sc.scan_runner.replays >= 3
+    cpu = StreamChecker(p, Config(), device="cpu", **geo)
+    assert cpu.count_reads_resident(chunk_windows=3) == m["reads"]
+    assert cpu.funnel_stats == sc.funnel_stats
+    # The same checker again: its graphs are reused, none is captured.
+    captures = sc.scan_runner.captures
+    assert sc.count_reads_resident(chunk_windows=3, first_chunk_windows=2) \
+        == m["reads"]
+    assert sc.scan_runner.captures == captures

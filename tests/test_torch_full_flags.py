@@ -22,6 +22,7 @@ from spark_bam_tpu_torch.benchmarks import resolve_flag_cases
 from spark_bam_tpu_torch.benchmarks.synth import synth_bam
 from spark_bam_tpu_torch.tpu import kernels as K
 from tests.bam_factories import random_bam
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 W = 256 << 10  # a multiple of the Pallas tile (32 KiB)
 

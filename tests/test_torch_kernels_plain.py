@@ -33,6 +33,7 @@ from spark_bam_tpu_torch.benchmarks.deflate_cases import (
 from spark_bam_tpu_torch.tpu import kernels as K
 from spark_bam_tpu_torch.tpu.tokenize_device import STRIDE
 from tests.bam_factories import random_bam
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 W = 256 << 10  # a multiple of the Pallas tile (32 KiB)
 

@@ -38,6 +38,7 @@ from spark_bam_tpu_torch.benchmarks.synth import record_positions, synth_bam
 from spark_bam_tpu_torch.load import tpu_load as tl
 from spark_bam_tpu_torch.tpu import stream_check
 from tests.bam_factories import random_bam
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GEOMETRIES = [(64 << 10, 16 << 10), (96 << 10, 48 << 10)]
 

@@ -27,6 +27,7 @@ from spark_bam_tpu_torch.benchmarks import prefilter_cases
 from spark_bam_tpu_torch.tpu import checker as ck
 from spark_bam_tpu_torch.tpu import kernels as K
 from tests.bam_factories import random_bam
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 W = 1 << 17  # 4 Pallas tiles, 8 CUDA tiles
 CASES = prefilter_cases.prefilter_windows(W, seed=3)

@@ -16,6 +16,7 @@ from spark_bam_tpu.tpu.stream_check import count_reads_streaming
 from spark_bam_tpu_torch import Config, StreamChecker
 from spark_bam_tpu_torch.tpu import checker as ck
 from tests.bam_factories import random_bam
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -28,6 +28,7 @@ from spark_bam_tpu_torch.bgzf.block import BgzfError
 from spark_bam_tpu_torch.tpu import checker as ck
 from spark_bam_tpu_torch.tpu import stream_check
 from tests.bam_factories import random_bam
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GEOMETRIES = [(64 << 10, 16 << 10), (96 << 10, 48 << 10)]
 
