@@ -66,9 +66,24 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    funnel off (``full_check_flags``), equal batches under every filter,
    tags included; the long reads' exact spills; ``load_reads_columnar``
    and ``record_starts`` on the small BAM, card against CPU.
+8. The sharded workloads (``parallel/``) on ``make_mesh()``, every card:
+   ``count_reads_sharded`` over the 1 GiB BAM (the generator's count, no
+   escape, no demotion, no fallback; wall beside the fused count; steps,
+   rows, launches a step, graph replays), then again with its graphs
+   reused; ``full_check_summary_sharded`` at K = 2^17 sites a row (equal
+   to phase 4's streaming summary, no fallback; wall beside phase 4's; the
+   most sites of any row; the full step's check and reduction per row,
+   CUDA events); ``check_bam_sharded`` against a ``.records`` sidecar from
+   the port's ``index_records`` (every read a true positive, no false
+   call); the small BAM at the default K (the site lists overflow: the
+   fallback must give the streaming summary), and on a two-entry mesh of
+   one card equal to a one-entry mesh; long reads exact through patched
+   steps, full-check equal to the CPU's; two processes of
+   ``parallel/multihost.py`` joined by gloo on the one card (and by NCCL,
+   one card each, where there are two cards) counting the small BAM.
 
-Launch counters are set to 0 just before each main path (3, 4, 6, 7) and
-read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
+Launch counters are set to 0 just before each main path (3, 4, 6, 7, 8)
+and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
 and, last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero; without CUDA, or without the package beside
 it, it exits non-zero before printing a result.
@@ -433,6 +448,219 @@ def load_phase(port, bam, manifest, long_bam, long_manifest, small, work,
         f"load_reads_columnar equal on card and CPU; "
         f"{time.perf_counter() - t0:.1f} s")
     return load_launches, off_launches
+
+
+def _two_process_count(bam, work, backend: str) -> list[dict]:
+    """Two processes of the multi-process worker counting ``bam`` in
+    several all-reduced steps, joined through a file rendezvous; returns
+    their JSON lines."""
+    init = work / f"rendezvous-{backend}"
+    argv = [sys.executable, "-m", "spark_bam_tpu_torch.parallel.multihost",
+            "--init-file", str(init), "--num-processes", "2", "--backend",
+            backend, "--bam", str(bam), "--chunk-bytes", str(32 << 20)]
+    procs = [subprocess.Popen([*argv, "--process-id", str(pid)], cwd=ROOT,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for p, out in zip(procs, outs):
+        require(p.returncode == 0, f"{backend} worker failed:\n{out[-3000:]}")
+    return [json.loads(out.strip().splitlines()[-1]) for out in outs]
+
+
+def sharded_phase(port, bam, manifest, summary, fc_s, fused_s, small,
+                  small_manifest, small_summary, work, card) -> dict:
+    """Phase 8, the sharded workloads; returns the kernel launch counts of
+    the sharded count, full-check and check-bam on the 1 GiB BAM."""
+    from spark_bam_tpu_torch.bam.index_records import index_records
+    from spark_bam_tpu_torch.benchmarks.profile_sharded import (
+        row_ms,
+        timed_full_rows,
+    )
+    from spark_bam_tpu_torch.benchmarks.synth import synth_bam
+    from spark_bam_tpu_torch.parallel import mesh as pm
+    from spark_bam_tpu_torch.tpu import kernels as K
+
+    want = manifest["reads"]
+    cards = torch.cuda.device_count()
+    mesh = port.make_mesh()
+    require(mesh.n_local == cards, (mesh, cards))
+    launches = {}
+
+    # ---- count ---------------------------------------------------------
+    walls = []
+    for run in range(2):
+        stats = {}
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = port.count_reads_sharded(bam, port.Config(), mesh=mesh,
+                                       stats_out=stats)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if run == 0:
+            launches["sharded_count"] = dict(K.LAUNCHES)
+        require(got == want, f"sharded count {got} != generator's {want}")
+        require(stats["escapes"] == 0 and stats["tokenize_demotions"] == 0
+                and stats["fallback"] is False, stats)
+    cl = launches["sharded_count"]
+    require(all(cl[k] > 0 for k in COUNT_KERNELS)
+            and cl["full_check_flags"] == 0, cl)
+    runners = list(pm.mesh_steps(mesh).count_step(10, True).runners.values())
+    replays = sum(r.replays for r in runners)
+    per_replay = [r.launches_per_replay() for r in runners]
+    gb = manifest["uncompressed_bytes"] / 1e9
+    log(f"sharded count on {cards} card(s): {want} reads, {stats['steps']} "
+        f"steps of {stats['rows']} rows; {walls[0]:.3f} s with its graph "
+        f"captures, {walls[1]:.3f} s reused ({want / walls[1]:.0f} reads/s, "
+        f"{gb / walls[1]:.3f} GB/s), fused count {fused_s:.3f} s ({card}); "
+        f"launches {cl}, {sum(cl.values()) / stats['steps']:.1f} a step; "
+        f"{replays} graph replays over both counts, launches a replay "
+        f"{per_replay}")
+
+    # ---- full-check: the report reduced on the card, row by row ---------
+    k = 1 << 17
+    stats = {}
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharded = port.full_check_summary_sharded(bam, port.Config(), mesh=mesh,
+                                              k_positions=k, stats_out=stats)
+    torch.cuda.synchronize()
+    fcs_s = time.perf_counter() - t0
+    launches["sharded_full_check"] = fl = dict(K.LAUNCHES)
+    require(all(fl[x] > 0 for x in FULL_CHECK_KERNELS)
+            and fl["prefilter_check_flags"] == 0, fl)
+    require(stats["fallback"] is False and stats["defers"] == 0
+            and stats["tokenize_demotions"] == 0, stats)
+    require(sharded.pop("devices") == cards, "devices")
+    require(summaries_equal(sharded, summary),
+            "sharded full-check differs from the streaming summary")
+    # Again, with CUDA events around each row's check and reduction and the
+    # site lists' fill read from each step's host copy.
+    with timed_full_rows() as timed:
+        t0 = time.perf_counter()
+        again = port.full_check_summary_sharded(bam, port.Config(),
+                                                mesh=mesh, k_positions=k)
+        torch.cuda.synchronize()
+        timed_s = time.perf_counter() - t0
+    again.pop("devices")
+    require(summaries_equal(again, summary), "second sharded full-check")
+    per_row = row_ms(timed["rows"])
+    two = len(summary["two_check_positions"])
+    total = summary["positions"]
+    log(f"sharded full-check on {cards} card(s), K = {k}: {total} "
+        f"positions in {fcs_s:.3f} s ({total / fcs_s:.0f} positions/s; "
+        f"timed again {timed_s:.3f} s) against the streaming summary's "
+        f"{fc_s:.3f} s, equal summaries, no fallback ({card}); "
+        f"most sites of a row {timed['most_sites']} ({two} two-check sites "
+        f"in all); per row (CUDA events) {per_row}; launches {fl}")
+
+    # ---- check-bam against the port's .records sidecar -------------------
+    t0 = time.perf_counter()
+    _, n_records = index_records(bam)
+    index_s = time.perf_counter() - t0
+    require(n_records == want, (n_records, want))
+    stats = {}
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cb = port.check_bam_sharded(bam, port.Config(), mesh=mesh,
+                                stats_out=stats)
+    torch.cuda.synchronize()
+    cb_s = time.perf_counter() - t0
+    launches["check_bam"] = bl = dict(K.LAUNCHES)
+    require(cb["true_positives"] == want and cb["false_positives"] == 0
+            and cb["false_negatives"] == 0 and cb["devices"] == cards, cb)
+    require(stats["fallback"] is False and stats["patched_steps"] == 0
+            and stats["tokenize_demotions"] == 0, stats)
+    require(all(bl[x] > 0 for x in COUNT_KERNELS), bl)
+    log(f"sharded check-bam: {cb} in {cb_s:.3f} s (.records of {n_records} "
+        f"records written in {index_s:.3f} s); launches {bl}")
+
+    # ---- the small BAM: the default K overflows; one card as two shards --
+    t0 = time.perf_counter()
+    stats = {}
+    sd = port.full_check_summary_sharded(small, port.Config(), mesh=mesh,
+                                         stats_out=stats)
+    require(stats["fallback"] is True and sd.pop("devices") == 1, stats)
+    require(summaries_equal(sd, small_summary),
+            "small BAM fallback differs from the streaming summary")
+    index_records(small)
+    dev = torch.device("cuda", 0)
+    results = []
+    for m in (port.make_mesh([dev]), port.make_mesh([dev, dev])):
+        full = port.full_check_summary_sharded(small, port.Config(), mesh=m,
+                                               k_positions=k)
+        require(full.pop("devices") == m.n_local, "devices")
+        cbm = port.check_bam_sharded(small, port.Config(), mesh=m)
+        require(cbm.pop("devices") == m.n_local, "devices")
+        results.append((port.count_reads_sharded(small, port.Config(),
+                                                 mesh=m), cbm, full))
+    (c1, b1, f1), (c2, b2, f2) = results
+    require(c1 == c2 == small_manifest["reads"] and b1 == b2
+            and b1["true_positives"] == c1, (c1, c2, b1, b2))
+    require(summaries_equal(f1, f2) and summaries_equal(f1, small_summary),
+            "two shards of one card differ from one")
+    log(f"small BAM: default K = 4096 overflows, the fallback equals the "
+        f"streaming summary; [cuda:0, cuda:0] = [cuda:0] for count "
+        f"({c1}), check-bam and full-check (K = {k}); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- long reads: escaped steps patched exactly on the host -----------
+    t0 = time.perf_counter()
+    lb = work / "long_sharded.bam"
+    lm = synth_bam(lb, 2 << 20, seed=9, unit_reads=8,
+                   read_len=(60_000, 110_000))
+    index_records(lb)
+    geo = dict(window_uncompressed=256 << 10, halo=64 << 10)
+    cs, bs, fs = {}, {}, {}
+    got = port.count_reads_sharded(lb, port.Config(), mesh=mesh,
+                                   stats_out=cs, **geo)
+    require(got == lm["reads"] and cs["patched_steps"] > 0
+            and not cs["fallback"], (got, cs))
+    lcb = port.check_bam_sharded(lb, port.Config(), mesh=mesh, stats_out=bs,
+                                 **geo)
+    require(lcb["true_positives"] == lm["reads"]
+            and lcb["false_positives"] == lcb["false_negatives"] == 0
+            and bs["patched_steps"] > 0 and not bs["fallback"], (lcb, bs))
+    lfull = port.full_check_summary_sharded(lb, port.Config(), mesh=mesh,
+                                            stats_out=fs, **geo)
+    require(fs["patched_steps"] > 0 and not fs["fallback"], fs)
+    lfull.pop("devices")
+    lcpu = port.full_check_summary_streaming(
+        lb, port.Config(device_inflate=False), device="cpu", **geo)
+    require(summaries_equal(lfull, lcpu), "long-read sharded full-check "
+                                          "differs from the CPU's")
+    log(f"sharded long reads: {got} reads counted and checked exactly "
+        f"through {cs['patched_steps']} patched step(s) ({cs['escapes']} "
+        f"escapes); full-check equal to the CPU's; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- two processes ----------------------------------------------------
+    t0 = time.perf_counter()
+    backends = ["gloo"] + (["nccl"] if cards >= 2 else [])
+    for backend in backends:
+        outs = _two_process_count(small, work, backend)
+        for pid, o in enumerate(outs):
+            require(o["process_id"] == pid and o["processes"] == 2
+                    and o["backend"] == backend
+                    and o["count"] == small_manifest["reads"]
+                    and o["chunks"] >= 2 and not o["fallback"]
+                    and o["tokenize_demotions"] == 0, o)
+        log(f"two processes ({backend}): each counted {outs[0]['count']} in "
+            f"{outs[0]['chunks']} all-reduced steps over {outs[0]['rows']} "
+            f"rows")
+    if cards < 2:
+        log("NCCL not run: this machine has one card (two ranks cannot "
+            "share one card under NCCL)")
+    log(f"two-process runs: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -914,6 +1142,10 @@ def main() -> int:
         load_launches, off_launches = load_phase(
             port, bam, manifest, long_bam, long_manifest, small, work, card)
 
+        sharded_launches = sharded_phase(
+            port, bam, manifest, summary, fc_s, fused_s, small,
+            small_manifest, on_card, work, card)
+
         for row in rows:
             row["launches"] = launches[row["name"]]
             row["launches_by_path"] = {
@@ -922,6 +1154,8 @@ def main() -> int:
                 "resident": resident_launches[row["name"]],
                 "load": load_launches[row["name"]],
                 "load_funnel_off_edge_corpus": off_launches[row["name"]],
+                **{path: n[row["name"]]
+                   for path, n in sharded_launches.items()},
             }
         print(json.dumps({"kernels": rows}), flush=True)
     finally:

@@ -14,6 +14,12 @@ into device-resident chunks and counts each chunk with one dispatch:
 ``count_scan``, which ``make_count_scan`` runs on a CUDA device as one
 CUDA graph replay a chunk (``CountScanGraphs``).
 
+The sharded workloads (``parallel/``) spread one BAM over a mesh of
+devices and processes (``torch.distributed``): ``count_reads_sharded``,
+``check_bam_sharded``, ``full_check_summary_sharded`` (the full-check
+report reduced on the devices) and ``host_shard_plan``, over ``make_mesh``'s
+``Mesh``.
+
 The package imports torch, numpy and the standard library only; entry
 points run on the CUDA device unless the caller passes ``device="cpu"``,
 which runs each kernel's plain PyTorch version instead.
@@ -28,6 +34,13 @@ from spark_bam_tpu_torch.load.tpu_load import (
     record_starts_streaming,
     stream_read_batches,
 )
+from spark_bam_tpu_torch.parallel.mesh import Mesh, make_mesh
+from spark_bam_tpu_torch.parallel.stream_mesh import (
+    check_bam_sharded,
+    count_reads_sharded,
+    full_check_summary_sharded,
+    host_shard_plan,
+)
 from spark_bam_tpu_torch.tpu.checker import (
     CountScanGraphs,
     TpuChecker,
@@ -39,8 +52,9 @@ from spark_bam_tpu_torch.tpu.stream_check import (
     full_check_summary_streaming,
 )
 
-__all__ = ["Config", "CountScanGraphs", "Pos", "StreamChecker",
-           "TpuChecker", "count_reads_tpu", "count_scan",
-           "full_check_summary_streaming", "load_reads_columnar",
-           "make_count_scan", "record_starts", "record_starts_streaming",
-           "stream_read_batches"]
+__all__ = ["Config", "CountScanGraphs", "Mesh", "Pos", "StreamChecker",
+           "TpuChecker", "check_bam_sharded", "count_reads_sharded",
+           "count_reads_tpu", "count_scan", "full_check_summary_sharded",
+           "full_check_summary_streaming", "host_shard_plan",
+           "load_reads_columnar", "make_count_scan", "make_mesh",
+           "record_starts", "record_starts_streaming", "stream_read_batches"]

@@ -1,16 +1,24 @@
 """Command line: ``python -m spark_bam_tpu_torch count-reads [-n N]
-[--resident] PATH`` and ``python -m spark_bam_tpu_torch full-check [-l N]
-PATH``.
+[--resident | --sharded] PATH``, ``python -m spark_bam_tpu_torch full-check
+[-l N] [--sharded] PATH`` and ``python -m spark_bam_tpu_torch check-bam
+--sharded PATH``.
 
 ``count-reads`` prints the reference CLI's standalone count lines
-(``spark-bam read-count time: MS`` and ``Read count: N`` per iteration) and
-its ``funnel:`` line; ``--resident`` (or ``Config.resident_scan``) counts
-with one device dispatch per resident chunk
-(``StreamChecker.count_reads_resident``). ``full-check`` prints the
-reference's streaming full-check report (``full-check --streaming``): the
+(``spark-bam read-count time: MS`` and ``Read count: N`` per iteration) and,
+but for ``--sharded``, its ``funnel:`` line; ``--resident`` (or
+``Config.resident_scan``) counts with one device dispatch per resident chunk
+(``StreamChecker.count_reads_resident``), ``--sharded`` across the mesh
+(``parallel.stream_mesh.count_reads_sharded``). ``full-check`` prints the
+reference's streaming full-check report (``full-check --streaming``; with
+``--sharded`` the report reduced across the mesh, the same output): the
 critical and two-check sections with ``block:offset`` positions, the
-total error counts and the ``funnel:`` line. Both run on the CUDA device
-unless ``--device`` names another.
+total error counts and the ``funnel:`` line. ``check-bam --sharded``
+prints the reference's sharded check-bam report against the ``.records``
+sidecar (without the ``.sbi`` cache line: the port has no ``.sbi`` cache);
+the eager-against-seqdoop check-bam is not ported. Every command runs on
+the CUDA device unless ``--device`` names another; ``--sharded`` meshes
+are every visible CUDA device, or ``--devices N`` entries of ``--device``
+(``--device cpu --devices 4``: a 4-entry CPU mesh).
 """
 
 from __future__ import annotations
@@ -26,10 +34,21 @@ from spark_bam_tpu_torch.bgzf.flat import metas_block_table, pos_of_flat_tables
 from spark_bam_tpu_torch.bgzf.index_blocks import blocks_metadata
 from spark_bam_tpu_torch.check.flags import FLAG_NAMES, bit_counts
 from spark_bam_tpu_torch.core.config import Config
+from spark_bam_tpu_torch.parallel.mesh import make_mesh
+from spark_bam_tpu_torch.parallel.stream_mesh import (
+    check_bam_sharded,
+    count_reads_sharded,
+    full_check_summary_sharded,
+)
 from spark_bam_tpu_torch.tpu.stream_check import (
     StreamChecker,
     full_check_summary_streaming,
 )
+
+
+class UsageError(ValueError):
+    """A flag or argument the command cannot serve: printed as one
+    ``error: ...`` line with exit code 2."""
 
 
 class Printer:
@@ -94,13 +113,33 @@ def funnel_status_line(config: Config, stats: dict | None = None,
     return f"funnel: on ({mode})"
 
 
-def count_reads(path, iterations: int = 1, device=None, out=None,
-                resident: bool = False, config: Config | None = None) -> int:
-    out = sys.stdout if out is None else out
-    config = Config() if config is None else config
-    checker = StreamChecker(path, config, device=device)
-    count_fn = (checker.count_reads_resident
-                if resident or config.resident_scan else checker.count_reads)
+def _sharded_mesh(device=None, devices: int | None = None):
+    """The ``--sharded`` mesh: every visible CUDA device (the first
+    ``devices`` of them), or ``devices`` entries of ``device``."""
+    if device is None:
+        mesh = make_mesh()
+        return mesh if devices is None else make_mesh(mesh.devices[:devices])
+    return make_mesh([device] * (devices or 1))
+
+
+def _format_bytes(n: int) -> str:
+    """1024-based size with 3 significant figures and a K/M/G/T suffix
+    ("583K", "25.6K"), as the reference report prints it."""
+    for unit, shift in (("E", 60), ("P", 50), ("T", 40), ("G", 30),
+                        ("M", 20), ("K", 10)):
+        if n >= (1 << shift):
+            v = n / (1 << shift)
+            if v < 10:
+                txt = f"{v:.2f}".rstrip("0").rstrip(".")
+            elif v < 100:
+                txt = f"{v:.1f}".rstrip("0").rstrip(".")
+            else:
+                txt = str(round(v))
+            return f"{txt}{unit}"
+    return str(n)
+
+
+def _timed_counts(count_fn, iterations: int, out) -> int:
     count = 0
     for _ in range(max(iterations, 1)):
         t0 = time.perf_counter()
@@ -108,6 +147,26 @@ def count_reads(path, iterations: int = 1, device=None, out=None,
         ms = int((time.perf_counter() - t0) * 1e3)
         out.write(f"spark-bam read-count time: {ms}\n")
         out.write(f"Read count: {count}\n\n")
+    return count
+
+
+def count_reads(path, iterations: int = 1, device=None, out=None,
+                resident: bool = False, config: Config | None = None,
+                sharded: bool = False, devices: int | None = None) -> int:
+    out = sys.stdout if out is None else out
+    config = Config() if config is None else config
+    if sharded:
+        if resident:
+            raise UsageError("--resident and --sharded are mutually "
+                             "exclusive")
+        mesh = _sharded_mesh(device, devices)
+        return _timed_counts(
+            lambda: count_reads_sharded(path, config, mesh=mesh), iterations,
+            out)
+    checker = StreamChecker(path, config, device=device)
+    count_fn = (checker.count_reads_resident
+                if resident or config.resident_scan else checker.count_reads)
+    count = _timed_counts(count_fn, iterations, out)
     out.write(funnel_status_line(config, checker.funnel_stats) + "\n\n")
     return count
 
@@ -206,12 +265,21 @@ def _render_report(p: Printer, crit_idx, crit_masks, two_idx, two_masks,
     p.echo("")
 
 
-def full_check(path, print_limit: int = 10, device=None, out=None) -> dict:
-    """The streaming full-check report of one BAM; returns its summary."""
+def full_check(path, print_limit: int = 10, device=None, out=None,
+               sharded: bool = False, devices: int | None = None) -> dict:
+    """The streaming full-check report of one BAM (reduced across the mesh
+    with ``sharded``); returns its summary."""
     p = Printer(out=out, limit=print_limit)
     config = Config()
-    s = full_check_summary_streaming(path, config, device=device)
-    block_starts, block_flat = metas_block_table(blocks_metadata(path))
+    metas = blocks_metadata(path)
+    if sharded:
+        s = full_check_summary_sharded(path, config,
+                                       mesh=_sharded_mesh(device, devices),
+                                       metas=metas)
+    else:
+        s = full_check_summary_streaming(path, config, device=device,
+                                         metas=metas)
+    block_starts, block_flat = metas_block_table(metas)
 
     def pos_str(i: int) -> str:
         b, o = pos_of_flat_tables(block_starts, block_flat, i)
@@ -224,6 +292,38 @@ def full_check(path, print_limit: int = 10, device=None, out=None) -> dict:
     return s
 
 
+def check_bam(path, device=None, out=None, sharded: bool = False,
+              devices: int | None = None, config: Config | None = None
+              ) -> dict:
+    """check-bam against the ``.records`` sidecar across the mesh; prints
+    the reference's sharded report and returns its confusion stats."""
+    if not sharded:
+        raise UsageError(
+            "check-bam compares the eager and seqdoop checkers without "
+            "--sharded, which is not ported; run check-bam --sharded")
+    p = Printer(out=out)
+    config = Config() if config is None else config
+    metas = blocks_metadata(path)
+    mesh = _sharded_mesh(device, devices)
+    stats = check_bam_sharded(path, config, mesh=mesh, metas=metas)
+    # The data blocks' compressed bytes (the EOF sentinel excluded), as
+    # the reference's report sums them.
+    compressed = sum(m.compressed_size for m in metas)
+    total = stats["positions"]
+    p.echo(f"{total} uncompressed positions",
+           f"{_format_bytes(compressed)} compressed",
+           "Compression ratio: %.2f" % (total / compressed),
+           f"{stats['true_positives'] + stats['false_negatives']} reads",
+           f"checked across {stats['devices']} device(s)",
+           funnel_status_line(config))
+    if not stats["false_positives"] and not stats["false_negatives"]:
+        p.echo("All calls matched!")
+    else:
+        p.echo(f"{stats['false_positives']} false positives, "
+               f"{stats['false_negatives']} false negatives")
+    return stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m spark_bam_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -234,14 +334,28 @@ def main(argv=None) -> int:
     fc = sub.add_parser("full-check",
                         help="all 19 checks at every position of a BAM")
     fc.add_argument("-l", "--print-limit", type=int, default=10)
-    for p in (cr, fc):
+    cb = sub.add_parser("check-bam",
+                        help="the checker against the .records sidecar")
+    for p in (cr, fc, cb):
+        p.add_argument("--sharded", action="store_true",
+                       help="across every device of the mesh")
         p.add_argument("--device", default=None,
                        help="torch device (default: the current CUDA device)")
+        p.add_argument("--devices", type=int, default=None,
+                       help="--sharded mesh entries: N copies of --device, "
+                            "or the first N CUDA devices")
         p.add_argument("path")
     args = ap.parse_args(argv)
-    if args.cmd == "count-reads":
-        count_reads(args.path, args.num_iterations, args.device,
-                    resident=args.resident)
-    else:
-        full_check(args.path, args.print_limit, args.device)
+    kw = dict(sharded=args.sharded, devices=args.devices)
+    try:
+        if args.cmd == "count-reads":
+            count_reads(args.path, args.num_iterations, args.device,
+                        resident=args.resident, **kw)
+        elif args.cmd == "full-check":
+            full_check(args.path, args.print_limit, args.device, **kw)
+        else:
+            check_bam(args.path, args.device, **kw)
+    except UsageError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     return 0

@@ -82,6 +82,7 @@ class InflateConfig:
 @dataclass(frozen=True)
 class Config:
     reads_to_check: int = 10            # consecutive records a boundary must chain
+    max_read_size: int = 10_000_000     # byte budget for a boundary scan
     # Uncompressed bytes per streaming window; window + halo rounds up to a
     # power-of-two kernel window (24 MiB + 4 MiB → 32 MiB).
     window_size: int = 24 << 20

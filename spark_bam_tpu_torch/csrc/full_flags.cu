@@ -53,6 +53,7 @@
 #include <cuda_runtime.h>
 
 #include "flag_bits.cuh"
+#include "per_device.cuh"
 
 namespace {
 
@@ -416,11 +417,15 @@ extern "C" int sbt_full_flags(const uint8_t* padded, int total, int w,
                               unsigned epoch, int32_t* out,
                               cudaStream_t stream) {
   if (w <= 0) return (int)cudaGetLastError();
-  // Once per process: all of the SM's shared memory, so that eight CTAs
+  // Once per device: all of the SM's shared memory, so that eight CTAs
   // fit (25 KB each).
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      full_flags_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      (int)cudaSharedmemCarveoutMaxShared);
+  static std::once_flag once[sbt::kMaxDevices];
+  static cudaError_t set[sbt::kMaxDevices];
+  const cudaError_t attr = sbt::once_per_device(once, set, [] {
+    return cudaFuncSetAttribute(
+        full_flags_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+  });
   if (attr != cudaSuccess) return (int)attr;
   const int tiles = (total + kTile - 1) / kTile;
   SBT_EVENT(0, stream);

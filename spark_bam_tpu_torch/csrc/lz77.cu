@@ -46,6 +46,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr int kStride = 65536;
@@ -215,9 +217,12 @@ lz77_kernel(const uint8_t* lit, const uint16_t* dist, uint8_t* out,
 extern "C" int sbt_lz77_resolve(const uint8_t* lit, const uint16_t* dist,
                                 int b, uint8_t* out, int32_t* rounds,
                                 cudaStream_t stream) {
-  // Once per process (a function-local static is initialised once).
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      lz77_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  static std::once_flag once[sbt::kMaxDevices];
+  static cudaError_t set[sbt::kMaxDevices];
+  const cudaError_t attr = sbt::once_per_device(once, set, [] {
+    return cudaFuncSetAttribute(
+        lz77_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  });
   if (attr != cudaSuccess) return (int)attr;
   if (b > 0) lz77_kernel<<<b, kThreads, kSmem, stream>>>(lit, dist, out, rounds);
   return (int)cudaGetLastError();

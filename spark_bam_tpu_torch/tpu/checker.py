@@ -479,7 +479,10 @@ class CountScanGraphs:
             self._warm = True
         before = dict(kernels.CAPTURED)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        # A capture stream on this runner's device: the default one is made
+        # once per process, on whichever device was current then.
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev),
+                              capture_error_mode="thread_local"):
             sums = self._body(kp, num_contigs)
         launches = {k: kernels.CAPTURED[k] - before[k] for k in before
                     if kernels.CAPTURED[k] != before[k]}

@@ -62,14 +62,15 @@ class InflatePipeline:
     """Window groups of a BGZF file and their host-zlib inflation, ``depth``
     groups in flight on worker threads while the consumer takes the oldest.
     The fused device count reads only ``groups``, ``depth`` and ``total``;
-    iterating yields ``FlatView`` windows for the classic count loop."""
+    iterating yields ``FlatView`` windows for the classic count loop.
+    ``metas`` reuses a block scan the caller already made."""
 
     threads = 8   # zlib workers per group (zlib releases the GIL)
     depth = 2     # groups prepared ahead of the consumer
 
-    def __init__(self, path, window_uncompressed: int):
+    def __init__(self, path, window_uncompressed: int, metas=None):
         self.path = path
-        self.metas = blocks_metadata(path)
+        self.metas = blocks_metadata(path) if metas is None else list(metas)
         self.total = sum(m.uncompressed_size for m in self.metas)
         self.groups = window_plan(self.metas, window_uncompressed)
 

@@ -197,7 +197,8 @@ class StreamChecker:
     """Whole-file streaming checker over a fixed kernel window.
 
     ``device=None`` runs on the current CUDA device and raises without one;
-    ``device="cpu"`` runs every kernel's plain version."""
+    ``device="cpu"`` runs every kernel's plain version. ``metas`` reuses a
+    block scan (``blocks_metadata``) the caller already made."""
 
     def __init__(
         self,
@@ -206,6 +207,7 @@ class StreamChecker:
         window_uncompressed: int | None = None,
         halo: int | None = None,
         device=None,
+        metas=None,
     ):
         self.device = resolve_device(device)
         self.path = path
@@ -216,7 +218,7 @@ class StreamChecker:
         halo = config.halo_size if halo is None else halo
         # The halo must leave room to advance; longer chains escape.
         self.halo = min(halo, fresh // 2)
-        self.pipeline = InflatePipeline(path, fresh)
+        self.pipeline = InflatePipeline(path, fresh, metas)
         self.total = self.pipeline.total
         # One power of two covering carry + window, clamped to the file so
         # small inputs run a small window, and never smaller than the
@@ -888,13 +890,15 @@ def full_check_summary_streaming(
     window_uncompressed: int | None = None,
     halo: int | None = None,
     device=None,
+    metas=None,
 ) -> dict:
     """The full-check aggregations over a whole file from ``full_spans``
     in O(window) memory (reference FullCheck.scala): per-flag totals over
     the considered positions, their count, and the critical (exactly one
     failing field) and two-check positions with their masks, in ascending
-    position order."""
-    checker = StreamChecker(path, config, window_uncompressed, halo, device)
+    position order. ``metas`` reuses the caller's block scan."""
+    checker = StreamChecker(path, config, window_uncompressed, halo, device,
+                            metas)
     per_flag = np.zeros(len(FLAG_NAMES), dtype=np.int64)
     considered_total = 0
     crit_pos: list[np.ndarray] = []

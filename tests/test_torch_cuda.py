@@ -563,3 +563,105 @@ def test_count_reads_resident_on_gpu_equals_cpu(gpu, tmp_path):
     assert sc.count_reads_resident(chunk_windows=3, first_chunk_windows=2) \
         == m["reads"]
     assert sc.scan_runner.captures == captures
+
+
+def _mesh_batch(path, w=1 << 17, halo=32 << 10, rows=4):
+    """``rows`` windows of ``path``'s stream as a step batch, with truth
+    from the ``.records`` walk; row 0 owns from the header on."""
+    from spark_bam_tpu_torch.bam.header import read_header
+    from spark_bam_tpu_torch.bam.index_records import record_start_flats
+    from spark_bam_tpu_torch.bgzf.flat import flatten_file
+    from spark_bam_tpu_torch.parallel.mesh import batch_windows
+    from spark_bam_tpu_torch.tpu.stream_check import pad_contig_lengths
+
+    flat = flatten_file(path).data
+    truth = np.zeros(len(flat), dtype=bool)
+    truth[record_start_flats(path)] = True
+    cut = rows * (w - halo) - 1000
+    ws, ns, eofs, owned, tr = batch_windows(flat[:cut], w, halo, rows,
+                                            at_eof=False, truth=truth[:cut])
+    owns = np.array([e - s for s, e in owned], dtype=np.int64)
+    header = read_header(path)
+    los = np.zeros(rows, dtype=np.int64)
+    los[0] = header.uncompressed_size
+    return (ws, ns, eofs, los, owns, tr,
+            pad_contig_lengths(header.contig_lengths),
+            len(header.contig_lengths))
+
+
+@pytest.mark.parametrize("entries", [1, 2])
+def test_mesh_steps_on_gpu_equal_cpu(gpu, tmp_path, entries):
+    """Every step on a mesh of the card (``entries`` shards of it) equals
+    the same step on a CPU mesh."""
+    from spark_bam_tpu_torch import make_mesh
+    from spark_bam_tpu_torch.parallel import mesh as pm
+
+    p = tmp_path / "m.bam"
+    synth_bam(p, 600 << 10, seed=3, unit_reads=512)
+    ws, ns, eofs, los, owns, tr, lens, nc = _mesh_batch(p)
+    card, cpu = make_mesh([gpu] * entries), make_mesh(["cpu"] * entries)
+    for funnel in (True, False):
+        a, b = (pm.make_shard_map_count_step(m, 10, funnel)(
+            m.shard(ws), ns, eofs, los, owns, lens, nc) for m in (card, cpu))
+        assert a.tolist() == b.tolist() and a[0] > 0
+        a, b = (pm.make_shard_map_confusion_step(m, 10, funnel)(
+            m.shard(ws), ns, eofs, m.shard(tr), los, owns, lens, nc)
+            for m in (card, cpu))
+        assert a.tolist() == b.tolist()
+    for k in (4096, 8):
+        a, b = (pm.make_shard_map_full_step(m, 10, k)(
+            m.shard(ws), ns, eofs, los, owns, lens, nc) for m in (card, cpu))
+        for x, y in zip(a, b):
+            assert np.array_equal(x, y)
+    ncs = np.full(len(ns), nc, dtype=np.int32)
+    per_row = np.tile(lens, (len(ns), 1))
+    a, b = (pm.make_shard_map_serve_step(m, 10, True)(
+        m.shard(ws), ns, eofs, los, owns, per_row, ncs) for m in (card, cpu))
+    assert np.array_equal(a, b)
+    (va, _, a), (vb, _, b) = (pm.make_shard_map_check_step(m, 10)(
+        m.shard(ws), ns, eofs, m.shard(tr), lens, nc) for m in (card, cpu))
+    assert a.tolist() == b.tolist()
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(va, vb))
+
+
+def test_sharded_workloads_on_gpu_equal_cpu(gpu, tmp_path):
+    """The three sharded workloads on the card (rows inflated there, and a
+    two-entry mesh of the one card) equal the CPU mesh's."""
+    from spark_bam_tpu_torch import (
+        check_bam_sharded,
+        count_reads_sharded,
+        full_check_summary_sharded,
+        make_mesh,
+    )
+    from spark_bam_tpu_torch.bam.index_records import index_records
+
+    p = tmp_path / "w.bam"
+    manifest = synth_bam(p, 2 << 20, seed=5, unit_reads=2048)
+    index_records(p)
+    geo = dict(window_uncompressed=256 << 10, halo=64 << 10)
+    cpu = make_mesh(["cpu"] * 2)
+    want = (count_reads_sharded(p, Config(device_inflate=False), mesh=cpu,
+                                **geo),
+            check_bam_sharded(p, Config(device_inflate=False), mesh=cpu,
+                              **geo),
+            full_check_summary_sharded(p, Config(device_inflate=False),
+                                       mesh=cpu, **geo))
+    assert want[0] == manifest["reads"]
+    for entries in (1, 2):
+        mesh = make_mesh([gpu] * entries)
+        K.reset_launch_counts()
+        stats = {}
+        assert count_reads_sharded(p, Config(), mesh=mesh, stats_out=stats,
+                                   **geo) == want[0]
+        assert stats["tokenize_demotions"] == 0
+        assert all(K.LAUNCHES[k] > 0 for k in COUNT_KERNELS), K.LAUNCHES
+        got = check_bam_sharded(p, Config(), mesh=mesh, **geo)
+        assert got == {**want[1], "devices": entries}
+        K.reset_launch_counts()
+        got = full_check_summary_sharded(p, Config(), mesh=mesh, **geo)
+        assert all(K.LAUNCHES[k] > 0 for k in FULL_CHECK_KERNELS), K.LAUNCHES
+        assert got["devices"] == entries
+        for key in want[2]:
+            if key != "devices":
+                assert np.array_equal(got[key], want[2][key]) if hasattr(
+                    got[key], "shape") else got[key] == want[2][key], key
