@@ -82,7 +82,21 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    ``parallel/multihost.py`` joined by gloo on the one card (and by NCCL,
    one card each, where there are two cards) counting the small BAM.
 
-Launch counters are set to 0 just before each main path (3, 4, 6, 7, 8)
+9. The aggregate (``load.api.aggregate``, default spec
+   ``count;flagstat;mapq;tlen;coverage``) over the 1 GiB BAM: the whole-file
+   check (``full_check_flags`` windows), the record parse and the
+   reduction on the card; ``count`` and ``flagstat`` totals = the
+   generator's reads, every vector = the port's int64 oracle
+   (``agg.host.host_aggregate``) over the parsed columns; the wall and its
+   host split, the ``full_check_flags`` launches, the reduction's card time
+   and PyTorch launches per 65,536-record window, peak host RSS and peak
+   device memory. Then with a loci and flag filter (= the oracle over
+   NumPy-masked columns); the mesh's agg step on every card and on a
+   two-entry mesh of one card (= one device); card = CPU on the small BAM,
+   the load edge corpus under tag filters and an unmapped BAM with no
+   reference sequences (``benchmarks/agg_cases.py``; empty coverage).
+
+Launch counters are set to 0 just before each main path (3, 4, 6, 7, 8, 9)
 and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
 and, last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero; without CUDA, or without the package beside
@@ -91,7 +105,9 @@ it, it exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import gc
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -663,6 +679,219 @@ def sharded_phase(port, bam, manifest, summary, fc_s, fused_s, small,
     return launches
 
 
+class _RssPeak:
+    """Peak resident set size of this process while it is entered, sampled
+    from /proc every 10 ms on a thread."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _run(self):
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def _agg_equal(got: dict, want: dict, label: str) -> None:
+    require(list(got) == list(want), f"{label}: metrics {list(got)}")
+    for k in want:
+        require(got[k].dtype == np.int64 and np.array_equal(got[k], want[k]),
+                f"{label}: {k} differs")
+
+
+def agg_phase(port, bam, manifest, small, work, card) -> dict:
+    """Phase 9, the aggregate; returns its kernel launch counts on the
+    1 GiB aggregate."""
+    from torch.autograd import DeviceType
+
+    from spark_bam_tpu_torch.agg import AggConfig, host_aggregate
+    from spark_bam_tpu_torch.agg import kernels as AK
+    from spark_bam_tpu_torch.benchmarks import agg_cases, load_cases
+    from spark_bam_tpu_torch.load import api, tpu_load
+    from spark_bam_tpu_torch.parallel.mesh import mesh_steps
+    from spark_bam_tpu_torch.tpu import kernels as K
+
+    want = manifest["reads"]
+    dev = torch.device("cuda", 0)
+    plan = AggConfig.parse("")
+    split: dict = {}
+    seen: dict = {}
+    names = ("read_header", "flatten_file", "record_starts",
+             "parse_flat_records", "_apply_filter", "aggregate_planes")
+    real = {n: getattr(api, n) for n in names}
+
+    def timed(name):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*a, **kw)
+            torch.cuda.synchronize()
+            split[name] = split.get(name, 0.0) + time.perf_counter() - t0
+            seen[name] = out
+            return out
+        return run
+
+    for n in names:
+        setattr(api, n, timed(n))
+    try:
+        gc.collect()
+        torch.zeros(1, device=dev)   # the allocator's stats exist from here
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        with _RssPeak() as rss:
+            t0 = time.perf_counter()
+            res = port.aggregate(bam)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        peak_dev = torch.cuda.max_memory_allocated(dev)
+        host_split = dict(split)
+        batch = seen["parse_flat_records"]
+        cols = {k: batch.columns[k] for k in AK.PLANES}
+        header = seen["read_header"]
+        del batch, seen["parse_flat_records"], seen["flatten_file"]
+        seen["record_starts"] = None
+
+        # Filtered: a loci and flag filter on the same file.
+        loci = "chr1:100000-900000,chr2:500000-1500000"
+        split.clear()
+        t0 = time.perf_counter()
+        filt = port.aggregate(bam, loci=loci, flags_forbidden=0x10)
+        filt_s = time.perf_counter() - t0
+        filt_split = dict(split)
+        seen.clear()
+    finally:
+        for n in names:
+            setattr(api, n, real[n])
+    nc = len(header.contig_lengths)
+    require(launches["full_check_flags"] > 0, launches)
+    count, flagstat = res["metrics"]["count"], res["metrics"]["flagstat"]
+    require(res["rows"] == want and count[0] == want and flagstat[0] == want,
+            f"aggregate rows {res['rows']}, count {count[0]}, flagstat "
+            f"{flagstat[0]}; the generator's {want}")
+    require(res["agg"] == plan.canonical() and len(res["contigs"]) == nc,
+            res["agg"])
+    t0 = time.perf_counter()
+    oracle = host_aggregate(cols, plan, nc)
+    oracle_s = time.perf_counter() - t0
+    _agg_equal(res["metrics"], oracle, "1 GiB aggregate")
+    chunks = -(-want // AK.DEFAULT_CHUNK)
+    log(f"aggregate 1 GiB ({plan.canonical()}): {want} reads in "
+        f"{wall:.3f} s = {want / wall:.0f} reads/s; host split (s) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in host_split.items())
+        + f"; {chunks} reduction windows of {AK.DEFAULT_CHUNK}; "
+        f"full_check_flags launches {launches['full_check_flags']} "
+        f"(all {launches}); peak host RSS {rss.peak / 2**30:.2f} GiB "
+        f"(sampled), peak device memory {peak_dev / 2**30:.2f} GiB; every "
+        f"vector = host_aggregate ({oracle_s:.1f} s) ({card})")
+
+    # The reduction per window: CUDA events and PyTorch launches.
+    step = AK.update_fn(plan, nc)
+    planes = {k: torch.from_numpy(v).to(dev) for k, v in
+              AK._pad_planes(cols, 0, AK.DEFAULT_CHUNK, 1).items()}
+    state = AK._state_on(plan, nc, dev)
+    step_ms = cuda_ms(lambda: step(state, planes), reps=20)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        step(state, planes)
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    host_launches = sum(e.count for e in ka
+                        if e.key.startswith("cudaLaunchKernel"))
+    dev_kernels = sum(e.count for e in ka
+                      if getattr(e, "device_type", None) == DeviceType.CUDA)
+    in_bytes = sum(v.numel() * v.element_size() for v in planes.values())
+    out_bytes = 4 * plan.total_length(nc)
+    log(f"aggregate reduction per window of {AK.DEFAULT_CHUNK} records "
+        f"(default spec, nc {nc}): {step_ms:.3f} ms (CUDA-event median of "
+        f"20); {host_launches} cudaLaunchKernel calls, {dev_kernels} device "
+        f"kernels (torch.profiler); bound {in_bytes + out_bytes} bytes = "
+        f"{(in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3:.5f} ms ({card})")
+    del planes, state
+
+    # The filtered pass against the oracle over the masked columns.
+    ivs = tpu_load._interval_table(header, loci)
+    masked = dict(cols, valid=cols["valid"]
+                  & numpy_filter(cols, ivs, 0, 0x10))
+    kept = int(masked["valid"].sum())
+    require(0 < kept < want and filt["rows"] == kept, (kept, filt["rows"]))
+    _agg_equal(filt["metrics"], host_aggregate(masked, plan, nc),
+               "1 GiB aggregate, filtered")
+    log(f"aggregate filtered ({loci}, forbid 0x10): {kept} rows in "
+        f"{filt_s:.3f} s (" + ", ".join(f"{k} {v:.3f}"
+                                        for k, v in filt_split.items())
+        + "); every vector = host_aggregate over NumPy-masked columns")
+
+    # The mesh's agg step: every card, and two entries of one card.
+    t0 = time.perf_counter()
+    one = AK.aggregate_planes(cols, plan, nc, device=dev)
+    one_s = time.perf_counter() - t0
+    _agg_equal(one, res["metrics"], "aggregate_planes")
+    for label, mesh in (("every card", port.make_mesh()),
+                        ("two entries of one card",
+                         port.make_mesh([dev, dev]))):
+        t0 = time.perf_counter()
+        got = AK.aggregate_planes(cols, plan, nc, steps=mesh_steps(mesh))
+        _agg_equal(got, one, f"agg step on {label}")
+        log(f"aggregate agg step on {label} ({mesh.n_local} entries): "
+            f"equal to one device; {time.perf_counter() - t0:.3f} s against "
+            f"{one_s:.3f} s")
+    del cols, masked
+
+    # Card against CPU: the small BAM, the edge corpus under tag filters,
+    # and an unmapped BAM with no reference sequences (nc 0).
+    t0 = time.perf_counter()
+    a = port.aggregate(small)
+    b = port.aggregate(small, device="cpu")
+    _agg_equal(a["metrics"], b["metrics"], "small BAM")
+    require(a["rows"] == b["rows"] > 0, (a["rows"], b["rows"]))
+    edges = work / "agg_edges.bam"
+    load_cases.write_bam(edges, seed=0)
+    w0, h0 = load_cases.GEOMETRY
+    cfg = port.Config(window_size=w0, halo_size=h0)
+    filters = [dict(tags_required=t) for t in load_cases.TAG_FILTERS]
+    filters += [dict(loci=load_cases.LOCI[0], flags_forbidden=0x4,
+                     tags_required=("NM",)), {}]
+    for kw in filters:
+        a = port.aggregate(edges, config=cfg, **kw)
+        b = port.aggregate(edges, config=cfg, device="cpu", **kw)
+        _agg_equal(a["metrics"], b["metrics"], f"edge corpus {kw}")
+        require(a["rows"] == b["rows"], kw)
+    unmapped = work / "unmapped.bam"
+    n_un = agg_cases.write_unmapped_bam(unmapped, 2000)
+    a = port.aggregate(unmapped)
+    b = port.aggregate(unmapped, device="cpu")
+    _agg_equal(a["metrics"], b["metrics"], "unmapped BAM")
+    m = a["metrics"]
+    require(a["contigs"] == [] and m["coverage"].shape == (0,)
+            and m["count"][:2].tolist() == [n_un, 0]
+            and m["flagstat"][3] == n_un, (a["rows"], m["count"]))
+    log(f"aggregate card = CPU: the small BAM, the edge corpus under "
+        f"{len(filters)} filters ({len(load_cases.TAG_FILTERS)} tag sets), "
+        f"an unmapped BAM of {n_un} reads with nc 0 (empty coverage); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1146,6 +1375,8 @@ def main() -> int:
             port, bam, manifest, summary, fc_s, fused_s, small,
             small_manifest, on_card, work, card)
 
+        agg_launches = agg_phase(port, bam, manifest, small, work, card)
+
         for row in rows:
             row["launches"] = launches[row["name"]]
             row["launches_by_path"] = {
@@ -1156,6 +1387,7 @@ def main() -> int:
                 "load_funnel_off_edge_corpus": off_launches[row["name"]],
                 **{path: n[row["name"]]
                    for path, n in sharded_launches.items()},
+                "aggregate": agg_launches[row["name"]],
             }
         print(json.dumps({"kernels": rows}), flush=True)
     finally:

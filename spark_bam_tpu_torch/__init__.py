@@ -20,6 +20,11 @@ devices and processes (``torch.distributed``): ``count_reads_sharded``,
 report reduced on the devices) and ``host_shard_plan``, over ``make_mesh``'s
 ``Mesh``.
 
+The aggregate (``load/api.py``: ``aggregate``; ``agg/``) reduces a BAM
+query to count, flagstat, MAPQ, template-length and binned coverage
+vectors on the device, one window of parsed records at a time, or across
+a mesh through ``MeshSteps.agg_step``.
+
 The package imports torch, numpy and the standard library only; entry
 points run on the CUDA device unless the caller passes ``device="cpu"``,
 which runs each kernel's plain PyTorch version instead.
@@ -27,6 +32,7 @@ which runs each kernel's plain PyTorch version instead.
 
 from spark_bam_tpu_torch.core.config import Config
 from spark_bam_tpu_torch.core.pos import Pos
+from spark_bam_tpu_torch.load.api import aggregate
 from spark_bam_tpu_torch.load.tpu_load import (
     count_reads_tpu,
     load_reads_columnar,
@@ -53,8 +59,8 @@ from spark_bam_tpu_torch.tpu.stream_check import (
 )
 
 __all__ = ["Config", "CountScanGraphs", "Mesh", "Pos", "StreamChecker",
-           "TpuChecker", "check_bam_sharded", "count_reads_sharded",
-           "count_reads_tpu", "count_scan", "full_check_summary_sharded",
-           "full_check_summary_streaming", "host_shard_plan",
+           "TpuChecker", "aggregate", "check_bam_sharded",
+           "count_reads_sharded", "count_reads_tpu", "count_scan",
+           "full_check_summary_sharded", "full_check_summary_streaming", "host_shard_plan",
            "load_reads_columnar", "make_count_scan", "make_mesh",
            "record_starts", "record_starts_streaming", "stream_read_batches"]

@@ -1,7 +1,7 @@
 """Command line: ``python -m spark_bam_tpu_torch count-reads [-n N]
 [--resident | --sharded] PATH``, ``python -m spark_bam_tpu_torch full-check
-[-l N] [--sharded] PATH`` and ``python -m spark_bam_tpu_torch check-bam
---sharded PATH``.
+[-l N] [--sharded] PATH``, ``python -m spark_bam_tpu_torch check-bam
+--sharded PATH`` and ``python -m spark_bam_tpu_torch aggregate PATH``.
 
 ``count-reads`` prints the reference CLI's standalone count lines
 (``spark-bam read-count time: MS`` and ``Read count: N`` per iteration) and,
@@ -19,12 +19,19 @@ the eager-against-seqdoop check-bam is not ported. Every command runs on
 the CUDA device unless ``--device`` names another; ``--sharded`` meshes
 are every visible CUDA device, or ``--devices N`` entries of ``--device``
 (``--device cpu --devices 4``: a 4-entry CPU mesh).
+
+``aggregate [-a SPEC] [-i LOCI] [--flags-required N] [--flags-forbidden N]
+[-t TG]... [--format tsv|json] [-o OUT] PATH`` prints the reference's
+aggregate report: one ``metric<TAB>key<TAB>value`` line per populated
+bucket (tsv), or the whole result as one JSON object, and a timing line on
+stderr. A bad spec, loci or tag is a usage error before any work.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import sys
 import time
 
@@ -33,7 +40,10 @@ import numpy as np
 from spark_bam_tpu_torch.bgzf.flat import metas_block_table, pos_of_flat_tables
 from spark_bam_tpu_torch.bgzf.index_blocks import blocks_metadata
 from spark_bam_tpu_torch.check.flags import FLAG_NAMES, bit_counts
+from spark_bam_tpu_torch.agg.plan import AggConfig
 from spark_bam_tpu_torch.core.config import Config
+from spark_bam_tpu_torch.load import api
+from spark_bam_tpu_torch.load.intervals import BadLociError, LociSet
 from spark_bam_tpu_torch.parallel.mesh import make_mesh
 from spark_bam_tpu_torch.parallel.stream_mesh import (
     check_bam_sharded,
@@ -324,6 +334,103 @@ def check_bam(path, device=None, out=None, sharded: bool = False,
     return stats
 
 
+#: SAM flag bit → flagstat row label, in wire order (agg/plan.py).
+_FLAG_LABELS = (
+    "paired", "proper_pair", "unmapped", "mate_unmapped", "reverse",
+    "mate_reverse", "read1", "read2", "secondary", "qc_fail", "dup",
+    "supplementary",
+)
+
+
+def _coverage_spec(result: dict) -> str:
+    for part in result["agg"].split(";"):
+        if part.split(":", 1)[0] == "coverage":
+            return part
+    return "coverage"
+
+
+def _tsv_lines(result: dict):
+    """An ``aggregate`` result as tsv rows; only populated buckets print,
+    so a whole-genome coverage vector stays readable."""
+    contigs = result["contigs"]
+    for name, vec in result["metrics"].items():
+        if name == "count":
+            for label, v in zip(("records", "mapped", "bases"), vec):
+                yield f"count\t{label}\t{int(v)}"
+        elif name == "flagstat":
+            yield f"flagstat\ttotal\t{int(vec[0])}"
+            for label, v in zip(_FLAG_LABELS, vec[1:]):
+                yield f"flagstat\t{label}\t{int(v)}"
+        elif name in ("mapq", "tlen"):
+            top = len(vec) - 1
+            for i, v in enumerate(vec):
+                if v:
+                    key = (f">{top - 1}" if name == "tlen" and i == top
+                           else str(i))
+                    yield f"{name}\t{key}\t{int(v)}"
+        elif name == "coverage":
+            nc = len(contigs) or 1
+            bins = len(vec) // nc
+            grid = vec.reshape(nc, bins)
+            # The bucket width comes from the canonical spec the result
+            # carries (agg/plan.py defaults when unstated).
+            params = {}
+            spec = _coverage_spec(result)
+            if ":" in spec:
+                for kv in spec.split(":", 1)[1].split(","):
+                    key, _, value = kv.partition("=")
+                    if value:
+                        params[key] = int(value)
+            width = params.get("bin", 1000)
+            for (cname, clen), row in zip(contigs, grid):
+                for k, v in enumerate(row):
+                    if v:
+                        lo = k * width
+                        hi = (clen if k == bins - 1
+                              else min((k + 1) * width, clen))
+                        yield f"coverage\t{cname}:{lo}-{hi}\t{int(v)}"
+
+
+def aggregate(path, agg: str | None = None, loci: str | None = None,
+              flags_required: int = 0, flags_forbidden: int = 0,
+              tags_required=(), fmt: str = "tsv", device=None, out=None
+              ) -> dict:
+    """The aggregate report of one BAM query; returns the result."""
+    p = Printer(out=out)
+    if loci:
+        try:
+            LociSet.parse(loci)
+        except BadLociError as e:
+            raise UsageError(str(e)) from e
+    try:
+        AggConfig.parse(agg or "")
+        for t in tags_required:
+            if len(t) != 2:
+                raise ValueError(f"tag names are exactly two chars: {t!r}")
+    except ValueError as e:
+        raise UsageError(str(e)) from e
+    t0 = time.monotonic()
+    result = api.aggregate(path, agg=agg or "", loci=loci,
+                           flags_required=flags_required,
+                           flags_forbidden=flags_forbidden,
+                           tags_required=tuple(tags_required), device=device)
+    seconds = time.monotonic() - t0
+    if fmt == "json":
+        p.echo(json.dumps({
+            "agg": result["agg"],
+            "rows": result["rows"],
+            "contigs": [[n, int(ln)] for n, ln in result["contigs"]],
+            "metrics": {k: [int(x) for x in v]
+                        for k, v in result["metrics"].items()},
+        }, sort_keys=True))
+    else:
+        for line in _tsv_lines(result):
+            p.echo(line)
+    print(f"aggregated {result['rows']} rows [{result['agg']}] "
+          f"in {seconds:.2f}s", file=sys.stderr)
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m spark_bam_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -345,7 +452,49 @@ def main(argv=None) -> int:
                        help="--sharded mesh entries: N copies of --device, "
                             "or the first N CUDA devices")
         p.add_argument("path")
+    ag = sub.add_parser("aggregate",
+                        help="aggregate statistics of a BAM query")
+    ag.add_argument(
+        "-a", "--agg", default=None, metavar="SPEC",
+        help="';'-separated metric[:k=v,...] spec: count, flagstat, mapq, "
+             "tlen[:max=N], coverage[:bin=N,bins=N,cap=N] (default: every "
+             "metric at defaults)")
+    ag.add_argument(
+        "-i", "--intervals", default=None, metavar="LOCI",
+        help="genomic loci to restrict to, e.g. 'chr1:5k-10k,chr2' "
+             "(decimal k/m suffixes; whole contig when no range)")
+    ag.add_argument("--flags-required", type=int, default=0,
+                    help="only records with ALL these SAM flag bits")
+    ag.add_argument("--flags-forbidden", type=int, default=0,
+                    help="only records with NONE of these SAM flag bits")
+    ag.add_argument(
+        "-t", "--tag", action="append", default=None, metavar="TG",
+        help="only records carrying this two-char tag (repeatable; all "
+             "must be present)")
+    ag.add_argument("--format", default="tsv", choices=("tsv", "json"),
+                    help="report format (default tsv)")
+    ag.add_argument("-o", "--out", default=None,
+                    help="write the report here instead of stdout")
+    ag.add_argument("-m", "--max-split-size", default=None,
+                    help="split size of the record loaders; a BAM is "
+                         "aggregated whole, so it changes nothing here")
+    ag.add_argument("--device", default=None,
+                    help="torch device (default: the current CUDA device)")
+    ag.add_argument("path")
     args = ap.parse_args(argv)
+    if args.cmd == "aggregate":
+        out = open(args.out, "w") if args.out else None
+        try:
+            aggregate(args.path, args.agg, args.intervals,
+                      args.flags_required, args.flags_forbidden,
+                      tuple(args.tag or ()), args.format, args.device, out)
+        except UsageError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        finally:
+            if out is not None:
+                out.close()
+        return 0
     kw = dict(sharded=args.sharded, devices=args.devices)
     try:
         if args.cmd == "count-reads":

@@ -1,6 +1,6 @@
 """Typed configuration: the subset of the ``spark.bam.*`` knobs that the
-count-reads and full-check paths read, under the reference package's names
-and defaults.
+count-reads, full-check, load and aggregate paths read, under the reference
+package's names and defaults.
 
 Values this port cannot serve yet raise ``ValueError`` naming what will
 serve them, so a run never silently takes another path than asked for.
@@ -106,6 +106,10 @@ class Config:
     # most 1 GiB (int32 row offsets and per-chunk sums) and at least one
     # window row, then floored to a power of two of rows.
     resident_chunk_bytes: int = 256 << 20
+    # Compact AggConfig spec of ``load.api.aggregate`` and the aggregate
+    # command ("coverage:bin=1000,bins=512;flagstat;mapq;tlen:max=2000;
+    # count"; "" = every metric at defaults); ``agg_config`` parses it.
+    agg: str = ""
 
     def __post_init__(self):
         if self.funnel not in ("on", "off", "auto"):
@@ -117,6 +121,13 @@ class Config:
     @property
     def inflate_config(self) -> InflateConfig:
         return InflateConfig.parse(self.inflate)
+
+    @property
+    def agg_config(self):
+        """The parsed ``AggConfig`` of this config's ``agg`` spec."""
+        from spark_bam_tpu_torch.agg.plan import AggConfig
+
+        return AggConfig.parse(self.agg)
 
     def funnel_enabled(self, full_masks: bool = False) -> bool:
         """Whether a projection runs the two-stage candidate funnel.

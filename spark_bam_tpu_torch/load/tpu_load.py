@@ -50,12 +50,13 @@ class TpuLoadResult:
 
 def record_starts(path, config: Config = Config(),
                   checker: TpuChecker | None = None,
-                  device=None) -> TpuLoadResult:
+                  device=None, view: FlatView | None = None) -> TpuLoadResult:
     """Whole-file record starts with the flat view retained (small files,
-    callers that need the bytes). For inputs larger than memory use
+    callers that need the bytes); ``view`` is the file's flat view when
+    the caller already holds it. For inputs larger than memory use
     ``record_starts_streaming`` or ``count_reads_tpu``."""
     header = read_header(path)
-    view = flatten_file(path)
+    view = flatten_file(path) if view is None else view
     if checker is None:
         # Size the window to the input: a small file in one kernel call,
         # big files through config.window_size windows, as powers of two.

@@ -22,7 +22,8 @@ The step makers (``make_shard_map_*_step``) return callables kept per mesh
 by ``MeshSteps`` (``mesh_steps(mesh)``), so repeated calls reuse their
 state: the count step's per-device ``checker.make_count_scan`` runners
 (on a CUDA device one CUDA graph replay per shard). Their per-row
-reductions are plain PyTorch around the check's kernels.
+reductions are plain PyTorch around the check's kernels; the agg step
+(``AggStep``) carries the aggregate's reduction over record planes.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from spark_bam_tpu_torch.agg.kernels import PLANES, _reduce_chunk
 from spark_bam_tpu_torch.check.flags import BIT, FLAG_NAMES
 from spark_bam_tpu_torch.device import resolve_device
 from spark_bam_tpu_torch.tpu.checker import PAD, check_window, make_count_scan
@@ -457,6 +459,38 @@ class CheckStep(_Step):
         return verdicts, escapes, self.mesh.reduce(outs)
 
 
+class AggStep(_Step):
+    """``make_shard_map_agg_step``: the aggregate's carry step over the
+    mesh. ``Mesh.shard`` puts each device's contiguous slice of a window's
+    padded record planes on that device, each device reduces its slice
+    (``agg.kernels._reduce_chunk``, int32), and the deltas, one flat
+    vector a device in plan order, are summed through ``Mesh.reduce``
+    (all-reduced over the process group). The state is int32 on the host,
+    equal in every process (the replicated state); it wraps as the JAX
+    package's int32 ``psum`` does, and the caller drains it into int64.
+    Under a process group every process steps the same number of times."""
+
+    state_device = torch.device("cpu")
+
+    def __init__(self, mesh: Mesh, plan, nc: int):
+        super().__init__(mesh, 0)
+        self.plan = plan
+        self.nc = nc
+        self.lengths = [spec.length(nc) for spec in plan.specs]
+
+    def __call__(self, state: dict, planes: dict) -> dict:
+        names = [spec.name for spec in self.plan.specs]
+        shards = [self.mesh.shard(planes[k]) for k in PLANES]
+        outs = []
+        for d in range(self.mesh.n_local):
+            delta = _reduce_chunk(self.plan, self.nc,
+                                  {k: sh[d] for k, sh in zip(PLANES, shards)})
+            outs.append(torch.cat([delta[k] for k in names]))
+        total = torch.from_numpy(self.mesh.reduce(outs)).to(torch.int32)
+        return {k: state[k] + t
+                for k, t in zip(names, total.split(self.lengths))}
+
+
 def make_shard_map_count_step(mesh: Mesh, reads_to_check: int = 10,
                               funnel: bool = False) -> CountStep:
     return CountStep(mesh, reads_to_check, funnel)
@@ -480,6 +514,10 @@ def make_shard_map_serve_step(mesh: Mesh, reads_to_check: int = 10,
 def make_shard_map_check_step(mesh: Mesh, reads_to_check: int = 10
                               ) -> CheckStep:
     return CheckStep(mesh, reads_to_check)
+
+
+def make_shard_map_agg_step(mesh: Mesh, plan, nc: int) -> AggStep:
+    return AggStep(mesh, plan, nc)
 
 
 def sharded_check_step(windows, ns, at_eofs, truth, lengths, num_contigs,
@@ -542,6 +580,12 @@ class MeshSteps:
         return self._get(("check", reads_to_check),
                          lambda: make_shard_map_check_step(
                              self.mesh, reads_to_check))
+
+    def agg_step(self, plan, nc: int):
+        """The aggregate's carry step for one (plan, contig count); the
+        plan is a frozen ``AggConfig`` and hashes into the key."""
+        return self._get(("agg", plan, nc),
+                         lambda: make_shard_map_agg_step(self.mesh, plan, nc))
 
 
 _mesh_steps: dict = {}

@@ -665,3 +665,60 @@ def test_sharded_workloads_on_gpu_equal_cpu(gpu, tmp_path):
             if key != "devices":
                 assert np.array_equal(got[key], want[2][key]) if hasattr(
                     got[key], "shape") else got[key] == want[2][key], key
+
+
+def _agg_equal(got: dict, want: dict) -> None:
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == np.int64 and np.array_equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("nc,chunk", [(0, None), (3, None), (25, 100)])
+def test_aggregate_planes_on_gpu_equal_cpu(gpu, nc, chunk):
+    """The reduction on the card (plain carry, and the agg step on a
+    one- and two-entry mesh of the card) equals the CPU's, edge rows and
+    the two reference-fault inputs included, and the int64 oracle."""
+    from spark_bam_tpu_torch import make_mesh
+    from spark_bam_tpu_torch.agg import AggConfig, aggregate_planes
+    from spark_bam_tpu_torch.agg.host import host_aggregate
+    from spark_bam_tpu_torch.benchmarks import agg_cases
+    from spark_bam_tpu_torch.parallel.mesh import mesh_steps
+
+    cols = agg_cases.random_planes(nc, 5000, nc)
+    for spec in ("", "coverage:bin=7,bins=3,cap=2;tlen:max=1"):
+        plan = AggConfig.parse(spec)
+        want = aggregate_planes(cols, plan, nc, chunk=chunk, device="cpu")
+        _agg_equal(want, host_aggregate(cols, plan, nc))
+        _agg_equal(aggregate_planes(cols, plan, nc, chunk=chunk, device=gpu),
+                   want)
+        for entries in (1, 2):
+            steps = mesh_steps(make_mesh([gpu] * entries))
+            _agg_equal(aggregate_planes(cols, plan, nc, steps=steps,
+                                        chunk=chunk), want)
+    for spec, n, fault in agg_cases.REFERENCE_FAULTS.values():
+        plan = AggConfig.parse(spec)
+        _agg_equal(aggregate_planes(fault, plan, n, device=gpu),
+                   host_aggregate(fault, plan, n))
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"tags_required": ("NM", "RG")},
+    {"loci": "chr1:50-900,chr2", "flags_forbidden": 16},
+    {"agg": "count;flagstat", "flags_required": 2048}])
+def test_aggregate_on_gpu_equals_cpu(gpu, tmp_path, kw):
+    """``aggregate`` on the card equals ``device="cpu"`` on the tagged BAM
+    (the full-check kernel ran) and on an unmapped BAM with no contigs."""
+    from spark_bam_tpu_torch import aggregate
+    from spark_bam_tpu_torch.benchmarks import agg_cases
+
+    tagged, unmapped = tmp_path / "t.bam", tmp_path / "u.bam"
+    agg_cases.write_tagged_bam(tagged)
+    agg_cases.write_unmapped_bam(unmapped)
+    for p in (tagged, unmapped):
+        K.reset_launch_counts()
+        got = aggregate(p, **kw)
+        assert K.LAUNCHES["full_check_flags"] > 0
+        want = aggregate(p, device="cpu", **kw)
+        assert {k: got[k] for k in ("agg", "rows", "contigs")} == {
+            k: want[k] for k in ("agg", "rows", "contigs")}
+        _agg_equal(got["metrics"], want["metrics"])
