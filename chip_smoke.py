@@ -96,8 +96,23 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    the load edge corpus under tag filters and an unmapped BAM with no
    reference sequences (``benchmarks/agg_cases.py``; empty coverage).
 
-Launch counters are set to 0 just before each main path (3, 4, 6, 7, 8, 9)
-and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
+10. Split planning with the ``.sbi`` cache (``split_phase``, under a
+   temporary ``SPARK_BAM_CACHE_DIR``): ``index -m 32MB --record-starts``
+   on the 1 GiB BAM, cold (the wall split into block scan, boundary
+   resolutions on the card with each one's ms, and the streaming starts;
+   launches, peak host RSS and device memory; the sidecar's starts = the
+   generator's manifest, every resolved plan start a manifest start, the
+   first the header's end); ``compute-splits -s -m 32MB`` cold with the
+   cache off, then warm with ``--cache read`` (equal splits, zero launches,
+   zero resolutions); the aggregate warm from the sidecar (= phase 9's
+   result, zero launches; its wall beside phase 9's); on the small BAM,
+   ``compute-splits`` in the default mode card = CPU, the plan card = CPU
+   with a sentinel-only last split (``PLAN_NONE``) and a touched sidecar
+   invalidated and recomputed. The time per boundary at the reference's
+   2 MiB splits: ``benchmarks/profile_splits.py``.
+
+Launch counters are set to 0 just before each main path (3, 4, 6, 7, 8,
+9, 10) and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
 and, last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero; without CUDA, or without the package beside
 it, it exits non-zero before printing a result.
@@ -714,9 +729,10 @@ def _agg_equal(got: dict, want: dict, label: str) -> None:
                 f"{label}: {k} differs")
 
 
-def agg_phase(port, bam, manifest, small, work, card) -> dict:
+def agg_phase(port, bam, manifest, small, work, card) -> tuple[dict, dict]:
     """Phase 9, the aggregate; returns its kernel launch counts on the
-    1 GiB aggregate."""
+    1 GiB aggregate and that aggregate's result, wall, host split and peak
+    host RSS (phase 10's reference)."""
     from torch.autograd import DeviceType
 
     from spark_bam_tpu_torch.agg import AggConfig, host_aggregate
@@ -889,7 +905,226 @@ def agg_phase(port, bam, manifest, small, work, card) -> dict:
         f"{len(filters)} filters ({len(load_cases.TAG_FILTERS)} tag sets), "
         f"an unmapped BAM of {n_un} reads with nc 0 (empty coverage); "
         f"{time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, {"result": res, "wall": wall, "split": host_split,
+                      "rss": rss.peak}
+
+
+class _Spied:
+    """Module functions timed (host clock, the card synchronized on both
+    sides) while entered: ``split[name]`` sums each one's seconds; a
+    generator's items are drawn inside its timing."""
+
+    def __init__(self, split: dict, *targets):
+        self.split = split
+        self.targets = targets   # (module, name) pairs
+        self.real = {}
+
+    def __enter__(self):
+        for mod, name in self.targets:
+            real = getattr(mod, name)
+            self.real[(mod, name)] = real
+
+            def run(*a, _real=real, _name=name, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _real(*a, **kw)
+                if _name == "record_starts_streaming":
+                    out = list(out)
+                torch.cuda.synchronize()
+                self.split[_name] = (self.split.get(_name, 0.0)
+                                     + time.perf_counter() - t0)
+                return out
+            setattr(mod, name, run)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), real in self.real.items():
+            setattr(mod, name, real)
+
+
+def _report_lines(out) -> list[str]:
+    """A compute-splits report without its timing lines."""
+    return [ln for ln in out.getvalue().split("\n")
+            if not ln.startswith("Get ")]
+
+
+def split_phase(port, bam, manifest, small, work, card, agg_ref) -> dict:
+    """Phase 10, split planning with the ``.sbi`` cache (under a temporary
+    ``SPARK_BAM_CACHE_DIR``); returns the kernel launches of its three
+    1 GiB paths: the cold ``index --record-starts``, the cold
+    ``compute-splits -s`` and the warm aggregate."""
+    import io
+
+    from spark_bam_tpu_torch import cli
+    from spark_bam_tpu_torch.bam.header import read_header
+    from spark_bam_tpu_torch.benchmarks.split_cases import sentinel_split_size
+    from spark_bam_tpu_torch.benchmarks.synth import record_flat_starts
+    from spark_bam_tpu_torch.bgzf.flat import FlatView, metas_block_table
+    from spark_bam_tpu_torch.bgzf.index_blocks import blocks_metadata
+    from spark_bam_tpu_torch.load import api, boundary, tpu_load
+    from spark_bam_tpu_torch.load.splits import file_splits
+    from spark_bam_tpu_torch.sbi import plan as sbi_plan
+    from spark_bam_tpu_torch.sbi.format import (
+        PLAN_NONE,
+        PLAN_POS,
+        decode_sbi,
+        record_starts_to_flat,
+    )
+    from spark_bam_tpu_torch.sbi.store import CacheStore, reset_cache_events
+    from spark_bam_tpu_torch.tpu import kernels as K
+
+    dev = torch.device("cuda", 0)
+    split = port.Config.LOAD_SPLIT_SIZE_DEFAULT
+    os.environ["SPARK_BAM_CACHE_DIR"] = str(work / "sbi_cache")
+    paths = {}
+    try:
+        # ---- 1. index -m 32MB --record-starts, cold ----------------------
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        K.reset_launch_counts()
+        boundary.STATS.reset()
+        split_s: dict = {}
+        out = io.StringIO()
+        with _Spied(split_s, (cli, "blocks_metadata"),
+                    (sbi_plan, "build_split_plan"),
+                    (tpu_load, "record_starts_streaming")), \
+                _RssPeak() as rss:
+            t0 = time.perf_counter()
+            dest = cli.index(bam, split, port.Config(), record_starts=True,
+                             out=out)
+            torch.cuda.synchronize()
+            index_s = time.perf_counter() - t0
+        paths["index_cold"] = dict(K.LAUNCHES)
+        peak_dev = torch.cuda.max_memory_allocated(dev)
+        res_ms = list(boundary.STATS.ms)
+        st = boundary.STATS
+        require(dest == CacheStore.from_env().sidecar_path(bam), dest)
+        require(all(paths["index_cold"][k] > 0 for k in COUNT_KERNELS),
+                paths["index_cold"])
+        require(st.boundary_demotions == 0, st)
+        sbi = decode_sbi(open(dest, "rb").read())
+        bs, bf = metas_block_table(blocks_metadata(bam))
+        table = FlatView(np.empty(0, np.uint8), block_starts=bs,
+                         block_flat=bf)
+        truth = record_flat_starts(manifest)
+        require(np.array_equal(record_starts_to_flat(table,
+                                                     sbi.record_starts),
+                               truth), "sidecar starts != the manifest's")
+        entries = sbi.split_plans[split]
+        header = read_header(bam)
+        require(entries[0].kind == PLAN_POS and entries[0].pos ==
+                header.end_pos, entries[0])
+        resolved = [table.flat_of_pos(*e.pos) for e in entries
+                    if e.kind == PLAN_POS]
+        require(len(resolved) >= len(entries) - 1 and
+                np.isin(resolved, truth).all(), "a plan start is no record")
+        log(f"index -m 32MB --record-starts, 1 GiB, cold: {index_s:.3f} s = "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split_s.items())
+            + f" s; {st.resolutions} boundary resolutions, {st.windows} "
+            f"check_window calls, {st.boundary_demotions} demotions, ms "
+            f"each "
+            f"{[round(x, 2) for x in res_ms]} (median "
+            f"{statistics.median(res_ms):.2f}); launches "
+            f"{paths['index_cold']}; peak host RSS {rss.peak / 2**30:.2f} "
+            f"GiB, peak device memory {peak_dev / 2**30:.2f} GiB; sidecar "
+            f"{os.path.getsize(dest)} bytes, {len(sbi.record_starts)} starts "
+            f"= the manifest's, {len(entries)} plan entries ({card})")
+        log("  " + out.getvalue().strip())
+
+        # ---- 2. compute-splits -s -m 32MB, cold (cache off), then warm ---
+        reports = []
+        for label, cfg in (("cold", port.Config()),
+                           ("warm", port.Config(cache="read"))):
+            reset_cache_events()
+            K.reset_launch_counts()
+            boundary.STATS.reset()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            cli.compute_splits(bam, split, cfg, spark_bam=True, out=out)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            paths[f"compute_splits_{label}"] = dict(K.LAUNCHES)
+            reports.append(_report_lines(out))
+            log(f"compute-splits -s -m 32MB, 1 GiB, {label}: {wall:.3f} s, "
+                f"{boundary.STATS.resolutions} boundary resolutions, "
+                f"launches {dict(K.LAUNCHES)}; {reports[-1][0]}")
+        warm = paths.pop("compute_splits_warm")
+        require(not any(warm.values()) and boundary.STATS.resolutions == 0,
+                f"warm compute-splits launched {warm}")
+        require(reports[1][0] == "cache: hit (fingerprint ok)", reports[1])
+        require(reports[0][1:] == reports[1][1:], "cold and warm splits "
+                                                  "differ")
+
+        # ---- 3. the aggregate, warm from step 1 -------------------------
+        split_a: dict = {}
+        gc.collect()
+        K.reset_launch_counts()
+        with _Spied(split_a, *((api, n) for n in (
+                "flatten_file", "record_starts", "parse_flat_records",
+                "aggregate_planes"))), _RssPeak() as rss:
+            t0 = time.perf_counter()
+            res = port.aggregate(bam, config=port.Config(cache="readwrite"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        paths["aggregate_warm"] = dict(K.LAUNCHES)
+        require(not any(paths["aggregate_warm"].values()),
+                f"warm aggregate launched {paths['aggregate_warm']}")
+        ref = agg_ref["result"]
+        require(res["rows"] == ref["rows"] and res["agg"] == ref["agg"],
+                (res["rows"], ref["rows"]))
+        _agg_equal(res["metrics"], ref["metrics"], "warm aggregate")
+        log(f"aggregate 1 GiB warm (.sbi record starts): {wall:.3f} s = "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split_a.items())
+            + f"; peak host RSS {rss.peak / 2**30:.2f} GiB; phase 9 cold "
+            f"{agg_ref['wall']:.3f} s = "
+            + ", ".join(f"{k} {v:.3f}" for k, v in agg_ref["split"].items())
+            + f", peak host RSS {agg_ref['rss'] / 2**30:.2f} GiB; equal "
+            f"vectors, zero launches ({card})")
+        del res
+
+        # ---- 4. the small BAM: card against CPU --------------------------
+        t0 = time.perf_counter()
+        size = 4 << 20
+        sentinel = sentinel_split_size(small)
+        got = {}
+        for d in (None, "cpu"):
+            out = io.StringIO()
+            cli.compute_splits(small, size, port.Config(), device=d, out=out)
+            got[d] = _report_lines(out)
+        require(got[None] == got["cpu"], "compute-splits: card and CPU "
+                                         "differ")
+        header = read_header(small)
+        splits = file_splits(small, sentinel)
+        plan = sbi_plan.build_split_plan(small, splits, header,
+                                         port.Config())
+        require(plan == sbi_plan.build_split_plan(
+            small, splits, header, port.Config(), device="cpu"), plan)
+        require(plan[-1].kind == PLAN_NONE and plan[-1].file_start ==
+                sentinel, plan[-1])
+        cli.index(small, size, port.Config(), out=io.StringIO())
+        st_ = os.stat(small)
+        os.utime(small, ns=(st_.st_atime_ns, st_.st_mtime_ns + 10**9))
+        reset_cache_events()
+        out = io.StringIO()
+        cli.compute_splits(small, size, port.Config(cache="readwrite"),
+                           spark_bam=True, out=out)
+        stale = _report_lines(out)
+        cold = io.StringIO()
+        cli.compute_splits(small, size, port.Config(), spark_bam=True,
+                           device="cpu", out=cold)
+        require(stale[0].startswith("cache: invalidated (stale sidecar: "
+                                    "file mtime changed); written ("),
+                stale[0])
+        require(stale[1:] == _report_lines(cold)[1:], "stale recompute")
+        log(f"small BAM (seed 8): compute-splits card = CPU at -m {size}; "
+            f"the plan card = CPU with a sentinel-only last split (-m "
+            f"{sentinel}: {plan[-1]}); a touched sidecar invalidated and "
+            f"recomputed "
+            f"({stale[0]}); {time.perf_counter() - t0:.1f} s")
+    finally:
+        os.environ.pop("SPARK_BAM_CACHE_DIR", None)
+    return paths
 
 
 def main() -> int:
@@ -1375,7 +1610,12 @@ def main() -> int:
             port, bam, manifest, summary, fc_s, fused_s, small,
             small_manifest, on_card, work, card)
 
-        agg_launches = agg_phase(port, bam, manifest, small, work, card)
+        agg_launches, agg_ref = agg_phase(port, bam, manifest, small, work,
+                                          card)
+
+        split_launches = split_phase(port, bam, manifest, small, work, card,
+                                     agg_ref)
+        del agg_ref
 
         for row in rows:
             row["launches"] = launches[row["name"]]
@@ -1388,6 +1628,8 @@ def main() -> int:
                 **{path: n[row["name"]]
                    for path, n in sharded_launches.items()},
                 "aggregate": agg_launches[row["name"]],
+                **{path: n[row["name"]]
+                   for path, n in split_launches.items()},
             }
         print(json.dumps({"kernels": rows}), flush=True)
     finally:

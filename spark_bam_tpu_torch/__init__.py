@@ -25,6 +25,12 @@ query to count, flagstat, MAPQ, template-length and binned coverage
 vectors on the device, one window of parsed records at a time, or across
 a mesh through ``MeshSteps.agg_step``.
 
+Split planning (``load/splits.py``: ``split_plan``, ``spark_bam_splits``;
+``load/boundary.py``) resolves each raw split's first record start on the
+device, and the ``.sbi`` split-index cache (``sbi/``) keeps plans, block
+tables and record starts, so warm ``compute-splits``, ``record_starts``
+and ``aggregate`` calls do no checker work.
+
 The package imports torch, numpy and the standard library only; entry
 points run on the CUDA device unless the caller passes ``device="cpu"``,
 which runs each kernel's plain PyTorch version instead.
@@ -33,6 +39,7 @@ which runs each kernel's plain PyTorch version instead.
 from spark_bam_tpu_torch.core.config import Config
 from spark_bam_tpu_torch.core.pos import Pos
 from spark_bam_tpu_torch.load.api import aggregate
+from spark_bam_tpu_torch.load.splits import spark_bam_splits, split_plan
 from spark_bam_tpu_torch.load.tpu_load import (
     count_reads_tpu,
     load_reads_columnar,
@@ -63,4 +70,5 @@ __all__ = ["Config", "CountScanGraphs", "Mesh", "Pos", "StreamChecker",
            "count_reads_sharded", "count_reads_tpu", "count_scan",
            "full_check_summary_sharded", "full_check_summary_streaming", "host_shard_plan",
            "load_reads_columnar", "make_count_scan", "make_mesh",
-           "record_starts", "record_starts_streaming", "stream_read_batches"]
+           "record_starts", "record_starts_streaming", "spark_bam_splits",
+           "split_plan", "stream_read_batches"]

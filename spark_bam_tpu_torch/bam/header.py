@@ -1,7 +1,8 @@
 """BAM header: magic, SAM text, contig dictionary (reference
-bam/header/Header.scala). Only what the count path needs is kept: the
-contig lengths and the header's size in uncompressed bytes, which is the
-flat offset of the first record."""
+bam/header/Header.scala). Only what the port's paths need is kept: the
+contig names and lengths, the header's size in uncompressed bytes (the
+flat offset of the first record) and ``end_pos``, the first record's
+virtual position, which owns the first split."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 
 from spark_bam_tpu_torch.bgzf.block import FOOTER_SIZE, HEADER_SIZE, parse_header
 from spark_bam_tpu_torch.core.channel import open_channel
+from spark_bam_tpu_torch.core.pos import Pos
 
 
 class BamHeaderError(IOError):
@@ -24,6 +26,10 @@ class BamHeader:
     contig_names: tuple[str, ...]
     contig_lengths: np.ndarray  # int32, index order
     uncompressed_size: int      # uncompressed bytes the header occupies
+    # Virtual position of the first record: the next non-empty block's
+    # start when the header ends on a block's end; Pos(0, 0) for a BAM
+    # with no records (the reference's convention).
+    end_pos: Pos = Pos(0, 0)
 
 
 class _Inflated:
@@ -34,6 +40,7 @@ class _Inflated:
         self.pos = 0          # compressed offset of the next block
         self.buf = bytearray()
         self.off = 0          # read cursor into buf
+        self.blocks = []      # (compressed start, buf offset) per block
 
     def _more(self) -> bool:
         if self.pos + HEADER_SIZE > self.ch.size:
@@ -41,9 +48,21 @@ class _Inflated:
         header_size, csize = parse_header(self.ch.read_at(self.pos, HEADER_SIZE))
         payload = self.ch.read_at(self.pos + header_size,
                                   csize - header_size - FOOTER_SIZE)
+        self.blocks.append((self.pos, len(self.buf)))
         self.buf += zlib.decompress(bytes(payload), wbits=-15)
         self.pos += csize
         return True
+
+    def cur_pos(self) -> Pos:
+        """The cursor's virtual position, in the first block that holds
+        the byte at the cursor; Pos(0, 0) when no byte follows it."""
+        while self.off >= len(self.buf):
+            if not self._more():
+                return Pos(0, 0)
+        for start, base in reversed(self.blocks):
+            if base <= self.off:
+                return Pos(start, self.off - base)
+        raise AssertionError("cursor before the first block")
 
     def read(self, n: int) -> bytes:
         while len(self.buf) - self.off < n:
@@ -78,4 +97,5 @@ def read_header(path) -> BamHeader:
                 raise BamHeaderError(f"negative name length {name_len}")
             names.append(u.read(name_len).rstrip(b"\x00").decode("latin-1"))
             lengths.append(u.i32())
-        return BamHeader(tuple(names), np.array(lengths, dtype=np.int32), u.off)
+        return BamHeader(tuple(names), np.array(lengths, dtype=np.int32),
+                         u.off, u.cur_pos())

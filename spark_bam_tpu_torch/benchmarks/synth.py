@@ -152,3 +152,17 @@ def record_positions(manifest: dict) -> list[int]:
         pos.append(p)
         off += 4 + size
     return pos * manifest["reps"]
+
+
+def record_flat_starts(manifest: dict) -> np.ndarray:
+    """The flat (uncompressed) offsets of a ``synth_bam`` file's records,
+    in file order, rebuilt from its manifest (int64)."""
+    unit = record_unit(manifest["seed"], manifest["unit_reads"],
+                       tuple(manifest["read_len"]))
+    offs, off = [], 0
+    while off < len(unit):
+        offs.append(off)
+        off += 4 + struct.unpack_from("<i", unit, off)[0]
+    reps = np.arange(manifest["reps"], dtype=np.int64)[:, None] * len(unit)
+    return (len(encode_header()) + reps
+            + np.array(offs, dtype=np.int64)[None, :]).ravel()

@@ -1,37 +1,51 @@
-"""Command line: ``python -m spark_bam_tpu_torch count-reads [-n N]
-[--resident | --sharded] PATH``, ``python -m spark_bam_tpu_torch full-check
-[-l N] [--sharded] PATH``, ``python -m spark_bam_tpu_torch check-bam
---sharded PATH`` and ``python -m spark_bam_tpu_torch aggregate PATH``.
+"""Command line: ``python -m spark_bam_tpu_torch COMMAND ... PATH``.
 
-``count-reads`` prints the reference CLI's standalone count lines
-(``spark-bam read-count time: MS`` and ``Read count: N`` per iteration) and,
-but for ``--sharded``, its ``funnel:`` line; ``--resident`` (or
-``Config.resident_scan``) counts with one device dispatch per resident chunk
-(``StreamChecker.count_reads_resident``), ``--sharded`` across the mesh
-(``parallel.stream_mesh.count_reads_sharded``). ``full-check`` prints the
-reference's streaming full-check report (``full-check --streaming``; with
-``--sharded`` the report reduced across the mesh, the same output): the
-critical and two-check sections with ``block:offset`` positions, the
-total error counts and the ``funnel:`` line. ``check-bam --sharded``
-prints the reference's sharded check-bam report against the ``.records``
-sidecar (without the ``.sbi`` cache line: the port has no ``.sbi`` cache);
-the eager-against-seqdoop check-bam is not ported. Every command runs on
-the CUDA device unless ``--device`` names another; ``--sharded`` meshes
-are every visible CUDA device, or ``--devices N`` entries of ``--device``
-(``--device cpu --devices 4``: a 4-entry CPU mesh).
+``count-reads [-n N] [--resident | --sharded]`` prints the reference CLI's
+standalone count lines (``spark-bam read-count time: MS`` and ``Read count:
+N`` per iteration) and, but for ``--sharded``, its ``funnel:`` line;
+``--resident`` (or ``Config.resident_scan``) counts with one device
+dispatch per resident chunk (``StreamChecker.count_reads_resident``),
+``--sharded`` across the mesh (``parallel.stream_mesh.count_reads_sharded``).
+``full-check [-l N] [--sharded]`` prints the reference's streaming
+full-check report (``full-check --streaming``; with ``--sharded`` the
+report reduced across the mesh, the same output): the critical and
+two-check sections with ``block:offset`` positions, the total error counts
+and the ``funnel:`` line. ``check-bam --sharded [--cache MODE]`` prints the
+reference's sharded check-bam report against the ``.records`` sidecar,
+its ``.sbi`` cache line included; the eager-against-seqdoop check-bam is
+not ported.
 
 ``aggregate [-a SPEC] [-i LOCI] [--flags-required N] [--flags-forbidden N]
-[-t TG]... [--format tsv|json] [-o OUT] PATH`` prints the reference's
-aggregate report: one ``metric<TAB>key<TAB>value`` line per populated
-bucket (tsv), or the whole result as one JSON object, and a timing line on
-stderr. A bad spec, loci or tag is a usage error before any work.
+[-t TG]... [--format tsv|json] [--cache MODE] [-o OUT]`` prints the
+reference's aggregate report: one ``metric<TAB>key<TAB>value`` line per
+populated bucket (tsv), or the whole result as one JSON object, and a
+timing line on stderr. A bad spec, loci or tag is a usage error before
+any work.
+
+Split planning: ``compute-splits [-s|-u] [-m SIZE] [--plan-hosts N
+[--devices-per-host D]] [--cache MODE]`` prints spark-bam's splits (every
+boundary resolved on the device, ``load/boundary.py``), hadoop-bam's
+(``-u``) or, by default, their difference, as the reference prints them;
+``index [-m SIZE] [--record-starts] [-o OUT]`` writes the ``.sbi``
+split-index sidecar (blocks, the split plan and, with
+``--record-starts``, every record start from the streaming check);
+``index-blocks`` and ``index-records`` write the ``.blocks`` and
+``.records`` sidecars. ``--cache`` (or ``SPARK_BAM_CACHE``) is ``off |
+read | write | readwrite`` with an optional ``,strict``; sidecars go next
+to the BAM or under ``SPARK_BAM_CACHE_DIR``.
+
+Every command runs on the CUDA device unless ``--device`` names another;
+``--sharded`` meshes are every visible CUDA device, or ``--devices N``
+entries of ``--device`` (``--device cpu --devices 4``: a 4-entry CPU mesh).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
+import os
 import sys
 import time
 
@@ -41,14 +55,29 @@ from spark_bam_tpu_torch.bgzf.flat import metas_block_table, pos_of_flat_tables
 from spark_bam_tpu_torch.bgzf.index_blocks import blocks_metadata
 from spark_bam_tpu_torch.check.flags import FLAG_NAMES, bit_counts
 from spark_bam_tpu_torch.agg.plan import AggConfig
-from spark_bam_tpu_torch.core.config import Config
+from spark_bam_tpu_torch.core.config import Config, format_bytes, parse_bytes
+from spark_bam_tpu_torch.core.stats import Stats, format_bytes_binary
 from spark_bam_tpu_torch.load import api
+from spark_bam_tpu_torch.load.hadoop import hadoop_bam_splits
 from spark_bam_tpu_torch.load.intervals import BadLociError, LociSet
+from spark_bam_tpu_torch.load.splits import (
+    Split,
+    diff_splits,
+    file_splits,
+    spark_bam_splits,
+)
 from spark_bam_tpu_torch.parallel.mesh import make_mesh
 from spark_bam_tpu_torch.parallel.stream_mesh import (
     check_bam_sharded,
     count_reads_sharded,
     full_check_summary_sharded,
+    host_shard_plan,
+)
+from spark_bam_tpu_torch.sbi.store import (
+    CacheMode,
+    CacheStore,
+    cache_status_line,
+    reset_cache_events,
 )
 from spark_bam_tpu_torch.tpu.stream_check import (
     StreamChecker,
@@ -130,23 +159,6 @@ def _sharded_mesh(device=None, devices: int | None = None):
         mesh = make_mesh()
         return mesh if devices is None else make_mesh(mesh.devices[:devices])
     return make_mesh([device] * (devices or 1))
-
-
-def _format_bytes(n: int) -> str:
-    """1024-based size with 3 significant figures and a K/M/G/T suffix
-    ("583K", "25.6K"), as the reference report prints it."""
-    for unit, shift in (("E", 60), ("P", 50), ("T", 40), ("G", 30),
-                        ("M", 20), ("K", 10)):
-        if n >= (1 << shift):
-            v = n / (1 << shift)
-            if v < 10:
-                txt = f"{v:.2f}".rstrip("0").rstrip(".")
-            elif v < 100:
-                txt = f"{v:.1f}".rstrip("0").rstrip(".")
-            else:
-                txt = str(round(v))
-            return f"{txt}{unit}"
-    return str(n)
 
 
 def _timed_counts(count_fn, iterations: int, out) -> int:
@@ -321,10 +333,11 @@ def check_bam(path, device=None, out=None, sharded: bool = False,
     compressed = sum(m.compressed_size for m in metas)
     total = stats["positions"]
     p.echo(f"{total} uncompressed positions",
-           f"{_format_bytes(compressed)} compressed",
+           f"{format_bytes_binary(compressed)} compressed",
            "Compression ratio: %.2f" % (total / compressed),
            f"{stats['true_positives'] + stats['false_negatives']} reads",
            f"checked across {stats['devices']} device(s)",
+           cache_status_line(path, config),
            funnel_status_line(config))
     if not stats["false_positives"] and not stats["false_negatives"]:
         p.echo("All calls matched!")
@@ -393,8 +406,8 @@ def _tsv_lines(result: dict):
 
 def aggregate(path, agg: str | None = None, loci: str | None = None,
               flags_required: int = 0, flags_forbidden: int = 0,
-              tags_required=(), fmt: str = "tsv", device=None, out=None
-              ) -> dict:
+              tags_required=(), fmt: str = "tsv", device=None, out=None,
+              config: Config | None = None) -> dict:
     """The aggregate report of one BAM query; returns the result."""
     p = Printer(out=out)
     if loci:
@@ -413,7 +426,9 @@ def aggregate(path, agg: str | None = None, loci: str | None = None,
     result = api.aggregate(path, agg=agg or "", loci=loci,
                            flags_required=flags_required,
                            flags_forbidden=flags_forbidden,
-                           tags_required=tuple(tags_required), device=device)
+                           tags_required=tuple(tags_required),
+                           config=Config() if config is None else config,
+                           device=device)
     seconds = time.monotonic() - t0
     if fmt == "json":
         p.echo(json.dumps({
@@ -431,6 +446,204 @@ def aggregate(path, agg: str | None = None, loci: str | None = None,
     return result
 
 
+def _print_splits(p: Printer, splits: list[Split], ratio: float) -> None:
+    stats = Stats([s.length(ratio) for s in splits])
+    p.echo("Split-size distribution:", stats.show(), "")
+    p.print_limited(
+        [f"{s.start}-{s.end}" for s in splits],
+        header=f"{len(splits)} splits:",
+        truncated_header=lambda n: f"First {n} of {len(splits)} splits:",
+    )
+    p.echo("")
+
+
+def print_host_plan(p: Printer, path, num_hosts: int, devices_per_host: int,
+                    config: Config) -> None:
+    """The ``num_hosts``-host sharded run's IO plan: each host's compressed
+    byte range (halo overlap included) and owned uncompressed bytes."""
+    plan = host_shard_plan(path, num_hosts, devices_per_host, config=config)
+    p.echo(f"{num_hosts}-host plan ({devices_per_host} devices/host):")
+    for row in plan:
+        lo, hi = row["compressed_range"]
+        g0, g1 = row["groups"]
+        p.echo(
+            f"\thost {row['host']}: bytes [{lo}, {hi}) "
+            f"({format_bytes(hi - lo)} read, "
+            f"{format_bytes(row['uncompressed'])} owned uncompressed, "
+            f"rows {g0}-{g1})"
+        )
+    p.echo("")
+
+
+def compute_splits(path, split_size: int, config: Config | None = None,
+                   spark_bam: bool = False, hadoop_bam: bool = False,
+                   device=None, out=None, print_limit: int = 10,
+                   plan_hosts: int = 0, devices_per_host: int = 8) -> None:
+    """spark-bam's splits (``spark_bam``), hadoop-bam's (``hadoop_bam``)
+    or, by default, both and their difference, in the reference's report
+    (reference ComputeSplits.scala:17-151)."""
+    p = Printer(out=out, limit=print_limit)
+    config = Config() if config is None else config
+    ratio = config.estimated_compression_ratio
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        splits = fn()
+        return int((time.perf_counter() - t0) * 1000), splits
+
+    def spark():
+        return timed(lambda: spark_bam_splits(path, split_size, config,
+                                              device=device))
+
+    def hadoop():
+        return timed(lambda: hadoop_bam_splits(path, split_size,
+                                               config=config))
+
+    if hadoop_bam and not spark_bam:
+        ms, splits = hadoop()
+        p.echo(f"Get hadoop-bam splits: {ms}ms", "")
+        _print_splits(p, splits, ratio)
+    elif spark_bam and not hadoop_bam:
+        ms, splits = spark()
+        p.echo(f"Get spark-bam splits: {ms}ms",
+               cache_status_line(path, config), "")
+        _print_splits(p, splits, ratio)
+    else:
+        our_ms, ours = spark()
+        p.echo(f"Get spark-bam splits: {our_ms}ms",
+               cache_status_line(path, config))
+        their_ms, theirs = hadoop()
+        p.echo(f"Get hadoop-bam splits: {their_ms}ms", "")
+        diffs = diff_splits(ours, theirs)
+        if diffs:
+            rows = [f"\t{s.start}-{s.end}" if side == "theirs"
+                    else f"{s.start}-{s.end}" for side, s in diffs]
+            totals = f"(totals: {len(ours)}, {len(theirs)})"
+            p.print_limited(
+                rows,
+                header=f"{len(diffs)} splits differ {totals}:",
+                truncated_header=lambda n: (
+                    f"First {n} of {len(diffs)} splits that differ {totals}:"),
+            )
+            p.echo("")
+        else:
+            p.echo("All splits matched!", "")
+            _print_splits(p, ours, ratio)
+    if plan_hosts:
+        print_host_plan(p, path, plan_hosts, devices_per_host, config)
+
+
+def index(path, split_size: int, config: Config | None = None,
+          out_path=None, record_starts: bool = False, device=None,
+          out=None) -> str | None:
+    """Write the ``.sbi`` sidecar of ``path``: its blocks, the split plan
+    at ``split_size`` and, with ``record_starts``, every record start
+    (from the streaming check, sorted), to ``out_path`` or the cache's
+    place for it; prints the reference's ``Wrote ...`` line. Returns the
+    sidecar path."""
+    from spark_bam_tpu_torch.bam.header import read_header
+    from spark_bam_tpu_torch.bgzf.flat import FlatView
+    from spark_bam_tpu_torch.load.tpu_load import record_starts_streaming
+    from spark_bam_tpu_torch.sbi.format import (
+        PLAN_POS,
+        SbiIndex,
+        encode_sbi,
+        fingerprint_of,
+        record_starts_to_virtual,
+    )
+    from spark_bam_tpu_torch.sbi.plan import build_split_plan
+
+    p = Printer(out=out)
+    config = Config() if config is None else config
+    header = read_header(path)
+    blocks = list(blocks_metadata(path))
+    entries = build_split_plan(path, file_splits(path, split_size), header,
+                               config, device=device)
+    sbi = SbiIndex(fingerprint_of(path, config), blocks=blocks,
+                   split_plans={split_size: entries})
+    n_starts = None
+    if record_starts:
+        # The cache is off for the inner check: this is the build.
+        spans = list(record_starts_streaming(
+            path, dataclasses.replace(config, cache=""), device=device))
+        starts = (np.sort(np.concatenate(spans)) if spans
+                  else np.empty(0, dtype=np.int64))
+        bs, bf = metas_block_table(blocks)
+        table = FlatView(np.empty(0, np.uint8), block_starts=bs,
+                         block_flat=bf)
+        sbi.record_starts = record_starts_to_virtual(table, starts)
+        n_starts = len(starts)
+    if out_path is not None:
+        # An explicit destination: a plain atomic write, no store rules.
+        dest = str(out_path)
+        tmp = f"{dest}.tmp{os.getpid()}"
+        try:
+            with open(tmp, "wb") as f:
+                f.write(encode_sbi(sbi))
+            os.replace(tmp, dest)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    else:
+        dest = CacheStore.from_env().merge_and_store(path, config, sbi)
+        if dest is None:
+            p.echo(f"error: could not write a sidecar for {path}")
+            return None
+    resolved = sum(1 for e in entries if e.kind == PLAN_POS)
+    parts = [
+        f"{len(blocks)} blocks",
+        f"split plan @{format_bytes(split_size)} "
+        f"({len(entries)} boundaries, {resolved} resolved)",
+    ]
+    if n_starts is not None:
+        parts.append(f"{n_starts} record starts")
+    p.echo(f"Wrote {dest}: " + ", ".join(parts))
+    return dest
+
+
+def _add_knobs(p, split_help: str) -> None:
+    p.add_argument("-m", "--max-split-size", default=None, help=split_help)
+    p.add_argument("-z", "--bgzf-blocks-to-check", type=int, default=None)
+    p.add_argument("--reads-to-check", type=int, default=None)
+    p.add_argument("--max-read-size", type=int, default=None)
+
+
+def _add_cache(p) -> None:
+    p.add_argument(
+        "--cache", default=None, metavar="MODE",
+        help="split-index (.sbi) cache mode: off|read|write|readwrite, "
+             "optional ',strict' suffix raises on stale sidecars "
+             "(SPARK_BAM_CACHE works too)")
+
+
+def _positive_int(s: str) -> int:
+    v = int(s)
+    if v <= 0:
+        raise argparse.ArgumentTypeError(f"must be a positive integer: {s}")
+    return v
+
+
+def _config(args) -> Config:
+    """``SPARK_BAM_CACHE``, then the command's flags: the split size, the
+    checker knobs and ``--cache`` (a bad size or cache spec is a usage
+    error)."""
+    kw = {}
+    for knob in ("bgzf_blocks_to_check", "reads_to_check", "max_read_size",
+                 "cache"):
+        value = getattr(args, knob, None)
+        if value is not None:
+            kw[knob] = value
+    try:
+        split = getattr(args, "max_split_size", None)
+        if split is not None:
+            kw["split_size"] = parse_bytes(split)
+        config = dataclasses.replace(Config.from_env(), **kw)
+        CacheMode.parse(config.cache)
+    except ValueError as e:
+        raise UsageError(str(e)) from e
+    return config
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m spark_bam_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -443,6 +656,7 @@ def main(argv=None) -> int:
     fc.add_argument("-l", "--print-limit", type=int, default=10)
     cb = sub.add_parser("check-bam",
                         help="the checker against the .records sidecar")
+    _add_cache(cb)
     for p in (cr, fc, cb):
         p.add_argument("--sharded", action="store_true",
                        help="across every device of the mesh")
@@ -478,33 +692,98 @@ def main(argv=None) -> int:
     ag.add_argument("-m", "--max-split-size", default=None,
                     help="split size of the record loaders; a BAM is "
                          "aggregated whole, so it changes nothing here")
-    ag.add_argument("--device", default=None,
-                    help="torch device (default: the current CUDA device)")
-    ag.add_argument("path")
+    _add_cache(ag)
+    cs = sub.add_parser("compute-splits",
+                        help="spark-bam's and hadoop-bam's splits of a BAM")
+    _add_knobs(cs, "split size (byte shorthand like 2MB ok; default 32MB)")
+    cs.add_argument("-s", "--spark-bam", action="store_true")
+    cs.add_argument("-u", "--upstream", action="store_true")
+    cs.add_argument("-l", "--print-limit", type=int, default=10)
+    cs.add_argument("-o", "--out", default=None,
+                    help="write the report here instead of stdout")
+    cs.add_argument(
+        "--plan-hosts", type=_positive_int, default=0, metavar="N",
+        help="also print the N-host sharded-run IO plan")
+    cs.add_argument(
+        "--devices-per-host", type=_positive_int, default=8, metavar="D",
+        help="devices per host for --plan-hosts (default 8)")
+    _add_cache(cs)
+    ix = sub.add_parser("index", help="write the .sbi split-index sidecar")
+    _add_knobs(ix, "split size to plan for (byte shorthand like 2MB ok; "
+                   "default 32MB)")
+    ix.add_argument("-o", "--out", default=None,
+                    help="write the .sbi here instead of the cache's place")
+    ix.add_argument(
+        "--record-starts", action="store_true",
+        help="also index every record-start virtual position (the "
+             "streaming check over the file)")
+    ib = sub.add_parser("index-blocks", help="write the .blocks sidecar")
+    ir = sub.add_parser("index-records", help="write the .records sidecar")
+    ir.add_argument("-t", "--throw-on-truncation", action="store_true")
+    for p in (ag, cs, ix):
+        p.add_argument("--device", default=None,
+                       help="torch device (default: the current CUDA device)")
+    for p in (ib, ir):
+        p.add_argument("-o", "--out", default=None)
+    for p in (ag, cs, ix, ib, ir):
+        p.add_argument("path")
     args = ap.parse_args(argv)
-    if args.cmd == "aggregate":
+    # The cache line describes this invocation only.
+    reset_cache_events()
+    try:
+        return _run(args)
+    except UsageError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+
+def _run(args) -> int:
+    if args.cmd == "index-blocks":
+        from spark_bam_tpu_torch.bgzf.index_blocks import index_blocks
+
+        out_path, count = index_blocks(args.path, args.out)
+        print(f"Wrote {count} blocks to {out_path}", file=sys.stderr)
+        return 0
+    if args.cmd == "index-records":
+        from spark_bam_tpu_torch.bam.index_records import index_records
+
+        out_path, count = index_records(args.path, args.out,
+                                        strict=args.throw_on_truncation)
+        print(f"Wrote {count} records to {out_path}", file=sys.stderr)
+        return 0
+    if args.cmd in ("count-reads", "full-check"):
+        kw = dict(sharded=args.sharded, devices=args.devices)
+        if args.cmd == "count-reads":
+            count_reads(args.path, args.num_iterations, args.device,
+                        resident=args.resident, **kw)
+        else:
+            full_check(args.path, args.print_limit, args.device, **kw)
+        return 0
+    config = _config(args)
+    split = config.split_size_or(Config.LOAD_SPLIT_SIZE_DEFAULT)
+    if args.cmd == "compute-splits":
+        out = open(args.out, "w") if args.out else None
+        try:
+            compute_splits(args.path, split, config, args.spark_bam,
+                           args.upstream, args.device, out, args.print_limit,
+                           args.plan_hosts, args.devices_per_host)
+        finally:
+            if out is not None:
+                out.close()
+    elif args.cmd == "index":
+        index(args.path, split, config, args.out, args.record_starts,
+              args.device)
+    elif args.cmd == "aggregate":
         out = open(args.out, "w") if args.out else None
         try:
             aggregate(args.path, args.agg, args.intervals,
                       args.flags_required, args.flags_forbidden,
-                      tuple(args.tag or ()), args.format, args.device, out)
-        except UsageError as e:
-            print(f"error: {e}", file=sys.stderr)
-            return 2
+                      tuple(args.tag or ()), args.format, args.device, out,
+                      config)
         finally:
             if out is not None:
                 out.close()
-        return 0
-    kw = dict(sharded=args.sharded, devices=args.devices)
-    try:
-        if args.cmd == "count-reads":
-            count_reads(args.path, args.num_iterations, args.device,
-                        resident=args.resident, **kw)
-        elif args.cmd == "full-check":
-            full_check(args.path, args.print_limit, args.device, **kw)
-        else:
-            check_bam(args.path, args.device, **kw)
-    except UsageError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
+    else:
+        check_bam(args.path, args.device, sharded=args.sharded,
+                  devices=args.devices, config=config)
     return 0

@@ -1,6 +1,7 @@
 """Typed configuration: the subset of the ``spark.bam.*`` knobs that the
-count-reads, full-check, load and aggregate paths read, under the reference
-package's names and defaults.
+count-reads, full-check, load, aggregate and split-planning paths read,
+under the reference package's names and defaults, with the byte-size
+shorthand (``parse_bytes``, ``format_bytes``) the split sizes take.
 
 Values this port cannot serve yet raise ``ValueError`` naming what will
 serve them, so a run never silently takes another path than asked for.
@@ -9,11 +10,42 @@ serve them, so a run never silently takes another path than asked for.
 from __future__ import annotations
 
 import functools
+import os
+import re
 from dataclasses import dataclass
 
 TOKENIZE = ("host", "device", "auto")
 KERNEL = ("xla", "pallas", "auto")
 ONOFF = ("on", "off")
+
+_SIZE_RE = re.compile(r"^\s*(\d+(?:\.\d+)?)\s*([kKmMgGtTpP]?)i?[bB]?\s*$")
+_SIZE_FACTORS = {"": 1, "k": 1 << 10, "m": 1 << 20, "g": 1 << 30,
+                 "t": 1 << 40, "p": 1 << 50}
+_UNITS = (("PB", 50), ("TB", 40), ("GB", 30), ("MB", 20), ("KB", 10))
+
+
+def parse_bytes(s) -> int:
+    """Byte-size shorthand: ``"2MB"``, ``"32m"``, ``"100KB"``, ``1024``
+    (1024-based units)."""
+    if isinstance(s, int):
+        return s
+    m = _SIZE_RE.match(str(s))
+    if not m:
+        raise ValueError(f"Bad byte-size: {s!r}")
+    value, unit = m.groups()
+    return int(float(value) * _SIZE_FACTORS[unit.lower()])
+
+
+def format_bytes(n: int) -> str:
+    """``32MB`` for whole units, else one decimal (``613.3KB``), else
+    ``NB``."""
+    for unit, shift in _UNITS:
+        if n >= (1 << shift) and n % (1 << shift) == 0:
+            return f"{n >> shift}{unit}"
+    for unit, shift in _UNITS:
+        if n >= (1 << shift):
+            return f"{n / (1 << shift):.1f}{unit}"
+    return f"{n}B"
 
 
 @dataclass(frozen=True)
@@ -81,8 +113,16 @@ class InflateConfig:
 
 @dataclass(frozen=True)
 class Config:
+    bgzf_blocks_to_check: int = 5       # consecutive headers a block start chains
     reads_to_check: int = 10            # consecutive records a boundary must chain
     max_read_size: int = 10_000_000     # byte budget for a boundary scan
+    # Split planning: bytes per raw file split (None: the command's default)
+    # and the ratio a split's length estimate assumes.
+    split_size: int | None = None
+    estimated_compression_ratio: float = 3.0
+    # The .sbi split-index cache: off | read | write | readwrite, with an
+    # optional ",strict" ("" = off); ``cache_mode`` parses it.
+    cache: str = ""
     # Uncompressed bytes per streaming window; window + halo rounds up to a
     # power-of-two kernel window (24 MiB + 4 MiB → 32 MiB).
     window_size: int = 24 << 20
@@ -111,12 +151,35 @@ class Config:
     # count"; "" = every metric at defaults); ``agg_config`` parses it.
     agg: str = ""
 
+    #: The load path's raw split size (hadoop's file-split default).
+    LOAD_SPLIT_SIZE_DEFAULT = 32 << 20
+
     def __post_init__(self):
         if self.funnel not in ("on", "off", "auto"):
             raise ValueError(
                 f"Bad funnel mode: {self.funnel!r} (expected on | off | auto)"
             )
         InflateConfig.parse(self.inflate)
+
+    @property
+    def cache_mode(self):
+        """The parsed ``CacheMode`` of this config's ``cache`` spec."""
+        from spark_bam_tpu_torch.sbi.store import CacheMode
+
+        return CacheMode.parse(self.cache)
+
+    def split_size_or(self, default: int) -> int:
+        return self.split_size if self.split_size is not None else default
+
+    @classmethod
+    def from_env(cls, env=None) -> "Config":
+        """The defaults with ``SPARK_BAM_CACHE`` as the ``cache`` spec, as
+        the reference's ``Config.from_env`` maps it (the store's
+        ``SPARK_BAM_CACHE_DIR`` and ``SPARK_BAM_CACHE_BUDGET`` are read by
+        ``sbi.store.CacheStore.from_env``)."""
+        env = os.environ if env is None else env
+        spec = env.get("SPARK_BAM_CACHE")
+        return cls() if spec is None else cls(cache=spec)
 
     @property
     def inflate_config(self) -> InflateConfig:

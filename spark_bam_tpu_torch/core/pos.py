@@ -21,3 +21,15 @@ class Pos(NamedTuple):
     @staticmethod
     def from_htsjdk(vpos: int) -> "Pos":
         return Pos(vpos >> 16, vpos & 0xFFFF)
+
+    def distance(self, other: "Pos",
+                 estimated_compression_ratio: float = 3.0) -> int:
+        """Approximate compressed-byte distance ``self - other``: the
+        in-block offsets scaled down by the estimated compression ratio
+        (reference Pos.scala:17-22)."""
+        return max(
+            0,
+            self.block_pos
+            - other.block_pos
+            + int((self.offset - other.offset) / estimated_compression_ratio),
+        )

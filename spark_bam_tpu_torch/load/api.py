@@ -4,7 +4,8 @@
 ``aggregate`` reduces a query over a BAM to kilobytes of statistics
 without materializing records: the whole-file flat view, the boundary
 check at every position (``record_starts``: ``full_check_flags`` windows
-on the device), the record parse on the device, the interval and flag
+on the device, or a valid ``.sbi`` sidecar's starts when ``config.cache``
+reads), the record parse on the device, the interval and flag
 filters on the device (tags on the host), and the fused reduction
 (``agg.kernels.aggregate_planes``). It runs on the CUDA device unless
 ``device`` names another; nothing gives way to the CPU or to the int64

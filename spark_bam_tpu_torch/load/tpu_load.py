@@ -3,7 +3,9 @@ blocks → windows on the device → boundary check → columnar record parse
 with the interval/flag filters where the columns are.
 
 - ``record_starts``: every record-start flat offset of a file, from the
-  whole-file check (``TpuChecker.check_buffer``);
+  whole-file check (``TpuChecker.check_buffer``), or from a valid ``.sbi``
+  sidecar with no checker work when ``Config.cache`` reads (a miss writes
+  the starts through when it writes);
 - ``record_starts_streaming``: the same per window, in O(window) memory;
 - ``count_reads_tpu``: the record count, per-window counts reduced on the
   device;
@@ -48,15 +50,46 @@ class TpuLoadResult:
         return [Pos(int(b), int(o)) for b, o in zip(blocks, offs)]
 
 
+def _cached_record_starts(view, path, config, store, strict):
+    """Flat record-start offsets from a valid ``.sbi`` sidecar, or None.
+    The sidecar holds virtual positions; they map to flat offsets through
+    the view's block tables."""
+    from spark_bam_tpu_torch.sbi.format import (
+        SbiFormatError,
+        record_starts_to_flat,
+    )
+
+    index = store.load(path, config, strict=strict)
+    if index is None or index.record_starts is None:
+        return None
+    try:
+        return record_starts_to_flat(view, index.record_starts)
+    except SbiFormatError:
+        # A position names a block the file lacks (the fingerprint should
+        # preclude it): recompute rather than trust it.
+        return None
+
+
 def record_starts(path, config: Config = Config(),
                   checker: TpuChecker | None = None,
                   device=None, view: FlatView | None = None) -> TpuLoadResult:
     """Whole-file record starts with the flat view retained (small files,
     callers that need the bytes); ``view`` is the file's flat view when
     the caller already holds it. For inputs larger than memory use
-    ``record_starts_streaming`` or ``count_reads_tpu``."""
+    ``record_starts_streaming`` or ``count_reads_tpu``. With
+    ``Config.cache`` on, a valid ``.sbi`` sidecar supplies the starts
+    with no checker work, and a miss writes them through."""
+    from spark_bam_tpu_torch.sbi.store import CacheStore
+
+    dev = resolve_device(device) if checker is None else checker.device
     header = read_header(path)
     view = flatten_file(path) if view is None else view
+    mode = config.cache_mode
+    store = CacheStore.from_env() if mode.enabled else None
+    if store is not None and mode.read:
+        starts = _cached_record_starts(view, path, config, store, mode.strict)
+        if starts is not None:
+            return TpuLoadResult(view, header, starts)
     if checker is None:
         # Size the window to the input: a small file in one kernel call,
         # big files through config.window_size windows, as powers of two.
@@ -65,12 +98,24 @@ def record_starts(path, config: Config = Config(),
         checker = TpuChecker(
             header.contig_lengths, window=window,
             halo=min(config.halo_size, window // 4),
-            reads_to_check=config.reads_to_check, device=device,
+            reads_to_check=config.reads_to_check, device=dev,
         )
     res = checker.check_buffer(view.data, at_eof=True)
     # The header's uncompressed size is the flat offset of record 0.
     starts = np.flatnonzero(res.verdict)
     starts = starts[starts >= header.uncompressed_size]
+    if store is not None and mode.write:
+        from spark_bam_tpu_torch.sbi.format import (
+            SbiIndex,
+            fingerprint_of,
+            record_starts_to_virtual,
+        )
+
+        store.merge_and_store(
+            path, config,
+            SbiIndex(fingerprint_of(path, config),
+                     record_starts=record_starts_to_virtual(view, starts)),
+        )
     return TpuLoadResult(view, header, starts)
 
 

@@ -722,3 +722,75 @@ def test_aggregate_on_gpu_equals_cpu(gpu, tmp_path, kw):
         assert {k: got[k] for k in ("agg", "rows", "contigs")} == {
             k: want[k] for k in ("agg", "rows", "contigs")}
         _agg_equal(got["metrics"], want["metrics"])
+
+
+def _split_bam(case, path):
+    """A BAM of ``case`` and the split sizes its plans are held at."""
+    from spark_bam_tpu_torch.benchmarks.split_cases import (
+        adversarial_bam,
+        sentinel_split_size,
+    )
+
+    if case == "synth":
+        synth_bam(path, 4 << 20, seed=7, unit_reads=1000)
+        return [16384, 50_000, 1 << 20, sentinel_split_size(path)]
+    if case == "long":
+        synth_bam(path, 1 << 20, seed=2, unit_reads=4,
+                  read_len=(60_000, 110_000))
+        return [200_000]
+    return [adversarial_bam(path)[0]]
+
+
+@pytest.mark.parametrize("case", ["synth", "long", "adversarial"])
+def test_split_plans_and_sidecars_on_gpu_equal_cpu(gpu, tmp_path, case):
+    """Every boundary resolved on the card equals the CPU's resolution;
+    ``index --record-starts`` writes the same sidecar bytes; a warm
+    ``record_starts`` from it launches no kernel."""
+    from spark_bam_tpu_torch import cli, record_starts
+    from spark_bam_tpu_torch.bam.header import read_header
+    from spark_bam_tpu_torch.load import boundary
+    from spark_bam_tpu_torch.load.splits import file_splits
+    from spark_bam_tpu_torch.sbi.plan import build_split_plan
+
+    path = tmp_path / "b.bam"
+    sizes = _split_bam(case, path)
+    header = read_header(path)
+    for size in sizes:
+        splits = file_splits(path, size)
+        boundary.STATS.reset()
+        K.reset_launch_counts()
+        got = build_split_plan(path, splits, header, Config(), device=gpu)
+        assert K.LAUNCHES["prefilter_check_flags"] >= boundary.STATS.windows
+        assert got == build_split_plan(path, splits, header, Config(),
+                                       device="cpu"), size
+    card, cpu = tmp_path / "card.sbi", tmp_path / "cpu.sbi"
+    cli.index(path, sizes[0], Config(), out_path=card, record_starts=True,
+              device=gpu)
+    cli.index(path, sizes[0], Config(), out_path=cpu, record_starts=True,
+              device="cpu")
+    assert card.read_bytes() == cpu.read_bytes()
+    cold = record_starts(path, Config(cache="readwrite"), device=gpu)
+    K.reset_launch_counts()
+    warm = record_starts(path, Config(cache="read"), device=gpu)
+    assert not any(K.LAUNCHES.values())
+    np.testing.assert_array_equal(warm.starts, cold.starts)
+
+
+@pytest.mark.parametrize("mode", [["-s"], ["-u"], []],
+                         ids=["spark", "hadoop", "compare"])
+def test_compute_splits_on_gpu_equals_cpu(gpu, tmp_path, mode):
+    from spark_bam_tpu_torch import cli
+    from spark_bam_tpu_torch.benchmarks.split_cases import sentinel_split_size
+
+    path = tmp_path / "b.bam"
+    synth_bam(path, 4 << 20, seed=8, unit_reads=1000)
+    outs = []
+    for size in (50_000, sentinel_split_size(path)):
+        for dev in ("cuda", "cpu"):
+            out = tmp_path / f"{dev}.txt"
+            assert cli.main(["compute-splits", *mode, "-m", str(size),
+                             "--device", dev, "-o", str(out),
+                             str(path)]) == 0
+            outs.append([ln for ln in out.read_text().split("\n")
+                         if not ln.startswith("Get ")])
+        assert outs[-2] == outs[-1] and outs[-1]

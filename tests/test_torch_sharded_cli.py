@@ -2,22 +2,21 @@
 ``full-check --sharded`` and ``check-bam --sharded`` against the JAX CLI
 (``count-reads --sharded``, ``full-check --streaming --sharded``,
 ``check-bam --sharded``) on the same file: every line equal but the
-timing of the count and check-bam's ``.sbi`` cache line, which the port
-does not print (it has no ``.sbi`` cache). The JAX CLI runs on the eight
+timing of the count; check-bam's report whole, its ``.sbi`` cache line
+included. The JAX CLI runs on the eight
 virtual CPU devices the test configuration sets up, the port's on
 ``--device cpu --devices 8``. Without CUDA, and without a CPU mesh, the
 sharded entry points refuse.
 """
 
 import io
+import os
 import re
 
 import pytest
 import torch
 
 from spark_bam_tpu.cli.main import main as jax_main
-from spark_bam_tpu.core.config import Config as JaxConfig
-from spark_bam_tpu.sbi.store import cache_status_line
 from spark_bam_tpu_torch import (
     Config,
     check_bam_sharded,
@@ -66,14 +65,36 @@ def test_full_check_sharded_output(small, tmp_path, capsys, limit):
                      small) == want
 
 
-def test_check_bam_sharded_output(small, tmp_path, capsys):
+def test_check_bam_sharded_output(small, tmp_path, capsys, monkeypatch):
+    monkeypatch.delenv("SPARK_BAM_CACHE", raising=False)
     want = _jax_cli(tmp_path, "check-bam", "--sharded", small)
-    cache = cache_status_line(small, JaxConfig())
-    assert want.count(cache) == 1
-    want.remove(cache)
     got = _port_cli(capsys, "check-bam", "--sharded", small)
     assert got == want
+    assert got.count("cache: off (enable with --cache readwrite; "
+                     "docs/caching.md)") == 1
     assert "checked across 8 device(s)" in got and "All calls matched!" in got
+
+
+@pytest.mark.parametrize("indexed", [False, True], ids=["miss", "hit"])
+def test_check_bam_sharded_cache_probe(small, tmp_path, capsys, indexed):
+    """``--cache read``: the line probes the sidecar check-bam does not
+    consume (the same path, state and sections on both sides)."""
+    if indexed:
+        assert cli.main(["index", "-m", "64k", "--device", "cpu", small]) == 0
+        capsys.readouterr()
+    try:
+        want = _jax_cli(tmp_path, "check-bam", "--sharded", "--cache", "read",
+                        small)
+        got = _port_cli(capsys, "check-bam", "--sharded", "--cache", "read",
+                        small)
+    finally:
+        if indexed:
+            os.unlink(small + ".sbi")
+    assert got == want
+    line = [ln for ln in got if ln.startswith("cache: ")]
+    assert line == [f"cache: hit (5 blocks; split plans for {64 << 10})"
+                    if indexed else f"cache: miss (no sidecar at {small}.sbi;"
+                    " build with 'index')"]
 
 
 def test_cli_refuses_what_it_cannot_serve(small, capsys):
