@@ -111,8 +111,25 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    invalidated and recomputed. The time per boundary at the reference's
    2 MiB splits: ``benchmarks/profile_splits.py``.
 
+11. The columnar export (``export_phase``): ``export`` of the 1 GiB BAM
+   (native container, codec none, all columns, 8,192 rows a frame):
+   4,784,128 rows in 584 frames, read back by the port's
+   ``NativeReader``: its fixed columns = the load's (phase 7) in file
+   order, ``pos`` = the generator's, the variable-length columns of the
+   first and last 8,192 rows and every 997th = the row-by-row
+   ``_var_piece``; the wall split into stream (check and parse), render,
+   dictionary pass, encode and write, reads/s, bytes, peak host RSS and
+   launches (``full_check_flags`` 0), timed by
+   ``benchmarks/profile_export.py::timed_export`` (which also times a
+   projected export alone: ``python3 -m
+   spark_bam_tpu_torch.benchmarks.profile_export --columns
+   flag,pos,name,cigar --columnar codec=zlib``). Then card bytes = CPU
+   bytes on the small BAM and a 2 MiB long-read BAM (rows in file order)
+   for codecs none, zlib and deflate, unfiltered and with a loci and flag
+   filter.
+
 Launch counters are set to 0 just before each main path (3, 4, 6, 7, 8,
-9, 10) and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
+9, 10, 11) and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
 and, last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero; without CUDA, or without the package beside
 it, it exits non-zero before printing a result.
@@ -313,7 +330,8 @@ def resident_phase(port, bam, manifest, long_bam, long_manifest, small,
 def load_phase(port, bam, manifest, long_bam, long_manifest, small, work,
                card) -> dict:
     """Phase 7, the load path; returns its kernel launch counts on the
-    1 GiB load and on the edge corpus's funnel-off load."""
+    1 GiB load and on the edge corpus's funnel-off load, and the 1 GiB
+    load's fixed columns in file order (phase 11's reference)."""
     import weakref
 
     from spark_bam_tpu_torch.benchmarks import load_cases
@@ -361,10 +379,15 @@ def load_phase(port, bam, manifest, long_bam, long_manifest, small, work,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rows = spills = batches = 0
+        fixed = ("flag", "ref_id", "pos", "mapq", "next_ref_id", "next_pos",
+                 "tlen")
+        parts: dict = {c: [] for c in fixed}
         for base, batch in port.stream_read_batches(bam, port.Config()):
             batches += 1
             rows += len(batch)
             spills += len(batch) if base == -1 else 0
+            for c in fixed:
+                parts[c].append(batch[c])
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
         load_launches = dict(K.LAUNCHES)
@@ -478,7 +501,8 @@ def load_phase(port, bam, manifest, long_bam, long_manifest, small, work,
     log(f"load whole file: record_starts ({len(rs_card.starts)} starts) and "
         f"load_reads_columnar equal on card and CPU; "
         f"{time.perf_counter() - t0:.1f} s")
-    return load_launches, off_launches
+    load_cols = {c: np.concatenate(v) for c, v in parts.items()}
+    return load_launches, off_launches, load_cols
 
 
 def _two_process_count(bam, work, backend: str) -> list[dict]:
@@ -1127,6 +1151,179 @@ def split_phase(port, bam, manifest, small, work, card, agg_ref) -> dict:
     return paths
 
 
+def export_phase(port, bam, manifest, load_cols, small, small_manifest,
+                 work, card) -> dict:
+    """Phase 11, the columnar export; returns its kernel launch counts on
+    the 1 GiB export."""
+    import dataclasses
+
+    from spark_bam_tpu_torch.bam.header import read_header
+    from spark_bam_tpu_torch.benchmarks.synth import (
+        record_flat_starts,
+        record_positions,
+        synth_bam,
+    )
+    from spark_bam_tpu_torch.benchmarks.profile_export import timed_export
+    from spark_bam_tpu_torch.columnar import export as cex
+    from spark_bam_tpu_torch.columnar import from_parser
+    from spark_bam_tpu_torch.columnar.config import ColumnarConfig
+    from spark_bam_tpu_torch.columnar.native import NativeReader
+    from spark_bam_tpu_torch.columnar.schema import FIXED_COLUMNS, VAR_COLUMNS
+    from spark_bam_tpu_torch.load import tpu_load
+    from spark_bam_tpu_torch.load.tpu_load import stream_ordered_batches
+    from spark_bam_tpu_torch.tpu import kernels as K
+
+    out_dir = work / "export"
+    out_dir.mkdir(exist_ok=True)
+    reads = manifest["reads"]
+    flat_starts = record_flat_starts(manifest)
+    samples: dict = {}   # file-order row → its var pieces by _var_piece
+
+    def sample(item):
+        """Locate a piece's rows in the generator's file order and render
+        the sampled ones row by row."""
+        abs_starts, batch, _floor = item
+        rows = np.flatnonzero(batch.columns["valid"])
+        at = np.searchsorted(flat_starts, abs_starts[rows])
+        require(np.array_equal(flat_starts[np.minimum(
+            at, len(flat_starts) - 1)], abs_starts[rows]),
+            "an exported row is not a record start")
+        pick = np.flatnonzero((at < 8192) | (at >= reads - 8192)
+                              | (at % 997 == 0))
+        for k in pick:
+            samples[int(at[k])] = tuple(
+                from_parser._var_piece(c, batch, int(rows[k]))
+                for c in VAR_COLUMNS)
+
+    out = out_dir / "smoke.sbcr"
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    with _RssPeak() as rss:
+        summary, split = timed_export(bam, out, on_piece=sample)
+    launches = dict(K.LAUNCHES)
+    wall = split["wall"]
+    require(summary["rows"] == reads, f"export rows {summary['rows']}")
+    require(summary["batches"] == -(-reads // 8192),
+            f"export batches {summary['batches']}")
+    require(all(launches[k] > 0 for k in COUNT_KERNELS)
+            and launches["full_check_flags"] == 0,
+            f"export launches {launches}")
+    size = out.stat().st_size
+    require(summary["bytes"] == size, (summary["bytes"], size))
+    want_samples = len(samples)
+    require(want_samples > 2 * 8192, want_samples)
+
+    # Read it back: fixed columns = the load's in file order, pos = the
+    # generator's, the sampled var rows = _var_piece's.
+    t0 = time.perf_counter()
+    got_cols: dict = {c: [] for c in FIXED_COLUMNS}
+    row0 = checked = 0
+    for b in NativeReader(str(out)).iter_batches():
+        for c in FIXED_COLUMNS:
+            got_cols[c].append(b.columns[c])
+        for i in range(b.num_rows):
+            piece = samples.get(row0 + i)
+            if piece is not None:
+                for c, want in zip(VAR_COLUMNS, piece):
+                    require(b.columns[c].value(i) == want,
+                            f"row {row0 + i} column {c} differs")
+                checked += 1
+        row0 += b.num_rows
+    require(checked == want_samples and row0 == reads, (checked, row0))
+    for c in FIXED_COLUMNS:
+        require(np.array_equal(np.concatenate(got_cols[c]), load_cols[c]),
+                f"exported {c} differs from the load's")
+    require(np.array_equal(np.concatenate(got_cols["pos"]),
+                           np.asarray(record_positions(manifest))),
+            "exported pos differs from the generator's, in file order")
+    del got_cols
+    read_s = time.perf_counter() - t0
+    log(f"export 1 GiB (native, codec none, all columns): {reads} rows in "
+        f"{summary['batches']} batches, {size} bytes, {wall:.3f} s = "
+        f"{reads / wall:.0f} reads/s; split: stream (check and parse) "
+        f"{split['stream']:.3f} s, render {split['render']:.3f} s, "
+        f"dictionary pass {split['dictionary']:.3f} s, encode "
+        f"{split['encode']:.3f} s, write {split['write']:.3f} s, order and "
+        f"rebatch {split['order_and_rest']:.3f} s (the smoke's row "
+        f"sampling, {split['hook']:.3f} s, taken out); peak host RSS "
+        f"{rss.peak / 2**30:.2f} GiB; launches {launches} ({card})")
+    log(f"export read back: fixed columns = the load's in file order, pos = "
+        f"the generator's, {checked} sampled rows' var columns = _var_piece "
+        f"(first and last 8,192, every 997th); {read_s:.1f} s")
+
+    for f in out_dir.iterdir():
+        f.unlink()
+
+    # Card = CPU on the small BAM and the long reads, every codec, with
+    # and without a filter. The CPU side streams each BAM once (host zlib
+    # windows, the plain check and parse), filters copies of its pieces on
+    # the CPU as stream_ordered_batches does, and encodes each codec.
+    def filtered(pieces, header, q):
+        out = []
+        for abs_starts, batch, floor in pieces:
+            cols = dict(batch.columns, valid=batch.columns["valid"].copy())
+            copy = dataclasses.replace(batch, columns=cols)
+            tpu_load._apply_filter(copy, header, q["loci"], 0,
+                                   q["flags_forbidden"], device="cpu")
+            out.append((abs_starts, copy, floor))
+        return out
+
+    t0 = time.perf_counter()
+    # The CPU tests' long-read BAM: 16 reads of 60-110 kb, most of which
+    # spill at this geometry (the 8 MiB one's CPU check takes minutes).
+    long_bam = work / "long_export.bam"
+    long_manifest = synth_bam(long_bam, 2 << 20, seed=9, unit_reads=8,
+                              read_len=(60_000, 110_000))
+    long_cfg = port.Config(window_size=256 << 10, halo_size=64 << 10)
+    query = {"loci": "chr1:1000-2000000,chr2:0-300", "flags_forbidden": 0x10}
+    compared = 0
+    for label, path, cfg, m in (("small", small, port.Config(),
+                                 small_manifest),
+                                ("long reads", long_bam, long_cfg,
+                                 long_manifest)):
+        header = read_header(path)
+        contigs = list(zip(header.contig_names,
+                           (int(x) for x in header.contig_lengths)))
+        unfiltered = list(stream_ordered_batches(
+            path, dataclasses.replace(cfg, device_inflate=False),
+            device="cpu"))
+        for q in ({}, query):
+            cpu_pieces = (filtered(unfiltered, header, q) if q
+                          else unfiltered)
+            for codec in ("none", "zlib", "deflate"):
+                spec = f"codec={codec}"
+                card_out, cpu_out = out_dir / "card.sbcr", out_dir / "cpu.sbcr"
+                got = port.export(path, card_out,
+                                  config=dataclasses.replace(cfg,
+                                                             columnar=spec),
+                                  **q)
+                cex.export_dataset(iter(cpu_pieces), cpu_out,
+                                   ccfg=ColumnarConfig.parse(spec),
+                                   contigs=contigs)
+                blob = card_out.read_bytes()
+                require(blob == cpu_out.read_bytes(),
+                        f"{label} {q} {codec}: card bytes differ from CPU's")
+                if not q:
+                    require(got["rows"] == m["reads"], (label, got["rows"]))
+                    pos = np.concatenate([b.columns["pos"] for b in
+                                          NativeReader(blob).iter_batches()])
+                    require(np.array_equal(pos,
+                                           np.asarray(record_positions(m))),
+                            f"{label}: rows not in file order")
+                else:
+                    require(0 < got["rows"] < m["reads"], (label, got))
+                compared += 1
+            del cpu_pieces
+        del unfiltered
+    for f in out_dir.iterdir():
+        f.unlink()
+    log(f"export card = CPU: small BAM and long reads (256 KiB / 64 KiB, "
+        f"rows in file order), codecs none, zlib and deflate, unfiltered "
+        f"and {query}: {compared} files equal byte for byte; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1603,7 +1800,7 @@ def main() -> int:
             port, bam, manifest, long_bam, long_manifest, small,
             small_manifest, card, fused_s, classic_s)
 
-        load_launches, off_launches = load_phase(
+        load_launches, off_launches, load_cols = load_phase(
             port, bam, manifest, long_bam, long_manifest, small, work, card)
 
         sharded_launches = sharded_phase(
@@ -1616,6 +1813,11 @@ def main() -> int:
         split_launches = split_phase(port, bam, manifest, small, work, card,
                                      agg_ref)
         del agg_ref
+
+        export_launches = export_phase(
+            port, bam, manifest, load_cols, small, small_manifest, work,
+            card)
+        del load_cols
 
         for row in rows:
             row["launches"] = launches[row["name"]]
@@ -1630,6 +1832,7 @@ def main() -> int:
                 "aggregate": agg_launches[row["name"]],
                 **{path: n[row["name"]]
                    for path, n in split_launches.items()},
+                "export": export_launches[row["name"]],
             }
         print(json.dumps({"kernels": rows}), flush=True)
     finally:

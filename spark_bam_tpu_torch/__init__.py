@@ -25,6 +25,11 @@ query to count, flagstat, MAPQ, template-length and binned coverage
 vectors on the device, one window of parsed records at a time, or across
 a mesh through ``MeshSteps.agg_step``.
 
+The export (``load/api.py``: ``export``; ``columnar/``) writes a BAM
+query's records as columnar record batches (the native container, Arrow
+IPC or Parquet), built from each window's device parse and put back in
+file order.
+
 Split planning (``load/splits.py``: ``split_plan``, ``spark_bam_splits``;
 ``load/boundary.py``) resolves each raw split's first record start on the
 device, and the ``.sbi`` split-index cache (``sbi/``) keeps plans, block
@@ -38,7 +43,7 @@ which runs each kernel's plain PyTorch version instead.
 
 from spark_bam_tpu_torch.core.config import Config
 from spark_bam_tpu_torch.core.pos import Pos
-from spark_bam_tpu_torch.load.api import aggregate
+from spark_bam_tpu_torch.load.api import aggregate, export
 from spark_bam_tpu_torch.load.splits import spark_bam_splits, split_plan
 from spark_bam_tpu_torch.load.tpu_load import (
     count_reads_tpu,
@@ -67,7 +72,7 @@ from spark_bam_tpu_torch.tpu.stream_check import (
 
 __all__ = ["Config", "CountScanGraphs", "Mesh", "Pos", "StreamChecker",
            "TpuChecker", "aggregate", "check_bam_sharded",
-           "count_reads_sharded", "count_reads_tpu", "count_scan",
+           "count_reads_sharded", "count_reads_tpu", "count_scan", "export",
            "full_check_summary_sharded", "full_check_summary_streaming", "host_shard_plan",
            "load_reads_columnar", "make_count_scan", "make_mesh",
            "record_starts", "record_starts_streaming", "spark_bam_splits",

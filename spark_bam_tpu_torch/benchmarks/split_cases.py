@@ -39,15 +39,19 @@ def _reads(rng, n: int, pos0: int) -> list[bytes]:
     return out
 
 
-def adversarial_bam(path, seed: int = 0, block_payload: int = 4096
+def adversarial_bam(path, seed: int = 0, block_payload: int = 4096,
+                    remaining: int = FAKE_REMAINING, reads_after: int = 600
                     ) -> tuple[int, int]:
     """Write the carrier BAM; returns ``(split_size, fake_flat)``: a split
     size one of whose boundaries is a block start inside the carrier
-    before the fake, and the fake header's flat offset."""
+    before the fake, and the fake header's flat offset. ``remaining`` is
+    the fake's length prefix and ``reads_after`` the reads after the
+    carrier (about 230 bytes each): with enough of them the fake's chain
+    lands inside the file."""
     rng = np.random.default_rng(seed)
     fake = bytearray(encode_record(
         0, 100, b"fake", np.full(20, 1, np.uint8), np.full(20, 30)))
-    fake[:4] = struct.pack("<i", FAKE_REMAINING)
+    fake[:4] = struct.pack("<i", remaining)
     quals = rng.integers(2, 41, 24_000).astype(np.uint8)
     at = 20_000
     quals[at: at + len(fake)] = np.frombuffer(bytes(fake), np.uint8)
@@ -55,7 +59,7 @@ def adversarial_bam(path, seed: int = 0, block_payload: int = 4096
                             rng.choice(np.array([1, 2, 4, 8], np.uint8),
                                        len(quals)), quals)
     before = _reads(rng, 300, 0)
-    after = _reads(rng, 600, 60_000)
+    after = _reads(rng, reads_after, 60_000)
     header = encode_header()
     data = header + b"".join(before) + carrier + b"".join(after)
     carrier_flat = len(header) + sum(len(r) for r in before)

@@ -84,12 +84,36 @@ class SeekableUncompressedBytes:
         self.stream = stream
         self._data = b""
         self._idx = 0
+        self._linear = 0
 
     def seek(self, pos: Pos) -> None:
         self.stream.seek(pos.block_pos)
         blk = self.stream.next_block()
         self._data = blk[0] if blk is not None else b""
         self._idx = pos.offset
+        self._linear = 0
+
+    def tell(self) -> int:
+        """Bytes read or skipped since the last ``seek``."""
+        return self._linear
+
+    def skip(self, n: int) -> int:
+        """Move up to ``n`` bytes on without copying them; returns the
+        bytes skipped (short at the end of file)."""
+        skipped = 0
+        while n > 0:
+            if self._idx >= len(self._data):
+                blk = self.stream.next_block()
+                if blk is None:
+                    break
+                self._data, self._idx = blk[0], 0
+                continue
+            take = min(n, len(self._data) - self._idx)
+            self._idx += take
+            n -= take
+            skipped += take
+        self._linear += skipped
+        return skipped
 
     def read(self, n: int) -> bytes:
         """Up to ``n`` bytes from the cursor (short at the end of file)."""
@@ -105,6 +129,7 @@ class SeekableUncompressedBytes:
             out += self._data[self._idx: self._idx + take]
             self._idx += take
             n -= take
+        self._linear += len(out)
         return bytes(out)
 
     def close(self) -> None:

@@ -34,6 +34,16 @@ split-index sidecar (blocks, the split plan and, with
 read | write | readwrite`` with an optional ``,strict``; sidecars go next
 to the BAM or under ``SPARK_BAM_CACHE_DIR``.
 
+``export [-i LOCI] [--format native|arrow|parquet] [--columns COLS]
+[--columnar SPEC] [-m SIZE] -o OUT`` writes the BAM's records (those
+overlapping ``LOCI``) as columnar record batches, projected to ``COLS``,
+and prints the reference's summary line (``exported N rows in B batches
+(SIZE, FORMAT) to OUT in S s [COLS]``). ``--columnar`` (or
+``SPARK_BAM_COLUMNAR``) sets the row target and the native container's
+codec; ``-m`` changes nothing, as the frames follow the row target. Bad
+loci, columns or specs are usage errors before any work; Arrow and
+Parquet need ``pyarrow``.
+
 Every command runs on the CUDA device unless ``--device`` names another;
 ``--sharded`` meshes are every visible CUDA device, or ``--devices N``
 entries of ``--device`` (``--device cpu --devices 4``: a 4-entry CPU mesh).
@@ -446,6 +456,35 @@ def aggregate(path, agg: str | None = None, loci: str | None = None,
     return result
 
 
+def export(path, out_path: str, fmt: str = "native", loci: str | None = None,
+           columns: str | None = None, device=None, out=None,
+           config: Config | None = None) -> dict:
+    """One export and its summary line (reference ``cli/export.py``);
+    returns the summary."""
+    from spark_bam_tpu_torch.columnar.config import ColumnarConfig
+    from spark_bam_tpu_torch.columnar.schema import normalize_columns
+
+    p = Printer(out=out)
+    config = Config() if config is None else config
+    try:
+        if loci:
+            LociSet.parse(loci)
+        if columns:
+            normalize_columns(columns)
+        ColumnarConfig.parse(config.columnar)
+    except ValueError as e:   # BadLociError is one
+        raise UsageError(str(e)) from e
+    summary = api.export(path, out_path, loci=loci or None, fmt=fmt,
+                         columns=columns, config=config, device=device)
+    cols = ",".join(summary["columns"])
+    p.echo(
+        f"exported {summary['rows']} rows in {summary['batches']} batches "
+        f"({format_bytes(summary['bytes'])}, {summary['format']}) to "
+        f"{summary['path']} in {summary['seconds']:.2f}s [{cols}]"
+    )
+    return summary
+
+
 def _print_splits(p: Printer, splits: list[Split], ratio: float) -> None:
     stats = Stats([s.length(ratio) for s in splits])
     p.echo("Split-size distribution:", stats.show(), "")
@@ -624,12 +663,12 @@ def _positive_int(s: str) -> int:
 
 
 def _config(args) -> Config:
-    """``SPARK_BAM_CACHE``, then the command's flags: the split size, the
-    checker knobs and ``--cache`` (a bad size or cache spec is a usage
-    error)."""
+    """``SPARK_BAM_CACHE`` and ``SPARK_BAM_COLUMNAR``, then the command's
+    flags: the split size, the checker knobs, ``--cache`` and
+    ``--columnar`` (a bad size or cache spec is a usage error)."""
     kw = {}
     for knob in ("bgzf_blocks_to_check", "reads_to_check", "max_read_size",
-                 "cache"):
+                 "cache", "columnar"):
         value = getattr(args, knob, None)
         if value is not None:
             kw[knob] = value
@@ -720,12 +759,33 @@ def main(argv=None) -> int:
     ib = sub.add_parser("index-blocks", help="write the .blocks sidecar")
     ir = sub.add_parser("index-records", help="write the .records sidecar")
     ir.add_argument("-t", "--throw-on-truncation", action="store_true")
-    for p in (ag, cs, ix):
+    ex = sub.add_parser("export",
+                        help="write a BAM's records as columnar batches")
+    ex.add_argument("-m", "--max-split-size", default=None,
+                    help="split size of the record loaders; the frames "
+                         "follow the row target, so it changes nothing")
+    ex.add_argument(
+        "-i", "--intervals", default=None, metavar="LOCI",
+        help="genomic loci to restrict to, e.g. 'chr1:5k-10k,chr2' "
+             "(decimal k/m suffixes; whole contig when no range)")
+    ex.add_argument(
+        "--format", default="native", choices=("native", "arrow", "parquet"),
+        help="output format (arrow/parquet need pyarrow; default native)")
+    ex.add_argument(
+        "--columns", default=None, metavar="COLS",
+        help="comma-separated column projection (default: all columns)")
+    ex.add_argument(
+        "--columnar", default=None, metavar="SPEC",
+        help="columnar knobs, e.g. 'rows=8192,codec=zlib,level=6,"
+             "columns=flag+pos+name' (SPARK_BAM_COLUMNAR works too)")
+    ex.add_argument("-o", "--out", dest="export_out", required=True,
+                    help="output file path")
+    for p in (ag, cs, ix, ex):
         p.add_argument("--device", default=None,
                        help="torch device (default: the current CUDA device)")
     for p in (ib, ir):
         p.add_argument("-o", "--out", default=None)
-    for p in (ag, cs, ix, ib, ir):
+    for p in (ag, cs, ix, ib, ir, ex):
         p.add_argument("path")
     args = ap.parse_args(argv)
     # The cache line describes this invocation only.
@@ -773,6 +833,9 @@ def _run(args) -> int:
     elif args.cmd == "index":
         index(args.path, split, config, args.out, args.record_starts,
               args.device)
+    elif args.cmd == "export":
+        export(args.path, args.export_out, args.format, args.intervals,
+               args.columns, args.device, config=config)
     elif args.cmd == "aggregate":
         out = open(args.out, "w") if args.out else None
         try:

@@ -1,6 +1,6 @@
 """Typed configuration: the subset of the ``spark.bam.*`` knobs that the
-count-reads, full-check, load, aggregate and split-planning paths read,
-under the reference package's names and defaults, with the byte-size
+count-reads, full-check, load, aggregate, split-planning and export paths
+read, under the reference package's names and defaults, with the byte-size
 shorthand (``parse_bytes``, ``format_bytes``) the split sizes take.
 
 Values this port cannot serve yet raise ``ValueError`` naming what will
@@ -150,6 +150,10 @@ class Config:
     # command ("coverage:bin=1000,bins=512;flagstat;mapq;tlen:max=2000;
     # count"; "" = every metric at defaults); ``agg_config`` parses it.
     agg: str = ""
+    # Compact ColumnarConfig spec of ``load.api.export`` and the export
+    # command ("rows=8192,codec=zlib,level=6,columns=flag+pos+name"; "" =
+    # defaults); ``columnar_config`` parses it.
+    columnar: str = ""
 
     #: The load path's raw split size (hadoop's file-split default).
     LOAD_SPLIT_SIZE_DEFAULT = 32 << 20
@@ -171,19 +175,32 @@ class Config:
     def split_size_or(self, default: int) -> int:
         return self.split_size if self.split_size is not None else default
 
+    #: The knobs ``from_env`` reads, as ``SPARK_BAM_<KNOB>``.
+    ENV_KNOBS = ("cache", "columnar")
+
     @classmethod
     def from_env(cls, env=None) -> "Config":
-        """The defaults with ``SPARK_BAM_CACHE`` as the ``cache`` spec, as
-        the reference's ``Config.from_env`` maps it (the store's
+        """The defaults with ``SPARK_BAM_CACHE`` as the ``cache`` spec and
+        ``SPARK_BAM_COLUMNAR`` as the ``columnar`` spec, as the
+        reference's ``Config.from_env`` maps them (the store's
         ``SPARK_BAM_CACHE_DIR`` and ``SPARK_BAM_CACHE_BUDGET`` are read by
         ``sbi.store.CacheStore.from_env``)."""
         env = os.environ if env is None else env
-        spec = env.get("SPARK_BAM_CACHE")
-        return cls() if spec is None else cls(cache=spec)
+        kw = {k: env[f"SPARK_BAM_{k.upper()}"] for k in cls.ENV_KNOBS
+              if f"SPARK_BAM_{k.upper()}" in env}
+        return cls(**kw)
 
     @property
     def inflate_config(self) -> InflateConfig:
         return InflateConfig.parse(self.inflate)
+
+    @property
+    def columnar_config(self):
+        """The parsed ``ColumnarConfig`` of this config's ``columnar``
+        spec."""
+        from spark_bam_tpu_torch.columnar.config import ColumnarConfig
+
+        return ColumnarConfig.parse(self.columnar)
 
     @property
     def agg_config(self):

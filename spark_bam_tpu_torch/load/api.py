@@ -1,5 +1,5 @@
 """Library entry points over whole files (the JAX package's
-``spark_bam_tpu/load/api.py``); for now the aggregate alone.
+``spark_bam_tpu/load/api.py``): the aggregate and the columnar export.
 
 ``aggregate`` reduces a query over a BAM to kilobytes of statistics
 without materializing records: the whole-file flat view, the boundary
@@ -10,6 +10,12 @@ filters on the device (tags on the host), and the fused reduction
 (``agg.kernels.aggregate_planes``). It runs on the CUDA device unless
 ``device`` names another; nothing gives way to the CPU or to the int64
 oracle.
+
+``export`` writes a BAM query's records as columnar record batches (the
+native container, Arrow IPC or Parquet): the streaming check and record
+parse of every window on the device with the interval and flag filters
+there (``stream_ordered_batches``), the renderings and encoding on the
+host (``columnar/``).
 """
 
 from __future__ import annotations
@@ -23,7 +29,11 @@ from spark_bam_tpu_torch.bgzf.flat import flatten_file
 from spark_bam_tpu_torch.core.config import Config
 from spark_bam_tpu_torch.device import resolve_device
 from spark_bam_tpu_torch.load.intervals import LociSet
-from spark_bam_tpu_torch.load.tpu_load import _apply_filter, record_starts
+from spark_bam_tpu_torch.load.tpu_load import (
+    _apply_filter,
+    record_starts,
+    stream_ordered_batches,
+)
 from spark_bam_tpu_torch.tpu.parser import parse_flat_records
 
 
@@ -86,3 +96,42 @@ def aggregate(
         "contigs": contigs,
         "metrics": metrics,
     }
+
+
+def export(
+    path,
+    out,
+    loci: "LociSet | str | None" = None,
+    fmt: str = "native",
+    columns=None,
+    config: Config = Config(),
+    flags_required: int = 0,
+    flags_forbidden: int = 0,
+    device=None,
+) -> dict:
+    """Export a BAM's records as columnar record batches to ``out``:
+    ``fmt`` is ``native`` (the zero-dependency container), ``arrow`` (an
+    IPC file) or ``parquet`` (those two need ``pyarrow``). ``loci`` keeps
+    the records that overlap it, the flag masks narrow them, ``columns``
+    projects the schema and ``config.columnar`` sets the row target and
+    the container's codec. The bytes equal the JAX package's ``export``
+    of the same query. Returns its summary: path, format, columns, rows,
+    batches, bytes, seconds and the loss fields (0: nothing is retried or
+    quarantined)."""
+    from spark_bam_tpu_torch.columnar.export import export_dataset
+
+    s = str(path)
+    if s.endswith((".cram", ".sam")):
+        raise NotImplementedError(
+            f"export of {s.rsplit('.', 1)[-1].upper()} needs the SAM and "
+            "CRAM loaders (ROADMAP Queue 1 item 16), which this port does "
+            "not have yet")
+    dev = resolve_device(device)
+    header = read_header(path)
+    contigs = [(str(name), int(length)) for name, length in
+               zip(header.contig_names, header.contig_lengths)]
+    ccfg = config.columnar_config
+    pieces = stream_ordered_batches(path, config, loci, flags_required,
+                                    flags_forbidden, dev)
+    return export_dataset(pieces, out, fmt=fmt, columns=columns, ccfg=ccfg,
+                          contigs=contigs)

@@ -17,10 +17,12 @@ that end unchecked, finds the split's first block on the host
   cut window never skips a true boundary;
 - past ``SCAN_SLACK`` of lookahead behind an escaped offset, or at an
   offset that escapes at EOF (a chain cursor past the int32 range), the
-  host engine (``check_flat``) resolves that one offset exactly over a
-  run grown to its chain's reach or to EOF (counted in
+  host resolves that one offset exactly (counted in
   ``STATS.boundary_demotions``), where the reference hands the split to
-  its Python checker; the scan then goes on past it on the device.
+  its Python checker: ``_seek_resolves`` reads the chain record by record
+  through a seekable stream, as that checker does, skipping the bytes
+  between records, so it holds a few records and blocks however far the
+  chain jumps. The scan then goes on past it on the device.
 
 Offsets before ``max_read_size`` only are scanned: none that passes there
 raises ``NoReadFoundException`` mid-file, and returns None at a clean EOF
@@ -30,6 +32,7 @@ pass: an offset ``check_window`` calls exact is exact by its contract.
 
 from __future__ import annotations
 
+import struct
 import time
 from dataclasses import dataclass, field
 
@@ -37,8 +40,10 @@ import numpy as np
 import torch
 
 from spark_bam_tpu_torch.bgzf.find_block_start import find_block_start
-from spark_bam_tpu_torch.bgzf.stream import SeekableBlockStream
-from spark_bam_tpu_torch.check.vectorized import check_flat
+from spark_bam_tpu_torch.bgzf.stream import (
+    SeekableBlockStream,
+    SeekableUncompressedBytes,
+)
 from spark_bam_tpu_torch.core.channel import open_channel
 from spark_bam_tpu_torch.core.pos import Pos
 from spark_bam_tpu_torch.device import resolve_device
@@ -148,18 +153,77 @@ def _first_hit(run: _Run, lo: int, hi: int, lens, num_contigs: int,
     return (lo + first, bool(esc)) if found else None
 
 
-def _host_resolves(run: _Run, off: int, lengths: np.ndarray,
-                   config) -> bool:
-    """Exact verdict at ``off`` by the host engine, the run grown (at
-    least doubled each time) until the chain no longer escapes or EOF."""
-    while True:
-        res = check_flat(run.data[off:], lengths,
-                         candidates=np.zeros(1, dtype=np.int64),
-                         at_eof=run.at_eof,
-                         reads_to_check=config.reads_to_check)
-        if run.at_eof or not res.escaped[0]:
-            return bool(res.verdict[0])
-        run.grow(2 * run.total)
+#: Read-name alphabet: '!'..'~' without '@' (reference Checker.scala:12-17).
+_NAME_MIN, _NAME_MAX, _NAME_EXCLUDED = 0x21, 0x7E, 0x40
+
+
+def _wrap32(x: int) -> int:
+    x &= 0xFFFFFFFF
+    return x - 0x100000000 if x >= 0x80000000 else x
+
+
+def _trunc_div2(x: int) -> int:
+    """Int division by 2 truncating toward zero, as on the JVM."""
+    return -((-x) // 2) if x < 0 else x // 2
+
+
+def _seek_resolves(path, pos: Pos, lengths: np.ndarray, config) -> bool:
+    """Exact verdict at ``pos``: the reference's eager checker
+    (``check/eager.py``, Checker.scala:18-177), record by record through a
+    seekable stream. Each record's fixed fields, name and cigar are read
+    and the rest of it is skipped, so memory stays at the records read
+    and the stream's block cache, however far a length prefix points."""
+    u = SeekableUncompressedBytes(SeekableBlockStream(open_channel(path)))
+    nc = len(lengths)
+
+    def ref_pos_error(ref_idx: int, ref_pos: int) -> bool:
+        return (ref_idx < -1 or ref_idx >= nc or ref_pos < -1
+                or (ref_idx >= 0 and ref_pos > int(lengths[ref_idx])))
+
+    try:
+        u.seek(pos)
+        start = 0
+        for successes in range(config.reads_to_check):
+            fixed = u.read(36)
+            if len(fixed) < 36:
+                # Zero bytes exactly at the record edge after at least one
+                # success is a clean EOF (reference :36-39).
+                return (not fixed and u.tell() == start and successes > 0)
+            (remaining, ref_idx, ref_pos, name_len_i32, flags_n_cigar,
+             seq_len, next_ref_idx, next_ref_pos, _tlen) = struct.unpack(
+                "<9i", fixed)
+            next_offset = start + 4 + remaining
+            if ref_pos_error(ref_idx, ref_pos):
+                return False
+            name_len = name_len_i32 & 0xFF
+            if name_len in (0, 1):
+                return False
+            flags = (flags_n_cigar >> 16) & 0xFFFF
+            n_cigar = flags_n_cigar & 0xFFFF
+            if (flags & 4) == 0 and (seq_len == 0 or n_cigar == 0):
+                return False
+            n_seq_qual = _wrap32(_trunc_div2(_wrap32(seq_len + 1)) + seq_len)
+            if remaining < _wrap32(32 + name_len + 4 * n_cigar + n_seq_qual):
+                return False
+            if ref_pos_error(next_ref_idx, next_ref_pos):
+                return False
+            name = u.read(name_len)
+            if (len(name) < name_len or name[-1] != 0
+                    or any(not (_NAME_MIN <= b <= _NAME_MAX)
+                           or b == _NAME_EXCLUDED for b in name[:-1])):
+                return False
+            cigar = u.read(4 * n_cigar)
+            if len(cigar) < 4 * n_cigar or any(
+                    cigar[4 * k] & 0xF > 8 for k in range(n_cigar)):
+                return False
+            # The logical cursor goes on from next_offset while reads go
+            # on from the physical one (reference :116-125).
+            if next_offset - u.tell() > 0:
+                u.skip(next_offset - u.tell())
+            start = next_offset
+        return True
+    finally:
+        u.close()
 
 
 def next_read_start(path, block_start: int, header, config,
@@ -193,7 +257,7 @@ def next_read_start(path, block_start: int, header, config,
                     # the int32 range escapes even at EOF), or the growth
                     # bound: the host engine decides this offset.
                     STATS.boundary_demotions += 1
-                    if _host_resolves(run, off, lengths, config):
+                    if _seek_resolves(path, run.pos(off), lengths, config):
                         return run.pos(off)
                     scan_from = off + 1
                     continue

@@ -10,6 +10,8 @@ with the interval/flag filters where the columns are.
 - ``count_reads_tpu``: the record count, per-window counts reduced on the
   device;
 - ``stream_read_batches``: ``ReadBatch``es per window, filtered;
+- ``stream_ordered_batches``: the same with each row's flat offset and a
+  floor, for the export's merge into file order;
 - ``load_reads_columnar``: one ``ReadBatch`` of every (or every filtered)
   record of a file.
 
@@ -275,6 +277,28 @@ def stream_read_batches(
     for base, batch in gen:
         yield base, _apply_filter(batch, checker.header, loci, flags_required,
                                   flags_forbidden, device=checker.device)
+
+
+def stream_ordered_batches(
+    path,
+    config: Config = Config(),
+    loci: LociSet | str | None = None,
+    flags_required: int = 0,
+    flags_forbidden: int = 0,
+    device=None,
+):
+    """``stream_read_batches``' records for consumers that put rows back
+    in file order (the export): ``(abs_starts, batch, floor)`` items from
+    ``StreamChecker.ordered_read_batches``, filtered as there. Nothing
+    runs until the first item is asked for."""
+    checker = StreamChecker(path, config, device=device)
+    filtered = loci is not None or flags_required or flags_forbidden
+    for abs_starts, batch, floor in checker.ordered_read_batches():
+        if filtered:
+            batch = _apply_filter(batch, checker.header, loci,
+                                  flags_required, flags_forbidden,
+                                  device=checker.device)
+        yield abs_starts, batch, floor
 
 
 def count_reads_tpu(path, config: Config = Config(), device=None) -> int:

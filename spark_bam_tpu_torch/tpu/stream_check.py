@@ -51,6 +51,9 @@ each window's record starts parse on the device window the check ran on
 (kept by the launcher, never written after it is assembled), and starts
 whose records outrun the window, or whose verdicts came through the
 deferral path, decode exactly from a seekable host stream.
+``ordered_read_batches()`` gives the same records with each row's flat
+offset and a floor below which no later row comes, for the export's
+merge into file order.
 """
 
 from __future__ import annotations
@@ -93,6 +96,10 @@ from spark_bam_tpu_torch.tpu.checker import (
 )
 from spark_bam_tpu_torch.tpu.inflate import InflatePipeline, stage_group_device
 from spark_bam_tpu_torch.tpu.parser import parse_flat_records, parse_window
+
+
+#: Spill positions ``read_batches`` gathers before it decodes them.
+SPILL_FLUSH = 4096
 
 
 def _next_pow2(n: int) -> int:
@@ -607,9 +614,19 @@ class StreamChecker:
             # pass over the whole retained span, so attempts wait for real
             # growth.
             self._gate_tip = 0
+            # The first run ``resolve`` retired but has not yielded yet.
+            self._unemitted: int | None = None
 
         def __len__(self):
             return len(self.pending)
+
+        def low(self) -> int | None:
+            """The lowest position still to come out of ``resolve``:
+            pending, or resolved in a run not yet yielded."""
+            lows = [int(self.pending.min())] if len(self.pending) else []
+            if self._unemitted is not None:
+                lows.append(self._unemitted)
+            return min(lows) if lows else None
 
         def extend(self, win_buf: np.ndarray, win_base: int):
             """Grow the byte stream with a window's newly seen bytes."""
@@ -675,19 +692,25 @@ class StreamChecker:
             done = (~res.escaped) & res.exact
             positions = self._retire(done)
             rows = tuple(np.asarray(getattr(res, f))[done] for f in fields)
-            yield from self._emit_runs(positions, rows)
+            runs = list(self._emit_runs(positions, rows))
+            for k, run in enumerate(runs):
+                self._unemitted = runs[k + 1][0] if k + 1 < len(runs) else None
+                yield run
+            self._unemitted = None
 
     # ------------------------------------------------------- consumers
     def _stream(self, fields: tuple[str, ...], defer_inexact: bool,
-                with_buf: bool = False):
+                with_buf: bool = False, deferred=None):
         """The window loop behind ``spans``, ``full_spans`` and
         ``read_batches``: project ``fields`` from each window, defer
         unresolved owned lanes (escaped, plus inexact ones when the
         projection is the flag masks), and re-emit them as contiguous-run
         spans once exact. ``with_buf`` appends the window's host bytes and
         its device tensor to each window tuple (``None, None`` on deferred
-        re-emissions)."""
-        deferred = self._Deferred(self.lengths, self.config.reads_to_check)
+        re-emissions). ``deferred`` is the caller's ``_Deferred`` (it
+        reads the pending positions between items)."""
+        if deferred is None:
+            deferred = self._Deferred(self.lengths, self.config.reads_to_check)
         funnel = self.config.funnel_enabled(defer_inexact)
         keys = (*fields, "escaped")
         if defer_inexact:
@@ -747,19 +770,71 @@ class StreamChecker:
         (longer than the halo), and record starts that resolved through the
         deferral path, are decoded exactly from a seekable stream and
         yielded as batches with ``abs_base = -1`` (their ``starts`` index
-        their own buffer): whenever 4,096 such positions are pending, and
-        the rest at the end."""
+        their own buffer): whenever ``SPILL_FLUSH`` such positions are
+        pending, and the rest at the end."""
+        for base, batch, _abs, _floor in self._read_pieces(ordered=False):
+            yield base, batch
+
+    def ordered_read_batches(self):
+        """The record batches of ``read_batches`` with each row's absolute
+        flat offset, for consumers that put rows back in file order.
+
+        Yields ``(abs_starts, batch, floor)``: ``abs_starts[i]`` is row
+        ``i``'s offset, and no row below ``floor`` comes after this item.
+        Each window's spills decode with the window, so what a consumer
+        holds back stays O(window) on long reads; the record at the
+        header's end always decodes from the stream, verdict or not, as
+        the record path reads it (the first record of the file)."""
+        for _base, batch, abs_starts, floor in self._read_pieces(ordered=True):
+            yield abs_starts, batch, floor
+
+    def _read_pieces(self, ordered: bool):
+        """The loop behind ``read_batches`` and ``ordered_read_batches``:
+        ``(abs_base, batch, abs_starts, floor)`` items (``abs_base`` -1
+        on spill batches). ``ordered`` decodes the pending spills at every
+        window and forces the header-end record through the stream."""
         he = self.header_end_abs
+        first = he if ordered and he < self.total else None
+        deferred = self._Deferred(self.lengths, self.config.reads_to_check)
         spill_abs: list[int] = []
+        frontier = 0
+
+        def floor() -> int:
+            """The lowest offset a later item can still hold."""
+            low = frontier
+            if spill_abs:
+                low = min(low, min(spill_abs))
+            pending = deferred.low()
+            return low if pending is None else min(low, pending)
+
+        def flush():
+            positions = sorted(spill_abs)
+            spill_abs.clear()
+            at = 0
+            for batch in self._decode_spills(positions):
+                lo, at = at, at + len(batch.starts)
+                low = floor()
+                if at < len(positions):   # later chunks of this flush
+                    low = min(low, positions[at])
+                yield -1, batch, np.asarray(positions[lo:at]), low
+
         for base, verdict, buf, padded in self._stream(
-            ("verdict",), defer_inexact=False, with_buf=True
+            ("verdict",), defer_inexact=False, with_buf=True,
+            deferred=deferred,
         ):
             if buf is None:  # a deferred contiguous-run re-emission
                 idx = base + np.flatnonzero(verdict)
-                spill_abs.extend(idx[idx >= he].tolist())
+                keep = idx >= he if first is None else idx > he
+                spill_abs.extend(idx[keep].tolist())
             else:
+                frontier = base + len(verdict)
+                if first is not None and base <= first < frontier:
+                    spill_abs.append(first)
                 starts = np.flatnonzero(verdict)
-                starts = starts[base + starts >= he]
+                if first is None:
+                    starts = starts[base + starts >= he]
+                else:
+                    starts = starts[base + starts > he]
                 if len(starts):
                     # A record must fit the buffer to parse in the window;
                     # the others decode exactly from the stream.
@@ -773,15 +848,16 @@ class StreamChecker:
                     spill_abs.extend((base + starts[~fits]).tolist())
                     starts = starts[fits]
                     if len(starts):
-                        yield base, parse_window(padded, buf, starts)
+                        yield (base, parse_window(padded, buf, starts),
+                               base + starts, floor())
+                if ordered and spill_abs:
+                    yield from flush()
             # Bound spill memory: flush in chunks during the stream.
-            if len(spill_abs) >= 4096:
-                for batch in self._decode_spills(sorted(spill_abs)):
-                    yield -1, batch
-                spill_abs = []
+            if len(spill_abs) >= SPILL_FLUSH:
+                yield from flush()
+        frontier = self.total
         if spill_abs:
-            for batch in self._decode_spills(sorted(spill_abs)):
-                yield -1, batch
+            yield from flush()
 
     def _decode_spills(self, positions: list[int],
                        chunk_bytes: int = 64 << 20):

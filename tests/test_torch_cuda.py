@@ -794,3 +794,51 @@ def test_compute_splits_on_gpu_equals_cpu(gpu, tmp_path, mode):
             outs.append([ln for ln in out.read_text().split("\n")
                          if not ln.startswith("Get ")])
         assert outs[-2] == outs[-1] and outs[-1]
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"loci": "chr1:100000-3000000,chr2", "flags_forbidden": 0x10},
+    {"columns": "flag,pos,name,cigar", "config": Config(
+        window_size=1 << 20, halo_size=256 << 10, columnar="codec=zlib")}],
+    ids=["all", "loci_flags", "projected_zlib"])
+def test_export_on_gpu_equals_cpu(gpu, tmp_path, kw):
+    """The export's container bytes on the card equal the CPU's; the
+    load's kernels run, the full pass does not."""
+    from spark_bam_tpu_torch.load.api import export
+
+    p = tmp_path / "ex.bam"
+    m = synth_bam(p, 3 << 20, seed=7, unit_reads=2000)
+    kw = dict(kw)
+    cfg = kw.pop("config", Config(window_size=1 << 20, halo_size=256 << 10))
+    K.reset_launch_counts()
+    card = export(p, tmp_path / "card.sbcr", config=cfg, **kw)
+    assert all(K.LAUNCHES[k] > 0 for k in COUNT_KERNELS), K.LAUNCHES
+    assert K.LAUNCHES["full_check_flags"] == 0, K.LAUNCHES
+    cpu = export(p, tmp_path / "cpu.sbcr", config=cfg, device="cpu", **kw)
+    assert card["rows"] == cpu["rows"] > 0
+    if not kw:
+        assert card["rows"] == m["reads"]
+    assert ((tmp_path / "card.sbcr").read_bytes()
+            == (tmp_path / "cpu.sbcr").read_bytes())
+
+
+@pytest.mark.parametrize("columnar", ["", "codec=deflate"])
+def test_export_long_reads_on_gpu_equals_cpu(gpu, tmp_path, columnar):
+    """60-110 kb reads at a 256 KiB window and 64 KiB halo: the spilled
+    records land in file order on the card as on the CPU."""
+    from spark_bam_tpu_torch.benchmarks.synth import record_positions
+    from spark_bam_tpu_torch.columnar.native import NativeReader
+    from spark_bam_tpu_torch.load.api import export
+
+    p = tmp_path / "long.bam"
+    m = synth_bam(p, 2 << 20, seed=9, unit_reads=8,
+                  read_len=(60_000, 110_000))
+    cfg = Config(window_size=256 << 10, halo_size=64 << 10, columnar=columnar)
+    card = export(p, tmp_path / "card.sbcr", config=cfg)
+    export(p, tmp_path / "cpu.sbcr", config=cfg, device="cpu")
+    blob = (tmp_path / "card.sbcr").read_bytes()
+    assert blob == (tmp_path / "cpu.sbcr").read_bytes()
+    assert card["rows"] == m["reads"]
+    pos = np.concatenate([b.columns["pos"] for b in
+                          NativeReader(blob).iter_batches()])
+    assert sorted(pos.tolist()) == sorted(record_positions(m))

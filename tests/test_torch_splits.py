@@ -177,6 +177,36 @@ def test_growth_bound_resolves_on_the_host(bams, monkeypatch, slack):
     assert boundary.STATS.boundary_demotions == 1
 
 
+@pytest.mark.parametrize("distance", [1 << 20, 4 << 20])
+def test_host_resolve_holds_no_run_past_the_bound(tmp_path, monkeypatch,
+                                                   distance):
+    """A fake record whose ``remaining`` jumps ``distance`` bytes into the
+    file, past a 128 KiB growth bound: the host resolves that offset by
+    reading the chain through a seekable stream, so the run the scan holds
+    stays at the bound's size whatever the distance (growing the run to
+    the chain's reach held ``distance`` bytes and more). The plan equals
+    JAX ``build_split_plan``'s."""
+    path = str(tmp_path / "far.bam")
+    split, fake = adversarial_bam(path, remaining=distance,
+                                  reads_after=distance // 128)
+    flat = sum(m.uncompressed_size for m in ib.blocks_metadata(path))
+    assert fake + 4 + distance < flat   # the chain lands inside the file
+    index_records(path)
+    monkeypatch.setattr(boundary, "SCAN_SLACK", 128 << 10)
+    peak = []
+    grow = boundary._Run.grow
+
+    def spy(run, upto):
+        grow(run, upto)
+        peak.append(run.total)
+
+    monkeypatch.setattr(boundary._Run, "grow", spy)
+    boundary.STATS.reset()
+    _assert_plan_equals_jax(path, split)
+    assert boundary.STATS.boundary_demotions == 1
+    assert max(peak) <= 3 * (128 << 10) < distance
+
+
 # ------------------------------------------------------------------ cache
 
 @pytest.fixture
