@@ -128,8 +128,29 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    for codecs none, zlib and deflate, unfiltered and with a loci and flag
    filter.
 
+12. The write path (``write_phase``): ``crc32_lanes`` and
+   ``deflate_fixed_lanes`` (``csrc/deflate.cu``) against their plain
+   versions on the card, bit for bit (the whole packed plane, total_bits,
+   CRC), and against zlib's CRC-32 and ``fixed_pack``, at B = 1, 16 and
+   128 over ``benchmarks/write_cases.py`` (lengths 0 to STRIDE, an
+   overflowing lane), and their CUDA-event times on the writer's own
+   payloads at lanes 16 and 128; ``BgzfWriter`` over the 1 GiB BAM's
+   uncompressed stream under mode=fixed and mode=stored at lanes 16 and
+   128 and under mode=off (host zlib), timed by
+   ``benchmarks/profile_write.py::timed_write`` (staging, H2D, kernel,
+   wait, D2H, assembly, write), every member inflated back by host zlib
+   against its payload and its row, every 64th equal to the host
+   function's; ``rewrite -i --deflate mode=fixed`` through ``cli.py`` on
+   the small BAM and a 256 MiB one, equal byte for byte (BAM, ``.blocks``,
+   ``.records``) to ``device=off``, the output counted to the manifest's
+   reads and its warm ``compute-splits`` resolving nothing;
+   ``encode_zlib_stream`` on the card over 64 MiB with one incompressible
+   window (= ``zlib_stream``, one re-pack), and the small BAM's export
+   with ``codec=deflate`` under ``SPARK_BAM_DEFLATE=mode=fixed`` =
+   ``device=off``.
+
 Launch counters are set to 0 just before each main path (3, 4, 6, 7, 8,
-9, 10, 11) and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
+9, 10, 11, 12) and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
 and, last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero; without CUDA, or without the package beside
 it, it exits non-zero before printing a result.
@@ -137,6 +158,7 @@ it, it exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -186,6 +208,8 @@ def require(ok, what) -> None:
 def _as_long(t):
     if t.dtype == torch.uint16:  # few ops exist for uint16: go via int16
         return t.view(torch.int16).long() & 0xFFFF
+    if t.dtype == torch.uint32:
+        return t.view(torch.int32).long() & 0xFFFFFFFF
     return t.long()
 
 
@@ -1324,6 +1348,333 @@ def export_phase(port, bam, manifest, load_cols, small, small_manifest,
     return launches
 
 
+def _check_members(blob, blocks, stream, host_member, every: int = 64) -> int:
+    """Every member of a writer's output against the stream it packed:
+    host zlib inflates it back to its payload (gzip mode checks the CRC
+    and ISIZE fields), its ``Metadata`` row matches the bytes written
+    (BSIZE, ISIZE, contiguous from 0, the EOF block after the last), and
+    every ``every``-th member equals ``host_member(payload)``; returns the
+    members held against the host function."""
+    import zlib
+
+    from spark_bam_tpu_torch.bam.writer import BGZF_EOF
+
+    mv, src = memoryview(blob), memoryview(stream)
+    at = flat = held = 0
+    for i, m in enumerate(blocks):
+        require(m.start == at, f"member {i} at {m.start}, expected {at}")
+        mem = mv[m.start: m.start + m.compressed_size]
+        require(mem[16] | mem[17] << 8 == m.compressed_size - 1
+                and int.from_bytes(mem[-4:], "little") == m.uncompressed_size,
+                f"member {i}: BSIZE/ISIZE differ from its row")
+        d = zlib.decompressobj(31)
+        payload = src[flat: flat + m.uncompressed_size]
+        require(d.decompress(mem) == payload and d.eof
+                and not d.unused_data, f"member {i} does not inflate back")
+        if i % every == 0:
+            require(mem == host_member(bytes(payload)),
+                    f"member {i} differs from the host function's")
+            held += 1
+        at += m.compressed_size
+        flat += m.uncompressed_size
+    require(flat == len(src), f"members hold {flat} of {len(src)} bytes")
+    require(mv[at:] == BGZF_EOF, "no EOF block after the last member")
+    return held
+
+
+def write_phase(port, bam, manifest, small, small_manifest, work,
+                card) -> tuple[list, dict]:
+    """Phase 12, the write path; returns the kernel rows of
+    ``crc32_lanes`` and ``deflate_fixed_lanes`` and the launch counts of
+    every kernel on each of its paths."""
+    import io
+    import zlib
+
+    from spark_bam_tpu_torch import cli
+    from spark_bam_tpu_torch.benchmarks.profile_write import (
+        graph_ms,
+        timed_write,
+    )
+    from spark_bam_tpu_torch.benchmarks.synth import synth_bam
+    from spark_bam_tpu_torch.benchmarks.write_cases import lane_batch
+    from spark_bam_tpu_torch.bgzf.flat import inflate_blocks
+    from spark_bam_tpu_torch.bgzf.index_blocks import blocks_metadata
+    from spark_bam_tpu_torch.compress import codec
+    from spark_bam_tpu_torch.compress import kernels as CK
+    from spark_bam_tpu_torch.compress.huffman import (
+        MAX_STORED_PAYLOAD,
+        fixed_member,
+        fixed_pack,
+        stored_member,
+        zlib_member,
+        zlib_stream,
+    )
+    from spark_bam_tpu_torch.core.channel import open_channel
+    from spark_bam_tpu_torch.device import sync
+    from spark_bam_tpu_torch.load import api, boundary
+    from spark_bam_tpu_torch.sbi.store import reset_cache_events
+    from spark_bam_tpu_torch.tpu import kernels as K
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    saved_env = {k: os.environ.pop(k, None) for k in (
+        "SPARK_BAM_DEFLATE", "SPARK_BAM_CACHE", "SPARK_BAM_CACHE_DIR")}
+    paths: dict = {}
+    out_dir = work / "write"
+    out_dir.mkdir(exist_ok=True)
+    try:
+        # ---- (a) both kernels against their plain versions, bit for bit --
+        t0 = time.perf_counter()
+        errs = {"crc32_lanes": 0, "deflate_fixed_lanes": 0}
+        case_log = []
+        for b in (1, 16, 128):
+            payloads = lane_batch(b, seed=b)
+            data, lengths, _ = CK.pack_lanes(payloads, pin=True)
+            data, lengths = data.to(dev), lengths.to(dev)
+            crc = CK.crc32_lanes(data, lengths)
+            packed, bits, crc2 = CK.deflate_fixed_lanes(data, lengths)
+            want = CK.deflate_fixed_lanes_plain(data, lengths)
+            errs["crc32_lanes"] = max(errs["crc32_lanes"],
+                                      max_abs_err([(crc, want[2])]))
+            errs["deflate_fixed_lanes"] = max(
+                errs["deflate_fixed_lanes"],
+                max_abs_err(zip((packed, bits, crc2), want)))
+            require(not any(errs.values()), f"write lanes differ at B={b}: "
+                                            f"{errs}")
+            crc_h = crc.cpu().numpy()
+            require([int(c) for c in crc_h]
+                    == [zlib.crc32(p) & 0xFFFFFFFF for p in payloads],
+                    f"CRC differs from zlib's at B={b}")
+            if b <= 16:
+                host = packed.cpu().numpy()
+                for i, p in enumerate(payloads):
+                    fp, tb = fixed_pack(p)
+                    n = min(len(fp), CK.OUT_BYTES)
+                    require(int(bits[i]) == tb
+                            and host[i, :n].tobytes() == fp[:n]
+                            and not host[i, n:].any(),
+                            f"lane {i} of B={b} differs from fixed_pack")
+            over = int((bits > CK.OUT_BYTES * 8).sum())
+            case_log.append(f"B={b} ({over} overflowing, "
+                            f"{int((lengths == 0).sum())} empty)")
+        log(f"write lanes: crc32_lanes and deflate_fixed_lanes = their plain "
+            f"versions (packed plane, total_bits, CRC) and zlib / fixed_pack "
+            f"at {', '.join(case_log)}; {time.perf_counter() - t0:.1f} s")
+
+        # ---- the 1 GiB BAM's uncompressed stream ------------------------
+        t0 = time.perf_counter()
+        with open_channel(bam) as ch:
+            stream = inflate_blocks(ch, blocks_metadata(bam)).data
+        log(f"uncompressed stream: {len(stream)} bytes "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+        # Kernel times at the writer's shapes: its first 16 and 128 payloads.
+        timing = {}
+        for b in (16, 128):
+            payloads = [stream[i * 65280: (i + 1) * 65280].tobytes()
+                        for i in range(b)]
+            data, lengths, _ = CK.pack_lanes(payloads, pin=True)
+            data, lengths = data.to(dev), lengths.to(dev)
+            n_in = int(lengths.sum()) + 4 * b
+            calls = {"crc32_lanes": lambda: CK.crc32_lanes(data, lengths),
+                     "deflate_fixed_lanes":
+                         lambda: CK.deflate_fixed_lanes(data, lengths)}
+            timing[b] = {
+                "crc_bytes": n_in + 4 * b,
+                "fixed_bytes": n_in + b * CK.OUT_BYTES + 8 * b,
+                **{k: graph_ms(fn) for k, fn in calls.items()},
+                **{"call_" + k: cuda_ms(fn, reps=50)
+                   for k, fn in calls.items()},
+            }
+            if b == 16:
+                sync(dev)
+                t1 = time.perf_counter()
+                CK.crc32_lanes_plain(data, lengths)
+                sync(dev)
+                crc_plain_ms = (time.perf_counter() - t1) * 1e3
+                t1 = time.perf_counter()
+                CK.deflate_fixed_lanes_plain(data, lengths)
+                sync(dev)
+                fixed_plain_ms = (time.perf_counter() - t1) * 1e3
+            log(f"write lanes at lanes={b} (the writer's payloads), device "
+                f"time a launch (20 in a CUDA graph): crc32_lanes "
+                f"{timing[b]['crc32_lanes']:.4f} ms, deflate_fixed_lanes "
+                f"{timing[b]['deflate_fixed_lanes']:.4f} ms; one call between "
+                f"events (host launch included, median of 50): "
+                f"{timing[b]['call_crc32_lanes']:.4f} / "
+                f"{timing[b]['call_deflate_fixed_lanes']:.4f} ms ({card})")
+        log(f"plain versions on the card at lanes=16: crc32_lanes_plain "
+            f"{crc_plain_ms:.1f} ms, deflate_fixed_lanes_plain "
+            f"{fixed_plain_ms:.1f} ms")
+
+        # ---- (b) BgzfWriter over the stream, each codec -----------------
+        host_of = {"fixed": fixed_member, "stored": stored_member,
+                   "off": lambda p: zlib_member(p, 6)}
+        for spec in ("mode=fixed", "mode=fixed,lanes=128", "mode=stored",
+                     "mode=stored,lanes=128", "mode=off"):
+            out = out_dir / "w.bgzf"
+            # Host zlib takes ~70 s a GiB: its yardstick runs on the first
+            # 256 MiB (the whole GiB: benchmarks/profile_write.py).
+            src = stream[: 256 << 20] if spec == "mode=off" else stream
+            K.reset_launch_counts()
+            r = timed_write(src, spec, out)
+            name = "writer_" + spec.replace("mode=", "").replace(",lanes=",
+                                                                  "_")
+            paths[name] = dict(K.LAUNCHES)
+            mode = spec.split(",")[0][5:]
+            if mode != "off":
+                kernel = ("crc32_lanes" if mode == "stored"
+                          else "deflate_fixed_lanes")
+                require(paths[name][kernel] == r["dispatches"] > 0,
+                        (name, paths[name], r["dispatches"]))
+            t1 = time.perf_counter()
+            held = _check_members(out.read_bytes(), r["blocks"], src,
+                                  host_of[mode])
+            check_s = time.perf_counter() - t1
+            out.unlink()
+            log(f"writer {spec}: {r['members']} members, {r['bytes_in']} -> "
+                f"{r['bytes_out']} bytes in {r['wall_s']:.3f} s = "
+                f"{r['gb_per_s']:.3f} GB/s of input; split "
+                f"{json.dumps(r['split_s'])}; dispatches {r['dispatches']}, "
+                f"launches {r['launches']} "
+                f"({r['launches_per_dispatch']} a dispatch); picks "
+                f"{r['picks']}; every member inflates back with its row, "
+                f"{held} equal the host function's ({check_s:.1f} s; {card})")
+
+        # ---- (c) rewrite --deflate mode=fixed -i through cli.py ---------
+        big = work / "rewrite_src.bam"
+        big_manifest = synth_bam(big, 256 << 20, seed=13)
+        for label, src, m in (("small", small, small_manifest),
+                              ("256mib", big, big_manifest)):
+            outs = {}
+            for spec in ("mode=fixed", "mode=fixed,device=off"):
+                out = out_dir / f"{label}_{len(outs)}.bam"
+                K.reset_launch_counts()
+                reset_cache_events()
+                buf = io.StringIO()
+                t1 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli.main(["rewrite", "-i", "--deflate", spec,
+                                   str(src), str(out)])
+                wall = time.perf_counter() - t1
+                require(rc == 0, f"rewrite {label} {spec}: rc {rc}")
+                require(buf.getvalue().startswith(
+                    f"Wrote {m['reads']} reads to "), buf.getvalue())
+                if spec == "mode=fixed":
+                    paths[f"rewrite_{label}"] = dict(K.LAUNCHES)
+                    require(K.LAUNCHES["deflate_fixed_lanes"] > 0,
+                            K.LAUNCHES)
+                outs[spec] = (out, wall)
+            (a, a_s), (b_, b_s) = outs.values()
+            for ext in ("", ".blocks", ".records"):
+                require(Path(str(a) + ext).read_bytes()
+                        == Path(str(b_) + ext).read_bytes(),
+                        f"rewrite {label}{ext}: card differs from device=off")
+            K.reset_launch_counts()
+            got = port.StreamChecker(a, port.Config()).count_reads()
+            paths[f"count_rewritten_{label}"] = dict(K.LAUNCHES)
+            require(got == m["reads"], f"rewritten {label}: {got} reads, "
+                                       f"manifest {m['reads']}")
+            boundary.STATS.reset()
+            reset_cache_events()
+            K.reset_launch_counts()
+            rep = io.StringIO()
+            with contextlib.redirect_stdout(rep):
+                require(cli.main(["compute-splits", "-s", "--cache", "read",
+                                  str(a)]) == 0, "warm compute-splits")
+            require("cache: hit (fingerprint ok)" in rep.getvalue()
+                    and boundary.STATS.resolutions == 0
+                    and not any(K.LAUNCHES.values()),
+                    f"warm compute-splits of the rewritten {label}: "
+                    f"{boundary.STATS.resolutions} resolutions, "
+                    f"{K.LAUNCHES}")
+            log(f"rewrite -i --deflate mode=fixed {label} "
+                f"({m['uncompressed_bytes']} bytes, {m['reads']} reads): card "
+                f"{a_s:.3f} s, device=off {b_s:.3f} s; BAM, .blocks and "
+                f".records equal byte for byte; count-reads of the output = "
+                f"the manifest's; warm compute-splits 0 resolutions, 0 "
+                f"launches; launches {paths[f'rewrite_{label}']} ({card})")
+            for ext in ("", ".blocks", ".records", ".sbi"):
+                for p in (a, b_):
+                    Path(str(p) + ext).unlink(missing_ok=True)
+        big.unlink()
+        big.with_suffix(".manifest.json").unlink(missing_ok=True)
+
+        # ---- (d) encode_zlib_stream, and the export's deflate codec ----
+        rng = np.random.default_rng(12)
+        raw = bytearray(rng.integers(32, 127, 64 << 20,
+                                     dtype=np.uint8).tobytes())
+        w = MAX_STORED_PAYLOAD
+        raw[10 * w: 11 * w] = rng.integers(0, 256, w, dtype=np.uint8).tobytes()
+        raw = bytes(raw)
+        before = dict(codec.ZLIB_STREAM_COUNTS)
+        K.reset_launch_counts()
+        t1 = time.perf_counter()
+        got = codec.encode_zlib_stream(raw, "mode=fixed,device=on")
+        dev_s = time.perf_counter() - t1
+        paths["encode_zlib_stream"] = dict(K.LAUNCHES)
+        t1 = time.perf_counter()
+        want = zlib_stream(raw)
+        host_s = time.perf_counter() - t1
+        repacks = codec.ZLIB_STREAM_COUNTS["repacks"] - before["repacks"]
+        require(got == want, "encode_zlib_stream differs from zlib_stream")
+        require(repacks == 1, f"{repacks} re-packs, expected 1")
+        log(f"encode_zlib_stream mode=fixed,device=on over {len(raw)} bytes "
+            f"(one incompressible window): = zlib_stream's "
+            f"{len(want)} bytes; {repacks} window re-packed on the host; "
+            f"card {dev_s:.3f} s, host {host_s:.3f} s; launches "
+            f"{paths['encode_zlib_stream']['deflate_fixed_lanes']}")
+        del raw, got, want
+        blobs = {}
+        for spec in ("mode=fixed", "mode=fixed,device=off"):
+            os.environ["SPARK_BAM_DEFLATE"] = spec
+            before = dict(codec.ZLIB_STREAM_COUNTS)
+            K.reset_launch_counts()
+            out = out_dir / "small.sbcr"
+            api.export(small, out, config=port.Config(
+                columnar="codec=deflate"))
+            if spec == "mode=fixed":
+                paths["export_deflate_small"] = dict(K.LAUNCHES)
+                require(K.LAUNCHES["deflate_fixed_lanes"] > 0, K.LAUNCHES)
+                windows = (codec.ZLIB_STREAM_COUNTS["windows"]
+                           - before["windows"])
+                repacked = (codec.ZLIB_STREAM_COUNTS["repacks"]
+                            - before["repacks"])
+            blobs[spec] = out.read_bytes()
+            out.unlink()
+        require(blobs["mode=fixed"] == blobs["mode=fixed,device=off"],
+                "export codec=deflate: card differs from device=off")
+        log(f"export codec=deflate of the small BAM under SPARK_BAM_DEFLATE="
+            f"mode=fixed = device=off byte for byte ({len(blobs['mode=fixed'])}"
+            f" bytes; {windows} windows on the card, {repacked} re-packed)")
+    finally:
+        os.environ.pop("SPARK_BAM_DEFLATE", None)
+        for k, v in saved_env.items():
+            if v is not None:
+                os.environ[k] = v
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    main_paths = [p for p in paths if not p.startswith("count_")]
+    rows = []
+    for name, line, bytes_key in (("crc32_lanes", 100, "crc_bytes"),
+                                  ("deflate_fixed_lanes", 107, "fixed_bytes")):
+        rows.append(dict(
+            name=name, route="cuda", source="spark_bam_tpu_torch/csrc/deflate.cu",
+            replaces=f"spark_bam_tpu/compress/kernels.py:{line}",
+            parity="bit-identical", max_abs_err=errs[name],
+            ms=timing[16][name], ms_lanes_128=timing[128][name],
+            call_ms=timing[16]["call_" + name],
+            call_ms_lanes_128=timing[128]["call_" + name],
+            plain_ms=crc_plain_ms if name == "crc32_lanes" else fixed_plain_ms,
+            bound_ms=timing[16][bytes_key] / HBM_BYTES_PER_S * 1e3,
+            bound_ms_lanes_128=timing[128][bytes_key] / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes", library_ms=None,
+            launches=sum(paths[p][name] for p in main_paths),
+        ))
+    log(f"phase 12 (write path): {time.perf_counter() - t_phase:.1f} s")
+    return rows, paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1819,6 +2170,9 @@ def main() -> int:
             card)
         del load_cols
 
+        write_rows, write_launches = write_phase(
+            port, bam, manifest, small, small_manifest, work, card)
+
         for row in rows:
             row["launches"] = launches[row["name"]]
             row["launches_by_path"] = {
@@ -1833,8 +2187,13 @@ def main() -> int:
                 **{path: n[row["name"]]
                    for path, n in split_launches.items()},
                 "export": export_launches[row["name"]],
+                **{path: n[row["name"]]
+                   for path, n in write_launches.items()},
             }
-        print(json.dumps({"kernels": rows}), flush=True)
+        for row in write_rows:
+            row["launches_by_path"] = {path: n[row["name"]]
+                                       for path, n in write_launches.items()}
+        print(json.dumps({"kernels": rows + write_rows}), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"ok": True, "device": {

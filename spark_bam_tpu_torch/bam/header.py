@@ -1,8 +1,9 @@
 """BAM header: magic, SAM text, contig dictionary (reference
 bam/header/Header.scala). Only what the port's paths need is kept: the
 contig names and lengths, the header's size in uncompressed bytes (the
-flat offset of the first record) and ``end_pos``, the first record's
-virtual position, which owns the first split."""
+flat offset of the first record), ``end_pos``, the first record's
+virtual position, which owns the first split, and the SAM text, which the
+write path copies."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from spark_bam_tpu_torch.bgzf.block import FOOTER_SIZE, HEADER_SIZE, parse_header
-from spark_bam_tpu_torch.core.channel import open_channel
+from spark_bam_tpu_torch.core.channel import FileChannel, open_channel
 from spark_bam_tpu_torch.core.pos import Pos
 
 
@@ -30,6 +31,7 @@ class BamHeader:
     # start when the header ends on a block's end; Pos(0, 0) for a BAM
     # with no records (the reference's convention).
     end_pos: Pos = Pos(0, 0)
+    text: str = ""              # the SAM text, trailing NULs stripped
 
 
 class _Inflated:
@@ -79,23 +81,30 @@ class _Inflated:
 
 
 def read_header(path) -> BamHeader:
+    """The header of the BAM at ``path`` (or on an open channel)."""
+    if isinstance(path, FileChannel):
+        return _parse(path, path.path)
     with open_channel(path) as ch:
-        u = _Inflated(ch)
-        if u.read(4) != b"BAM\x01":
-            raise BamHeaderError(f"{path}: not a BAM (bad magic)")
-        text_len = u.i32()
-        if text_len < 0:
-            raise BamHeaderError(f"negative header text length {text_len}")
-        u.read(text_len)
-        num_refs = u.i32()
-        if num_refs < 0:
-            raise BamHeaderError(f"negative reference count {num_refs}")
-        names, lengths = [], []
-        for _ in range(num_refs):
-            name_len = u.i32()
-            if name_len < 0:
-                raise BamHeaderError(f"negative name length {name_len}")
-            names.append(u.read(name_len).rstrip(b"\x00").decode("latin-1"))
-            lengths.append(u.i32())
-        return BamHeader(tuple(names), np.array(lengths, dtype=np.int32),
-                         u.off, u.cur_pos())
+        return _parse(ch, path)
+
+
+def _parse(ch, path) -> BamHeader:
+    u = _Inflated(ch)
+    if u.read(4) != b"BAM\x01":
+        raise BamHeaderError(f"{path}: not a BAM (bad magic)")
+    text_len = u.i32()
+    if text_len < 0:
+        raise BamHeaderError(f"negative header text length {text_len}")
+    text = u.read(text_len).decode("latin-1").rstrip("\x00")
+    num_refs = u.i32()
+    if num_refs < 0:
+        raise BamHeaderError(f"negative reference count {num_refs}")
+    names, lengths = [], []
+    for _ in range(num_refs):
+        name_len = u.i32()
+        if name_len < 0:
+            raise BamHeaderError(f"negative name length {name_len}")
+        names.append(u.read(name_len).rstrip(b"\x00").decode("latin-1"))
+        lengths.append(u.i32())
+    return BamHeader(tuple(names), np.array(lengths, dtype=np.int32),
+                     u.off, u.cur_pos(), text)

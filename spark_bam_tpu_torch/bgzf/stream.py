@@ -1,12 +1,16 @@
-"""Seekable BGZF byte streams over a local file (reference ``spark_bam_tpu/
-bgzf/stream.py``), inflated block by block with host zlib: what the exact
-decode of spilled records reads from.
+"""BGZF block streams and uncompressed-byte views over a local file
+(reference ``spark_bam_tpu/bgzf/stream.py``), inflated block by block with
+host zlib: what the write path's record stream and the exact decode of
+spilled records read from.
 
-- ``SeekableBlockStream``: the block at a compressed offset, and the ones
-  after it, through an LRU cache of 100 inflated blocks (reference
-  Stream.scala:83-92).
-- ``SeekableUncompressedBytes``: the uncompressed bytes from a virtual
-  position ``Pos(block, offset)`` on, across block boundaries.
+- ``BlockStream``: the inflated blocks in file order, each checked against
+  its ISIZE and CRC-32 (strict: a damaged block raises);
+- ``SeekableBlockStream``: the same from any compressed offset, through an
+  LRU cache of 100 inflated blocks (reference Stream.scala:83-92);
+- ``UncompressedBytes``: the uncompressed bytes across block boundaries,
+  with the virtual position of the next byte (``cur_pos``);
+- ``SeekableUncompressedBytes``: the same from a virtual position
+  ``Pos(block, offset)`` on.
 """
 
 from __future__ import annotations
@@ -18,17 +22,14 @@ from spark_bam_tpu_torch.bgzf.block import FOOTER_SIZE, HEADER_SIZE, BgzfError, 
 from spark_bam_tpu_torch.core.pos import Pos
 
 
-class SeekableBlockStream:
-    """Inflated blocks of a channel by compressed offset. ``next_block``
-    returns ``(data, start)`` of the block at the cursor and moves past it,
-    or None at the file's end or its empty EOF block."""
-
-    MAX_CACHE_SIZE = 100
+class BlockStream:
+    """Inflated blocks of a channel from a compressed offset on.
+    ``next_block`` returns ``(data, start)`` of the block at the cursor and
+    moves past it, or None at the file's end or its empty EOF block."""
 
     def __init__(self, ch):
         self.ch = ch
         self.pos = 0
-        self._cache: OrderedDict[int, tuple[bytes, int]] = OrderedDict()
 
     def _read_block(self, start: int) -> tuple[bytes, int] | None:
         """``(data, compressed_size)`` of the block at ``start``; None at the
@@ -58,6 +59,29 @@ class SeekableBlockStream:
 
     def next_block(self) -> tuple[bytes, int] | None:
         start = self.pos
+        hit = self._read_block(start)
+        if hit is None:
+            return None
+        data, csize = hit
+        self.pos = start + csize
+        return data, start
+
+    def close(self) -> None:
+        self.ch.close()
+
+
+class SeekableBlockStream(BlockStream):
+    """``BlockStream`` with an LRU cache of inflated blocks, for readers
+    that seek back and forth."""
+
+    MAX_CACHE_SIZE = 100
+
+    def __init__(self, ch):
+        super().__init__(ch)
+        self._cache: OrderedDict[int, tuple[bytes, int]] = OrderedDict()
+
+    def next_block(self) -> tuple[bytes, int] | None:
+        start = self.pos
         hit = self._cache.get(start)
         if hit is None:
             hit = self._read_block(start)
@@ -72,29 +96,35 @@ class SeekableBlockStream:
         self.pos = start + csize
         return data, start
 
-    def close(self) -> None:
-        self.ch.close()
 
+class UncompressedBytes:
+    """The uncompressed bytes of a block stream, read across block
+    boundaries (empty blocks skipped). ``tell`` counts the bytes read or
+    skipped since construction (or the last seek)."""
 
-class SeekableUncompressedBytes:
-    """The uncompressed bytes of a block stream, addressable by virtual
-    position; reads cross block boundaries and skip empty blocks."""
-
-    def __init__(self, stream: SeekableBlockStream):
+    def __init__(self, stream: BlockStream):
         self.stream = stream
         self._data = b""
+        self._start = stream.pos
         self._idx = 0
         self._linear = 0
 
-    def seek(self, pos: Pos) -> None:
-        self.stream.seek(pos.block_pos)
+    def _advance(self) -> bool:
         blk = self.stream.next_block()
-        self._data = blk[0] if blk is not None else b""
-        self._idx = pos.offset
-        self._linear = 0
+        if blk is None:
+            return False
+        self._data, self._start = blk
+        self._idx = 0
+        return True
+
+    def cur_pos(self) -> Pos | None:
+        """The virtual position of the next byte; None at the end."""
+        while self._idx >= len(self._data):
+            if not self._advance():
+                return None
+        return Pos(self._start, self._idx)
 
     def tell(self) -> int:
-        """Bytes read or skipped since the last ``seek``."""
         return self._linear
 
     def skip(self, n: int) -> int:
@@ -103,10 +133,8 @@ class SeekableUncompressedBytes:
         skipped = 0
         while n > 0:
             if self._idx >= len(self._data):
-                blk = self.stream.next_block()
-                if blk is None:
+                if not self._advance():
                     break
-                self._data, self._idx = blk[0], 0
                 continue
             take = min(n, len(self._data) - self._idx)
             self._idx += take
@@ -117,13 +145,16 @@ class SeekableUncompressedBytes:
 
     def read(self, n: int) -> bytes:
         """Up to ``n`` bytes from the cursor (short at the end of file)."""
+        idx = self._idx
+        if idx + n <= len(self._data):   # inside the current block
+            self._idx = idx + n
+            self._linear += n
+            return self._data[idx: idx + n]
         out = bytearray()
         while n > 0:
             if self._idx >= len(self._data):
-                blk = self.stream.next_block()
-                if blk is None:
+                if not self._advance():
                     break
-                self._data, self._idx = blk[0], 0
                 continue
             take = min(n, len(self._data) - self._idx)
             out += self._data[self._idx: self._idx + take]
@@ -132,5 +163,25 @@ class SeekableUncompressedBytes:
         self._linear += len(out)
         return bytes(out)
 
+    def read_fully(self, n: int) -> bytes:
+        data = self.read(n)
+        if len(data) != n:
+            raise EOFError(f"wanted {n} bytes, got {len(data)}")
+        return data
+
+    def read_i32(self) -> int:
+        return int.from_bytes(self.read_fully(4), "little", signed=True)
+
     def close(self) -> None:
         self.stream.close()
+
+
+class SeekableUncompressedBytes(UncompressedBytes):
+    """``UncompressedBytes`` addressable by virtual position."""
+
+    def seek(self, pos: Pos) -> None:
+        self.stream.seek(pos.block_pos)
+        blk = self.stream.next_block()
+        self._data, self._start = blk if blk is not None else (b"", pos.block_pos)
+        self._idx = pos.offset
+        self._linear = 0

@@ -44,6 +44,16 @@ codec; ``-m`` changes nothing, as the frames follow the row target. Bad
 loci, columns or specs are usage errors before any work; Arrow and
 Parquet need ``pyarrow``.
 
+``rewrite IN OUT [-b PAYLOAD] [--level N] [-i] [--deflate SPEC]`` (alias
+``htsjdk-rewrite``) writes every record of ``IN`` again into ``OUT``,
+re-blocked at ``PAYLOAD`` uncompressed bytes a member, compressed by the
+deflate spec's codec (host zlib at ``--level`` by default; ``mode=stored``
+or ``mode=fixed`` members from the card's CRC-32 and fixed-Huffman
+lanes), and with ``-i`` its ``.blocks``, ``.records`` and ``.sbi``
+sidecars from the packing metadata; it prints the reference's ``Wrote N
+reads to OUT`` lines. ``--deflate`` (or ``SPARK_BAM_DEFLATE``) is checked
+before any work; its ``device=auto`` means the card here, as ``on`` does.
+
 Every command runs on the CUDA device unless ``--device`` names another;
 ``--sharded`` meshes are every visible CUDA device, or ``--devices N``
 entries of ``--device`` (``--device cpu --devices 4``: a 4-entry CPU mesh).
@@ -65,6 +75,7 @@ from spark_bam_tpu_torch.bgzf.flat import metas_block_table, pos_of_flat_tables
 from spark_bam_tpu_torch.bgzf.index_blocks import blocks_metadata
 from spark_bam_tpu_torch.check.flags import FLAG_NAMES, bit_counts
 from spark_bam_tpu_torch.agg.plan import AggConfig
+from spark_bam_tpu_torch.compress.config import DeflateConfig
 from spark_bam_tpu_torch.core.config import Config, format_bytes, parse_bytes
 from spark_bam_tpu_torch.core.stats import Stats, format_bytes_binary
 from spark_bam_tpu_torch.load import api
@@ -485,6 +496,31 @@ def export(path, out_path: str, fmt: str = "native", loci: str | None = None,
     return summary
 
 
+def rewrite(in_path, out_path, block_payload="65280", level: int = 6,
+            index: bool = False, device=None, out=None,
+            config: Config | None = None):
+    """One rewrite (reference ``cli/rewrite.py::run``) and its lines;
+    returns the ``RewriteResult``."""
+    from spark_bam_tpu_torch.rewrite import rewrite_bam
+
+    p = Printer(out=out)
+    config = Config() if config is None else config
+    try:
+        payload = parse_bytes(block_payload)
+        DeflateConfig.parse(config.deflate)
+    except ValueError as e:
+        raise UsageError(str(e)) from e
+    res = rewrite_bam(in_path, out_path, block_payload=payload, level=level,
+                      deflate=config.deflate, index=index, config=config,
+                      device=device)
+    p.echo(f"Wrote {res.count} reads to {out_path}")
+    if index:
+        p.echo(f"Indexed {res.n_blocks} blocks, {res.count} records")
+        if "sbi" in res.sidecars:
+            p.echo(f"Split index: {res.sidecars['sbi']}")
+    return res
+
+
 def _print_splits(p: Printer, splits: list[Split], ratio: float) -> None:
     stats = Stats([s.length(ratio) for s in splits])
     p.echo("Split-size distribution:", stats.show(), "")
@@ -663,12 +699,13 @@ def _positive_int(s: str) -> int:
 
 
 def _config(args) -> Config:
-    """``SPARK_BAM_CACHE`` and ``SPARK_BAM_COLUMNAR``, then the command's
-    flags: the split size, the checker knobs, ``--cache`` and
-    ``--columnar`` (a bad size or cache spec is a usage error)."""
+    """``SPARK_BAM_CACHE``, ``SPARK_BAM_COLUMNAR`` and
+    ``SPARK_BAM_DEFLATE``, then the command's flags: the split size, the
+    checker knobs, ``--cache``, ``--columnar`` and ``--deflate`` (a bad
+    size, cache or deflate spec is a usage error)."""
     kw = {}
     for knob in ("bgzf_blocks_to_check", "reads_to_check", "max_read_size",
-                 "cache", "columnar"):
+                 "cache", "columnar", "deflate"):
         value = getattr(args, knob, None)
         if value is not None:
             kw[knob] = value
@@ -678,6 +715,7 @@ def _config(args) -> Config:
             kw["split_size"] = parse_bytes(split)
         config = dataclasses.replace(Config.from_env(), **kw)
         CacheMode.parse(config.cache)
+        DeflateConfig.parse(config.deflate)
     except ValueError as e:
         raise UsageError(str(e)) from e
     return config
@@ -780,7 +818,28 @@ def main(argv=None) -> int:
              "columns=flag+pos+name' (SPARK_BAM_COLUMNAR works too)")
     ex.add_argument("-o", "--out", dest="export_out", required=True,
                     help="output file path")
-    for p in (ag, cs, ix, ex):
+    rw = sub.add_parser(
+        "rewrite", aliases=["htsjdk-rewrite"],
+        help="write a BAM's records again: re-blocked, recompressed")
+    _add_knobs(rw, "split size of the .sbi sidecar's plan (byte shorthand "
+                   "like 2MB ok; default 32MB)")
+    _add_cache(rw)
+    rw.add_argument("-b", "--block-payload", default="65280",
+                    help="uncompressed bytes a BGZF member (default 65280)")
+    rw.add_argument("--level", type=int, default=6,
+                    help="zlib level of the host codec (default 6)")
+    rw.add_argument(
+        "-i", "--index", action="store_true",
+        help="also write the .blocks, .records and .sbi sidecars of the "
+             "output, from the packing metadata (no re-read)")
+    rw.add_argument(
+        "--deflate", default=None, metavar="SPEC",
+        help="write-path codec, e.g. 'mode=fixed,lanes=16,device=auto': "
+             "stored or fixed-Huffman members from the card's lanes, host "
+             "zlib when off (SPARK_BAM_DEFLATE works too)")
+    rw.add_argument("in_path")
+    rw.add_argument("out_path")
+    for p in (ag, cs, ix, ex, rw):
         p.add_argument("--device", default=None,
                        help="torch device (default: the current CUDA device)")
     for p in (ib, ir):
@@ -836,6 +895,9 @@ def _run(args) -> int:
     elif args.cmd == "export":
         export(args.path, args.export_out, args.format, args.intervals,
                args.columns, args.device, config=config)
+    elif args.cmd in ("rewrite", "htsjdk-rewrite"):
+        rewrite(args.in_path, args.out_path, args.block_payload, args.level,
+                args.index, args.device, config=config)
     elif args.cmd == "aggregate":
         out = open(args.out, "w") if args.out else None
         try:

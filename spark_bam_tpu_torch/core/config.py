@@ -1,7 +1,8 @@
 """Typed configuration: the subset of the ``spark.bam.*`` knobs that the
-count-reads, full-check, load, aggregate, split-planning and export paths
-read, under the reference package's names and defaults, with the byte-size
-shorthand (``parse_bytes``, ``format_bytes``) the split sizes take.
+count-reads, full-check, load, aggregate, split-planning, export and write
+paths read, under the reference package's names and defaults, with the
+byte-size shorthand (``parse_bytes``, ``format_bytes``) the split sizes
+take.
 
 Values this port cannot serve yet raise ``ValueError`` naming what will
 serve them, so a run never silently takes another path than asked for.
@@ -154,6 +155,11 @@ class Config:
     # command ("rows=8192,codec=zlib,level=6,columns=flag+pos+name"; "" =
     # defaults); ``columnar_config`` parses it.
     columnar: str = ""
+    # Compact DeflateConfig spec of the write path ("mode=fixed,level=6,
+    # lanes=16,device=auto"; "" = host zlib): the block codec behind
+    # ``bam.writer.write_bam_result`` and the rewrite command;
+    # ``deflate_config`` parses it.
+    deflate: str = ""
 
     #: The load path's raw split size (hadoop's file-split default).
     LOAD_SPLIT_SIZE_DEFAULT = 32 << 20
@@ -176,12 +182,13 @@ class Config:
         return self.split_size if self.split_size is not None else default
 
     #: The knobs ``from_env`` reads, as ``SPARK_BAM_<KNOB>``.
-    ENV_KNOBS = ("cache", "columnar")
+    ENV_KNOBS = ("cache", "columnar", "deflate")
 
     @classmethod
     def from_env(cls, env=None) -> "Config":
-        """The defaults with ``SPARK_BAM_CACHE`` as the ``cache`` spec and
-        ``SPARK_BAM_COLUMNAR`` as the ``columnar`` spec, as the
+        """The defaults with ``SPARK_BAM_CACHE`` as the ``cache`` spec,
+        ``SPARK_BAM_COLUMNAR`` as the ``columnar`` spec and
+        ``SPARK_BAM_DEFLATE`` as the ``deflate`` spec, as the
         reference's ``Config.from_env`` maps them (the store's
         ``SPARK_BAM_CACHE_DIR`` and ``SPARK_BAM_CACHE_BUDGET`` are read by
         ``sbi.store.CacheStore.from_env``)."""
@@ -201,6 +208,13 @@ class Config:
         from spark_bam_tpu_torch.columnar.config import ColumnarConfig
 
         return ColumnarConfig.parse(self.columnar)
+
+    @property
+    def deflate_config(self):
+        """The parsed ``DeflateConfig`` of this config's ``deflate`` spec."""
+        from spark_bam_tpu_torch.compress.config import DeflateConfig
+
+        return DeflateConfig.parse(self.deflate)
 
     @property
     def agg_config(self):

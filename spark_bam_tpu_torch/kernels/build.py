@@ -38,6 +38,8 @@ SIGNATURES = {
     "sbt_full_flags": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _U, _U, _P, _P],
     "sbt_lz77_resolve": [_P, _P, _I, _P, _P, _P],
     "sbt_tokenize": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "sbt_crc32_lanes": [_P, _P, _I, _P, _P, _P],
+    "sbt_deflate_fixed_lanes": [_P, _P, _I, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -55,7 +55,9 @@ _EPOCHS = 1 << 32
 DOUBLING_ROUNDS = (STRIDE - 1).bit_length()
 
 LAUNCHES = {"prefilter_check_flags": 0, "full_check_flags": 0,
-            "lz77_resolve": 0, "tokenize": 0}
+            "lz77_resolve": 0, "tokenize": 0,
+            # the write path's lanes (compress/kernels.py)
+            "crc32_lanes": 0, "deflate_fixed_lanes": 0}
 #: Launches recorded into CUDA graphs being captured (none of them ran).
 CAPTURED = dict.fromkeys(LAUNCHES, 0)
 

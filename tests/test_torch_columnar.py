@@ -12,6 +12,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 from spark_bam_tpu.columnar import native as jn
 from spark_bam_tpu.columnar import schema as js
@@ -312,11 +313,16 @@ def test_zlib_stream_equals_jax_and_round_trips(name):
 
 @pytest.mark.parametrize("spec", ["fixed", "mode=auto", "mode=stored,device=on"])
 def test_device_deflate_spec_raises(spec, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """A spec that turns the device lanes on resolves to CUDA and raises
+    without a card: no host fallback. On the CPU's plain lanes it gives
+    the host stream's bytes."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
         encode_zlib_stream(b"abc", spec)
     monkeypatch.setenv("SPARK_BAM_DEFLATE", spec)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         encode_zlib_stream(b"abc")
+    assert encode_zlib_stream(b"abc", device="cpu") == ph.zlib_stream(b"abc")
 
 
 def test_config_reads_spark_bam_columnar():

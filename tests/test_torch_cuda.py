@@ -7,6 +7,7 @@ tests/test_torch_cuda.py``). Comparisons are exact.
 """
 
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -842,3 +843,149 @@ def test_export_long_reads_on_gpu_equals_cpu(gpu, tmp_path, columnar):
     pos = np.concatenate([b.columns["pos"] for b in
                           NativeReader(blob).iter_batches()])
     assert sorted(pos.tolist()) == sorted(record_positions(m))
+
+
+# ---------------------------------------------------------------- write path
+
+
+def _lanes_on(payloads, dev):
+    from spark_bam_tpu_torch.compress import kernels as CK
+
+    data, lengths, _ = CK.pack_lanes(payloads, pin=True)
+    return data.to(dev), lengths.to(dev)
+
+
+@pytest.mark.parametrize("b", [1, 12, 16])
+def test_write_lanes_match_plain(gpu, b):
+    """Both write-path kernels against their plain versions on the same
+    card tensors, bit for bit: the whole packed plane, total_bits and the
+    CRC (zero-length and overflowing lanes included), and against zlib's
+    CRC-32 and the host fixed_pack."""
+    import zlib as _zlib
+
+    from spark_bam_tpu_torch.benchmarks.write_cases import lane_batch
+    from spark_bam_tpu_torch.compress import kernels as CK
+    from spark_bam_tpu_torch.compress.huffman import fixed_pack
+
+    payloads = lane_batch(b, seed=3)
+    data, lengths = _lanes_on(payloads, gpu)
+    before = dict(K.LAUNCHES)
+    crc = CK.crc32_lanes(data, lengths)
+    packed, total_bits, crc2 = CK.deflate_fixed_lanes(data, lengths)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["crc32_lanes"] == before["crc32_lanes"] + 1
+    assert (K.LAUNCHES["deflate_fixed_lanes"]
+            == before["deflate_fixed_lanes"] + 1)
+    p_packed, p_bits, p_crc = CK.deflate_fixed_lanes_plain(data, lengths)
+    assert torch.equal(crc, CK.crc32_lanes_plain(data, lengths))
+    assert torch.equal(crc2, p_crc) and torch.equal(crc, crc2)
+    assert torch.equal(total_bits, p_bits)
+    assert torch.equal(packed, p_packed)
+    host = packed.cpu().numpy()
+    for i, p in enumerate(payloads):
+        assert int(crc[i]) == _zlib.crc32(p)
+        want, bits = fixed_pack(p)
+        assert int(total_bits[i]) == bits
+        n = min(len(want), CK.OUT_BYTES)
+        assert host[i, :n].tobytes() == want[:n]
+        assert not host[i, n:].any()
+
+
+def test_write_lane_launch_error_raises(gpu, monkeypatch):
+    """A launch the card refuses (the C entry point returns its
+    cudaGetLastError) raises and is not counted: it never reads as a row
+    of zeros."""
+    from spark_bam_tpu_torch.compress import kernels as CK
+
+    class Refusing:
+        def __getattr__(self, name):
+            return lambda *args: 1   # cudaErrorInvalidValue
+
+    data, lengths = _lanes_on([b"abc", b""], gpu)
+    monkeypatch.setattr(K, "load", lambda: Refusing())
+    before = dict(K.LAUNCHES)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        CK.deflate_fixed_lanes(data, lengths)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        CK.crc32_lanes(data, lengths)
+    assert K.LAUNCHES == before
+
+
+@pytest.mark.parametrize("mode", ["stored", "fixed", "auto"])
+def test_device_codec_members_equal_host(gpu, mode):
+    """The codec's members from the card's lanes equal the host functions'
+    (auto: fixed on the card), with two batches in flight."""
+    from spark_bam_tpu_torch.benchmarks.write_cases import lane_cases
+    from spark_bam_tpu_torch.compress.codec import DeviceDeflateCodec
+    from spark_bam_tpu_torch.compress.config import DeflateConfig
+    from spark_bam_tpu_torch.compress.huffman import (
+        MAX_STORED_PAYLOAD,
+        fixed_member,
+        stored_member,
+    )
+
+    payloads = [p for p in lane_cases(5).values()
+                if len(p) <= MAX_STORED_PAYLOAD]
+    codec = DeviceDeflateCodec(DeflateConfig.parse(f"mode={mode},lanes=4"),
+                               device=gpu)
+    first = codec.dispatch(payloads[:4])
+    second = codec.dispatch(payloads[4:])
+    got = codec.materialize(first) + codec.materialize(second)
+    host = stored_member if mode == "stored" else fixed_member
+    assert got == [host(p) for p in payloads]
+    assert codec.counts["members"] == len(payloads)
+    assert codec.counts["stored"] + codec.counts["fixed"] == len(payloads)
+
+
+def test_zlib_stream_on_gpu_equals_host(gpu):
+    """The device branch of encode_zlib_stream equals zlib_stream, its
+    windows that outgrow a lane's plane re-packed on the host and
+    counted."""
+    import zlib as _zlib
+
+    from spark_bam_tpu_torch.compress import codec
+    from spark_bam_tpu_torch.compress.huffman import (
+        MAX_STORED_PAYLOAD,
+        fixed_pack,
+        zlib_stream,
+    )
+    from spark_bam_tpu_torch.compress.kernels import OUT_BYTES
+
+    rng = np.random.default_rng(4)
+    raw = (rng.integers(32, 127, 150_000, dtype=np.uint8).tobytes()
+           + rng.integers(144, 256, 70_000, dtype=np.uint8).tobytes()
+           + b"ACGT" * 10_000)
+    before = dict(codec.ZLIB_STREAM_COUNTS)
+    got = codec.encode_zlib_stream(raw, "mode=fixed,device=on,lanes=2",
+                                   device=gpu)
+    assert got == zlib_stream(raw)
+    assert _zlib.decompress(got) == raw
+    w = MAX_STORED_PAYLOAD
+    over = sum(fixed_pack(raw[i: i + w])[1] > OUT_BYTES * 8
+               for i in range(0, len(raw), w))
+    assert over == 2
+    assert codec.ZLIB_STREAM_COUNTS["repacks"] == before["repacks"] + over
+
+
+@pytest.mark.parametrize("spec", ["mode=fixed", "mode=stored"])
+def test_rewrite_on_gpu_equals_host(gpu, tmp_path, spec):
+    """``rewrite -i`` on the card: the BAM and its sidecars equal the
+    host functions' (device=off), and the output counts on the card."""
+    from spark_bam_tpu_torch import cli
+
+    src = tmp_path / "src.bam"
+    m = synth_bam(src, 2 << 20, seed=12, unit_reads=1500)
+    K.reset_launch_counts()
+    outs = {}
+    for dev_spec in ("", ",device=off"):
+        out = tmp_path / f"out{len(outs)}.bam"
+        assert cli.main(["rewrite", "-i", "-b", "20000", "--deflate",
+                         spec + dev_spec, str(src), str(out)]) == 0
+        outs[dev_spec] = out
+    kernel = "deflate_fixed_lanes" if spec == "mode=fixed" else "crc32_lanes"
+    assert K.LAUNCHES[kernel] > 0
+    a, b_ = outs[""], outs[",device=off"]
+    for ext in ("", ".blocks", ".records"):
+        assert (Path(str(a) + ext).read_bytes()
+                == Path(str(b_) + ext).read_bytes())
+    assert StreamChecker(a, Config()).count_reads() == m["reads"]

@@ -19,6 +19,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from spark_bam_tpu.bam.bai import index_bam
 from spark_bam_tpu.cli.main import main as jax_main
@@ -258,8 +259,12 @@ def test_sam_and_cram_raise(tmp_path, path):
 
 def test_device_deflate_raises_and_leaves_no_file(bams, tmp_path,
                                                   monkeypatch):
+    """A ``SPARK_BAM_DEFLATE`` that turns the device lanes on resolves them
+    to CUDA; without a card the export raises, with no host fallback, and
+    leaves no file."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setenv("SPARK_BAM_DEFLATE", "mode=fixed")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         api.export(bams[0], str(tmp_path / "o"), device="cpu",
                    config=Config(columnar="codec=deflate"))
     assert not list(tmp_path.iterdir())
