@@ -102,7 +102,8 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    resolutions on the card with each one's ms, and the streaming starts;
    launches, peak host RSS and device memory; the sidecar's starts = the
    generator's manifest, every resolved plan start a manifest start, the
-   first the header's end); ``compute-splits -s -m 32MB`` cold with the
+   first the header's end); ``index -m 2MB`` (the plan alone, merged into
+   that sidecar for phase 13); ``compute-splits -s -m 32MB`` cold with the
    cache off, then warm with ``--cache read`` (equal splits, zero launches,
    zero resolutions); the aggregate warm from the sidecar (= phase 9's
    result, zero launches; its wall beside phase 9's); on the small BAM,
@@ -149,8 +150,27 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    with ``codec=deflate`` under ``SPARK_BAM_DEFLATE=mode=fixed`` =
    ``device=off``.
 
+13. The serve daemon (``serve_phase``): ``SplitService`` behind a
+   ``ServerThread`` on a unix socket, queried by ``ServeClient``s in
+   threads. Service A (``window=24MB,halo=4MB,batch=4,tick=2,workers=4,
+   cache=2GB``, the ``.sbi`` cache of phase 10) on the 1 GiB BAM: a
+   whole-file ``count`` (= the manifest's, no escape; its wall, ticks,
+   device ms a tick by CUDA events, and one row's launches by
+   torch.profiler), 16 ``count``s over compressed ranges from 4 clients
+   (summing to it), ``plan`` at 32 MiB and 2 MiB warm (= phase 10's plans,
+   zero split resolutions), ``record_starts`` warm and ``aggregate`` (=
+   phase 9's vectors). Service B (the reference defaults) on the 40 MiB,
+   long-read and unmapped BAMs: 8 clients' mixed counts (each = the
+   generator's; ticks of more than one row; latency p50 and p99), ``fleet``,
+   the long reads' escape to the exact count, ``batch`` over sockets and
+   shm = ``export``'s file byte for byte (unfiltered, loci and flags, an
+   empty flag filter), ``aggregate`` = ``aggregate``, ``Overloaded`` at
+   ``scan_queue=1``, a ``deadline_ms`` shed, ``drain``; its count, plan,
+   batch and aggregate responses = the same service's on a CPU mesh. A
+   count with ``--funnel off`` runs its rows through ``full_check_flags``.
+
 Launch counters are set to 0 just before each main path (3, 4, 6, 7, 8,
-9, 10, 11, 12) and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
+9, 10, 11, 12, 13) and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
 and, last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero; without CUDA, or without the package beside
 it, it exits non-zero before printing a result.
@@ -998,9 +1018,9 @@ def _report_lines(out) -> list[str]:
 
 def split_phase(port, bam, manifest, small, work, card, agg_ref) -> dict:
     """Phase 10, split planning with the ``.sbi`` cache (under a temporary
-    ``SPARK_BAM_CACHE_DIR``); returns the kernel launches of its three
-    1 GiB paths: the cold ``index --record-starts``, the cold
-    ``compute-splits -s`` and the warm aggregate."""
+    ``SPARK_BAM_CACHE_DIR``); returns the kernel launches of its four
+    1 GiB paths: the cold ``index --record-starts``, the cold ``index -m
+    2MB``, the cold ``compute-splits -s`` and the warm aggregate."""
     import io
 
     from spark_bam_tpu_torch import cli
@@ -1079,6 +1099,32 @@ def split_phase(port, bam, manifest, small, work, card, agg_ref) -> dict:
             f"{os.path.getsize(dest)} bytes, {len(sbi.record_starts)} starts "
             f"= the manifest's, {len(entries)} plan entries ({card})")
         log("  " + out.getvalue().strip())
+
+        # ---- 1b. index -m 2MB (the plan alone), merged into the sidecar:
+        # phase 13 serves both plans warm from it ------------------------
+        K.reset_launch_counts()
+        boundary.STATS.reset()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        cli.index(bam, 2 << 20, port.Config(), out=out)
+        torch.cuda.synchronize()
+        index2_s = time.perf_counter() - t0
+        paths["index_2mb_cold"] = dict(K.LAUNCHES)
+        sbi2 = decode_sbi(open(dest, "rb").read())
+        entries2 = sbi2.split_plans[2 << 20]
+        require(split in sbi2.split_plans and np.array_equal(
+            sbi2.record_starts, sbi.record_starts), "merge lost a section")
+        resolved2 = [table.flat_of_pos(*e.pos) for e in entries2
+                     if e.kind == PLAN_POS]
+        require(len(resolved2) >= len(entries2) - 1 and
+                np.isin(resolved2, truth).all(), "a 2 MiB plan start is no "
+                                                 "record")
+        log(f"index -m 2MB, 1 GiB, cold: {index2_s:.3f} s, "
+            f"{boundary.STATS.resolutions} boundary resolutions (median "
+            f"{statistics.median(boundary.STATS.ms):.2f} ms); launches "
+            f"{paths['index_2mb_cold']}; every resolved start a manifest "
+            f"start ({card})")
+        del sbi2, entries2, resolved2
 
         # ---- 2. compute-splits -s -m 32MB, cold (cache off), then warm ---
         reports = []
@@ -1675,6 +1721,404 @@ def write_phase(port, bam, manifest, small, small_manifest, work,
     return rows, paths
 
 
+def _served(resp: dict) -> bytes:
+    """A response as the wire encodes it, without its id, transport and
+    timing fields, with its frames appended."""
+    from spark_bam_tpu_torch.serve import encode
+
+    frames = b"".join(bytes(f) for f in resp.get("_binary") or ())
+    keep = {k: v for k, v in resp.items()
+            if k not in ("id", "_binary", "_transport", "devices",
+                         "latency_p50_ms", "latency_p99_ms")}
+    return encode(keep) + frames
+
+
+def _range_truth(path, starts: np.ndarray, header_end: int, lo_c: int,
+                 hi_c: int) -> int:
+    """Records whose flat start lies in the blocks whose compressed starts
+    fall in [lo_c, hi_c): the generator's count for a serve range."""
+    from spark_bam_tpu_torch.bgzf.flat import metas_block_table
+    from spark_bam_tpu_torch.bgzf.index_blocks import blocks_metadata
+
+    bs, bf = metas_block_table(blocks_metadata(path))
+    end = np.iinfo(np.int64).max   # past any flat offset
+    i, j = np.searchsorted(bs, [lo_c, hi_c], side="left")
+    lo = max(header_end, int(bf[i]) if i < len(bf) else end)
+    hi = int(bf[j]) if j < len(bf) else end
+    return int(np.count_nonzero((starts >= lo) & (starts < max(lo, hi))))
+
+
+def _row_cost(svc, path: str) -> tuple[int, int, float]:
+    """One row of a service's serve step (the file's first window) on the
+    main thread: ``cudaLaunchKernel`` calls and device kernels
+    (torch.profiler) and its card time (CUDA events)."""
+    from torch.autograd import DeviceType
+
+    dev = svc.device
+    fs = svc.file_state(path)
+    step = svc.steps.serve_step(reads_to_check=10, funnel=True)
+    n = min(svc.serve_cfg.window, fs.flat.size)
+    row = torch.zeros((1, svc.batcher.width), dtype=torch.uint8, device=dev)
+    row[0, :n] = torch.from_numpy(fs.flat.data[:n]).to(dev)
+    cols = ([n], [n == fs.flat.size], [fs.header_end],
+            [n - svc.serve_cfg.halo], fs.lengths[None, :], [fs.nc])
+
+    def one_row():
+        return step([row], *cols)
+
+    one_row()
+    row_ms = cuda_ms(one_row, reps=5)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        one_row()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    host_launches = sum(e.count for e in ka
+                        if e.key.startswith("cudaLaunchKernel"))
+    dev_kernels = sum(e.count for e in ka
+                      if getattr(e, "device_type", None) == DeviceType.CUDA)
+    return host_launches, dev_kernels, row_ms
+
+
+def serve_phase(port, bam, manifest, small, small_manifest, long_bam,
+                long_manifest, work, card, agg_ref) -> dict:
+    """Phase 13, the serve daemon on the card; returns the kernel launches
+    of its three paths: service A on the 1 GiB BAM, service B on the small
+    BAMs, and a count with the funnel off."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spark_bam_tpu_torch import obs
+    from spark_bam_tpu_torch.agg.plan import AggConfig, encode_result
+    from spark_bam_tpu_torch.bam.header import read_header
+    from spark_bam_tpu_torch.benchmarks import agg_cases
+    from spark_bam_tpu_torch.benchmarks.synth import record_flat_starts
+    from spark_bam_tpu_torch.parallel.mesh import local_mesh
+    from spark_bam_tpu_torch.sbi.format import PLAN_NONE, PLAN_POS, decode_sbi
+    from spark_bam_tpu_torch.sbi.store import CacheStore
+    from spark_bam_tpu_torch.serve import (
+        ServeClient,
+        ServeClientError,
+        ServerThread,
+        SplitService,
+    )
+    from spark_bam_tpu_torch.tpu import kernels as K
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    paths: dict = {}
+    want = manifest["reads"]
+    os.environ["SPARK_BAM_CACHE_DIR"] = str(work / "sbi_cache")
+    reg = obs.configure()
+    try:
+        # ---- service A: the 1 GiB BAM, warm from phase 10's sidecar -----
+        sidecar = decode_sbi(open(CacheStore.from_env().sidecar_path(bam),
+                                  "rb").read())
+        plans = {size: sidecar.split_plans[size]
+                 for size in (32 << 20, 2 << 20)}
+        spec_a = "window=24MB,halo=4MB,batch=4,tick=2,workers=4,cache=2GB"
+        svc = SplitService(port.Config(serve=spec_a, cache="readwrite"))
+        require(svc.mesh.devices[0] == dev, svc.mesh)
+        tick_ms: list = []
+        real_step = svc.batcher._step
+
+        def timed_step(*a):
+            stream = torch.cuda.current_stream(dev)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record(stream)
+            out = real_step(*a)
+            e.record(stream)
+            e.synchronize()
+            tick_ms.append(s.elapsed_time(e))
+            return out
+
+        svc.batcher._step = timed_step
+        try:
+            # Relative: a socket path holds at most 107 bytes.
+            sock_a = os.path.relpath(work / "serve_a.sock")
+            with ServerThread(svc, f"unix:{sock_a}") as srv, \
+                    ServeClient(srv.address) as c:
+                K.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                first = c.request("count", path=str(bam))
+                cold_s = time.perf_counter() - t0
+                n_ticks = sum(svc.batcher.batch_sizes.values())
+                rows_a = sum(k * v for k, v in svc.batcher.batch_sizes.items())
+                ticks_first = list(tick_ms)
+                t0 = time.perf_counter()
+                again = c.request("count", path=str(bam))
+                warm_s = time.perf_counter() - t0
+                require(first["count"] == want and first["escaped"] == 0
+                        and not first["exact_fallback"], first)
+                require(_served(again) == _served(first), again)
+                size = os.path.getsize(bam)
+                edges = [size * k // 16 for k in range(17)]
+
+                def ranged(k):
+                    with ServeClient(srv.address) as ck:
+                        return ck.request("count", path=str(bam),
+                                          start=edges[k], end=edges[k + 1])
+
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(4) as ex:
+                    parts = list(ex.map(ranged, range(16)))
+                ranges_s = time.perf_counter() - t0
+                require(sum(p["count"] for p in parts) == want
+                        and not any(p["escaped"] for p in parts),
+                        [p["count"] for p in parts])
+                res0 = reg.counter("load.split_resolutions").value
+                plan_s = {}
+                for split_size, entries in plans.items():
+                    t0 = time.perf_counter()
+                    resp = c.request("plan", path=str(bam),
+                                     split_size=split_size)
+                    plan_s[split_size] = time.perf_counter() - t0
+                    got = [(s["start"], s["pos"]) for s in resp["splits"]]
+                    exp = [(e.file_start,
+                            [e.pos.block_pos, e.pos.offset]
+                            if e.kind == PLAN_POS else None)
+                           for e in entries]
+                    require(all(e.kind in (PLAN_POS, PLAN_NONE)
+                                for e in entries), "unresolved plan entry")
+                    require(got == exp, f"plan at {split_size} != phase 10's")
+                stats = c.request("stats")
+                require(stats["split_resolutions"] == res0 == 0,
+                        f"warm plans resolved {stats['split_resolutions']}")
+                t0 = time.perf_counter()
+                rs = c.request("record_starts", path=str(bam), limit=3)
+                rs_s = time.perf_counter() - t0
+                hdr = read_header(bam)
+                require(rs["count"] == want and rs["vpos"][0] ==
+                        hdr.end_pos.to_htsjdk(), rs)
+                t0 = time.perf_counter()
+                agg = c.request("aggregate", path=str(bam))
+                agg_s = time.perf_counter() - t0
+                ref = agg_ref["result"]
+                meta, payload = encode_result(
+                    AggConfig.parse(""), len(ref["contigs"]), ref["contigs"],
+                    ref["metrics"])
+                require(agg["rows"] == want and agg["result"] == meta
+                        and b"".join(agg["_binary"]) == payload,
+                        "aggregate over serve != phase 9's vectors")
+                stats = c.request("stats")
+            paths["serve_a"] = dict(K.LAUNCHES)
+            require(paths["serve_a"]["prefilter_check_flags"] >= rows_a
+                    and paths["serve_a"]["full_check_flags"] == 0,
+                    paths["serve_a"])
+            host_launches, dev_kernels, row_ms = _row_cost(svc, str(bam))
+        finally:
+            svc.close()
+        hist = {h["name"]: h for h in reg.snapshot()["hists"]}
+        host_tick = hist["serve.tick.ms"]["values"][:n_ticks]
+        log(f"serve A ({spec_a}, the 1 GiB BAM, warm .sbi): whole-file count "
+            f"{first['count']} in {cold_s:.3f} s with the first touch "
+            f"(flatten), {warm_s:.3f} s warm = {want / warm_s:.0f} reads/s; "
+            f"{n_ticks} ticks of {rows_a} rows (batch sizes "
+            f"{stats['batch_sizes']}); device ms a tick (CUDA events) median "
+            f"{statistics.median(ticks_first):.2f} max "
+            f"{max(ticks_first):.2f}; host ms a tick (upload included) median "
+            f"{statistics.median(host_tick):.2f}; one row: {host_launches} "
+            f"cudaLaunchKernel calls, {dev_kernels} device kernels, "
+            f"{row_ms:.2f} ms (CUDA events); 16 range counts by 4 clients "
+            f"sum to the manifest's in {ranges_s:.3f} s; plans warm at 32 MiB "
+            f"({len(plans[32 << 20])} splits, {plan_s[32 << 20]:.3f} s) and "
+            f"2 MiB ({len(plans[2 << 20])}, {plan_s[2 << 20]:.3f} s) = phase "
+            f"10's with {stats['split_resolutions']} split resolutions; "
+            f"record_starts {rs['count']} warm in {rs_s:.3f} s; aggregate = "
+            f"phase 9's vectors in {agg_s:.3f} s; count rows_per_s "
+            f"{stats['ops']['count']['rows_per_s']}; launches "
+            f"{paths['serve_a']} ({card})")
+
+        # ---- service B: the reference defaults, the small BAMs -----------
+        unmapped = work / "serve_unmapped.bam"
+        n_unmapped = agg_cases.write_unmapped_bam(unmapped, 2000)
+        files = {"small": str(small), "long": str(long_bam),
+                 "unmapped": str(unmapped)}
+        exports = {}
+        loci = "chr2:1-800000"
+        for label, kw in (("all", {}),
+                          (f"{loci}, forbid 0x10",
+                           {"loci": loci, "flags_forbidden": 0x10}),
+                          ("require 0x1", {"flags_required": 0x1})):
+            out = work / f"serve_export_{len(exports)}.sbcr"
+            summary = port.export(small, out, **kw)
+            serve_kw = dict(kw)
+            if "loci" in serve_kw:
+                serve_kw["intervals"] = serve_kw.pop("loci")
+            exports[label] = (serve_kw, out.read_bytes(), summary["rows"])
+            out.unlink()
+        require(0 < exports[f"{loci}, forbid 0x10"][2] <
+                small_manifest["reads"] == exports["all"][2]
+                and exports["require 0x1"][2] == 0,
+                {k: v[2] for k, v in exports.items()})
+        one_shot = port.aggregate(small)
+        truth = record_flat_starts(small_manifest)
+        header_end = read_header(small).uncompressed_size
+        small_size = os.path.getsize(small)
+        svc_b = SplitService(port.Config())
+        svc_cpu = SplitService(port.Config(), mesh=local_mesh(["cpu"]))
+        sock_b = os.path.relpath(work / "serve_b.sock")
+        try:
+            K.reset_launch_counts()
+            with ServerThread(svc_b, f"unix:{sock_b}") as srv:
+
+                def client(i):
+                    rng = np.random.default_rng(100 + i)
+                    lat, bad = [], []
+                    with ServeClient(srv.address) as ci:
+                        for j in range(3):
+                            if j == 0:
+                                lo, hi = 0, small_size
+                                req = {}
+                            else:
+                                lo = int(rng.integers(0, small_size))
+                                hi = lo + small_size // 8
+                                req = {"start": lo, "end": hi}
+                            t0 = time.perf_counter()
+                            r = ci.request("count", path=files["small"], **req)
+                            lat.append((time.perf_counter() - t0) * 1e3)
+                            exp = _range_truth(small, truth, header_end, lo, hi)
+                            if r["count"] != exp:
+                                bad.append((lo, hi, r["count"], exp))
+                    return lat, bad
+
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(8) as ex:
+                    res = list(ex.map(client, range(8)))
+                clients_s = time.perf_counter() - t0
+                lat = sorted(x for r in res for x in r[0])
+                require(not any(r[1] for r in res), [r[1] for r in res])
+                sizes = svc_b.batcher.batch_sizes
+                require(any(k > 1 for k in sizes), f"no coalesced tick: {sizes}")
+                with ServeClient(srv.address) as c:
+                    fleet = c.request("fleet", paths=list(files.values()))
+                    require(fleet["paths"] == {
+                        files["small"]: small_manifest["reads"],
+                        files["long"]: long_manifest["reads"],
+                        files["unmapped"]: n_unmapped}, fleet)
+                    lr = c.request("count", path=files["long"])
+                    require(lr["exact_fallback"] is True and lr["escaped"] > 0
+                            and lr["count"] == long_manifest["reads"], lr)
+                    batch_log = []
+                    for transport in ("socket", "auto"):
+                        with ServeClient(srv.address,
+                                         transport=transport) as ct:
+                            for label, (kw, blob, _) in exports.items():
+                                t0 = time.perf_counter()
+                                r = ct.request("batch", path=files["small"],
+                                               **kw)
+                                s = time.perf_counter() - t0
+                                require(b"".join(bytes(f) for f in
+                                                 r["_binary"]) == blob,
+                                        f"batch [{label}] over {ct.transport}"
+                                        " != export")
+                                batch_log.append(
+                                    f"{label} over {ct.transport} {s:.3f} s")
+                        require(ct.transport == ("socket" if transport ==
+                                                 "socket" else "shm"),
+                                ct.transport)
+                    ag = c.request("aggregate", path=files["small"])
+                    meta, payload = encode_result(
+                        AggConfig.parse(""), len(one_shot["contigs"]),
+                        one_shot["contigs"], one_shot["metrics"])
+                    require(ag["result"] == meta and
+                            b"".join(ag["_binary"]) == payload,
+                            "serve aggregate != aggregate")
+                    # Overloaded at scan_queue=1, a deadline shed, drain.
+                    c.request("tune", scan_queue=1)
+                    svc_b.batcher.pause()
+                    held = svc_b.submit({"op": "count", "path": files["small"]})
+                    time.sleep(0.1)
+                    with ServeClient(srv.address, policy=None) as cf:
+                        try:
+                            cf.request("count", path=files["small"])
+                            require(False, "no Overloaded at scan_queue=1")
+                        except ServeClientError as e:
+                            require(e.error == "Overloaded", e.resp)
+                    svc_b.batcher.resume()
+                    require(held.result(timeout=300)["count"] ==
+                            small_manifest["reads"], "held count")
+                    c.request("tune", scan_queue=64)
+                    svc_b.batcher.pause()
+                    shed = svc_b.submit({"op": "count", "path": files["small"],
+                                         "deadline_ms": 30})
+                    time.sleep(0.3)
+                    svc_b.batcher.resume()
+                    require(shed.result(timeout=300)["error"] ==
+                            "DeadlineExceeded", "deadline shed")
+                    stats_b = c.request("stats")
+                    paths["serve_b"] = dict(K.LAUNCHES)
+                    row_b = _row_cost(svc_b, files["small"])
+                    # Card = CPU on the 40 MiB BAM.
+                    t0 = time.perf_counter()
+                    for req in ({"op": "count", "path": files["small"]},
+                                {"op": "count", "path": files["small"],
+                                 "start": small_size // 3},
+                                {"op": "plan", "path": files["small"],
+                                 "split_size": 4 << 20},
+                                {"op": "batch", "path": files["small"],
+                                 "columns": ["flag", "pos", "name", "cigar"],
+                                 "intervals": "chr1:1-50000000"},
+                                {"op": "aggregate", "path": files["small"],
+                                 "flags_forbidden": 0x10}):
+                        got = _served(c.request(**req))
+                        exp = _served(svc_cpu.submit(dict(req)).result(
+                            timeout=600))
+                        require(got == exp, f"card != CPU on {req}")
+                    cpu_s = time.perf_counter() - t0
+                    c.request("drain")
+                    try:
+                        c.request("count", path=files["small"])
+                        require(False, "a draining service took work")
+                    except ServeClientError as e:
+                        require(e.error == "Draining", e.resp)
+        finally:
+            svc_b.close()
+            svc_cpu.close()
+        require(paths["serve_b"]["prefilter_check_flags"] > 0
+                and paths["serve_b"]["full_check_flags"] > 0, paths["serve_b"])
+        p50 = lat[len(lat) // 2]
+        p99 = lat[min(len(lat) - 1, round(0.99 * (len(lat) - 1)))]
+        log(f"serve B (defaults, 40 MiB + long-read + unmapped BAMs): 8 "
+            f"clients x 3 counts in {clients_s:.3f} s, latency p50 "
+            f"{p50:.1f} ms p99 {p99:.1f} ms (client clock), each = the "
+            f"generator's; one 1 MiB row {row_b[0]} cudaLaunchKernel "
+            f"calls, {row_b[1]} device kernels, {row_b[2]:.2f} ms (CUDA "
+            f"events); batch sizes {stats_b['batch_sizes']}; count "
+            f"rows_per_s {stats_b['ops']['count']['rows_per_s']}; fleet "
+            f"{fleet['total']}; long reads escaped {lr['escaped']} -> exact "
+            f"{lr['count']}; batch = export byte for byte: "
+            + ", ".join(batch_log)
+            + f"; aggregate = aggregate; Overloaded at scan_queue=1, a "
+            f"deadline shed, drain; card = CPU on count, plan, batch and "
+            f"aggregate ({cpu_s:.1f} s with the CPU service); launches "
+            f"{paths['serve_b']} ({card})")
+
+        # ---- the funnel off: count rows through the full flag kernel ----
+        svc_c = SplitService(port.Config(funnel="off"))
+        try:
+            K.reset_launch_counts()
+            r = svc_c.submit({"op": "count", "path": files["small"]}).result(
+                timeout=600)
+            paths["serve_funnel_off"] = dict(K.LAUNCHES)
+        finally:
+            svc_c.close()
+        require(r["count"] == small_manifest["reads"], r)
+        require(paths["serve_funnel_off"]["full_check_flags"] > 0
+                and paths["serve_funnel_off"]["prefilter_check_flags"] == 0,
+                paths["serve_funnel_off"])
+        log(f"serve --funnel off: count {r['count']} through "
+            f"full_check_flags ({paths['serve_funnel_off']})")
+    finally:
+        obs.shutdown()
+        os.environ.pop("SPARK_BAM_CACHE_DIR", None)
+    log(f"phase 13 (serve): {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2163,7 +2607,6 @@ def main() -> int:
 
         split_launches = split_phase(port, bam, manifest, small, work, card,
                                      agg_ref)
-        del agg_ref
 
         export_launches = export_phase(
             port, bam, manifest, load_cols, small, small_manifest, work,
@@ -2172,6 +2615,11 @@ def main() -> int:
 
         write_rows, write_launches = write_phase(
             port, bam, manifest, small, small_manifest, work, card)
+
+        serve_launches = serve_phase(
+            port, bam, manifest, small, small_manifest, long_bam,
+            long_manifest, work, card, agg_ref)
+        del agg_ref
 
         for row in rows:
             row["launches"] = launches[row["name"]]
@@ -2189,10 +2637,14 @@ def main() -> int:
                 "export": export_launches[row["name"]],
                 **{path: n[row["name"]]
                    for path, n in write_launches.items()},
+                **{path: n[row["name"]]
+                   for path, n in serve_launches.items()},
             }
         for row in write_rows:
-            row["launches_by_path"] = {path: n[row["name"]]
-                                       for path, n in write_launches.items()}
+            row["launches_by_path"] = {
+                path: n[row["name"]]
+                for path, n in (*write_launches.items(),
+                                *serve_launches.items())}
         print(json.dumps({"kernels": rows + write_rows}), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -54,6 +54,12 @@ sidecars from the packing metadata; it prints the reference's ``Wrote N
 reads to OUT`` lines. ``--deflate`` (or ``SPARK_BAM_DEFLATE``) is checked
 before any work; its ``device=auto`` means the card here, as ``on`` does.
 
+``serve [--listen ADDR] [--serve SPEC] [--cache MODE] [--reads-to-check N]
+[--funnel MODE]`` runs the split service (``serve/``) on ``unix:<path>`` or
+``tcp:<host>:<port>`` (default ``tcp:127.0.0.1:8765``) until interrupted,
+printing the reference's ``serving on ...`` line to stderr; ``--serve`` (or
+``SPARK_BAM_SERVE``) sets its batching, admission and window knobs.
+
 Every command runs on the CUDA device unless ``--device`` names another;
 ``--sharded`` meshes are every visible CUDA device, or ``--devices N``
 entries of ``--device`` (``--device cpu --devices 4``: a 4-entry CPU mesh).
@@ -78,6 +84,7 @@ from spark_bam_tpu_torch.agg.plan import AggConfig
 from spark_bam_tpu_torch.compress.config import DeflateConfig
 from spark_bam_tpu_torch.core.config import Config, format_bytes, parse_bytes
 from spark_bam_tpu_torch.core.stats import Stats, format_bytes_binary
+from spark_bam_tpu_torch.serve.config import ServeConfig
 from spark_bam_tpu_torch.load import api
 from spark_bam_tpu_torch.load.hadoop import hadoop_bam_splits
 from spark_bam_tpu_torch.load.intervals import BadLociError, LociSet
@@ -676,6 +683,34 @@ def index(path, split_size: int, config: Config | None = None,
     return dest
 
 
+def serve(listen: str, device=None, config: Config = Config()) -> None:
+    """Run the split service on ``listen`` until interrupted, over
+    ``device`` (default: every visible CUDA device, refusing without
+    one)."""
+    from spark_bam_tpu_torch.parallel.mesh import local_mesh
+    from spark_bam_tpu_torch.serve import (
+        ServeAddress,
+        SplitService,
+        serve_forever,
+    )
+
+    try:
+        addr = ServeAddress(listen)
+    except ValueError as e:
+        raise UsageError(str(e)) from e
+    service = SplitService(
+        config, mesh=local_mesh(None if device is None else [device]))
+    where = addr.path if addr.kind == "unix" else f"{addr.host}:{addr.port}"
+    print(f"serving on {listen} ({where}; {service.mesh.n_local} devices) "
+          "— Ctrl-C to stop", file=sys.stderr, flush=True)
+    try:
+        serve_forever(service, listen)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        service.close()
+
+
 def _add_knobs(p, split_help: str) -> None:
     p.add_argument("-m", "--max-split-size", default=None, help=split_help)
     p.add_argument("-z", "--bgzf-blocks-to-check", type=int, default=None)
@@ -699,13 +734,14 @@ def _positive_int(s: str) -> int:
 
 
 def _config(args) -> Config:
-    """``SPARK_BAM_CACHE``, ``SPARK_BAM_COLUMNAR`` and
-    ``SPARK_BAM_DEFLATE``, then the command's flags: the split size, the
-    checker knobs, ``--cache``, ``--columnar`` and ``--deflate`` (a bad
-    size, cache or deflate spec is a usage error)."""
+    """``SPARK_BAM_CACHE``, ``SPARK_BAM_COLUMNAR``, ``SPARK_BAM_DEFLATE``,
+    ``SPARK_BAM_FAULTS`` and ``SPARK_BAM_SERVE``, then the command's
+    flags: the split size, the checker knobs, ``--cache``,
+    ``--columnar``, ``--deflate``, ``--serve`` and ``--funnel`` (a bad
+    size, cache, deflate, serve or funnel spec is a usage error)."""
     kw = {}
     for knob in ("bgzf_blocks_to_check", "reads_to_check", "max_read_size",
-                 "cache", "columnar", "deflate"):
+                 "cache", "columnar", "deflate", "serve", "funnel"):
         value = getattr(args, knob, None)
         if value is not None:
             kw[knob] = value
@@ -716,6 +752,7 @@ def _config(args) -> Config:
         config = dataclasses.replace(Config.from_env(), **kw)
         CacheMode.parse(config.cache)
         DeflateConfig.parse(config.deflate)
+        ServeConfig.parse(config.serve)
     except ValueError as e:
         raise UsageError(str(e)) from e
     return config
@@ -839,7 +876,22 @@ def main(argv=None) -> int:
              "zlib when off (SPARK_BAM_DEFLATE works too)")
     rw.add_argument("in_path")
     rw.add_argument("out_path")
-    for p in (ag, cs, ix, ex, rw):
+    sv = sub.add_parser(
+        "serve", help="the split service: a daemon over the device mesh")
+    _add_cache(sv)
+    sv.add_argument(
+        "--serve", default=None, metavar="SPEC",
+        help="serving knobs, e.g. 'batch=16,tick=2,plan_queue=64,"
+             "scan_queue=128,workers=2,window=1MB,halo=64KB,cache=256MB' "
+             "(SPARK_BAM_SERVE works too)")
+    sv.add_argument(
+        "--listen", default="tcp:127.0.0.1:8765", metavar="ADDR",
+        help="unix:<path> or tcp:<host>:<port> (default tcp:127.0.0.1:8765)")
+    sv.add_argument("--reads-to-check", type=int, default=None)
+    sv.add_argument("--funnel", default=None, choices=("on", "off", "auto"),
+                    help="the two-stage candidate funnel of the count rows "
+                         "(default auto: on)")
+    for p in (ag, cs, ix, ex, rw, sv):
         p.add_argument("--device", default=None,
                        help="torch device (default: the current CUDA device)")
     for p in (ib, ir):
@@ -898,6 +950,8 @@ def _run(args) -> int:
     elif args.cmd in ("rewrite", "htsjdk-rewrite"):
         rewrite(args.in_path, args.out_path, args.block_payload, args.level,
                 args.index, args.device, config=config)
+    elif args.cmd == "serve":
+        serve(args.listen, args.device, config)
     elif args.cmd == "aggregate":
         out = open(args.out, "w") if args.out else None
         try:

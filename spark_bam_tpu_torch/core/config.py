@@ -1,6 +1,6 @@
 """Typed configuration: the subset of the ``spark.bam.*`` knobs that the
-count-reads, full-check, load, aggregate, split-planning, export and write
-paths read, under the reference package's names and defaults, with the
+count-reads, full-check, load, aggregate, split-planning, export, write
+and serve paths read, under the reference package's names and defaults, with the
 byte-size shorthand (``parse_bytes``, ``format_bytes``) the split sizes
 take.
 
@@ -160,6 +160,14 @@ class Config:
     # ``bam.writer.write_bam_result`` and the rewrite command;
     # ``deflate_config`` parses it.
     deflate: str = ""
+    # Compact FaultPolicy spec ("retries=3,deadline=60"; "" = defaults):
+    # the serve daemon's default request deadline and the retries of its
+    # header and split reads; ``fault_policy`` parses it.
+    faults: str = ""
+    # Compact ServeConfig spec of the serve daemon ("batch=16,tick=2,
+    # scan_queue=128,window=1MB"; "" = defaults): batching, admission
+    # limits and resident budgets; ``serve_config`` parses it.
+    serve: str = ""
 
     #: The load path's raw split size (hadoop's file-split default).
     LOAD_SPLIT_SIZE_DEFAULT = 32 << 20
@@ -182,13 +190,15 @@ class Config:
         return self.split_size if self.split_size is not None else default
 
     #: The knobs ``from_env`` reads, as ``SPARK_BAM_<KNOB>``.
-    ENV_KNOBS = ("cache", "columnar", "deflate")
+    ENV_KNOBS = ("cache", "columnar", "deflate", "faults", "serve")
 
     @classmethod
     def from_env(cls, env=None) -> "Config":
         """The defaults with ``SPARK_BAM_CACHE`` as the ``cache`` spec,
-        ``SPARK_BAM_COLUMNAR`` as the ``columnar`` spec and
-        ``SPARK_BAM_DEFLATE`` as the ``deflate`` spec, as the
+        ``SPARK_BAM_COLUMNAR`` as the ``columnar`` spec,
+        ``SPARK_BAM_DEFLATE`` as the ``deflate`` spec,
+        ``SPARK_BAM_FAULTS`` as the ``faults`` spec and
+        ``SPARK_BAM_SERVE`` as the ``serve`` spec, as the
         reference's ``Config.from_env`` maps them (the store's
         ``SPARK_BAM_CACHE_DIR`` and ``SPARK_BAM_CACHE_BUDGET`` are read by
         ``sbi.store.CacheStore.from_env``)."""
@@ -215,6 +225,20 @@ class Config:
         from spark_bam_tpu_torch.compress.config import DeflateConfig
 
         return DeflateConfig.parse(self.deflate)
+
+    @property
+    def fault_policy(self):
+        """The parsed ``FaultPolicy`` of this config's ``faults`` spec."""
+        from spark_bam_tpu_torch.core.faults import FaultPolicy
+
+        return FaultPolicy.parse(self.faults)
+
+    @property
+    def serve_config(self):
+        """The parsed ``ServeConfig`` of this config's ``serve`` spec."""
+        from spark_bam_tpu_torch.serve.config import ServeConfig
+
+        return ServeConfig.parse(self.serve)
 
     @property
     def agg_config(self):

@@ -1,5 +1,6 @@
 """Library entry points over whole files (the JAX package's
-``spark_bam_tpu/load/api.py``): the aggregate and the columnar export.
+``spark_bam_tpu/load/api.py``): the aggregate, the columnar export and
+the resolved split starts.
 
 ``aggregate`` reduces a query over a BAM to kilobytes of statistics
 without materializing records: the whole-file flat view, the boundary
@@ -16,6 +17,12 @@ native container, Arrow IPC or Parquet): the streaming check and record
 parse of every window on the device with the interval and flag filters
 there (``stream_ordered_batches``), the renderings and encoding on the
 host (``columnar/``).
+
+``split_starts`` gives every raw file split its first record start, what
+the serve daemon answers ``plan`` with: from a valid ``.sbi`` split plan
+when ``config.cache`` reads (no resolution at all), else each split
+resolved on the device (``load/boundary.py``), written through when the
+cache writes.
 """
 
 from __future__ import annotations
@@ -26,9 +33,11 @@ from spark_bam_tpu_torch.agg.kernels import aggregate_planes
 from spark_bam_tpu_torch.agg.plan import AggConfig
 from spark_bam_tpu_torch.bam.header import read_header
 from spark_bam_tpu_torch.bgzf.flat import flatten_file
-from spark_bam_tpu_torch.core.config import Config
+from spark_bam_tpu_torch.core.config import Config, parse_bytes
+from spark_bam_tpu_torch.core.faults import with_retries
 from spark_bam_tpu_torch.device import resolve_device
 from spark_bam_tpu_torch.load.intervals import LociSet
+from spark_bam_tpu_torch.load.splits import FileSplit, file_splits
 from spark_bam_tpu_torch.load.tpu_load import (
     _apply_filter,
     record_starts,
@@ -135,3 +144,75 @@ def export(
                                     flags_forbidden, dev)
     return export_dataset(pieces, out, fmt=fmt, columns=columns, ccfg=ccfg,
                           contigs=contigs)
+
+
+def _consult_split_cache(path, splits, header, config: Config, size: int,
+                         device) -> dict:
+    """``{split: Pos | None}`` of cache-served (or freshly built and
+    written-through) record starts; ``{}`` when the cache is off or cannot
+    serve these splits: those resolve live."""
+    mode = config.cache_mode
+    if not mode.enabled:
+        return {}
+    from spark_bam_tpu_torch.sbi import plan as sbi_plan
+    from spark_bam_tpu_torch.sbi.format import SbiIndex, fingerprint_of
+    from spark_bam_tpu_torch.sbi.store import CacheStore
+
+    store = CacheStore.from_env()
+    if mode.read:
+        index = store.load(path, config, strict=mode.strict)
+        if index is not None and size in index.split_plans:
+            starts = sbi_plan.plan_to_starts(splits, index.split_plans[size])
+            if starts is not None:
+                return starts
+    if not mode.write:
+        return {}
+    # A miss with write-through: resolve the whole plan and persist it.
+    entries = sbi_plan.build_split_plan(path, splits, header, config,
+                                        device=device)
+    store.merge_and_store(
+        path, config,
+        SbiIndex(fingerprint_of(path, config), split_plans={size: entries}),
+    )
+    return sbi_plan.plan_to_starts(splits, entries) or {}
+
+
+def split_starts(path, split_size=None, config: Config = Config(),
+                 pool=None, device=None) -> "list[tuple[FileSplit, object]]":
+    """``[(FileSplit, Pos | None)]``: the resolved first record start of
+    every file split of ``path`` (``split_size``, default the config's or
+    32 MiB), equal to the JAX package's ``split_starts``. A warm ``.sbi``
+    plan serves every split with no resolution (``load.split_resolutions``
+    stays flat); the others resolve on ``device`` under the config's fault
+    policy, through ``pool`` (an executor) when given. None marks a split
+    that owns no record start or whose scan budget ran out."""
+    from spark_bam_tpu_torch.load.boundary import (
+        NoReadFoundException,
+        resolve_split_start,
+    )
+
+    dev = resolve_device(device)
+    size = (parse_bytes(split_size) if split_size is not None
+            else config.split_size_or(Config.LOAD_SPLIT_SIZE_DEFAULT))
+    policy = config.fault_policy
+    header = with_retries(lambda: read_header(path), policy, "read_header")
+    splits = with_retries(lambda: file_splits(path, size), policy,
+                          "file_splits")
+    resolved = dict(_consult_split_cache(path, splits, header, config, size,
+                                         dev))
+    missing = [s for s in splits if s not in resolved]
+
+    def resolve(split):
+        def once():
+            try:
+                return resolve_split_start(path, split, header, config,
+                                           device=dev)
+            except NoReadFoundException:
+                return None
+        return with_retries(once, policy, "resolve_split_start")
+
+    if missing:
+        results = (list(pool.map(resolve, missing)) if pool is not None
+                   else [resolve(s) for s in missing])
+        resolved.update(zip(missing, results))
+    return [(s, resolved.get(s)) for s in splits]

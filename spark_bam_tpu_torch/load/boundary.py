@@ -39,6 +39,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from spark_bam_tpu_torch import obs
 from spark_bam_tpu_torch.bgzf.find_block_start import find_block_start
 from spark_bam_tpu_torch.bgzf.stream import (
     SeekableBlockStream,
@@ -277,7 +278,11 @@ def resolve_split_start(path, split, header, config, device=None
                         ) -> Pos | None:
     """find-block-start then find-record-start for one ``FileSplit``;
     None when the split owns no block (its first block lies at or past
-    its end, or is the EOF sentinel) or no record start before EOF."""
+    its end, or is the EOF sentinel) or no record start before EOF.
+    Every call counts one ``load.split_resolutions`` (``obs``), at the
+    reference's point: before the header short-cut, so a plan served
+    warm from the ``.sbi`` cache shows zero."""
+    obs.count("load.split_resolutions")
     first = header.end_pos
     if split.start <= first.block_pos < split.end:
         # The first record begins exactly at the header's end.

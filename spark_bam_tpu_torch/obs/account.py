@@ -1,0 +1,194 @@
+"""Per-request cost accounting: who is spending the fleet's resources.
+
+Every admitted serve request owns one :class:`RequestCost` — a small
+mutable vector of the resources it consumed:
+
+- ``queue_ms``  — batcher queue wait, summed over the request's rows
+  (the same per-row number the ``serve.queue_ms`` histogram observes);
+- ``device_ms`` — its share of each device tick it rode (``tick_ms``
+  divided evenly across the tick's live rows, so shares sum back to the
+  ``serve.tick`` histogram exactly);
+- ``h2d_bytes`` — the window bytes it shipped to the device (mirrored
+  by the global ``serve.h2d_bytes`` counter);
+- ``host_ms``   — everything else: handler time minus queue and device
+  shares (parse, encode, index work), clamped at zero;
+- ``bytes_served`` — response bytes (JSON line + binary frames).
+
+The accumulator travels by contextvar: the service binds it around the
+handler, ``RowTask``
+captures it at creation, and the batcher attributes per-row costs at
+dispatch — so a tick shared by many requests still bills each request
+its own rows. Completed vectors roll up per-op and per-tenant (tenant =
+the optional ``tenant`` field on the protocol line, docs/serving.md);
+``stats`` exposes the rollups; the per-request sums equal the global
+counters within rounding.
+
+The port's copy of the reference's ``spark_bam_tpu/obs/account.py``.
+"""
+
+from __future__ import annotations
+
+import threading
+from contextvars import ContextVar
+
+#: the cost vector's fields, in rollup order.
+COST_FIELDS = ("queue_ms", "host_ms", "device_ms", "h2d_bytes",
+               "bytes_served")
+
+#: rollup-table cardinality guard: an unbounded tenant header must not
+#: grow the registry without limit (same concern as obs/names.py).
+_MAX_KEYS = 256
+
+_current: "ContextVar[RequestCost | None]" = ContextVar(
+    "spark_bam_request_cost", default=None
+)
+
+
+def current() -> "RequestCost | None":
+    """The cost accumulator bound to this context, if any (the batcher's
+    row-attribution hook — mirrors ``obs.trace.current``)."""
+    return _current.get()
+
+
+def bind(cost: "RequestCost | None"):
+    """Bind ``cost`` for the current context; returns the reset token."""
+    return _current.set(cost)
+
+
+def reset(token) -> None:
+    _current.reset(token)
+
+
+class RequestCost:
+    """One request's mutable cost vector (adds are lock-guarded: the
+    batcher thread attributes rows while the handler thread owns the
+    request)."""
+
+    __slots__ = ("op", "tenant", "queue_ms", "host_ms", "device_ms",
+                 "h2d_bytes", "bytes_served", "rows", "_lock")
+
+    def __init__(self, op: str, tenant: "str | None" = None):
+        self.op = op
+        self.tenant = tenant or "-"
+        self.queue_ms = 0.0
+        self.host_ms = 0.0
+        self.device_ms = 0.0
+        self.h2d_bytes = 0
+        self.bytes_served = 0
+        self.rows = 0
+        self._lock = threading.Lock()
+
+    def add(self, queue_ms: float = 0.0, device_ms: float = 0.0,
+            h2d_bytes: int = 0, rows: int = 0) -> None:
+        with self._lock:
+            self.queue_ms += queue_ms
+            self.device_ms += device_ms
+            self.h2d_bytes += h2d_bytes
+            self.rows += rows
+
+    def vector(self) -> dict:
+        with self._lock:
+            return {
+                "queue_ms": round(self.queue_ms, 3),
+                "host_ms": round(self.host_ms, 3),
+                "device_ms": round(self.device_ms, 3),
+                "h2d_bytes": int(self.h2d_bytes),
+                "bytes_served": int(self.bytes_served),
+            }
+
+
+def _zero() -> dict:
+    return {"requests": 0, "errors": 0, "rows": 0, "ms": 0.0,
+            **{f: 0.0 if f.endswith("_ms") else 0 for f in COST_FIELDS}}
+
+
+class Accountant:
+    """Thread-safe per-op / per-tenant rollup of finished cost vectors."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._ops: "dict[str, dict]" = {}
+        self._tenants: "dict[str, dict]" = {}
+        self._totals = _zero()
+
+    def begin(self, op: str, tenant: "str | None" = None) -> RequestCost:
+        return RequestCost(op, tenant)
+
+    def finish(self, cost: RequestCost, total_ms: float,
+               bytes_served: int, ok: bool = True) -> dict:
+        """Seal a request's vector (derive ``host_ms`` as the handler
+        time not spent queued or on device) and roll it up. Returns the
+        sealed vector (flight/debug hooks)."""
+        from spark_bam_tpu_torch import obs
+
+        with cost._lock:
+            cost.bytes_served = int(bytes_served)
+            cost.host_ms = max(
+                0.0, total_ms - cost.queue_ms - cost.device_ms
+            )
+        vec = cost.vector()
+        with self._lock:
+            for table, key in ((self._ops, cost.op),
+                               (self._tenants, cost.tenant)):
+                if key not in table and len(table) >= _MAX_KEYS:
+                    key = "~overflow"
+                acc = table.setdefault(key, _zero())
+                self._fold(acc, vec, cost.rows, total_ms, ok)
+            self._fold(self._totals, vec, cost.rows, total_ms, ok)
+            n_tenants = len(self._tenants)
+        obs.count("account.requests")
+        obs.gauge("account.tenants").set(n_tenants)
+        return vec
+
+    @staticmethod
+    def _fold(acc: dict, vec: dict, rows: int, total_ms: float,
+              ok: bool) -> None:
+        acc["requests"] += 1
+        acc["errors"] += 0 if ok else 1
+        acc["rows"] += rows
+        acc["ms"] += total_ms
+        for f in COST_FIELDS:
+            acc[f] += vec[f]
+
+    def snapshot(self) -> dict:
+        """``{"ops": {...}, "tenants": {...}, "totals": {...}}`` with
+        ms fields rounded — the ``stats`` op's ``accounting`` block."""
+        def shape(acc: dict) -> dict:
+            return {k: (round(v, 3) if isinstance(v, float) else v)
+                    for k, v in acc.items()}
+
+        with self._lock:
+            return {
+                "ops": {k: shape(v) for k, v in sorted(self._ops.items())},
+                "tenants": {
+                    k: shape(v) for k, v in sorted(self._tenants.items())
+                },
+                "totals": shape(self._totals),
+            }
+
+
+def merge_accounting(snapshots: "list[dict | None]") -> dict:
+    """Sum per-worker ``Accountant.snapshot()`` dicts into a fleet view
+    (the router's ``telemetry`` merge, alongside snapshot/series)."""
+    out = {"ops": {}, "tenants": {}, "totals": _zero()}
+    for snap in snapshots:
+        if not snap:
+            continue
+        for table in ("ops", "tenants"):
+            for key, acc in snap.get(table, {}).items():
+                cur = out[table].setdefault(key, _zero())
+                for f, v in acc.items():
+                    cur[f] = cur.get(f, 0) + v
+        for f, v in snap.get("totals", {}).items():
+            out["totals"][f] = out["totals"].get(f, 0) + v
+    for table in ("ops", "tenants"):
+        out[table] = {
+            k: {f: (round(v, 3) if isinstance(v, float) else v)
+                for f, v in acc.items()}
+            for k, acc in sorted(out[table].items())
+        }
+    out["totals"] = {
+        f: (round(v, 3) if isinstance(v, float) else v)
+        for f, v in out["totals"].items()
+    }
+    return out

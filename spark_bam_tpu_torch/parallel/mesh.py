@@ -392,7 +392,9 @@ class FullStep(_Step):
 class ServeStep(_Step):
     """``make_shard_map_serve_step``: per-row ``(count, escapes)`` over the
     owned spans with no reduction; contig tables per row, so rows of
-    different files share a step. Returns (k, 2) int32."""
+    different files share a step. A row is one ``check_window`` on its
+    device (rows that own nothing are not checked). Returns (k, 2)
+    int32."""
 
     def __init__(self, mesh: Mesh, reads_to_check: int = 10,
                  funnel: bool = False):
@@ -411,11 +413,17 @@ class ServeStep(_Step):
             lens = lengths[s].to(dev)
             pairs = []
             for j in range(rows.shape[0]):
+                a = max(lo[j], 0)
+                b = max(own[j], a)
+                if b == a:
+                    # A row that owns nothing (the batcher's padding)
+                    # counts nothing: no check.
+                    pairs.append(torch.zeros(2, dtype=torch.int64,
+                                             device=dev))
+                    continue
                 res = check_window(rows[j], lens[j], int(nc[j]), n[j],
                                    bool(ae[j]), self.reads_to_check,
                                    self.funnel)
-                a = max(lo[j], 0)
-                b = max(own[j], a)
                 pairs.append(torch.stack([res["verdict"][a:b].sum(),
                                           res["escaped"][a:b].sum()]))
             outs.append(torch.stack(pairs).int() if pairs else

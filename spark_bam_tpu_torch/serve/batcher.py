@@ -1,0 +1,237 @@
+"""Request batcher: coalesce concurrent window rows into one device tick
+(reference ``spark_bam_tpu/serve/batcher.py``).
+
+Scan-class requests (count, fleet) are cut by the service into window-row
+tasks; the batcher gathers the rows arriving within ``tick_ms`` of the
+first, pads them to the fixed batch shape ``(batch_rows, width)`` and
+dispatches the mesh's serve step (``MeshSteps.serve_step``) once per tick.
+The step checks each row on its device (``check_window``: the prefilter
+kernel under the funnel, the full flag kernel without it) and returns per
+row the record starts and escapes of its owned span.
+
+Rows from different files coalesce in one tick: the step takes per-row
+contig dictionaries, so batching is purely shape-keyed. A tick whose step
+raises fails every row of it; nothing answers in the device's place.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import Counter, deque
+from concurrent.futures import Future
+
+import numpy as np
+
+from spark_bam_tpu_torch import obs
+from spark_bam_tpu_torch.obs import account as obs_account
+from spark_bam_tpu_torch.serve.config import MAX_CONTIGS
+
+
+class RowTask:
+    """One window row awaiting a device verdict.
+
+    ``future`` resolves to ``(boundary_count, escaped_count)`` for the
+    row's owned span, or to ``TimeoutError`` when the owning request's
+    deadline passed while the row was still queued (load shedding).
+
+    Rows capture the submitting thread's cost accumulator
+    (``obs/account.py``) at creation, so a shared tick bills each request
+    its own rows.
+    """
+
+    __slots__ = ("window", "n", "at_eof", "lo", "own", "lengths", "nc",
+                 "deadline_ts", "enqueued_ts", "future", "cost")
+
+    def __init__(self, window, n, at_eof, lo, own, lengths, nc,
+                 deadline_ts=None):
+        self.window = window          # (W+PAD,) uint8, already padded
+        self.n = int(n)
+        self.at_eof = bool(at_eof)
+        self.lo = int(lo)
+        self.own = int(own)
+        self.lengths = lengths        # (MAX_CONTIGS,) int32
+        self.nc = int(nc)
+        self.deadline_ts = deadline_ts  # monotonic seconds or None
+        self.enqueued_ts = time.monotonic()
+        self.future: Future = Future()
+        self.cost = obs_account.current()
+
+
+class Batcher:
+    """Tick loop turning queued :class:`RowTask`s into serve-step calls."""
+
+    def __init__(self, steps, width: int, batch_rows: int, tick_ms: float,
+                 reads_to_check: int = 10, funnel: bool = False):
+        ndev = steps.mesh.n_local
+        self.steps = steps
+        self.ndev = int(ndev)
+        self.width = int(width)                      # window + PAD
+        self.batch_rows = -(-int(batch_rows) // ndev) * ndev
+        self.tick_s = float(tick_ms) / 1000.0
+        self._step = steps.serve_step(reads_to_check=reads_to_check,
+                                      funnel=funnel)
+        self._queue: "deque[RowTask]" = deque()
+        self._cond = threading.Condition()
+        self._running = threading.Event()
+        self._running.set()
+        self._closed = False
+        self.batch_sizes: "Counter[int]" = Counter()
+        self._thread = threading.Thread(
+            target=self._loop, name="serve-batcher", daemon=True
+        )
+        self._thread.start()
+
+    def submit(self, task: RowTask) -> Future:
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("batcher is closed")
+            self._queue.append(task)
+            self._cond.notify()
+        return task.future
+
+    def backlog(self) -> int:
+        """Rows queued but not yet dispatched — the ``stats`` op exposes
+        this so operators (and brownout postmortems) can see queue
+        pressure building BEFORE latency percentiles move."""
+        with self._cond:
+            return len(self._queue)
+
+    def set_batch_rows(self, batch_rows: int) -> int:
+        """Retarget rows-per-tick at runtime (the ``tune`` op). Rounded up
+        to a mesh-size multiple as at startup, so every dispatch splits
+        evenly over the mesh. Returns the applied (rounded) value."""
+        rows = -(-max(1, int(batch_rows)) // self.ndev) * self.ndev
+        with self._cond:
+            self.batch_rows = rows
+            self._cond.notify()
+        return rows
+
+    def set_tick_ms(self, tick_ms: float) -> float:
+        """Retarget the gather window (host side only). Written under the
+        condition so the batcher thread's in-progress ``_take_batch``
+        never reads a stale tick mid-gather."""
+        tick_ms = max(0.0, float(tick_ms))
+        with self._cond:
+            self.tick_s = tick_ms / 1000.0
+            self._cond.notify()
+        return tick_ms
+
+    def pause(self) -> None:
+        """Hold dispatch (tests use this to force a full-batch coalesce)."""
+        self._running.clear()
+
+    def resume(self) -> None:
+        self._running.set()
+        with self._cond:
+            self._cond.notify()
+
+    def close(self) -> None:
+        with self._cond:
+            self._closed = True
+            self._cond.notify()
+        self._running.set()
+        self._thread.join(timeout=10)
+        for t in list(self._queue):
+            t.future.set_exception(RuntimeError("batcher closed"))
+        self._queue.clear()
+
+    # ------------------------------------------------------------------
+
+    def _take_batch(self) -> "list[RowTask]":
+        """Block for the first row, then gather up to ``batch_rows`` rows
+        arriving within one tick. Returns [] only at close."""
+        with self._cond:
+            while not self._queue and not self._closed:
+                self._cond.wait(0.05)
+            if not self._queue:
+                return []
+            deadline = time.monotonic() + self.tick_s
+            while len(self._queue) < self.batch_rows:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                self._cond.wait(left)
+            batch = []
+            while self._queue and len(batch) < self.batch_rows:
+                batch.append(self._queue.popleft())
+            return batch
+
+    def _loop(self) -> None:
+        while True:
+            self._running.wait()
+            batch = self._take_batch()
+            if not batch and self._closed:
+                return
+            if not batch:
+                continue
+            # Shed rows whose request deadline already passed.
+            now = time.monotonic()
+            live = []
+            for t in batch:
+                if t.deadline_ts is not None and now > t.deadline_ts:
+                    obs.count("serve.shed")
+                    t.future.set_exception(
+                        TimeoutError("deadline expired in serve queue")
+                    )
+                else:
+                    live.append(t)
+            if not live:
+                continue
+            try:
+                self._dispatch(live)
+            except Exception as exc:  # scatter failure to every row
+                for t in live:
+                    if not t.future.done():
+                        t.future.set_exception(exc)
+
+    def _dispatch(self, batch: "list[RowTask]") -> None:
+        # Pad to the CURRENT target, or up to the next mesh multiple of the
+        # gathered rows when a ``tune`` shrank batch_rows after this batch
+        # was taken — the dispatch shape must always cover the batch.
+        B = max(self.batch_rows, -(-len(batch) // self.ndev) * self.ndev)
+        width = self.width
+        ws = np.zeros((B, width), dtype=np.uint8)
+        ns = np.zeros(B, dtype=np.int32)
+        eofs = np.zeros(B, dtype=bool)
+        los = np.zeros(B, dtype=np.int32)
+        owns = np.zeros(B, dtype=np.int32)
+        lens = np.zeros((B, MAX_CONTIGS), dtype=np.int32)
+        ncs = np.ones(B, dtype=np.int32)  # benign dict for padding rows
+        now = time.monotonic()
+        for i, t in enumerate(batch):
+            ws[i, : len(t.window)] = t.window
+            ns[i] = t.n
+            eofs[i] = t.at_eof
+            los[i] = t.lo
+            owns[i] = t.own
+            lens[i, : len(t.lengths)] = t.lengths
+            ncs[i] = t.nc
+            obs.observe("serve.queue_ms", (now - t.enqueued_ts) * 1000.0)
+        # Padding rows keep lo == own == 0: empty owned span, zero counts.
+        put = self.steps.put
+        t0 = time.perf_counter()
+        with obs.span("serve.tick", rows=len(batch), shape=B):
+            res = np.asarray(self._step(put(ws), ns, eofs, los, owns, lens,
+                                        ncs))
+        tick_ms = (time.perf_counter() - t0) * 1000.0
+        self.batch_sizes[len(batch)] += 1
+        obs.count("serve.batches")
+        obs.observe("serve.batch_rows", len(batch))
+        obs.count("serve.h2d_bytes", sum(len(t.window) for t in batch))
+        # Per-row cost attribution: the same queue_ms the histogram saw,
+        # an even 1/rows share of the tick's device time, and the row's
+        # own window bytes — shares sum back to serve.tick / the
+        # serve.h2d_bytes counter exactly.
+        share_ms = tick_ms / len(batch)
+        for t in batch:
+            if t.cost is not None:
+                t.cost.add(
+                    queue_ms=(now - t.enqueued_ts) * 1000.0,
+                    device_ms=share_ms,
+                    h2d_bytes=len(t.window),
+                    rows=1,
+                )
+        for i, t in enumerate(batch):
+            if not t.future.done():
+                t.future.set_result((int(res[i, 0]), int(res[i, 1])))

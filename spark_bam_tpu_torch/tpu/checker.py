@@ -519,8 +519,9 @@ class CountScanGraphs:
         graph, sums, launches = self._graph(kp, int(num_contigs))
         graph.replay()
         self.replays += 1
-        for name, c in launches.items():
-            kernels.LAUNCHES[name] += c
+        with kernels._COUNT_LOCK:
+            for name, c in launches.items():
+                kernels.LAUNCHES[name] += c
         out = sums.clone()
         return {"count": out[0], "esc_count": out[1], "survivors": out[2]}
 

@@ -322,11 +322,16 @@ class TileStatus:
     the host: every replay would reuse the captured base and epoch while
     the ticket counters and the records moved on. It gets records of its
     own instead, zeroed by a memset captured just before it, with ticket
-    base 0 and epoch 1, so each replay starts from clean records."""
+    base 0 and epoch 1, so each replay starts from clean records.
+
+    Launches on one stream must run in the order their tickets were
+    taken: a caller holds ``ordered`` from ``next`` through its launch, so
+    two host threads enqueueing on one stream cannot swap them."""
 
     def __init__(self, record: int = _RECORD):
         self._record = record
         self._lock = threading.Lock()
+        self.ordered = threading.Lock()
         self._streams: dict = {}   # (device, stream) → [records, base, epoch]
 
     def next(self, device: torch.device, stream: int, tiles: int):
@@ -370,6 +375,10 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+#: Guards the counters: host threads of one process launch concurrently.
+_COUNT_LOCK = threading.Lock()
+
+
 def _launch(name: str, fn, *args, device: torch.device) -> None:
     lib = load()
     with torch.cuda.device(device):
@@ -377,10 +386,9 @@ def _launch(name: str, fn, *args, device: torch.device) -> None:
         err = getattr(lib, fn)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: cudaError {err}")
-    if torch.cuda.is_current_stream_capturing():
-        CAPTURED[name] += 1
-    else:
-        LAUNCHES[name] += 1
+    counts = CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES
+    with _COUNT_LOCK:
+        counts[name] += 1
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -456,23 +464,26 @@ def prefilter_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
     tiles = -(-w // PREFILTER_TILE)
     grid = min(tiles, _prefilter_ctas(dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    # In each of its two phases each CTA takes one ticket past the last
-    # tile.
-    records, base, epoch = _PREFILTER_STATUS.next(dev, stream, tiles + grid)
     out = torch.empty(w, dtype=torch.int32, device=dev)
     bitmaps = torch.empty(tiles * PREFILTER_TILE // 32, dtype=torch.int32,
                           device=dev)
     cand = torch.full((capacity,), -1, dtype=torch.int32, device=dev)
     n_set = torch.empty((), dtype=torch.int32, device=dev)
-    try:
-        _launch("prefilter_check_flags", "sbt_prefilter", padded.data_ptr(),
-                w, lengths.data_ptr(), lengths.numel(), int(num_contigs),
-                n_val, n_ptr, records.data_ptr(), base, epoch, out.data_ptr(),
-                bitmaps.data_ptr(), cand.data_ptr(), capacity,
-                n_set.data_ptr(), grid, device=dev)
-    except RuntimeError:
-        _PREFILTER_STATUS.drop(dev, stream)
-        raise
+    with _PREFILTER_STATUS.ordered:
+        # In each of its two phases each CTA takes one ticket past the
+        # last tile.
+        records, base, epoch = _PREFILTER_STATUS.next(dev, stream,
+                                                      tiles + grid)
+        try:
+            _launch("prefilter_check_flags", "sbt_prefilter",
+                    padded.data_ptr(), w, lengths.data_ptr(), lengths.numel(),
+                    int(num_contigs), n_val, n_ptr, records.data_ptr(), base,
+                    epoch, out.data_ptr(), bitmaps.data_ptr(),
+                    cand.data_ptr(), capacity, n_set.data_ptr(), grid,
+                    device=dev)
+        except RuntimeError:
+            _PREFILTER_STATUS.drop(dev, stream)
+            raise
     return out, cand, n_set
 
 
@@ -506,16 +517,17 @@ def full_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
     n_val, n_ptr = _n_arg(n, dev)
     tiles = -(-padded.numel() // FULL_FLAGS_TILE)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    records, base, epoch = _TILE_STATUS.next(dev, stream, tiles)
     out = torch.empty(w, dtype=torch.int32, device=dev)
-    try:
-        _launch("full_check_flags", "sbt_full_flags", padded.data_ptr(),
-                padded.numel(), w, lengths.data_ptr(), lengths.numel(),
-                int(num_contigs), n_val, n_ptr, records.data_ptr(), base,
-                epoch, out.data_ptr(), device=dev)
-    except RuntimeError:
-        _TILE_STATUS.drop(dev, stream)
-        raise
+    with _TILE_STATUS.ordered:
+        records, base, epoch = _TILE_STATUS.next(dev, stream, tiles)
+        try:
+            _launch("full_check_flags", "sbt_full_flags", padded.data_ptr(),
+                    padded.numel(), w, lengths.data_ptr(), lengths.numel(),
+                    int(num_contigs), n_val, n_ptr, records.data_ptr(), base,
+                    epoch, out.data_ptr(), device=dev)
+        except RuntimeError:
+            _TILE_STATUS.drop(dev, stream)
+            raise
     return out
 
 

@@ -17,6 +17,7 @@ the span sums wrap as an int32 sum does.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -177,6 +178,7 @@ def _next_pow2(n: int) -> int:
 
 
 _SIDE_STREAMS: dict = {}
+_SIDE_LOCK = threading.Lock()
 
 
 def _columns_to_host(cols: dict) -> dict[str, np.ndarray]:
@@ -204,9 +206,10 @@ def parse_window(padded: torch.Tensor, buf: np.ndarray,
     outruns the scan get their span on the host, from ``buf``."""
     dev = padded.device
     if padded.is_cuda:
-        side = _SIDE_STREAMS.get(dev)
-        if side is None:
-            side = _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
+        with _SIDE_LOCK:
+            side = _SIDE_STREAMS.get(dev)
+            if side is None:
+                side = _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
         with torch.cuda.stream(side):
             cols = parse_records(
                 padded, torch.from_numpy(starts.astype(np.int32)).to(dev))

@@ -989,3 +989,136 @@ def test_rewrite_on_gpu_equals_host(gpu, tmp_path, spec):
         assert (Path(str(a) + ext).read_bytes()
                 == Path(str(b_) + ext).read_bytes())
     assert StreamChecker(a, Config()).count_reads() == m["reads"]
+
+
+def _serve_answer(svc, req: dict):
+    """A service's response, without its id and ``devices``, and its
+    frames."""
+    r = svc.submit(dict(req)).result(timeout=600)
+    frames = [bytes(f) for f in r.pop("_binary", None) or ()]
+    r.pop("devices", None)
+    return r, frames
+
+
+@pytest.mark.parametrize("funnel", ["auto", "off"])
+def test_serve_on_gpu_equals_cpu(gpu, tmp_path, funnel):
+    """The serve daemon's count, plan, record_starts, batch and aggregate
+    on the card equal the same service's on a CPU mesh; the count rows run
+    the prefilter under the funnel and the full flag pass without it."""
+    from spark_bam_tpu_torch.parallel.mesh import local_mesh
+    from spark_bam_tpu_torch.serve import SplitService
+
+    p = str(tmp_path / "s.bam")
+    m = synth_bam(p, 3 << 20, seed=14, unit_reads=4000)
+    size = Path(p).stat().st_size
+    cfg = Config(serve="window=512KB,halo=32KB,batch=4,tick=2",
+                 funnel=funnel)
+    reqs = [{"op": "count", "path": p},
+            {"op": "count", "path": p, "start": size // 4, "end": size // 2},
+            {"op": "fleet", "paths": [p, p]},
+            {"op": "plan", "path": p, "split_size": 256 << 10},
+            {"op": "record_starts", "path": p, "limit": 5},
+            {"op": "batch", "path": p, "batch_rows": 3000},
+            {"op": "batch", "path": p, "intervals": "chr1:1-300000",
+             "columns": ["pos", "cigar"]},
+            {"op": "aggregate", "path": p, "flags_forbidden": 4}]
+    card, cpu = SplitService(cfg), SplitService(cfg, local_mesh(["cpu"]))
+    try:
+        assert card.mesh.devices[0].type == "cuda"
+        K.reset_launch_counts()
+        got = [_serve_answer(card, r) for r in reqs]
+        launches = dict(K.LAUNCHES)
+        want = [_serve_answer(cpu, r) for r in reqs]
+    finally:
+        card.close()
+        cpu.close()
+    assert got == want
+    assert got[0][0]["count"] == m["reads"]
+    row_kernel = ("full_check_flags" if funnel == "off"
+                  else "prefilter_check_flags")
+    assert launches[row_kernel] > 0 and launches["full_check_flags"] > 0
+
+
+def test_serve_concurrent_clients_on_gpu(gpu, tmp_path):
+    """Eight threads mixing counts, record starts and aggregates on one
+    card service answer what each request answers alone."""
+    import threading
+
+    from spark_bam_tpu_torch.serve import SplitService
+
+    paths = []
+    for seed in (15, 16):
+        p = str(tmp_path / f"c{seed}.bam")
+        synth_bam(p, 2 << 20, seed=seed, unit_reads=3000)
+        paths.append(p)
+    reqs = [{"op": "count", "path": paths[0]},
+            {"op": "count", "path": paths[1], "start": 100_000},
+            {"op": "record_starts", "path": paths[1], "limit": 4},
+            {"op": "aggregate", "path": paths[0], "agg": "mapq;count"},
+            {"op": "plan", "path": paths[0], "split_size": 300_000}]
+    svc = SplitService(Config(serve="window=256KB,halo=32KB,batch=8,tick=2,"
+                                    "workers=4"))
+    try:
+        want = [_serve_answer(svc, r) for r in reqs]
+        bad = []
+
+        def client(i):
+            try:
+                for j in range(5):
+                    k = (i + j) % len(reqs)
+                    if _serve_answer(svc, reqs[k]) != want[k]:
+                        bad.append((i, j))
+            except Exception as e:     # a thread's failure fails the test
+                bad.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        svc.close()
+    assert not bad
+
+
+def test_flag_kernels_from_concurrent_threads_match_plain(gpu):
+    """Host threads launching both flag kernels on one stream of one card
+    get their plain versions' answers: their tile-status tickets follow
+    their launches."""
+    import threading
+
+    rng = np.random.default_rng(21)
+    w = 1 << 20
+    lens = torch.zeros(1024, dtype=torch.int32, device=gpu)
+    lens[:2] = torch.tensor([248_956_422, 242_193_529], dtype=torch.int32)
+    cases = []
+    for i in range(4):
+        buf = torch.from_numpy(rng.integers(0, 256, w + K.PAD,
+                                            dtype=np.uint8)).to(gpu)
+        n = w - 997 * i
+        cases.append((buf, n, K._prefilter_compact(buf, lens, 2, n,
+                                                   K.lane_capacity(w)),
+                      K._compute_flags(buf, lens, 2, n)))
+    bad = []
+
+    def worker(i):
+        try:
+            for j in range(25):
+                buf, n, pre, full = cases[(i + j) % len(cases)]
+                got_pre = K.prefilter_check_flags(buf, lens, 2, n)
+                got_full = K.full_check_flags(buf, lens, 2, n)
+                if not (all(torch.equal(a, b) for a, b in zip(got_pre, pre))
+                        and torch.equal(got_full, full)):
+                    bad.append((i, j))
+        except Exception as e:         # a thread's failure fails the test
+            bad.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads)
+    assert not bad
