@@ -102,7 +102,7 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    resolutions on the card with each one's ms, and the streaming starts;
    launches, peak host RSS and device memory; the sidecar's starts = the
    generator's manifest, every resolved plan start a manifest start, the
-   first the header's end); ``index -m 2MB`` (the plan alone, merged into
+   first the header's end); ``index -m 8MB`` (the plan alone, merged into
    that sidecar for phase 13); ``compute-splits -s -m 32MB`` cold with the
    cache off, then warm with ``--cache read`` (equal splits, zero launches,
    zero resolutions); the aggregate warm from the sidecar (= phase 9's
@@ -137,12 +137,12 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    overflowing lane), and their CUDA-event times on the writer's own
    payloads at lanes 16 and 128; ``BgzfWriter`` over the 1 GiB BAM's
    uncompressed stream under mode=fixed and mode=stored at lanes 16 and
-   128 and under mode=off (host zlib), timed by
+   128 and under mode=off (host zlib, on its first 64 MiB), timed by
    ``benchmarks/profile_write.py::timed_write`` (staging, H2D, kernel,
    wait, D2H, assembly, write), every member inflated back by host zlib
    against its payload and its row, every 64th equal to the host
    function's; ``rewrite -i --deflate mode=fixed`` through ``cli.py`` on
-   the small BAM and a 256 MiB one, equal byte for byte (BAM, ``.blocks``,
+   the small BAM and a 128 MiB one, equal byte for byte (BAM, ``.blocks``,
    ``.records``) to ``device=off``, the output counted to the manifest's
    reads and its warm ``compute-splits`` resolving nothing;
    ``encode_zlib_stream`` on the card over 64 MiB with one incompressible
@@ -157,7 +157,7 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    whole-file ``count`` (= the manifest's, no escape; its wall, ticks,
    device ms a tick by CUDA events, and one row's launches by
    torch.profiler), 16 ``count``s over compressed ranges from 4 clients
-   (summing to it), ``plan`` at 32 MiB and 2 MiB warm (= phase 10's plans,
+   (summing to it), ``plan`` at 32 MiB and 8 MiB warm (= phase 10's plans,
    zero split resolutions), ``record_starts`` warm and ``aggregate`` (=
    phase 9's vectors). Service B (the reference defaults) on the 40 MiB,
    long-read and unmapped BAMs: 8 clients' mixed counts (each = the
@@ -169,8 +169,27 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    batch and aggregate responses = the same service's on a CPU mesh. A
    count with ``--funnel off`` runs its rows through ``full_check_flags``.
 
+14. The serve fabric (``fabric_phase``): (a) ``python -m
+   spark_bam_tpu_torch fabric --fabric workers=2,probe=500,stream=1 --serve
+   <service A's spec>`` on a unix socket, its two worker processes on the
+   card (the ``.sbi`` cache of phase 10): the 1 GiB ``count`` = the
+   manifest's, its repeat on the same worker (``stats``), the warm ``plan``
+   at 32 MiB = phase 10's with zero split resolutions, a streamed ``batch``
+   of the 40 MiB BAM over sockets and over the shm descriptor relay =
+   ``export``'s file, then SIGTERM: exit 0, drained. (b) A ``Router`` over
+   an in-process worker (its launches counted) and one ``WorkerPool``
+   worker on the card: a ``batch`` in flight on the pool worker survives
+   its SIGKILL byte-identically (a failover), the worker respawns on its
+   port and is reinstated; 8 clients x 3 counts of the 40 MiB BAM through
+   the router and directly to the worker (latency p50/p99, the router's
+   added latency, counts a second). (c) A seeded chaos run
+   (``drop``, ``dup``, ``delay``, ``trunc`` at the links, ``shm_crc`` on the
+   in-process worker's ring) over that fleet: every count = the
+   generator's, every streamed batch = ``export``'s, none lost, the retry
+   budget's spend within its bound.
+
 Launch counters are set to 0 just before each main path (3, 4, 6, 7, 8,
-9, 10, 11, 12, 13) and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
+9, 10, 11, 12, 13, 14) and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
 and, last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero; without CUDA, or without the package beside
 it, it exits non-zero before printing a result.
@@ -196,6 +215,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak memory rate
 #: The kernels of the count-reads path and of the full-check path.
 COUNT_KERNELS = ("tokenize", "lz77_resolve", "prefilter_check_flags")
+#: The kernels that phase 14's fabric paths launch.
+FABRIC_KERNELS = ("prefilter_check_flags", "full_check_flags")
+#: Beside those kernels' rows: which of phase 14's launches the counters see.
+FABRIC_NOTE = ("fabric paths count the in-process worker's launches; the "
+               "fabric command's and the pool's worker processes launch in "
+               "their own processes, which these counters do not see")
 FULL_CHECK_KERNELS = ("tokenize", "lz77_resolve", "full_check_flags")
 
 
@@ -1020,7 +1045,7 @@ def split_phase(port, bam, manifest, small, work, card, agg_ref) -> dict:
     """Phase 10, split planning with the ``.sbi`` cache (under a temporary
     ``SPARK_BAM_CACHE_DIR``); returns the kernel launches of its four
     1 GiB paths: the cold ``index --record-starts``, the cold ``index -m
-    2MB``, the cold ``compute-splits -s`` and the warm aggregate."""
+    8MB``, the cold ``compute-splits -s`` and the warm aggregate."""
     import io
 
     from spark_bam_tpu_torch import cli
@@ -1100,29 +1125,31 @@ def split_phase(port, bam, manifest, small, work, card, agg_ref) -> dict:
             f"= the manifest's, {len(entries)} plan entries ({card})")
         log("  " + out.getvalue().strip())
 
-        # ---- 1b. index -m 2MB (the plan alone), merged into the sidecar:
-        # phase 13 serves both plans warm from it ------------------------
+        # ---- 1b. index -m 8MB (the plan alone), merged into the sidecar:
+        # phase 13 serves both plans warm from it (8 MiB, not the
+        # reference's 2 MiB check-path split: 81 boundaries, not 324, keep
+        # the smoke inside its limit; profile_splits.py times 2 MiB) -----
         K.reset_launch_counts()
         boundary.STATS.reset()
         out = io.StringIO()
         t0 = time.perf_counter()
-        cli.index(bam, 2 << 20, port.Config(), out=out)
+        cli.index(bam, 8 << 20, port.Config(), out=out)
         torch.cuda.synchronize()
         index2_s = time.perf_counter() - t0
-        paths["index_2mb_cold"] = dict(K.LAUNCHES)
+        paths["index_8mb_cold"] = dict(K.LAUNCHES)
         sbi2 = decode_sbi(open(dest, "rb").read())
-        entries2 = sbi2.split_plans[2 << 20]
+        entries2 = sbi2.split_plans[8 << 20]
         require(split in sbi2.split_plans and np.array_equal(
             sbi2.record_starts, sbi.record_starts), "merge lost a section")
         resolved2 = [table.flat_of_pos(*e.pos) for e in entries2
                      if e.kind == PLAN_POS]
         require(len(resolved2) >= len(entries2) - 1 and
-                np.isin(resolved2, truth).all(), "a 2 MiB plan start is no "
+                np.isin(resolved2, truth).all(), "an 8 MiB plan start is no "
                                                  "record")
-        log(f"index -m 2MB, 1 GiB, cold: {index2_s:.3f} s, "
+        log(f"index -m 8MB, 1 GiB, cold: {index2_s:.3f} s, "
             f"{boundary.STATS.resolutions} boundary resolutions (median "
             f"{statistics.median(boundary.STATS.ms):.2f} ms); launches "
-            f"{paths['index_2mb_cold']}; every resolved start a manifest "
+            f"{paths['index_8mb_cold']}; every resolved start a manifest "
             f"start ({card})")
         del sbi2, entries2, resolved2
 
@@ -1560,8 +1587,8 @@ def write_phase(port, bam, manifest, small, small_manifest, work,
                      "mode=stored,lanes=128", "mode=off"):
             out = out_dir / "w.bgzf"
             # Host zlib takes ~70 s a GiB: its yardstick runs on the first
-            # 256 MiB (the whole GiB: benchmarks/profile_write.py).
-            src = stream[: 256 << 20] if spec == "mode=off" else stream
+            # 64 MiB (the whole GiB: benchmarks/profile_write.py).
+            src = stream[: 64 << 20] if spec == "mode=off" else stream
             K.reset_launch_counts()
             r = timed_write(src, spec, out)
             name = "writer_" + spec.replace("mode=", "").replace(",lanes=",
@@ -1589,9 +1616,9 @@ def write_phase(port, bam, manifest, small, small_manifest, work,
 
         # ---- (c) rewrite --deflate mode=fixed -i through cli.py ---------
         big = work / "rewrite_src.bam"
-        big_manifest = synth_bam(big, 256 << 20, seed=13)
+        big_manifest = synth_bam(big, 128 << 20, seed=13)
         for label, src, m in (("small", small, small_manifest),
-                              ("256mib", big, big_manifest)):
+                              ("128mib", big, big_manifest)):
             outs = {}
             for spec in ("mode=fixed", "mode=fixed,device=off"):
                 out = out_dir / f"{label}_{len(outs)}.bam"
@@ -1816,7 +1843,7 @@ def serve_phase(port, bam, manifest, small, small_manifest, long_bam,
         sidecar = decode_sbi(open(CacheStore.from_env().sidecar_path(bam),
                                   "rb").read())
         plans = {size: sidecar.split_plans[size]
-                 for size in (32 << 20, 2 << 20)}
+                 for size in (32 << 20, 8 << 20)}
         spec_a = "window=24MB,halo=4MB,batch=4,tick=2,workers=4,cache=2GB"
         svc = SplitService(port.Config(serve=spec_a, cache="readwrite"))
         require(svc.mesh.devices[0] == dev, svc.mesh)
@@ -1925,7 +1952,7 @@ def serve_phase(port, bam, manifest, small, small_manifest, long_bam,
             f"{row_ms:.2f} ms (CUDA events); 16 range counts by 4 clients "
             f"sum to the manifest's in {ranges_s:.3f} s; plans warm at 32 MiB "
             f"({len(plans[32 << 20])} splits, {plan_s[32 << 20]:.3f} s) and "
-            f"2 MiB ({len(plans[2 << 20])}, {plan_s[2 << 20]:.3f} s) = phase "
+            f"8 MiB ({len(plans[8 << 20])}, {plan_s[8 << 20]:.3f} s) = phase "
             f"10's with {stats['split_resolutions']} split resolutions; "
             f"record_starts {rs['count']} warm in {rs_s:.3f} s; aggregate = "
             f"phase 9's vectors in {agg_s:.3f} s; count rows_per_s "
@@ -2080,8 +2107,7 @@ def serve_phase(port, bam, manifest, small, small_manifest, long_bam,
             svc_cpu.close()
         require(paths["serve_b"]["prefilter_check_flags"] > 0
                 and paths["serve_b"]["full_check_flags"] > 0, paths["serve_b"])
-        p50 = lat[len(lat) // 2]
-        p99 = lat[min(len(lat) - 1, round(0.99 * (len(lat) - 1)))]
+        p50, p99 = _pct(lat, 0.5), _pct(lat, 0.99)
         log(f"serve B (defaults, 40 MiB + long-read + unmapped BAMs): 8 "
             f"clients x 3 counts in {clients_s:.3f} s, latency p50 "
             f"{p50:.1f} ms p99 {p99:.1f} ms (client clock), each = the "
@@ -2116,6 +2142,352 @@ def serve_phase(port, bam, manifest, small, small_manifest, long_bam,
         obs.shutdown()
         os.environ.pop("SPARK_BAM_CACHE_DIR", None)
     log(f"phase 13 (serve): {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+def _wait_for(pred, timeout_s: float, what: str) -> float:
+    """Poll ``pred`` until it holds; the seconds it took, or a failure."""
+    t0 = time.perf_counter()
+    while not pred():
+        require(time.perf_counter() - t0 < timeout_s, f"timed out: {what}")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def _pct(samples: list, q: float) -> float:
+    s = sorted(samples)
+    return s[min(len(s) - 1, round(q * (len(s) - 1)))]
+
+
+def fabric_phase(port, bam, manifest, small, small_manifest, work,
+                 card) -> dict:
+    """Phase 14, the serve fabric on the card; returns the kernel launches
+    of the two in-process paths (the failover and latency run, and the
+    chaos run)."""
+    import signal
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spark_bam_tpu_torch.core.faults import _roll
+    from spark_bam_tpu_torch.fabric import (
+        FabricChaos,
+        Router,
+        WorkerPool,
+        parse_fabric_chaos,
+        rendezvous_weight,
+    )
+    from spark_bam_tpu_torch.fabric.chaos import _KINDS
+    from spark_bam_tpu_torch.fabric.worker import PipeReader
+    from spark_bam_tpu_torch.sbi.format import PLAN_POS, decode_sbi
+    from spark_bam_tpu_torch.sbi.store import CacheStore
+    from spark_bam_tpu_torch.serve import (
+        ServeClient,
+        ServeClientError,
+        ServerThread,
+        SplitService,
+    )
+    from spark_bam_tpu_torch.tpu import kernels as K
+
+    t_phase = time.perf_counter()
+    paths: dict = {}
+    want, small_want = manifest["reads"], small_manifest["reads"]
+    spec_a = "window=24MB,halo=4MB,batch=4,tick=2,workers=4,cache=2GB"
+    out = work / "fabric_export.sbcr"
+    port.export(small, out)
+    export_bytes = out.read_bytes()
+    out.unlink()
+    cache_dir = work / "sbi_cache"
+    sidecar = decode_sbi(open(CacheStore.from_env(
+        {"SPARK_BAM_CACHE_DIR": str(cache_dir)}).sidecar_path(bam),
+        "rb").read())
+    plan32 = [(e.file_start, [e.pos.block_pos, e.pos.offset]
+               if e.kind == PLAN_POS else None)
+              for e in sidecar.split_plans[32 << 20]]
+
+    # ---- (a) the fabric command, as users run it -----------------------
+    sock = os.path.relpath(work / "fabric.sock")
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               SPARK_BAM_CACHE_DIR=str(cache_dir),
+               SPARK_BAM_CACHE="readwrite")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "spark_bam_tpu_torch", "fabric",
+         "--fabric", "workers=2,probe=500,stream=1", "--serve", spec_a,
+         "--listen", f"unix:{sock}"],
+        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    err = PipeReader(proc.stderr)
+    try:
+        require(err.wait(lambda x: "routing on" in x, time.monotonic() + 300)
+                is not None and proc.poll() is None,
+                "".join(err.lines)[-4000:])
+        _wait_for(lambda: os.path.exists(sock), 30, "the router's socket")
+        up_s = time.perf_counter() - t0
+        with ServeClient(f"unix:{sock}") as c:
+            t0 = time.perf_counter()
+            first = c.request("count", path=str(bam))
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            again = c.request("count", path=str(bam))
+            again_s = time.perf_counter() - t0
+            require(first["count"] == again["count"] == want
+                    and first["escaped"] == 0, (first, again))
+            stats = c.request("stats")
+            served = {w: v["stats"]["ops"].get("count", {}).get("requests", 0)
+                      for w, v in stats["workers"].items()}
+            require(sorted(served.values()) == [0, 2],
+                    f"the repeat left its worker: {served}")
+            t0 = time.perf_counter()
+            plan = c.request("plan", path=str(bam), split_size=32 << 20)
+            plan_s = time.perf_counter() - t0
+            got = [(s["start"], s["pos"]) for s in plan["splits"]]
+            require(got == plan32, "the fabric's plan at 32 MiB != phase 10's")
+            stats = c.request("stats")
+            res = [v["stats"]["split_resolutions"]
+                   for v in stats["workers"].values()]
+            require(res == [0, 0], f"the warm plan resolved {res}")
+            batch_s = {}
+            for transport in ("socket", "auto"):
+                with ServeClient(f"unix:{sock}", transport=transport) as cb:
+                    t0 = time.perf_counter()
+                    r = cb.request("batch", path=str(small))
+                    batch_s[cb.transport] = time.perf_counter() - t0
+                    require(b"".join(bytes(f) for f in r["_binary"]) ==
+                            export_bytes, f"streamed batch over "
+                            f"{cb.transport} != export")
+            stats = c.request("stats")
+            require(stats["counters"].get("streamed") == 2, stats["counters"])
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        down_s = time.perf_counter() - t0
+        require(rc == 0, f"fabric exited {rc}: {''.join(err.lines)[-4000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    log(f"fabric command (2 workers on the card, {spec_a}): routing "
+        f"{up_s:.3f} s after launch (both workers announced); the 1 GiB "
+        f"count {first['count']} = the manifest's in {first_s:.3f} s with "
+        f"the first touch, {again_s:.3f} s again on the same worker "
+        f"({served}); plan at 32 MiB = phase 10's ({len(got)} splits) in "
+        f"{plan_s:.3f} s, split resolutions {res}; streamed batch of the 40 "
+        f"MiB BAM = export's file over socket {batch_s['socket']:.3f} s, "
+        f"shm (descriptor relay) {batch_s['shm']:.3f} s; SIGTERM: exit 0 "
+        f"drained in {down_s:.3f} s ({card})")
+
+    # ---- (b) a Router over an in-process worker and a pool worker ------
+    svc = SplitService(port.Config(serve=spec_a))
+    srv = ServerThread(svc, "tcp:127.0.0.1:0").start()
+    pool = WorkerPool(workers=1, serve=spec_a,
+                      env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    rsrv = router = rsrv_c = None
+    try:
+        t0 = time.perf_counter()
+        pool_addr = pool.start(timeout_s=300)[0]
+        spawn_s = time.perf_counter() - t0
+        in_addr = "tcp:%s:%d" % srv.address
+        # The in-process worker wins the small BAM; the pool worker wins an
+        # alias of it, so the killed batch starts on the pool worker.
+        in_wid = max(("w0", "w1"),
+                     key=lambda w: rendezvous_weight(w, str(small)))
+        pool_wid = "w1" if in_wid == "w0" else "w0"
+        addrs = [in_addr, pool_addr] if in_wid == "w0" \
+            else [pool_addr, in_addr]
+        alias = next(work / f"fabric_alias_{k}.bam" for k in range(64)
+                     if max(("w0", "w1"), key=lambda w: rendezvous_weight(
+                         w, str(work / f"fabric_alias_{k}.bam"))) == pool_wid)
+        os.symlink(small, alias)
+        router = Router(addrs, config=port.Config(
+            fabric="probe=200,probe_timeout=2000,eject=100,eject_max=400,"
+                   "holddown=400,autoscale=600000,budget=64,budget_rate=1"))
+        sock_b = os.path.relpath(work / "fabric_b.sock")
+        rsrv = ServerThread(router, f"unix:{sock_b}").start()
+        pool_link = router.links[int(pool_wid[1])]
+        def batch_alias():
+            with ServeClient(rsrv.address) as cb:
+                return cb.request("batch", path=str(alias))
+
+        K.reset_launch_counts()
+        with ThreadPoolExecutor(1) as ex, ServeClient(rsrv.address) as c:
+            c.request("ping")
+            fut = ex.submit(batch_alias)
+            _wait_for(lambda: pool_link.inflight > 0, 60,
+                      "the batch in flight on the pool worker")
+            pool.wedge(0)              # it cannot finish now...
+            t_kill = time.perf_counter()
+            pool.kill(0, hard=True)    # ...and dies mid-batch
+            r = fut.result(timeout=300)
+            failover_s = time.perf_counter() - t_kill
+            require(b"".join(bytes(f) for f in r["_binary"]) == export_bytes,
+                    "batch across the SIGKILL != export")
+            require(router.counters.get("failovers", 0) >= 1,
+                    router.counters)
+            t0 = time.perf_counter()
+            require(pool.respawn(0, timeout_s=300) == pool_addr, "respawn")
+            respawn_s = time.perf_counter() - t0
+            reinstate_s = _wait_for(lambda: pool_link.healthy, 60,
+                                    "the respawned worker's reinstatement")
+
+        def counts(address):
+            def client(i):
+                lat = []
+                with ServeClient(address) as ci:
+                    for _ in range(3):
+                        t = time.perf_counter()
+                        n = ci.request("count", path=str(small))["count"]
+                        lat.append((time.perf_counter() - t) * 1e3)
+                        require(n == small_want, (n, small_want))
+                return lat
+            t = time.perf_counter()
+            with ThreadPoolExecutor(8) as ex:
+                lat = [x for r in ex.map(client, range(8)) for x in r]
+            return lat, time.perf_counter() - t
+
+        def hop(address):
+            # Sequential empty-range counts: a request with no rows, so
+            # its time is the transport and the handler alone.
+            lat = []
+            with ServeClient(address) as ci:
+                for _ in range(30):
+                    t = time.perf_counter()
+                    ci.request("count", path=str(small), start=0, end=0)
+                    lat.append((time.perf_counter() - t) * 1e3)
+            return statistics.median(lat)
+
+        with ServeClient(rsrv.address) as c:       # the small BAM's first
+            c.request("count", path=str(small))    # touch on its worker
+        before = dict(router.counters)
+        turns = {"router": ([], [], []), "direct": ([], [], [])}
+        for via in ("direct", "router", "router", "direct"):
+            lat, wall = counts(rsrv.address if via == "router" else in_addr)
+            turns[via][0].extend(lat)
+            turns[via][1].append(wall)
+            turns[via][2].append(hop(rsrv.address if via == "router"
+                                     else in_addr))
+        moved = {k: v - before.get(k, 0) for k, v in router.counters.items()
+                 if v != before.get(k, 0)}
+        lat_r, lat_d = turns["router"][0], turns["direct"][0]
+        wall_r, wall_d = (statistics.mean(turns[v][1])
+                          for v in ("router", "direct"))
+        hop_r, hop_d = (statistics.median(turns[v][2])
+                        for v in ("router", "direct"))
+        paths["fabric_inprocess"] = dict(K.LAUNCHES)
+        require(paths["fabric_inprocess"]["prefilter_check_flags"] > 0
+                and paths["fabric_inprocess"]["full_check_flags"] > 0,
+                paths["fabric_inprocess"])
+        log(f"fabric in-process (a Router over the in-process worker and "
+            f"one pool worker, {spec_a}): pool worker spawn to announce "
+            f"{spawn_s:.3f} s (torch import, CUDA init, library load); "
+            f"SIGKILL mid-batch: frames = export's, failovers "
+            f"{router.counters['failovers']}, the batch answered "
+            f"{failover_s:.3f} s after the kill; respawn on its port "
+            f"{respawn_s:.3f} s, reinstated {reinstate_s:.3f} s later; 8 "
+            f"clients x 3 counts of the 40 MiB BAM in turns (direct, "
+            f"router, router, direct): through the router {wall_r:.3f} s "
+            f"a turn = {24 / wall_r:.1f} counts/s, latency p50 "
+            f"{_pct(lat_r, 0.5):.1f} ms p99 {_pct(lat_r, 0.99):.1f} ms; "
+            f"direct to the worker {wall_d:.3f} s = {24 / wall_d:.1f} "
+            f"counts/s, p50 {_pct(lat_d, 0.5):.1f} ms p99 "
+            f"{_pct(lat_d, 0.99):.1f} ms; the 3 slowest through "
+            f"{[round(x, 1) for x in sorted(lat_r)[-3:]]} ms, direct "
+            f"{[round(x, 1) for x in sorted(lat_d)[-3:]]} ms; the router's "
+            f"counters over the turns {moved}; an empty-range count alone "
+            f"(median of 30, each turn) {hop_r:.3f} ms through the router, "
+            f"{hop_d:.3f} ms direct: the hop adds {hop_r - hop_d:.3f} ms; "
+            f"in-process launches {paths['fabric_inprocess']} ({card})")
+
+        # ---- (c) a seeded chaos run over the same fleet ------------------
+        # The first seed whose schedule cuts a stream and corrupts a
+        # descriptor early, and drops none of the first three sends.
+        seed = next(k for k in range(1, 10_000)
+                    if any(_roll(k, _KINDS["shm_crc"], i, 0.02)
+                           for i in range(1, 24))
+                    and any(_roll(k, _KINDS["trunc"], i, 0.02)
+                            for i in range(1, 48))
+                    and not any(_roll(k, _KINDS["drop"], i, 0.05)
+                                for i in range(3)))
+        chaos = (f"{seed}:drop=0.05+dup=0.05+delay=0.1x20+trunc=0.02+"
+                 "shm_crc=0.02")
+        svc.shm_chaos = FabricChaos(*parse_fabric_chaos(chaos))
+        fab_c = ("probe=500,probe_timeout=2000,eject=50,eject_max=200,"
+                 "holddown=200,autoscale=600000,stream=1,budget=64,"
+                 f"budget_rate=1,chaos={chaos}")
+        router_c = Router(addrs, config=port.Config(fabric=fab_c))
+        sock_c = os.path.relpath(work / "fabric_c.sock")
+        rsrv_c = ServerThread(router_c, f"unix:{sock_c}").start()
+        K.reset_launch_counts()
+        tally = {"sent": 0, "retries": 0, "no_healthy": 0, "lost": 0,
+                 "wrong": 0}
+        tally_lock = threading.Lock()
+
+        def note(key, n=1):
+            with tally_lock:
+                tally[key] += n
+
+        def ask(ci, op, check):
+            # A typed WorkerLost (both links down at once, or the budget
+            # spent) is the client's to retry; a request is lost when its
+            # 20 sends all fail, wrong when its answer differs. The
+            # retries, and of them the router's "no healthy workers"
+            # answers, say how often the fleet refused work.
+            for _ in range(20):
+                note("sent")
+                try:
+                    r = ci.request(op, path=str(small))
+                except ServeClientError as e:
+                    require(e.error == "WorkerLost", e.resp)
+                    note("retries")
+                    note("no_healthy", int("no healthy workers"
+                                           in e.resp.get("message", "")))
+                    time.sleep(0.05)
+                    continue
+                note("wrong", int(not check(r)))
+                return
+            note("lost")
+
+        def chaos_client(i):
+            with ServeClient(rsrv_c.address) as ci:
+                if i < 2:
+                    for _ in range(2):
+                        ask(ci, "batch", lambda r: b"".join(
+                            bytes(f) for f in r["_binary"]) == export_bytes)
+                for _ in range(4):
+                    ask(ci, "count", lambda r: r["count"] == small_want)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as ex:
+            list(ex.map(chaos_client, range(8)))
+        chaos_s = time.perf_counter() - t0
+        paths["fabric_chaos"] = dict(K.LAUNCHES)
+        fcfg = router_c.fcfg
+        spent = router_c.counters.get("budget_spent", 0)
+        require(tally["lost"] == 0 and tally["wrong"] == 0, tally)
+        require(spent <= fcfg.budget + fcfg.budget_rate * tally["sent"],
+                (spent, tally))
+        require(paths["fabric_chaos"]["prefilter_check_flags"] > 0,
+                paths["fabric_chaos"])
+        log(f"fabric chaos ({chaos}, stream=1): 36 requests (32 counts, 4 "
+            f"streamed batches over shm) in {chaos_s:.3f} s, every count = "
+            f"the generator's, every batch = export's, lost 0 (after "
+            f"client retries), wrong 0; client retries of a typed "
+            f"WorkerLost {tally['retries']}, of them the router's 'no "
+            f"healthy workers' {tally['no_healthy']}; "
+            f"injected {dict((k, v) for k, v in router_c.chaos.injected.items() if v)}"
+            f" at the links, shm_crc {svc.shm_chaos.injected['shm_crc']} on "
+            f"the in-process worker's ring; router counters "
+            f"{dict(sorted(router_c.counters.items()))}; budget spent "
+            f"{spent} of {fcfg.budget} + {fcfg.budget_rate} x "
+            f"{tally['sent']} admitted; launches {paths['fabric_chaos']} "
+            f"({card})")
+    finally:
+        for s in (rsrv_c, rsrv):
+            if s is not None:
+                s.stop()
+        pool.terminate()
+        srv.stop()
+        svc.close()
+    log(f"phase 14 (fabric): {time.perf_counter() - t_phase:.1f} s")
     return paths
 
 
@@ -2621,6 +2993,9 @@ def main() -> int:
             long_manifest, work, card, agg_ref)
         del agg_ref
 
+        fabric_launches = fabric_phase(port, bam, manifest, small,
+                                       small_manifest, work, card)
+
         for row in rows:
             row["launches"] = launches[row["name"]]
             row["launches_by_path"] = {
@@ -2639,12 +3014,17 @@ def main() -> int:
                    for path, n in write_launches.items()},
                 **{path: n[row["name"]]
                    for path, n in serve_launches.items()},
+                **{path: n[row["name"]]
+                   for path, n in fabric_launches.items()},
             }
+            if row["name"] in FABRIC_KERNELS:
+                row["launches_note"] = FABRIC_NOTE
         for row in write_rows:
             row["launches_by_path"] = {
                 path: n[row["name"]]
                 for path, n in (*write_launches.items(),
-                                *serve_launches.items())}
+                                *serve_launches.items(),
+                                *fabric_launches.items())}
         print(json.dumps({"kernels": rows + write_rows}), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -60,6 +60,16 @@ before any work; its ``device=auto`` means the card here, as ``on`` does.
 printing the reference's ``serving on ...`` line to stderr; ``--serve`` (or
 ``SPARK_BAM_SERVE``) sets its batching, admission and window knobs.
 
+``fabric [--fabric SPEC] [--serve SPEC] [--listen ADDR] [--attach ADDR]...
+[--worker-devices N] [--device DEV]`` launches ``workers`` serve worker
+processes (``fabric/worker.py``; every visible CUDA device each, or
+``--worker-devices`` entries of ``--device``), or attaches to running ones,
+and fronts them with the fabric router (affinity, health probes, failover,
+the latency autoscaler) on ``--listen``, printing the reference's
+``fabric: routing on ...`` line to stderr; ``--fabric`` (or
+``SPARK_BAM_FABRIC``) is exported to launched workers. SIGTERM drains it
+and leaves a router ``drain`` flight dump under ``SPARK_BAM_FLIGHT_DIR``.
+
 Every command runs on the CUDA device unless ``--device`` names another;
 ``--sharded`` meshes are every visible CUDA device, or ``--devices N``
 entries of ``--device`` (``--device cpu --devices 4``: a 4-entry CPU mesh).
@@ -84,6 +94,7 @@ from spark_bam_tpu_torch.agg.plan import AggConfig
 from spark_bam_tpu_torch.compress.config import DeflateConfig
 from spark_bam_tpu_torch.core.config import Config, format_bytes, parse_bytes
 from spark_bam_tpu_torch.core.stats import Stats, format_bytes_binary
+from spark_bam_tpu_torch.fabric.config import FabricConfig
 from spark_bam_tpu_torch.serve.config import ServeConfig
 from spark_bam_tpu_torch.load import api
 from spark_bam_tpu_torch.load.hadoop import hadoop_bam_splits
@@ -711,6 +722,89 @@ def serve(listen: str, device=None, config: Config = Config()) -> None:
         service.close()
 
 
+def fabric(listen: str, attach, worker_devices: int, device=None,
+           config: Config = Config()) -> None:
+    """Launch (or attach to) the serve workers and route among them on
+    ``listen`` until SIGTERM or Ctrl-C drains the router."""
+    import signal
+
+    import asyncio
+
+    from spark_bam_tpu_torch.fabric import Router, WorkerPool
+    from spark_bam_tpu_torch.obs import flight
+    from spark_bam_tpu_torch.serve import ServeAddress, start_server
+
+    try:
+        ServeAddress(listen)
+    except ValueError as e:
+        raise UsageError(str(e)) from e
+    fcfg = config.fabric_config
+    # Launched workers inherit the fabric spec, so a chaos run's seed
+    # lands in their flight dumps too.
+    worker_env = None
+    if config.fabric:
+        worker_env = dict(os.environ, SPARK_BAM_FABRIC=config.fabric)
+    pool = WorkerPool(workers=fcfg.workers, devices=worker_devices,
+                      device=device, serve=config.serve,
+                      columnar=config.columnar, attach=attach,
+                      env=worker_env)
+    router = None
+
+    def _drain():
+        # Drain: stop routing new work; the workers get SIGTERM below and
+        # finish their in-flight ticks unshed.
+        flight.record("sigterm", signum=int(signal.SIGTERM), who="router")
+        if router is not None:
+            router.draining = True
+
+    def _graceful(signum, frame):
+        _drain()
+        raise KeyboardInterrupt
+
+    async def route():
+        # On the loop, SIGTERM wakes the selector whichever thread the
+        # signal reached, and stops the accept loop between callbacks.
+        stopped = asyncio.Event()
+
+        def on_sigterm():
+            _drain()
+            stopped.set()
+
+        asyncio.get_running_loop().add_signal_handler(signal.SIGTERM,
+                                                      on_sigterm)
+        server = await start_server(router, ServeAddress(listen))
+        await stopped.wait()
+        server.close()
+
+    # Installed before the workers start: a SIGTERM while they come up
+    # still terminates them below, and a supervisor that SIGTERMs on
+    # seeing the announce gets a clean drain.
+    signal.signal(signal.SIGTERM, _graceful)
+    try:
+        addresses = pool.start()
+        router = Router(addresses, config=config)
+        chaos_note = (f" [chaos {router.chaos.describe()}]"
+                      if router.chaos is not None else "")
+        print(f"fabric: routing on {listen} over {len(addresses)} workers "
+              f"({'attached' if attach else 'launched'}: "
+              f"{', '.join(addresses)}){chaos_note} — Ctrl-C to stop",
+              file=sys.stderr, flush=True)
+        asyncio.run(route())
+    except KeyboardInterrupt:
+        pass
+    except BaseException as exc:
+        # The router narrates its own crash before unwinding.
+        flight.dump_auto("crash", who="router",
+                         extra={"error": repr(exc),
+                                "workers": pool.addresses})
+        raise
+    finally:
+        pool.terminate()
+        flight.dump_auto("drain", who="router", extra={
+            "counters": dict(router.counters) if router else {},
+            "moves": list(router.moves)[-32:] if router else []})
+
+
 def _add_knobs(p, split_help: str) -> None:
     p.add_argument("-m", "--max-split-size", default=None, help=split_help)
     p.add_argument("-z", "--bgzf-blocks-to-check", type=int, default=None)
@@ -735,13 +829,16 @@ def _positive_int(s: str) -> int:
 
 def _config(args) -> Config:
     """``SPARK_BAM_CACHE``, ``SPARK_BAM_COLUMNAR``, ``SPARK_BAM_DEFLATE``,
-    ``SPARK_BAM_FAULTS`` and ``SPARK_BAM_SERVE``, then the command's
+    ``SPARK_BAM_FAULTS``, ``SPARK_BAM_SERVE`` and ``SPARK_BAM_FABRIC``,
+    then the command's
     flags: the split size, the checker knobs, ``--cache``,
-    ``--columnar``, ``--deflate``, ``--serve`` and ``--funnel`` (a bad
-    size, cache, deflate, serve or funnel spec is a usage error)."""
+    ``--columnar``, ``--deflate``, ``--serve``, ``--funnel`` and
+    ``--fabric`` (a bad size, cache, deflate, serve, funnel or fabric spec
+    is a usage error)."""
     kw = {}
     for knob in ("bgzf_blocks_to_check", "reads_to_check", "max_read_size",
-                 "cache", "columnar", "deflate", "serve", "funnel"):
+                 "cache", "columnar", "deflate", "serve", "funnel",
+                 "fabric"):
         value = getattr(args, knob, None)
         if value is not None:
             kw[knob] = value
@@ -753,6 +850,7 @@ def _config(args) -> Config:
         CacheMode.parse(config.cache)
         DeflateConfig.parse(config.deflate)
         ServeConfig.parse(config.serve)
+        FabricConfig.parse(config.fabric)
     except ValueError as e:
         raise UsageError(str(e)) from e
     return config
@@ -891,9 +989,41 @@ def main(argv=None) -> int:
     sv.add_argument("--funnel", default=None, choices=("on", "off", "auto"),
                     help="the two-stage candidate funnel of the count rows "
                          "(default auto: on)")
+    fb = sub.add_parser(
+        "fabric", help="route among serve workers: affinity, health, "
+                       "failover, autoscaling")
+    fb.add_argument(
+        "--fabric", default=None, metavar="SPEC",
+        help="fabric knobs, e.g. 'workers=3,slo=200,probe=500,spill=8,"
+             "batch_ceil=32' (SPARK_BAM_FABRIC works too); resilience: "
+             "budget/budget_rate, flap_k/flap_window/holddown, "
+             "brownout[_frac], stream=1 for the resumable streaming relay; "
+             "seeded chaos: 'chaos=SEED:drop=0.05+trunc=0.02+delay=0.1x20'")
+    fb.add_argument(
+        "--serve", default=None, metavar="SPEC",
+        help="per-worker serving knobs, forwarded to every launched worker")
+    fb.add_argument(
+        "--listen", default="tcp:127.0.0.1:8765", metavar="ADDR",
+        help="router address: unix:<path> or tcp:<host>:<port> (default "
+             "tcp:127.0.0.1:8765)")
+    fb.add_argument(
+        "--attach", action="append", default=None, metavar="ADDR",
+        help="attach to a running worker instead of launching (repeatable: "
+             "one for every host's `multihost --serve` address)")
+    fb.add_argument(
+        "--worker-devices", type=int, default=0, metavar="N",
+        help="mesh entries a LAUNCHED worker serves: N copies of --device, "
+             "or the first N CUDA devices (0: every CUDA device, or one "
+             "entry of --device)")
+    fb.add_argument("-w", "--warn", action="store_true",
+                    help="root log level WARN")
     for p in (ag, cs, ix, ex, rw, sv):
         p.add_argument("--device", default=None,
                        help="torch device (default: the current CUDA device)")
+    fb.add_argument("--device", default=None,
+                    help="torch device of the launched workers (default: "
+                         "every visible CUDA device; cpu for the plain "
+                         "versions)")
     for p in (ib, ir):
         p.add_argument("-o", "--out", default=None)
     for p in (ag, cs, ix, ib, ir, ex):
@@ -952,6 +1082,13 @@ def _run(args) -> int:
                 args.index, args.device, config=config)
     elif args.cmd == "serve":
         serve(args.listen, args.device, config)
+    elif args.cmd == "fabric":
+        if args.warn:
+            import logging
+
+            logging.getLogger().setLevel(logging.WARNING)
+        fabric(args.listen, args.attach, args.worker_devices, args.device,
+               config)
     elif args.cmd == "aggregate":
         out = open(args.out, "w") if args.out else None
         try:

@@ -168,6 +168,11 @@ class Config:
     # scan_queue=128,window=1MB"; "" = defaults): batching, admission
     # limits and resident budgets; ``serve_config`` parses it.
     serve: str = ""
+    # Compact FabricConfig spec of the serve fabric ("workers=3,probe=500,
+    # spill=8"; "" = defaults): the router's pool size, affinity
+    # spillover, probe and eject pacing, retry budget and the autoscaler's
+    # target and bounds; ``fabric_config`` parses it.
+    fabric: str = ""
 
     #: The load path's raw split size (hadoop's file-split default).
     LOAD_SPLIT_SIZE_DEFAULT = 32 << 20
@@ -190,15 +195,16 @@ class Config:
         return self.split_size if self.split_size is not None else default
 
     #: The knobs ``from_env`` reads, as ``SPARK_BAM_<KNOB>``.
-    ENV_KNOBS = ("cache", "columnar", "deflate", "faults", "serve")
+    ENV_KNOBS = ("cache", "columnar", "deflate", "faults", "serve", "fabric")
 
     @classmethod
     def from_env(cls, env=None) -> "Config":
         """The defaults with ``SPARK_BAM_CACHE`` as the ``cache`` spec,
         ``SPARK_BAM_COLUMNAR`` as the ``columnar`` spec,
         ``SPARK_BAM_DEFLATE`` as the ``deflate`` spec,
-        ``SPARK_BAM_FAULTS`` as the ``faults`` spec and
-        ``SPARK_BAM_SERVE`` as the ``serve`` spec, as the
+        ``SPARK_BAM_FAULTS`` as the ``faults`` spec,
+        ``SPARK_BAM_SERVE`` as the ``serve`` spec and
+        ``SPARK_BAM_FABRIC`` as the ``fabric`` spec, as the
         reference's ``Config.from_env`` maps them (the store's
         ``SPARK_BAM_CACHE_DIR`` and ``SPARK_BAM_CACHE_BUDGET`` are read by
         ``sbi.store.CacheStore.from_env``)."""
@@ -232,6 +238,13 @@ class Config:
         from spark_bam_tpu_torch.core.faults import FaultPolicy
 
         return FaultPolicy.parse(self.faults)
+
+    @property
+    def fabric_config(self):
+        """The parsed ``FabricConfig`` of this config's ``fabric`` spec."""
+        from spark_bam_tpu_torch.fabric.config import FabricConfig
+
+        return FabricConfig.parse(self.fabric)
 
     @property
     def serve_config(self):

@@ -5,8 +5,11 @@ serve daemon's deadlines and its client's ``Overloaded`` retries read
 Retry-After hint (``LatencyTracker``).
 
 ``FaultPolicy`` parses the same compact ``k=v,...`` spec as the
-reference's (``Config.faults`` / ``SPARK_BAM_FAULTS``). The reference's
-chaos channels and disk chaos are not part of this port.
+reference's (``Config.faults`` / ``SPARK_BAM_FAULTS``). ``_mix`` and
+``_roll`` are the reference's splitmix64 fault rolls, bit for bit: the
+fabric's seeded chaos (``fabric/chaos.py``) draws with them, so one seed
+gives both packages the same faults. The reference's chaos channels and
+disk chaos are not part of this port.
 """
 
 from __future__ import annotations
@@ -156,3 +159,20 @@ class LatencyTracker:
             if len(self._samples) < self.MIN_SAMPLES:
                 return None
             return statistics.median(self._samples)
+
+
+# ------------------------------------------------------------------- chaos
+_M64 = (1 << 64) - 1
+
+
+def _mix(seed: int, kind: int, x: int) -> int:
+    """splitmix64 finalizer over (seed, kind, index): the deterministic
+    per-event randomness source, reproducible across runs and platforms."""
+    z = (x + seed * 0x9E3779B97F4A7C15 + kind * 0xD1B54A32D192ED03) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return z ^ (z >> 31)
+
+
+def _roll(seed: int, kind: int, x: int, rate: float) -> bool:
+    return rate > 0 and (_mix(seed, kind, x) >> 11) < rate * (1 << 53)

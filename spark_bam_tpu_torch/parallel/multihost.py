@@ -21,6 +21,14 @@ window per global device, its content varying per window) and prints the
 reduced confusion matrix as one JSON line; with ``--bam`` it counts the
 file's reads (``count_reads_sharded``), each process inflating only its
 own block range. Every process prints its line.
+
+With ``--serve LISTEN`` the process is a fabric worker instead: after the
+``torch.distributed`` bring-up it runs one serving loop
+(``fabric/worker.py`` ``serve_worker``) over this process's local devices,
+never the global mesh, listening on LISTEN until SIGTERM drains it; it
+announces its address as one JSON line. Point a fabric router at every
+process's address (``fabric --attach ADDR ...``). ``--serve-spec`` is the
+loop's ServeConfig spec.
 """
 
 from __future__ import annotations
@@ -216,7 +224,24 @@ def main(argv=None) -> int:
                     help="lookahead bytes per row (--bam)")
     ap.add_argument("--chunk-bytes", type=int, default=192 << 20,
                     help="row bytes per step and process (--bam)")
+    ap.add_argument(
+        "--serve", default=None, metavar="LISTEN",
+        help="fabric-worker mode: after the bring-up, serve this process's "
+             "local devices on LISTEN (tcp:host:port or unix:path) until "
+             "SIGTERM drains it; point the fabric router at every "
+             "process's announced address")
+    ap.add_argument("--serve-spec", default="",
+                    help="ServeConfig spec of the serving loop (--serve)")
     a = ap.parse_args(argv)
+    if a.serve:
+        from spark_bam_tpu_torch.fabric.worker import serve_worker
+
+        return serve_worker(
+            listen=a.serve, serve=a.serve_spec,
+            device="cpu" if a.local_devices else None,
+            devices=a.local_devices, coordinator=a.coordinator,
+            num_processes=a.num_processes, process_id=a.process_id,
+            init_file=a.init_file, backend=a.backend)
     common = dict(local_devices=a.local_devices, init_file=a.init_file,
                   backend=a.backend)
     if a.bam:

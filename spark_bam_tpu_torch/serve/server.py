@@ -41,16 +41,19 @@ class _Conn:
     """Per-connection transport state (hello-negotiated). Touched only
     on the event loop — no locks."""
 
-    __slots__ = ("transport", "ring", "wait_s", "_next_seg_id")
+    __slots__ = ("transport", "ring", "wait_s", "chaos", "_next_seg_id")
 
     def __init__(self):
         self.transport = "socket"
         self.ring: "shm.SegmentWriter | None" = None
         self.wait_s = 0.2
+        self.chaos = None
         self._next_seg_id = 0
 
     def alloc_seg_id(self) -> int:
-        """Connection-unique segment ids."""
+        """Connection-unique segment ids: the router's descriptor relay
+        announces upstream segments on the same id space, so its own ring
+        and the remapped worker segments draw from one counter."""
         self._next_seg_id += 1
         return self._next_seg_id
 
@@ -123,12 +126,15 @@ def _hello_response(service, conn: _Conn, req: dict, writer) -> dict:
     conn.ring = ring
     conn.transport = "shm"
     conn.wait_s = float(getattr(service, "shm_wait_ms", 200.0)) / 1000.0
+    conn.chaos = getattr(service, "shm_chaos", None)
     obs.count("transport.shm_connections")
     return ok_response(req, transport="shm", segment=ring.path,
                        segment_id=ring.seg_id, segment_bytes=ring.capacity)
 
 
-async def _handle_connection(service: SplitService, reader, writer) -> None:
+async def _handle_connection(service, reader, writer) -> None:
+    """One client connection; ``service`` is anything with ``submit``: a
+    ``SplitService``, or the fabric's ``Router``."""
     obs.count("serve.connections")
     wlock = asyncio.Lock()
     conn = _Conn()
@@ -138,35 +144,61 @@ async def _handle_connection(service: SplitService, reader, writer) -> None:
         """One frame → one transport record (shm connections only). Ring
         writes are memcpy-speed and bounded; a full ring waits briefly for
         the consumer's ack cursor, then goes inline: the transport
-        degrades, it never deadlocks."""
+        degrades, it never deadlocks. A service with shm chaos rolls its
+        three seams here."""
         ring = conn.ring
+        chaos = conn.chaos
         if ring is not None and ring.alive:
-            desc = ring.try_write(frame)
-            if desc is None and len(frame) <= ring.capacity:
-                obs.count("transport.ring_full_waits")
-                deadline = loop.time() + conn.wait_s
-                while desc is None and loop.time() < deadline:
-                    await asyncio.sleep(0.001)
-                    desc = ring.try_write(frame)
-            if desc is not None:
-                obs.count("transport.shm_frames")
-                obs.count("transport.shm_bytes", len(frame))
-                return shm.pack_desc(*desc)
+            if chaos is not None and chaos.roll("shm_unlink"):
+                obs.count("fabric.chaos.shm_unlinks")
+                ring.sever()    # frames after this point go inline
+            else:
+                desc = ring.try_write(frame)
+                if desc is None and len(frame) <= ring.capacity:
+                    obs.count("transport.ring_full_waits")
+                    deadline = loop.time() + conn.wait_s
+                    while desc is None and loop.time() < deadline:
+                        await asyncio.sleep(0.001)
+                        desc = ring.try_write(frame)
+                if desc is not None:
+                    rec = shm.pack_desc(*desc)
+                    if chaos is not None and chaos.roll("shm_crc"):
+                        obs.count("fabric.chaos.shm_crcs")
+                        # A stale crc: the client must detect the mismatch
+                        # and resume, never trust the frame.
+                        rec = rec[:-1] + bytes([rec[-1] ^ 0xFF])
+                    if chaos is not None and chaos.roll("shm_trunc"):
+                        obs.count("fabric.chaos.shm_truncs")
+                        raise shm.ChaosTruncation(rec[:len(rec) // 2])
+                    obs.count("transport.shm_frames")
+                    obs.count("transport.shm_bytes", len(frame))
+                    return rec
         obs.count("transport.inline_frames")
         return shm.pack_inline(frame)
 
     async def write(resp: dict) -> None:
         # Binary frames (batch, aggregate) ride after the JSON line:
         # socket connections get u64-length-prefixed bytes, shm
-        # connections transport records; the line and every frame leave
-        # in one buffered write.
+        # connections transport records. ``_binary`` is a list: the line
+        # and every frame leave in one buffered write. ``_binary_iter``
+        # (the router's streaming relay) is an async iterator drained
+        # under the write lock, the head and the first frame coalesced;
+        # ``_records_iter`` carries encoded transport records (the
+        # router's descriptor relay), forwarded as they are.
         chunks = resp.pop("_binary", None)
+        frames_iter = resp.pop("_binary_iter", None)
+        records_iter = resp.pop("_records_iter", None)
         head = encode(resp)
+        poison = False
         if chunks:
             if conn.transport == "shm":
                 parts = [head]
-                for c in chunks:
-                    parts.append(await record_for(c))
+                try:
+                    for c in chunks:
+                        parts.append(await record_for(c))
+                except shm.ChaosTruncation as exc:
+                    parts.append(exc.partial)
+                    poison = True
                 data = b"".join(parts)
             else:
                 data = b"".join(
@@ -175,9 +207,64 @@ async def _handle_connection(service: SplitService, reader, writer) -> None:
                 )
         else:
             data = head
+        if frames_iter is None and records_iter is None:
+            async with wlock:
+                writer.write(data)
+                await writer.drain()
+                if poison:
+                    obs.count("serve.stream_aborts")
+                    try:
+                        writer.transport.abort()
+                    except Exception:
+                        pass
+            return
+
+        async def as_records(it):
+            async for c in it:
+                if conn.transport == "shm":
+                    yield await record_for(c)
+                else:
+                    yield struct.pack("<Q", len(c)) + bytes(c)
+
+        stream = records_iter if records_iter is not None \
+            else as_records(frames_iter)
         async with wlock:
-            writer.write(data)
-            await writer.drain()
+            # The head is held until the first frame record is ready, then
+            # both leave in one buffered write (the same byte sequence as
+            # separate writes).
+            pending = data
+            try:
+                async for rec in stream:
+                    if pending is not None:
+                        writer.write(pending + rec)
+                        pending = None
+                    else:
+                        writer.write(rec)
+                    await writer.drain()
+                if pending is not None:
+                    writer.write(pending)
+                    await writer.drain()
+            except asyncio.CancelledError:
+                raise
+            except Exception as exc:
+                # The head promised binary_frames the stream can no longer
+                # deliver (resume exhausted, a chaos truncation): put what
+                # must precede the cut on the wire, then abort the
+                # transport, so the client sees a hard connection error,
+                # never a silently short response.
+                obs.count("serve.stream_aborts")
+                tail = exc.partial if isinstance(exc, shm.ChaosTruncation) \
+                    else b""
+                if pending is not None or tail:
+                    try:
+                        writer.write((pending or b"") + tail)
+                        await writer.drain()
+                    except Exception:
+                        pass
+                try:
+                    writer.transport.abort()
+                except Exception:
+                    pass
 
     async def one(req: dict) -> None:
         try:
@@ -188,8 +275,8 @@ async def _handle_connection(service: SplitService, reader, writer) -> None:
                 retry_after_ms=exc.retry_after_ms,
             ))
             return
-        # SplitService hands back thread-pool futures; another service
-        # may hand back asyncio awaitables.
+        # SplitService hands back thread-pool futures; the fabric Router
+        # (which reuses this accept loop) hands back awaitables.
         if isinstance(fut, concurrent.futures.Future):
             await write(await asyncio.wrap_future(fut))
         else:
@@ -232,9 +319,11 @@ async def _handle_connection(service: SplitService, reader, writer) -> None:
             if ring.drained() or not ring.alive:
                 ring.close()
             else:
-                # The peer may close before it has read every descriptor:
-                # hold the unlink until the ack cursor catches up
-                # (bounded); mapped pages survive the eventual unlink.
+                # The peer may close before it has read every descriptor (a
+                # relay closes its upstream connection once the last one
+                # is forwarded, possibly before the end client mapped the
+                # segment): hold the unlink until the ack cursor catches
+                # up (bounded); mapped pages survive the eventual unlink.
                 asyncio.ensure_future(_drain_then_close(ring, loop))
         writer.close()
         try:

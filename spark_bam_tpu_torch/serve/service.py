@@ -80,6 +80,17 @@ UNSERVED = {
 _ROW_ALIGN = 16
 
 
+def unsupported_response(req: dict) -> dict:
+    """The ``Unsupported`` answer to an op of ``UNSERVED``, naming the
+    ROADMAP item that will serve it (the router answers with it too)."""
+    op = req.get("op")
+    return error_response(
+        req, "Unsupported",
+        f"op {op!r} is not served by this port yet; ROADMAP Queue 1 item "
+        f"{UNSERVED[op]} will serve it",
+    )
+
+
 def _percentile(samples, q: float) -> "float | None":
     """Nearest-rank percentile over a small sample window."""
     if not samples:
@@ -228,6 +239,7 @@ class SplitService:
         self.shm_enabled = bool(self.serve_cfg.shm)
         self.shm_bytes = int(self.serve_cfg.shm_bytes)
         self.shm_wait_ms = float(self.serve_cfg.shm_wait_ms)
+        self.shm_chaos = self._build_shm_chaos(config)
         self.mesh = mesh if mesh is not None else local_mesh()
         self.device = self.mesh.devices[0]
         self.steps = mesh_steps(self.mesh)
@@ -267,6 +279,25 @@ class SplitService:
         self._closed = False
         self.draining = False
         self.accountant = obs_account.Accountant()
+
+    @staticmethod
+    def _build_shm_chaos(config: Config):
+        """The seeded shm-seam fault source (``fabric/chaos.py``) when the
+        fabric ``chaos=`` spec sets any ``shm_*`` rate; the accept loop
+        rolls it per frame record. A lazy import, so an unconfigured
+        service never loads the fabric."""
+        arg = config.fabric_config.chaos
+        if not arg:
+            return None
+        from spark_bam_tpu_torch.fabric.chaos import (
+            FabricChaos,
+            parse_fabric_chaos,
+        )
+
+        seed, spec = parse_fabric_chaos(arg)
+        if not (spec.shm_crc or spec.shm_trunc or spec.shm_unlink):
+            return None
+        return FabricChaos(seed, spec)
 
     # ------------------------------------------------------------ lifecycle
     def close(self) -> None:
@@ -308,11 +339,7 @@ class SplitService:
             fut.set_result(ok_response(req, **self.alerts()))
             return fut
         if op in UNSERVED:
-            fut.set_result(error_response(
-                req, "Unsupported",
-                f"op {op!r} is not served by this port yet; ROADMAP Queue 1 "
-                f"item {UNSERVED[op]} will serve it",
-            ))
+            fut.set_result(unsupported_response(req))
             return fut
         klass = CLASS_OF[op]
         if self._closed:

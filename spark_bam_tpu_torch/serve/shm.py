@@ -13,7 +13,7 @@ the moment the descriptor arrives.
 
 - ``kind 0`` (inline): ``u64 length`` and that many frame bytes, the
   per-frame fallback (ring full past the ack wait, frame larger than the
-  ring);
+  ring, or a severed segment);
 - ``kind 1`` (shm ref): ``<u32 seg_id, u64 offset, u64 length, u32 crc>``:
   the frame lives at monotone ring ``offset`` (physical position ``offset
   % capacity``) of segment ``seg_id``; ``crc`` is a guard crc32 over the
@@ -76,6 +76,15 @@ class ShmError(ConnectionError):
     """Client-side shm fault (stale or corrupt descriptor, dead segment).
     A ``ConnectionError`` so the client's reconnect and ``resume_from``
     loop survives it."""
+
+
+class ChaosTruncation(Exception):
+    """Seeded ``shm_trunc`` injection: carries the half-written descriptor
+    so the server puts exactly those bytes on the wire, then aborts."""
+
+    def __init__(self, partial: bytes):
+        self.partial = partial
+        super().__init__("chaos: descriptor truncated mid-record")
 
 
 def guard_crc(frame) -> int:
@@ -175,6 +184,16 @@ class SegmentWriter:
         self.head += length
         U64.pack_into(self._mm, _HEAD_OFF, self.head)
         return (self.seg_id, offset, length, guard_crc(frame))
+
+    def sever(self) -> None:
+        """Kill the segment mid-stream (the ``shm_unlink`` chaos seam):
+        unlink the file and stop allocating. Frames already described stay
+        readable through the client's mapping; later ones go inline."""
+        self.alive = False
+        try:
+            os.unlink(self.path)
+        except OSError:
+            pass
 
     def drained(self) -> bool:
         """True once the consumer's ack cursor has caught up with every

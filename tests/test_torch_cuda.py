@@ -1122,3 +1122,60 @@ def test_flag_kernels_from_concurrent_threads_match_plain(gpu):
         t.join(timeout=600)
     assert not any(t.is_alive() for t in threads)
     assert not bad
+
+
+@pytest.mark.parametrize("stream", [0, 1])
+def test_fabric_on_gpu_equals_cpu(gpu, tmp_path, stream):
+    """A router over two in-process workers on the card answers count,
+    plan and ``batch`` (over sockets and shm) as the same fabric on a CPU
+    mesh does, the card workers' rows launching the prefilter."""
+    from spark_bam_tpu_torch.fabric import Router
+    from spark_bam_tpu_torch.parallel.mesh import local_mesh
+    from spark_bam_tpu_torch.serve import ServeClient, ServerThread
+    from spark_bam_tpu_torch.serve import SplitService
+
+    p = str(tmp_path / "f.bam")
+    m = synth_bam(p, 3 << 20, seed=17, unit_reads=4000)
+    size = Path(p).stat().st_size
+    cfg = Config(serve="window=512KB,halo=32KB,batch=4,tick=2")
+    fabric = f"probe=60000,autoscale=60000,stream={stream}"
+    reqs = [("count", {"path": p}),
+            ("count", {"path": p, "start": size // 3}),
+            ("plan", {"path": p, "split_size": 256 << 10}),
+            ("batch", {"path": p, "batch_rows": 3000}),
+            ("batch", {"path": p, "intervals": "chr1:1-300000",
+                       "columns": ["pos", "cigar"]})]
+
+    def answers(mesh):
+        svcs = [SplitService(cfg, mesh) for _ in range(2)]
+        srvs = [ServerThread(s).start() for s in svcs]
+        router = Router(["tcp:%s:%d" % s.address for s in srvs],
+                        config=Config(fabric=fabric))
+        rsrv = ServerThread(router).start()
+        out = []
+        try:
+            for transport in ("socket", "auto"):
+                with ServeClient(rsrv.address, transport=transport) as c:
+                    for op, fields in reqs:
+                        r = c.request(op, **fields)
+                        frames = [bytes(f) for f in r.pop("_binary", ())]
+                        for k in ("id", "_transport", "devices",
+                                  "latency_p50_ms", "latency_p99_ms"):
+                            r.pop(k, None)
+                        out.append((r, frames))
+        finally:
+            rsrv.stop()
+            for s in srvs:
+                s.stop()
+            for s in svcs:
+                s.close()
+        return out
+
+    K.reset_launch_counts()
+    got = answers(None)
+    launches = dict(K.LAUNCHES)
+    want = answers(local_mesh(["cpu"]))
+    assert got == want
+    assert got[0][0]["count"] == m["reads"]
+    assert launches["prefilter_check_flags"] > 0
+    assert launches["full_check_flags"] > 0     # the batch's cold starts
