@@ -40,7 +40,7 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    and its zero masks past the header must number the generator's reads.
    A small BAM of two windows is summarised on the card, on the card from
    host-zlib windows (``device_inflate=False``) and with ``device="cpu"``
-   (the plain versions): equal summaries.
+   on host-zlib windows (the plain flag pass): equal summaries.
 5. Long reads (60-110 kb) at a 256 KiB window and 64 KiB halo, which the
    chains outrun: both count loops must still be exact (through the escape
    retry), ``full_spans`` must defer, and the card's summary must equal
@@ -65,7 +65,8 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    (``benchmarks/load_cases.py``) on the card, on the CPU and with the
    funnel off (``full_check_flags``), equal batches under every filter,
    tags included; the long reads' exact spills; ``load_reads_columnar``
-   and ``record_starts`` on the small BAM, card against CPU.
+   and ``record_starts`` on the small BAM, card against CPU (the CPU's
+   columns parsed and filtered over its one whole-file check).
 8. The sharded workloads (``parallel/``) on ``make_mesh()``, every card:
    ``count_reads_sharded`` over the 1 GiB BAM (the generator's count, no
    escape, no demotion, no fallback; wall beside the fused count; steps,
@@ -91,7 +92,8 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    host split, the ``full_check_flags`` launches, the reduction's card time
    and PyTorch launches per 65,536-record window, peak host RSS and peak
    device memory. Then with a loci and flag filter (= the oracle over
-   NumPy-masked columns); the mesh's agg step on every card and on a
+   NumPy-masked columns, reusing the first run's record starts); the
+   mesh's agg step on every card and on a
    two-entry mesh of one card (= one device); card = CPU on the small BAM,
    the load edge corpus under tag filters and an unmapped BAM with no
    reference sequences (``benchmarks/agg_cases.py``; empty coverage).
@@ -142,9 +144,10 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    wait, D2H, assembly, write), every member inflated back by host zlib
    against its payload and its row, every 64th equal to the host
    function's; ``rewrite -i --deflate mode=fixed`` through ``cli.py`` on
-   the small BAM and a 128 MiB one, equal byte for byte (BAM, ``.blocks``,
-   ``.records``) to ``device=off``, the output counted to the manifest's
-   reads and its warm ``compute-splits`` resolving nothing;
+   the small BAM (equal byte for byte, BAM, ``.blocks`` and ``.records``,
+   to ``device=off``) and a 128 MiB one (phase 15's oracle), each output
+   counted to the manifest's reads and its warm ``compute-splits``
+   resolving nothing;
    ``encode_zlib_stream`` on the card over 64 MiB with one incompressible
    window (= ``zlib_stream``, one re-pack), and the small BAM's export
    with ``codec=deflate`` under ``SPARK_BAM_DEFLATE=mode=fixed`` =
@@ -188,8 +191,29 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    generator's, every streamed batch = ``export``'s, none lost, the retry
    budget's spend within its bound.
 
+15. The durable job plane (``jobs_phase``), its oracles phase 11's
+   container and phase 12's rewrites (no clean job of its own): (a)
+   ``python -m spark_bam_tpu_torch export --durable --jobs
+   dir=...,frames=8`` of the 1 GiB BAM in a subprocess, stopped and
+   SIGKILLed once its journal holds two checkpoints, then the same command
+   in-process through ``cli.main``: it resumes, and its ``.sbcr`` = phase
+   11's byte for byte (its wall beside phase 11's, the journal's appends,
+   checkpointed bytes a second, redone bytes). (b) Two ``WorkerPool``
+   workers on the card sharing a jobs dir (``SPARK_BAM_JOBS``) behind an
+   in-process ``Router``: ``submit job=transcode deflate=mode=fixed`` of
+   the 40 MiB BAM, its owner stopped and SIGKILLed after its first
+   checkpoint, the watchdog's rescue on the survivor (``job_rescues`` 1,
+   the time from the kill to done): the BAM, ``.blocks`` and ``.records``
+   = phase 12's ``rewrite -i`` byte for byte, redone bytes ≤ two
+   segments, a warm ``compute-splits`` resolving nothing, ``scrub
+   --source`` clean (its rate). (c) An in-process worker (service A's
+   spec): an export job of the 40 MiB BAM = ``export``'s file, with the
+   peak device memory while it ran; a ``mode=fixed`` rewrite job of the
+   128 MiB BAM paused by a seeded ENOSPC mid-run (the alert in the flight
+   record), resubmitted without chaos: = phase 12's output.
+
 Launch counters are set to 0 just before each main path (3, 4, 6, 7, 8,
-9, 10, 11, 12, 13, 14) and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
+9, 10, 11, 12, 13, 14, 15) and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
 and, last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero; without CUDA, or without the package beside
 it, it exits non-zero before printing a result.
@@ -222,6 +246,11 @@ FABRIC_NOTE = ("fabric paths count the in-process worker's launches; the "
                "fabric command's and the pool's worker processes launch in "
                "their own processes, which these counters do not see")
 FULL_CHECK_KERNELS = ("tokenize", "lz77_resolve", "full_check_flags")
+#: Beside every kernel's row: which of phase 15's launches the counters see.
+JOBS_NOTE = ("jobs paths count this process's jobs: the resumed durable "
+             "export, the in-process worker's export job and its paused "
+             "then resumed rewrite; the rescued transcode runs in worker "
+             "processes the counters do not see")
 
 
 def log(msg: str) -> None:
@@ -558,18 +587,28 @@ def load_phase(port, bam, manifest, long_bam, long_manifest, small, work,
         f"the stream, positions = the generator's")
 
     # Whole file: record_starts and load_reads_columnar, card against CPU.
+    # The CPU side checks the whole file once: its columns are the plain
+    # parse and filters over those starts, as load_reads_columnar's (the
+    # two other CPU whole-file checks were a depth cut, PERF.md §4).
+    from spark_bam_tpu_torch.load.tpu_load import _apply_filter
+    from spark_bam_tpu_torch.tpu.parser import parse_flat_records
+
     t0 = time.perf_counter()
     rs_card = port.record_starts(small)
     rs_cpu = port.record_starts(small, device="cpu")
     require((rs_card.starts == rs_cpu.starts).all()
             and len(rs_card.starts) == len(rs_cpu.starts), "record_starts")
+    cpu_cols = parse_flat_records(rs_cpu.view.data, rs_cpu.starts,
+                                  device="cpu")
     for kw in ({}, {"loci": "chr1:0-1000000", "flags_forbidden": 0x400}):
         a = port.load_reads_columnar(small, **kw)
-        b = port.load_reads_columnar(small, device="cpu", **kw)
+        b = cpu_cols if not kw else _apply_filter(
+            cpu_cols, rs_cpu.header, kw["loci"], 0, kw["flags_forbidden"],
+            device="cpu")
         batches_equal([(0, a)], [(0, b)], f"load_reads_columnar {kw}")
     log(f"load whole file: record_starts ({len(rs_card.starts)} starts) and "
-        f"load_reads_columnar equal on card and CPU; "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"load_reads_columnar equal on card and CPU (the CPU's columns from "
+        f"its one whole-file check); {time.perf_counter() - t0:.1f} s")
     load_cols = {c: np.concatenate(v) for c, v in parts.items()}
     return load_launches, off_launches, load_cols
 
@@ -876,14 +915,22 @@ def agg_phase(port, bam, manifest, small, work, card) -> tuple[dict, dict]:
         cols = {k: batch.columns[k] for k in AK.PLANES}
         header = seen["read_header"]
         del batch, seen["parse_flat_records"], seen["flatten_file"]
-        seen["record_starts"] = None
+        first_starts, seen["record_starts"] = seen["record_starts"], None
 
-        # Filtered: a loci and flag filter on the same file.
+        # Filtered: a loci and flag filter on the same file. Its parse,
+        # filters and reduction run again; the whole-file check does not
+        # (it reuses the starts above: a depth cut, PERF.md §4).
         loci = "chr1:100000-900000,chr2:500000-1500000"
         split.clear()
-        t0 = time.perf_counter()
-        filt = port.aggregate(bam, loci=loci, flags_forbidden=0x10)
-        filt_s = time.perf_counter() - t0
+        real_starts = real["record_starts"]
+        real["record_starts"] = lambda *a, **kw: first_starts
+        try:
+            t0 = time.perf_counter()
+            filt = port.aggregate(bam, loci=loci, flags_forbidden=0x10)
+            filt_s = time.perf_counter() - t0
+        finally:
+            real["record_starts"] = real_starts
+        del first_starts
         filt_split = dict(split)
         seen.clear()
     finally:
@@ -948,7 +995,8 @@ def agg_phase(port, bam, manifest, small, work, card) -> tuple[dict, dict]:
     log(f"aggregate filtered ({loci}, forbid 0x10): {kept} rows in "
         f"{filt_s:.3f} s (" + ", ".join(f"{k} {v:.3f}"
                                         for k, v in filt_split.items())
-        + "); every vector = host_aggregate over NumPy-masked columns")
+        + "; record_starts reused from the unfiltered run); every vector = "
+        "host_aggregate over NumPy-masked columns")
 
     # The mesh's agg step: every card, and two entries of one card.
     t0 = time.perf_counter()
@@ -1249,9 +1297,10 @@ def split_phase(port, bam, manifest, small, work, card, agg_ref) -> dict:
 
 
 def export_phase(port, bam, manifest, load_cols, small, small_manifest,
-                 work, card) -> dict:
+                 work, card, keep: dict) -> dict:
     """Phase 11, the columnar export; returns its kernel launch counts on
-    the 1 GiB export."""
+    the 1 GiB export, and leaves its container and wall in ``keep`` (phase
+    15's oracle)."""
     import dataclasses
 
     from spark_bam_tpu_torch.bam.header import read_header
@@ -1348,6 +1397,8 @@ def export_phase(port, bam, manifest, load_cols, small, small_manifest,
         f"the generator's, {checked} sampled rows' var columns = _var_piece "
         f"(first and last 8,192, every 997th); {read_s:.1f} s")
 
+    keep["export_sbcr"] = out.rename(work / "keep" / "smoke.sbcr")
+    keep["export_wall"] = wall
     for f in out_dir.iterdir():
         f.unlink()
 
@@ -1456,10 +1507,12 @@ def _check_members(blob, blocks, stream, host_member, every: int = 64) -> int:
 
 
 def write_phase(port, bam, manifest, small, small_manifest, work,
-                card) -> tuple[list, dict]:
+                card, keep: dict) -> tuple[list, dict]:
     """Phase 12, the write path; returns the kernel rows of
     ``crc32_lanes`` and ``deflate_fixed_lanes`` and the launch counts of
-    every kernel on each of its paths."""
+    every kernel on each of its paths. Leaves in ``keep`` (phase 15's
+    oracles) the card's ``rewrite -i`` outputs of the small and 128 MiB
+    BAMs with their sidecars, and the 128 MiB source."""
     import io
     import zlib
 
@@ -1617,10 +1670,15 @@ def write_phase(port, bam, manifest, small, small_manifest, work,
         # ---- (c) rewrite --deflate mode=fixed -i through cli.py ---------
         big = work / "rewrite_src.bam"
         big_manifest = synth_bam(big, 128 << 20, seed=13)
+        # The 128 MiB BAM is rewritten on the card only: phase 15's paused
+        # and resumed job must equal it (its device=off leg was a depth
+        # cut, PERF.md §4); the small BAM holds card = device=off.
         for label, src, m in (("small", small, small_manifest),
                               ("128mib", big, big_manifest)):
             outs = {}
-            for spec in ("mode=fixed", "mode=fixed,device=off"):
+            specs = (("mode=fixed", "mode=fixed,device=off")
+                     if label == "small" else ("mode=fixed",))
+            for spec in specs:
                 out = out_dir / f"{label}_{len(outs)}.bam"
                 K.reset_launch_counts()
                 reset_cache_events()
@@ -1638,8 +1696,9 @@ def write_phase(port, bam, manifest, small, small_manifest, work,
                     require(K.LAUNCHES["deflate_fixed_lanes"] > 0,
                             K.LAUNCHES)
                 outs[spec] = (out, wall)
-            (a, a_s), (b_, b_s) = outs.values()
-            for ext in ("", ".blocks", ".records"):
+            (a, a_s), *off = outs.values()
+            b_, b_s = off[0] if off else (None, None)
+            for ext in ("", ".blocks", ".records") if off else ():
                 require(Path(str(a) + ext).read_bytes()
                         == Path(str(b_) + ext).read_bytes(),
                         f"rewrite {label}{ext}: card differs from device=off")
@@ -1661,16 +1720,21 @@ def write_phase(port, bam, manifest, small, small_manifest, work,
                     f"warm compute-splits of the rewritten {label}: "
                     f"{boundary.STATS.resolutions} resolutions, "
                     f"{K.LAUNCHES}")
+            keep[f"rewrite_{label}"] = a.rename(work / "keep" / a.name)
+            for ext in (".blocks", ".records"):
+                Path(str(a) + ext).rename(str(keep[f"rewrite_{label}"]) + ext)
+            vs_off = (f"device=off {b_s:.3f} s; BAM, .blocks and .records "
+                      f"equal byte for byte" if off else "no device=off leg")
             log(f"rewrite -i --deflate mode=fixed {label} "
                 f"({m['uncompressed_bytes']} bytes, {m['reads']} reads): card "
-                f"{a_s:.3f} s, device=off {b_s:.3f} s; BAM, .blocks and "
-                f".records equal byte for byte; count-reads of the output = "
+                f"{a_s:.3f} s, {vs_off}; count-reads of the output = "
                 f"the manifest's; warm compute-splits 0 resolutions, 0 "
                 f"launches; launches {paths[f'rewrite_{label}']} ({card})")
             for ext in ("", ".blocks", ".records", ".sbi"):
-                for p in (a, b_):
+                for p in (a, b_) if off else (a,):
                     Path(str(p) + ext).unlink(missing_ok=True)
-        big.unlink()
+        keep["rewrite_src"] = big.rename(work / "keep" / big.name)
+        keep["rewrite_src_manifest"] = big_manifest
         big.with_suffix(".manifest.json").unlink(missing_ok=True)
 
         # ---- (d) encode_zlib_stream, and the export's deflate codec ----
@@ -2491,6 +2555,340 @@ def fabric_phase(port, bam, manifest, small, small_manifest, work,
     return paths
 
 
+def _journal_tags(path) -> list:
+    """The tags of a journal's durable prefix ([] before it exists)."""
+    from spark_bam_tpu_torch.jobs.journal import read_journal
+
+    try:
+        return [r["t"] for r in read_journal(path)]
+    except OSError:
+        return []
+
+
+def _same_file(a, b) -> bool:
+    import filecmp
+
+    return filecmp.cmp(str(a), str(b), shallow=False)
+
+
+def _first_fault_seed(kind: int, rate: float, lo: int, hi: int) -> int:
+    """The first disk-chaos seed whose first fault of ``kind`` at ``rate``
+    lands on an operation in [lo, hi)."""
+    from spark_bam_tpu_torch.core.faults import _roll
+
+    for seed in range(1, 1 << 20):
+        first = next((i for i in range(hi) if _roll(seed, kind, i, rate)),
+                     None)
+        if first is not None and first >= lo:
+            return seed
+    raise AssertionError("no seed")
+
+
+def jobs_phase(port, bam, manifest, small, small_manifest, work, card,
+               keep: dict) -> dict:
+    """Phase 15, the durable job plane on the card; returns the kernel
+    launches of its in-process paths. Its oracles are phase 11's container
+    and phase 12's rewrites (``keep``): it runs no clean job of its own."""
+    import io
+    import signal
+
+    from spark_bam_tpu_torch import cli
+    from spark_bam_tpu_torch.core import faults
+    from spark_bam_tpu_torch.fabric import Router, WorkerPool, rendezvous_weight
+    from spark_bam_tpu_torch.fabric.worker import PipeReader
+    from spark_bam_tpu_torch.jobs.journal import read_journal
+    from spark_bam_tpu_torch.jobs.manager import job_id_of
+    from spark_bam_tpu_torch.load import boundary
+    from spark_bam_tpu_torch.obs import flight
+    from spark_bam_tpu_torch.sbi.store import reset_cache_events
+    from spark_bam_tpu_torch.serve import (
+        ServeClient,
+        ServeClientError,
+        ServerThread,
+        SplitService,
+    )
+    from spark_bam_tpu_torch.tpu import kernels as K
+
+    t_phase = time.perf_counter()
+    paths: dict = {}
+    saved_env = {k: os.environ.pop(k, None) for k in (
+        "SPARK_BAM_DEFLATE", "SPARK_BAM_CACHE", "SPARK_BAM_CACHE_DIR",
+        "SPARK_BAM_JOBS", "SPARK_BAM_DISK_CHAOS", "SPARK_BAM_COLUMNAR")}
+    jobs_root = work / "jobs"
+    out_dir = work / "jobs_out"
+    out_dir.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    try:
+        # ---- (a) export --durable as users run it: killed, then resumed -
+        out = out_dir / "durable.sbcr"
+        argv = ["export", "--durable", "--jobs",
+                f"dir={jobs_root / 'export'},frames=8", "-o", str(out),
+                str(bam)]
+        jid = job_id_of({"op": "export", "path": str(bam), "out": str(out)})
+        journal = jobs_root / "export" / jid / "journal.sbj"
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "spark_bam_tpu_torch", *argv], env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        err = PipeReader(proc.stderr)
+        try:
+            _wait_for(lambda: (_journal_tags(journal).count("ckpt") >= 2
+                               or proc.poll() is not None), 300,
+                      "two checkpoints of the durable export")
+            require(proc.poll() is None
+                    and "done" not in _journal_tags(journal),
+                    "the durable export ended before its kill: "
+                    + "".join(err.lines)[-3000:])
+            proc.send_signal(signal.SIGSTOP)
+            proc.send_signal(signal.SIGKILL)
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        killed_s = time.perf_counter() - t0
+        require(proc.returncode == -signal.SIGKILL, proc.returncode)
+        require(not out.exists(), "an artifact before the job's done")
+        banked = [r for r in read_journal(journal) if r["t"] == "ckpt"]
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        resume_s = time.perf_counter() - t0
+        paths["jobs_durable_export"] = dict(K.LAUNCHES)
+        require(rc == 0, f"export --durable resumed: rc {rc}")
+        res = json.loads(buf.getvalue())
+        require(res["resumed"] and res["rows"] == manifest["reads"]
+                and res["batches"] == -(-manifest["reads"] // 8192), res)
+        require(_same_file(out, keep["export_sbcr"]),
+                "the resumed durable export != phase 11's smoke.sbcr")
+        require(all(paths["jobs_durable_export"][k] > 0
+                    for k in COUNT_KERNELS)
+                and paths["jobs_durable_export"]["full_check_flags"] == 0,
+                paths["jobs_durable_export"])
+        recs = read_journal(journal)
+        fresh = [r for r in recs if r["t"] == "ckpt"][len(banked):]
+        ck_bytes = sum(r["seg_bytes"] for r in fresh)
+        log(f"jobs (a) export --durable of the 1 GiB BAM (frames=8): "
+            f"SIGKILLed {killed_s:.3f} s after launch with "
+            f"{len(banked)} checkpoints ({banked[-1]['frames']} frames, "
+            f"{banked[-1]['offset']} bytes) durable; the same command "
+            f"in-process resumed and finished in {resume_s:.3f} s (phase "
+            f"11's plain export {keep['export_wall']:.3f} s): .sbcr = phase "
+            f"11's byte for byte ({out.stat().st_size} bytes, {res['rows']} "
+            f"rows, {res['batches']} frames); redone bytes "
+            f"{res['redone_bytes']}; journal appends {len(recs)} "
+            f"({res['checkpoints']} checkpoints), this run's checkpoints "
+            f"{len(fresh)} = {ck_bytes} bytes, {ck_bytes / resume_s / 1e6:.1f}"
+            f" MB/s of checkpointed segments; launches "
+            f"{paths['jobs_durable_export']} ({card})")
+        out.unlink()
+
+        # ---- (b) the fabric's rescue of a transcode on the card ---------
+        shared = jobs_root / "shared"
+        tr_out = out_dir / "transcoded.bam"
+        req = {"job": "transcode", "path": str(small), "out": str(tr_out),
+               "block_payload": 65280, "level": 6, "deflate": "mode=fixed"}
+        jid = job_id_of({"op": "transcode", **{k: v for k, v in req.items()
+                                              if k != "job"}})
+        tjournal = shared / jid / "journal.sbj"
+        pool = WorkerPool(workers=2, env=dict(
+            env, SPARK_BAM_JOBS=f"dir={shared},checkpoint=20000,mem=1.0"))
+        rsrv = None
+        try:
+            t0 = time.perf_counter()
+            addrs = pool.start(timeout_s=300)
+            spawn_s = time.perf_counter() - t0
+            router = Router(addrs, config=port.Config(
+                fabric="probe=100,autoscale=600000"))
+            rsrv = ServerThread(router, "tcp:127.0.0.1:0").start()
+            owner = max(range(2), key=lambda i: rendezvous_weight(
+                f"w{i}", str(small)))
+            with ServeClient(rsrv.address) as c:
+                t_sub = time.perf_counter()
+                require(c.request("submit", **req)["job_id"] == jid, jid)
+                _wait_for(lambda: bool({"ckpt", "done"}
+                                       & set(_journal_tags(tjournal))),
+                          300, "the transcode's first checkpoint")
+                require("done" not in _journal_tags(tjournal),
+                        "the transcode finished before its owner's kill")
+                kill_after_s = time.perf_counter() - t_sub
+                pool.wedge(owner)
+                t_kill = time.perf_counter()
+                pool.kill(owner, hard=True)
+                while True:
+                    require(time.perf_counter() - t_kill < 300,
+                            "the rescued transcode did not finish")
+                    try:
+                        st = c.request("job_status", job_id=jid)
+                    except (ServeClientError, ConnectionError, OSError):
+                        time.sleep(0.05)     # the owner is gone: rescue due
+                        continue
+                    if st["state"] == "done":
+                        break
+                    require(st["state"] == "running", st)
+                    time.sleep(0.05)
+                rescue_s = time.perf_counter() - t_kill
+            rescues = router.counters.get("job_rescues", 0)
+        finally:
+            if rsrv is not None:
+                rsrv.stop()
+            pool.terminate()
+        require(rescues == 1, router.counters)
+        tres = st["result"]
+        seg = [r["seg_bytes"] for r in read_journal(tjournal)
+               if r["t"] == "ckpt"]
+        require(tres["resumed"] and tres["redone_bytes"] <= 2 * max(seg),
+                (tres, max(seg)))
+        for ext in ("", ".blocks", ".records"):
+            require(_same_file(str(tr_out) + ext,
+                               str(keep["rewrite_small"]) + ext),
+                    f"the rescued transcode{ext} != phase 12's small_0.bam"
+                    f"{ext}")
+        boundary.STATS.reset()
+        reset_cache_events()
+        K.reset_launch_counts()
+        rep = io.StringIO()
+        with contextlib.redirect_stdout(rep):
+            require(cli.main(["compute-splits", "-s", "--cache", "read",
+                              str(tr_out)]) == 0, "warm compute-splits")
+        require("cache: hit (fingerprint ok)" in rep.getvalue()
+                and boundary.STATS.resolutions == 0
+                and not any(K.LAUNCHES.values()),
+                f"warm compute-splits of the transcode: "
+                f"{boundary.STATS.resolutions} resolutions, {K.LAUNCHES}")
+        rep = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(rep):
+            rc = cli.main(["scrub", "--source", str(small), str(tr_out)])
+        scrub_s = time.perf_counter() - t0
+        report = json.loads(rep.getvalue())
+        require(rc == 0 and report["clean"]
+                and report["records_checked"] == small_manifest["reads"]
+                and report["artifacts"] == 4, report)
+        size = tr_out.stat().st_size
+        log(f"jobs (b) fabric rescue: two pool workers on the card (spawn "
+            f"to announce {spawn_s:.3f} s) share a jobs dir; submit "
+            f"transcode deflate=mode=fixed of the 40 MiB BAM; its owner "
+            f"w{owner} stopped and SIGKILLed {kill_after_s:.3f} s after the "
+            f"submit (first checkpoint durable); the watchdog re-homed it "
+            f"(job_rescues {rescues}) and it was done {rescue_s:.3f} s after "
+            f"the SIGKILL; BAM, .blocks and .records = phase 12's small_0 "
+            f"byte for byte; redone bytes {tres['redone_bytes']} (largest "
+            f"segment {max(seg)}); warm compute-splits 0 resolutions, 0 "
+            f"launches; scrub --source clean: {report['records_checked']} "
+            f"records, {size} bytes in {scrub_s:.3f} s = "
+            f"{report['records_checked'] / scrub_s:.0f} records/s, "
+            f"{size / scrub_s / 1e6:.1f} MB/s ({card})")
+        for ext in ("", ".blocks", ".records", ".sbi"):
+            Path(str(tr_out) + ext).unlink(missing_ok=True)
+
+        # ---- (c) a worker's export job; a rewrite paused by ENOSPC -------
+        spec_a = "window=24MB,halo=4MB,batch=4,tick=2,workers=4,cache=2GB"
+        svc = SplitService(port.Config(
+            serve=spec_a,
+            jobs=f"dir={jobs_root / 'inproc'},checkpoint=20000,mem=1.0"))
+
+        def job(req, timeout=600):
+            st = svc.submit(dict(req, op="submit")).result(timeout=timeout)
+            t = time.perf_counter()
+            while st["state"] == "running":
+                require(time.perf_counter() - t < timeout, st)
+                time.sleep(0.02)
+                st = svc.submit({"op": "job_status", "job_id": st["job_id"]}
+                                ).result(timeout=timeout)
+            return st
+
+        try:
+            plain = out_dir / "plain.sbcr"
+            port.export(small, plain)
+            ex_out = out_dir / "worker_export.sbcr"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            st = job({"job": "export", "path": str(small),
+                      "out": str(ex_out)})
+            ex_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            paths["jobs_worker_export"] = dict(K.LAUNCHES)
+            require(st["state"] == "done"
+                    and st["result"]["rows"] == small_manifest["reads"], st)
+            require(_same_file(ex_out, plain),
+                    "the worker's export job != export's file")
+            log(f"jobs (c) export job of the 40 MiB BAM in an in-process "
+                f"worker ({spec_a}): done "
+                f"in {ex_s:.3f} s, = export's file; device memory "
+                f"{before / 2**20:.1f} MiB before it, peak "
+                f"{peak / 2**20:.1f} MiB while it ran; launches "
+                f"{paths['jobs_worker_export']} ({card})")
+            for p_ in (plain, ex_out):
+                p_.unlink()
+
+            src = keep["rewrite_src"]
+            m = keep["rewrite_src_manifest"]
+            rw_out = out_dir / "paused.bam"
+            rreq = {"job": "rewrite", "path": str(src), "out": str(rw_out),
+                    "deflate": "mode=fixed"}
+            # One write a member and a journal append a checkpoint: the
+            # first injected ENOSPC lands between a fifth and a third of
+            # them.
+            n_writes = (-(-m["uncompressed_bytes"] // 65280)
+                        + m["reads"] // 20000 + 2)
+            rate = 3.0 / n_writes
+            seed = _first_fault_seed(faults._K_ENOSPC, rate, n_writes // 5,
+                                     n_writes // 3)
+            flight.recorder().clear()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            with faults.disk_chaos(f"{seed}:enospc={rate}"):
+                st = job(rreq)
+            pause_s = time.perf_counter() - t0
+            rjid = st["job_id"]
+            require(st["state"] == "paused" and "ENOSPC" in st["error"], st)
+            rck = [r for r in read_journal(jobs_root / "inproc" / rjid /
+                                           "journal.sbj") if r["t"] == "ckpt"]
+            require(rck, "the paused rewrite banked no checkpoint")
+            alerts = [e for e in flight.recorder().events()
+                      if e["e"] == "slo_alert" and e.get("job_id") == rjid]
+            require(len(alerts) == 1 and alerts[0]["objective"]
+                    == "jobs.paused", alerts)
+            t0 = time.perf_counter()
+            st = job(rreq)
+            resume_rw_s = time.perf_counter() - t0
+            paths["jobs_pause_resume_rewrite"] = dict(K.LAUNCHES)
+            require(st["state"] == "done" and st["result"]["resumed"]
+                    and st["result"]["count"] == m["reads"], st)
+            require(paths["jobs_pause_resume_rewrite"]["deflate_fixed_lanes"]
+                    > 0, paths["jobs_pause_resume_rewrite"])
+            require(_same_file(rw_out, keep["rewrite_128mib"]),
+                    "the paused-then-resumed rewrite != phase 12's 128mib_0")
+            stats = svc.submit({"op": "stats"}).result(timeout=60)
+            require(stats["jobs"].get(rjid) == "done", stats["jobs"])
+            log(f"jobs (c) rewrite job of the 128 MiB BAM under "
+                f"mode=fixed and disk chaos {seed}:enospc={rate:.6f}: paused "
+                f"after {len(rck)} checkpoints ({rck[-1]['records']} records)"
+                f" in {pause_s:.3f} s, the alert in the flight record; "
+                f"resubmitted without chaos, done in {resume_rw_s:.3f} s, "
+                f"= phase 12's 128mib_0.bam byte for byte; redone bytes "
+                f"{st['result']['redone_bytes']}; launches "
+                f"{paths['jobs_pause_resume_rewrite']} ({card})")
+            rw_out.unlink()
+        finally:
+            svc.close()
+    finally:
+        for k, v in saved_env.items():
+            if v is not None:
+                os.environ[k] = v
+        shutil.rmtree(jobs_root, ignore_errors=True)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"phase 15 (jobs): {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2919,8 +3317,10 @@ def main() -> int:
             small, port.Config(device_inflate=False))
         host_zlib_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        on_cpu = port.full_check_summary_streaming(small, port.Config(),
-                                                   device="cpu")
+        # The CPU leg inflates with host zlib: the device inflate's plain
+        # versions ran on the first window above (a depth cut: PERF.md §4).
+        on_cpu = port.full_check_summary_streaming(
+            small, port.Config(device_inflate=False), device="cpu")
         cpu_s = time.perf_counter() - t0
         small_windows = len(port.StreamChecker(
             small, port.Config(), device="cpu").pipeline.groups)
@@ -2932,7 +3332,7 @@ def main() -> int:
         log(f"full-check card vs CPU: {small_manifest['uncompressed_bytes']} "
             f"bytes, {small_windows} windows, equal summaries; card "
             f"{card_s:.3f} s, card from host-zlib windows {host_zlib_s:.3f} "
-            f"s, CPU (plain versions) {cpu_s:.3f} s")
+            f"s, CPU (plain versions on host-zlib windows) {cpu_s:.3f} s")
 
         # ---- long reads: chains outrun a 64 KiB halo ---------------------
         geo = (256 << 10, 64 << 10)
@@ -2980,13 +3380,15 @@ def main() -> int:
         split_launches = split_phase(port, bam, manifest, small, work, card,
                                      agg_ref)
 
+        keep: dict = {}
+        (work / "keep").mkdir(exist_ok=True)
         export_launches = export_phase(
             port, bam, manifest, load_cols, small, small_manifest, work,
-            card)
+            card, keep)
         del load_cols
 
         write_rows, write_launches = write_phase(
-            port, bam, manifest, small, small_manifest, work, card)
+            port, bam, manifest, small, small_manifest, work, card, keep)
 
         serve_launches = serve_phase(
             port, bam, manifest, small, small_manifest, long_bam,
@@ -2995,6 +3397,10 @@ def main() -> int:
 
         fabric_launches = fabric_phase(port, bam, manifest, small,
                                        small_manifest, work, card)
+
+        jobs_launches = jobs_phase(port, bam, manifest, small,
+                                   small_manifest, work, card, keep)
+        shutil.rmtree(work / "keep", ignore_errors=True)
 
         for row in rows:
             row["launches"] = launches[row["name"]]
@@ -3016,15 +3422,21 @@ def main() -> int:
                    for path, n in serve_launches.items()},
                 **{path: n[row["name"]]
                    for path, n in fabric_launches.items()},
+                **{path: n[row["name"]]
+                   for path, n in jobs_launches.items()},
             }
             if row["name"] in FABRIC_KERNELS:
-                row["launches_note"] = FABRIC_NOTE
+                row["launches_note"] = FABRIC_NOTE + " " + JOBS_NOTE
+            else:
+                row["launches_note"] = JOBS_NOTE
         for row in write_rows:
             row["launches_by_path"] = {
                 path: n[row["name"]]
                 for path, n in (*write_launches.items(),
                                 *serve_launches.items(),
-                                *fabric_launches.items())}
+                                *fabric_launches.items(),
+                                *jobs_launches.items())}
+            row["launches_note"] = JOBS_NOTE
         print(json.dumps({"kernels": rows + write_rows}), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -55,12 +55,14 @@ reads to OUT`` lines. ``--deflate`` (or ``SPARK_BAM_DEFLATE``) is checked
 before any work; its ``device=auto`` means the card here, as ``on`` does.
 
 ``serve [--listen ADDR] [--serve SPEC] [--cache MODE] [--reads-to-check N]
-[--funnel MODE]`` runs the split service (``serve/``) on ``unix:<path>`` or
-``tcp:<host>:<port>`` (default ``tcp:127.0.0.1:8765``) until interrupted,
+[--funnel MODE] [--jobs SPEC] [--disk-chaos SPEC]`` runs the split service
+(``serve/``) on ``unix:<path>`` or ``tcp:<host>:<port>`` (default
+``tcp:127.0.0.1:8765``) until interrupted,
 printing the reference's ``serving on ...`` line to stderr; ``--serve`` (or
 ``SPARK_BAM_SERVE``) sets its batching, admission and window knobs.
 
-``fabric [--fabric SPEC] [--serve SPEC] [--listen ADDR] [--attach ADDR]...
+``fabric [--fabric SPEC] [--serve SPEC] [--jobs SPEC] [--disk-chaos SPEC]
+[--listen ADDR] [--attach ADDR]...
 [--worker-devices N] [--device DEV]`` launches ``workers`` serve worker
 processes (``fabric/worker.py``; every visible CUDA device each, or
 ``--worker-devices`` entries of ``--device``), or attaches to running ones,
@@ -69,6 +71,23 @@ the latency autoscaler) on ``--listen``, printing the reference's
 ``fabric: routing on ...`` line to stderr; ``--fabric`` (or
 ``SPARK_BAM_FABRIC``) is exported to launched workers. SIGTERM drains it
 and leaves a router ``drain`` flight dump under ``SPARK_BAM_FLIGHT_DIR``.
+
+The durable job plane (``jobs/``): ``rewrite --durable [--checkpoint N]``
+and ``export --durable [--checkpoint N]`` run through the journaled job
+runners (checkpoints every N records, or N container frames, default from
+``--jobs`` / ``SPARK_BAM_JOBS``): a re-run of the same command after a
+crash resumes from the last durable checkpoint, and the artifact equals an
+uninterrupted run's byte for byte; each prints the job's result as JSON.
+``export --durable`` writes the native container of the whole file only.
+``scrub [--source BAM] [--quarantine] [--stride N] [-o OUT] PATH...``
+checks rewritten BAMs (with their sidecars) and native containers and
+prints the reference's JSON report: exit 0 when clean, 3 on findings.
+``--jobs SPEC`` (``dir=...,checkpoint=...,frames=...,mem=...,max=...``)
+sets the job plane of ``rewrite``, ``export``, ``serve`` and ``fabric``
+(``fabric`` exports it to the workers it launches, so they share the jobs
+dir), and ``--disk-chaos SEED:SPEC`` installs the seeded disk-fault seam
+at entry (``fabric`` exports it as ``SPARK_BAM_DISK_CHAOS``). A bad spec
+is a usage error before any work.
 
 Every command runs on the CUDA device unless ``--device`` names another;
 ``--sharded`` meshes are every visible CUDA device, or ``--devices N``
@@ -93,8 +112,14 @@ from spark_bam_tpu_torch.check.flags import FLAG_NAMES, bit_counts
 from spark_bam_tpu_torch.agg.plan import AggConfig
 from spark_bam_tpu_torch.compress.config import DeflateConfig
 from spark_bam_tpu_torch.core.config import Config, format_bytes, parse_bytes
+from spark_bam_tpu_torch.core.faults import (
+    install_disk_chaos,
+    parse_disk_chaos,
+    uninstall_disk_chaos,
+)
 from spark_bam_tpu_torch.core.stats import Stats, format_bytes_binary
 from spark_bam_tpu_torch.fabric.config import FabricConfig
+from spark_bam_tpu_torch.jobs.manager import JobsConfig, job_id_of
 from spark_bam_tpu_torch.serve.config import ServeConfig
 from spark_bam_tpu_torch.load import api
 from spark_bam_tpu_torch.load.hadoop import hadoop_bam_splits
@@ -122,6 +147,11 @@ from spark_bam_tpu_torch.tpu.stream_check import (
     StreamChecker,
     full_check_summary_streaming,
 )
+
+
+#: ``scrub``'s exit code when it found (and reported) integrity findings:
+#: distinct from 2 (usage) and 1 (crash), as the reference's.
+RC_FINDINGS = 3
 
 
 class UsageError(ValueError):
@@ -539,6 +569,89 @@ def rewrite(in_path, out_path, block_payload="65280", level: int = 6,
     return res
 
 
+def durable_export(path, out_path: str, fmt: str = "native",
+                   loci: str | None = None, columns: str | None = None,
+                   checkpoint: int | None = None, device=None, out=None,
+                   config: Config | None = None) -> dict:
+    """``export --durable``: the journaled export job (reference
+    ``cli/main.py``), keyed by its spec under the jobs root; prints and
+    returns the job's result. The job streams the whole file's native
+    frames, so a format or loci that would change the frame list is
+    refused."""
+    from spark_bam_tpu_torch.columnar.config import ColumnarConfig
+    from spark_bam_tpu_torch.columnar.schema import normalize_columns
+    from spark_bam_tpu_torch.device import resolve_device
+    from spark_bam_tpu_torch.jobs.runner import run_export_job
+
+    p = Printer(out=out)
+    config = Config() if config is None else config
+    if fmt != "native":
+        raise UsageError("--durable export supports --format native only")
+    if loci:
+        raise UsageError("--durable export does not take -i/--reference")
+    try:
+        if columns:
+            normalize_columns(columns)
+        ColumnarConfig.parse(config.columnar)
+    except ValueError as e:
+        raise UsageError(str(e)) from e
+    dev = resolve_device(device)   # raises without a card
+    spec = {"op": "export", "path": path, "out": out_path,
+            "columns": columns}
+    spec = {k: v for k, v in spec.items() if v is not None}
+    jcfg = config.jobs_config
+    res = run_export_job(
+        spec, os.path.join(jcfg.root(), job_id_of(spec)), config=config,
+        checkpoint=checkpoint or jcfg.frames, device=dev,
+    )
+    p.echo(json.dumps(res, indent=2, sort_keys=True))
+    return res
+
+
+def durable_rewrite(in_path, out_path, block_payload="65280", level: int = 6,
+                    index: bool = False, checkpoint: int | None = None,
+                    device=None, out=None, config: Config | None = None
+                    ) -> dict:
+    """``rewrite --durable``: the journaled rewrite job (reference
+    ``cli/main.py``), its codec from ``config.deflate``; a re-run of the
+    same command resumes it. Prints and returns the job's result."""
+    from spark_bam_tpu_torch.device import resolve_device
+    from spark_bam_tpu_torch.jobs.runner import run_rewrite_job
+
+    p = Printer(out=out)
+    config = Config() if config is None else config
+    try:
+        payload = parse_bytes(block_payload)
+        DeflateConfig.parse(config.deflate)
+    except ValueError as e:
+        raise UsageError(str(e)) from e
+    dev = resolve_device(device)   # raises without a card
+    spec = {"op": "rewrite", "path": in_path, "out": out_path,
+            "block_payload": payload, "level": level,
+            "index": True if index else None}
+    spec = {k: v for k, v in spec.items() if v is not None}
+    jcfg = config.jobs_config
+    res = run_rewrite_job(
+        spec, os.path.join(jcfg.root(), job_id_of(spec)), config=config,
+        checkpoint=checkpoint or jcfg.checkpoint, device=dev,
+    )
+    p.echo(json.dumps(res, indent=2, sort_keys=True))
+    return res
+
+
+def scrub(paths, source: str | None = None, quarantine: bool = False,
+          stride: int = 16, out=None) -> int:
+    """The scrubber's JSON report (reference ``cli/scrub.py``); returns 0
+    when every artifact is clean, else ``RC_FINDINGS``."""
+    from spark_bam_tpu_torch.jobs.scrub import scrub_paths
+
+    report = scrub_paths(paths, source=source, quarantine=quarantine,
+                         stride=stride)
+    Printer(out=out).echo(json.dumps(report.summary(), indent=2,
+                                     sort_keys=True))
+    return 0 if report.clean else RC_FINDINGS
+
+
 def _print_splits(p: Printer, splits: list[Split], ratio: float) -> None:
     stats = Stats([s.length(ratio) for s in splits])
     p.echo("Split-size distribution:", stats.show(), "")
@@ -739,11 +852,17 @@ def fabric(listen: str, attach, worker_devices: int, device=None,
     except ValueError as e:
         raise UsageError(str(e)) from e
     fcfg = config.fabric_config
-    # Launched workers inherit the fabric spec, so a chaos run's seed
-    # lands in their flight dumps too.
+    # Launched workers inherit the fabric spec (a chaos run's seed lands in
+    # their flight dumps too), the job plane's (workers that share its dir
+    # resume each other's jobs) and the disk-fault seam (every worker
+    # installs the same seeded schedule).
     worker_env = None
-    if config.fabric:
-        worker_env = dict(os.environ, SPARK_BAM_FABRIC=config.fabric)
+    exported = {"SPARK_BAM_FABRIC": config.fabric,
+                "SPARK_BAM_JOBS": config.jobs,
+                "SPARK_BAM_DISK_CHAOS": config.disk_chaos}
+    exported = {k: v for k, v in exported.items() if v}
+    if exported:
+        worker_env = dict(os.environ, **exported)
     pool = WorkerPool(workers=fcfg.workers, devices=worker_devices,
                       device=device, serve=config.serve,
                       columnar=config.columnar, attach=attach,
@@ -829,16 +948,16 @@ def _positive_int(s: str) -> int:
 
 def _config(args) -> Config:
     """``SPARK_BAM_CACHE``, ``SPARK_BAM_COLUMNAR``, ``SPARK_BAM_DEFLATE``,
-    ``SPARK_BAM_FAULTS``, ``SPARK_BAM_SERVE`` and ``SPARK_BAM_FABRIC``,
-    then the command's
+    ``SPARK_BAM_FAULTS``, ``SPARK_BAM_SERVE``, ``SPARK_BAM_FABRIC``,
+    ``SPARK_BAM_JOBS`` and ``SPARK_BAM_DISK_CHAOS``, then the command's
     flags: the split size, the checker knobs, ``--cache``,
-    ``--columnar``, ``--deflate``, ``--serve``, ``--funnel`` and
-    ``--fabric`` (a bad size, cache, deflate, serve, funnel or fabric spec
-    is a usage error)."""
+    ``--columnar``, ``--deflate``, ``--serve``, ``--funnel``,
+    ``--fabric``, ``--jobs`` and ``--disk-chaos`` (a bad size or spec is
+    a usage error)."""
     kw = {}
     for knob in ("bgzf_blocks_to_check", "reads_to_check", "max_read_size",
                  "cache", "columnar", "deflate", "serve", "funnel",
-                 "fabric"):
+                 "fabric", "jobs", "disk_chaos"):
         value = getattr(args, knob, None)
         if value is not None:
             kw[knob] = value
@@ -851,6 +970,9 @@ def _config(args) -> Config:
         DeflateConfig.parse(config.deflate)
         ServeConfig.parse(config.serve)
         FabricConfig.parse(config.fabric)
+        JobsConfig.parse(config.jobs)
+        if config.disk_chaos:
+            parse_disk_chaos(config.disk_chaos)
     except ValueError as e:
         raise UsageError(str(e)) from e
     return config
@@ -953,6 +1075,26 @@ def main(argv=None) -> int:
              "columns=flag+pos+name' (SPARK_BAM_COLUMNAR works too)")
     ex.add_argument("-o", "--out", dest="export_out", required=True,
                     help="output file path")
+    sc = sub.add_parser(
+        "scrub", help="check rewritten and exported artifacts end to end")
+    sc.add_argument(
+        "--source", default=None, metavar="BAM",
+        help="the BAM the artifacts were rewritten from: turns on record "
+             "parity (every --stride'th record compared byte for byte)")
+    sc.add_argument(
+        "--quarantine", action="store_true",
+        help="rename artifacts with findings to <path>.quarantined")
+    sc.add_argument(
+        "--stride", type=_positive_int, default=16, metavar="N",
+        help="record-parity sampling stride (default 16; 1 = every record)")
+    sc.add_argument("-o", "--out", default=None,
+                    help="write the JSON report here instead of stdout")
+    sc.add_argument("-w", "--warn", action="store_true",
+                    help="root log level WARN")
+    sc.add_argument(
+        "paths", nargs="+",
+        help="artifacts to scrub (a BAM pulls in its .blocks, .records and "
+             ".sbi sidecars; native containers stand alone)")
     rw = sub.add_parser(
         "rewrite", aliases=["htsjdk-rewrite"],
         help="write a BAM's records again: re-blocked, recompressed")
@@ -1020,6 +1162,28 @@ def main(argv=None) -> int:
     for p in (ag, cs, ix, ex, rw, sv):
         p.add_argument("--device", default=None,
                        help="torch device (default: the current CUDA device)")
+    for p in (ex, rw):
+        p.add_argument(
+            "--durable", action="store_true",
+            help="run through the journaled job runner: checkpoints to a "
+                 "write-ahead log; a re-run after a crash resumes from the "
+                 "last durable checkpoint and writes a byte-identical "
+                 "artifact (SPARK_BAM_JOBS sets the job dir and cadence)")
+        p.add_argument(
+            "--checkpoint", type=_positive_int, default=None, metavar="N",
+            help="with --durable: checkpoint cadence (records for rewrite, "
+                 "frames for export; default from --jobs)")
+    for p in (ex, rw, sv, fb):
+        p.add_argument(
+            "--jobs", default=None, metavar="SPEC",
+            help="durable-job knobs, e.g. 'dir=/var/jobs,checkpoint=5000,"
+                 "frames=8,mem=0.92,max=2' (SPARK_BAM_JOBS works too)")
+        p.add_argument(
+            "--disk-chaos", default=None, metavar="SEED:SPEC",
+            help="seeded filesystem-fault injection on every guarded "
+                 "write, e.g. '7:enospc=0.02+eio=0.01+short=0.01+torn=0.01+"
+                 "rename=0.05'; fabric workers inherit it through "
+                 "SPARK_BAM_DISK_CHAOS")
     fb.add_argument("--device", default=None,
                     help="torch device of the launched workers (default: "
                          "every visible CUDA device; cpu for the plain "
@@ -1036,6 +1200,9 @@ def main(argv=None) -> int:
     except UsageError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    finally:
+        if getattr(args, "disk_chaos", None):
+            uninstall_disk_chaos()
 
 
 def _run(args) -> int:
@@ -1060,7 +1227,23 @@ def _run(args) -> int:
         else:
             full_check(args.path, args.print_limit, args.device, **kw)
         return 0
+    if args.cmd == "scrub":
+        if args.warn:
+            import logging
+
+            logging.getLogger().setLevel(logging.WARNING)
+        out = open(args.out, "w") if args.out else None
+        try:
+            return scrub(args.paths, args.source, args.quarantine,
+                         args.stride, out)
+        finally:
+            if out is not None:
+                out.close()
     config = _config(args)
+    if getattr(args, "disk_chaos", None):
+        # In-process for rewrite, export and serve; fabric also exports it
+        # to the workers it launches.
+        install_disk_chaos(args.disk_chaos)
     split = config.split_size_or(Config.LOAD_SPLIT_SIZE_DEFAULT)
     if args.cmd == "compute-splits":
         out = open(args.out, "w") if args.out else None
@@ -1074,9 +1257,17 @@ def _run(args) -> int:
     elif args.cmd == "index":
         index(args.path, split, config, args.out, args.record_starts,
               args.device)
+    elif args.cmd == "export" and args.durable:
+        durable_export(args.path, args.export_out, args.format,
+                       args.intervals, args.columns, args.checkpoint,
+                       args.device, config=config)
     elif args.cmd == "export":
         export(args.path, args.export_out, args.format, args.intervals,
                args.columns, args.device, config=config)
+    elif args.cmd in ("rewrite", "htsjdk-rewrite") and args.durable:
+        durable_rewrite(args.in_path, args.out_path, args.block_payload,
+                        args.level, args.index, args.checkpoint, args.device,
+                        config=config)
     elif args.cmd in ("rewrite", "htsjdk-rewrite"):
         rewrite(args.in_path, args.out_path, args.block_payload, args.level,
                 args.index, args.device, config=config)

@@ -6,12 +6,17 @@ leaves a half-written file at the target path.
 The temp name carries the pid, so concurrent writers to one target do
 not interleave. Commit fsyncs the file and then the directory that holds
 it: ``os.replace`` alone updates the directory in the page cache only.
+The writes and the rename go through the disk-fault seam
+(``core/faults.py`` ``wrap_disk`` / ``disk_replace``), so the job plane's
+tests inject ENOSPC, torn writes and failed renames deterministically.
 """
 
 from __future__ import annotations
 
 import errno
 import os
+
+from spark_bam_tpu_torch.core import faults as _faults
 
 
 def fsync_dir(path: str) -> None:
@@ -37,13 +42,13 @@ class AtomicFile:
     def __init__(self, out_path: str):
         self.out_path = str(out_path)
         self.tmp_path = f"{self.out_path}.tmp.{os.getpid()}"
-        self.f = open(self.tmp_path, "wb")
+        self.f = _faults.wrap_disk(open(self.tmp_path, "wb"))
 
     def commit(self) -> None:
         self.f.flush()
         os.fsync(self.f.fileno())
         self.f.close()
-        os.replace(self.tmp_path, self.out_path)
+        _faults.disk_replace(self.tmp_path, self.out_path)
         fsync_dir(self.out_path)
 
     def abort(self) -> None:

@@ -1,8 +1,8 @@
 """Typed configuration: the subset of the ``spark.bam.*`` knobs that the
-count-reads, full-check, load, aggregate, split-planning, export, write
-and serve paths read, under the reference package's names and defaults, with the
-byte-size shorthand (``parse_bytes``, ``format_bytes``) the split sizes
-take.
+count-reads, full-check, load, aggregate, split-planning, export, write,
+serve and job paths read, under the reference package's names and
+defaults, with the byte-size shorthand (``parse_bytes``, ``format_bytes``)
+the split sizes take.
 
 Values this port cannot serve yet raise ``ValueError`` naming what will
 serve them, so a run never silently takes another path than asked for.
@@ -173,6 +173,18 @@ class Config:
     # spillover, probe and eject pacing, retry budget and the autoscaler's
     # target and bounds; ``fabric_config`` parses it.
     fabric: str = ""
+    # Compact JobsConfig spec of the durable job plane ("dir=/var/jobs,
+    # checkpoint=5000,frames=8,mem=0.92,max=2"; "" = defaults): the journal
+    # and segment root, the checkpoint cadence of the rewrite, transcode and
+    # export jobs, and the manager's admission limits; ``jobs_config``
+    # parses it.
+    jobs: str = ""
+    # The disk-fault seam's "SEED:SPEC" ("9:enospc=0.05+torn=0.01"; "" =
+    # off), carried so SPARK_BAM_DISK_CHAOS round-trips through
+    # ``from_env``. Installing it happens at process entry
+    # (``core.faults.maybe_install_disk_chaos_from_env`` / ``--disk-chaos``),
+    # never lazily; ``disk_chaos_config`` parses it.
+    disk_chaos: str = ""
 
     #: The load path's raw split size (hadoop's file-split default).
     LOAD_SPLIT_SIZE_DEFAULT = 32 << 20
@@ -195,7 +207,8 @@ class Config:
         return self.split_size if self.split_size is not None else default
 
     #: The knobs ``from_env`` reads, as ``SPARK_BAM_<KNOB>``.
-    ENV_KNOBS = ("cache", "columnar", "deflate", "faults", "serve", "fabric")
+    ENV_KNOBS = ("cache", "columnar", "deflate", "faults", "serve", "fabric",
+                 "jobs", "disk_chaos")
 
     @classmethod
     def from_env(cls, env=None) -> "Config":
@@ -203,8 +216,10 @@ class Config:
         ``SPARK_BAM_COLUMNAR`` as the ``columnar`` spec,
         ``SPARK_BAM_DEFLATE`` as the ``deflate`` spec,
         ``SPARK_BAM_FAULTS`` as the ``faults`` spec,
-        ``SPARK_BAM_SERVE`` as the ``serve`` spec and
-        ``SPARK_BAM_FABRIC`` as the ``fabric`` spec, as the
+        ``SPARK_BAM_SERVE`` as the ``serve`` spec,
+        ``SPARK_BAM_FABRIC`` as the ``fabric`` spec,
+        ``SPARK_BAM_JOBS`` as the ``jobs`` spec and
+        ``SPARK_BAM_DISK_CHAOS`` as the ``disk_chaos`` spec, as the
         reference's ``Config.from_env`` maps them (the store's
         ``SPARK_BAM_CACHE_DIR`` and ``SPARK_BAM_CACHE_BUDGET`` are read by
         ``sbi.store.CacheStore.from_env``)."""
@@ -245,6 +260,21 @@ class Config:
         from spark_bam_tpu_torch.fabric.config import FabricConfig
 
         return FabricConfig.parse(self.fabric)
+
+    @property
+    def jobs_config(self):
+        """The parsed ``JobsConfig`` of this config's ``jobs`` spec."""
+        from spark_bam_tpu_torch.jobs.manager import JobsConfig
+
+        return JobsConfig.parse(self.jobs)
+
+    @property
+    def disk_chaos_config(self):
+        """The parsed ``(seed, DiskChaosSpec)`` of this config's
+        ``disk_chaos`` spec, or ``None`` when it is off."""
+        from spark_bam_tpu_torch.core.faults import parse_disk_chaos
+
+        return parse_disk_chaos(self.disk_chaos) if self.disk_chaos else None
 
     @property
     def serve_config(self):

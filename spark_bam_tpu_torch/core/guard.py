@@ -9,13 +9,18 @@ that cannot be what they claim.
 
 All three are ``MalformedInputError``, a ``ValueError``. ``current_limits``
 gives the defaults: the reference's ``SPARK_BAM_LIMITS`` and scoped
-overrides, the write errors' ``ResourceExhausted`` mapping and the
-tolerant quarantine come with the port of ``obs`` and the guard.
+overrides and the tolerant quarantine are not ported. The write errors'
+``ResourceExhausted`` and ``map_write_error`` live in ``core/atomic.py``;
+``preflight_space`` refuses to start a write that cannot fit.
 """
 
 from __future__ import annotations
 
+import errno
+import os
 from dataclasses import dataclass, fields
+
+from spark_bam_tpu_torch.core.atomic import ResourceExhausted
 
 
 class MalformedInputError(ValueError):
@@ -73,3 +78,24 @@ DEFAULT_LIMITS = DecodeLimits()
 def current_limits() -> DecodeLimits:
     """The active limits: the defaults."""
     return DEFAULT_LIMITS
+
+
+def preflight_space(path, need_bytes: int, margin: float = 1.1) -> None:
+    """Refuse to start a write that cannot fit: ``need_bytes`` (the
+    caller's estimate) times ``margin`` against the free space of the
+    filesystem that will hold ``path``. A filesystem without ``statvfs``
+    skips the check and relies on the mid-write mapping."""
+    if need_bytes <= 0:
+        return
+    target = os.path.dirname(os.path.abspath(str(path))) or "."
+    try:
+        st = os.statvfs(target)
+    except (OSError, AttributeError):
+        return
+    free = st.f_bavail * st.f_frsize
+    if free < need_bytes * margin:
+        raise ResourceExhausted(
+            f"preflight: {path} needs ~{int(need_bytes * margin)} bytes, "
+            f"filesystem has {free} free",
+            errno_=errno.ENOSPC, path=path,
+        )

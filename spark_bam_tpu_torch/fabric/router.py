@@ -40,11 +40,17 @@ Chaos: ``chaos=SEED:SPEC`` in the fabric spec swaps the links for
 accept-loop entry point for a delaying wrapper, both chosen at
 construction, so an unconfigured router runs no chaos branch.
 
-Not ported yet, each answering ``Unsupported`` with the worker's message:
-the job plane (``submit``, ``job_status``, ``job_cancel``; ROADMAP Queue 1
-item 12(c)) and ``telemetry`` (item 15). The router mints no trace and
-opens no ``fabric.relay`` span: a request's own ``trace`` field is
-forwarded as it came, as the reference does with its metrics off.
+The job plane: ``submit`` places by path affinity and fails over across
+workers (a spec's job id is deterministic and the workers share a jobs
+dir, so a re-dispatch resumes from the journal); ``job_status`` and
+``job_cancel`` go to the job's owner. A watchdog re-sends the original
+``submit`` of a tracked, unfinished job whose owner went down to a
+survivor (``fabric.job_rescues``).
+
+Not ported yet: ``telemetry`` answers ``Unsupported`` with the worker's
+message (ROADMAP Queue 1 item 15). The router mints no trace and opens no
+``fabric.relay`` span: a request's own ``trace`` field is forwarded as it
+came, as the reference does with its metrics off.
 """
 
 from __future__ import annotations
@@ -71,8 +77,9 @@ from spark_bam_tpu_torch.serve.service import unsupported_response
 
 #: ops safe to re-dispatch after a mid-request worker death: pure reads
 #: whose answers are deterministic for unchanged files, plus ``rewrite``
-#: and the durable-job control ops, as the reference lists them (the job
-#: ops are answered by the router itself until item 12(c) ports them).
+#: (its output commit is atomic: a re-run overwrites, never interleaves)
+#: and the durable-job control ops (``submit`` keys a job by a hash of its
+#: spec and resumes from the journal; status and cancel are lookups).
 IDEMPOTENT_OPS = frozenset(
     {"plan", "record_starts", "count", "batch", "aggregate", "rewrite",
      "submit", "job_status", "job_cancel"}
@@ -80,8 +87,10 @@ IDEMPOTENT_OPS = frozenset(
 
 #: ops the router answers ``Unsupported`` itself, as the port's worker does,
 #: until the ROADMAP item its message names ports them.
-_ROUTER_UNSERVED = frozenset({"submit", "job_status", "job_cancel",
-                              "telemetry"})
+_ROUTER_UNSERVED = frozenset({"telemetry"})
+
+#: job states the orphan watchdog stops tracking.
+_JOB_TERMINAL = frozenset({"done", "failed", "cancelled"})
 
 
 class WorkerLost(ConnectionError):
@@ -315,6 +324,11 @@ class Router:
         # Autoscale move ledger: {t, worker, move, reason}, so the
         # ``alerts`` op answers "why did the fleet downscale" by itself.
         self.moves: "deque[dict]" = deque(maxlen=256)
+        # Durable-job ownership: job_id → {"req": the original submit,
+        # "wid": the owning worker, "state": the last seen}. The watchdog
+        # re-dispatches jobs whose owner died; status and cancel go to
+        # the owner.
+        self._job_owners: "dict[str, dict]" = {}
         self._tasks: "list[asyncio.Task]" = []
         self._start_task: "asyncio.Task | None" = None
 
@@ -347,6 +361,7 @@ class Router:
                                  note_move=self._note_move,
                                  hold=self._autoscale_hold)
             ))
+        self._tasks.append(asyncio.ensure_future(self._job_watchdog()))
 
     async def aclose(self) -> None:
         for t in self._tasks:
@@ -458,6 +473,8 @@ class Router:
             return error_response(
                 req, "Draining", "fabric is draining; route elsewhere",
             )
+        if op in ("submit", "job_status", "job_cancel"):
+            return await self._route_job(req)
         return await self._route(req, conn=conn)
 
     async def _route(self, req: dict, conn=None) -> dict:
@@ -535,6 +552,115 @@ class Router:
             )
         self._count("relayed_overload")
         return shed_resp
+
+    # ------------------------------------------------------------ job plane
+    def _link_by_wid(self, wid: str) -> "WorkerLink | None":
+        return next((l for l in self.links if l.wid == wid), None)
+
+    def _note_job(self, jid: str, resp: dict, req=None, wid=None) -> None:
+        """Update the ownership table from a job response."""
+        entry = self._job_owners.get(jid)
+        if entry is None:
+            if req is None or wid is None:
+                return
+            entry = self._job_owners[jid] = {"req": dict(req), "wid": wid}
+        if wid is not None:
+            entry["wid"] = wid
+        state = resp.get("state")
+        if state:
+            entry["state"] = state
+
+    async def _route_job(self, req: dict) -> dict:
+        """Job-plane routing: ``submit`` places by path affinity and fails
+        over across workers (the deterministic job id and the shared
+        journal dir make a re-dispatch resume, not restart);
+        ``job_status`` and ``job_cancel`` go to the job's owner."""
+        op = req.get("op")
+        self.budget.note_request()
+        if op == "submit":
+            tried: set = set()
+            while True:
+                link = self.pick(req.get("path"), exclude=tried)
+                if link is None:
+                    return error_response(
+                        req, "WorkerLost",
+                        "no healthy workers in the fabric",
+                    )
+                tried.add(link.wid)
+                try:
+                    resp = await link.request(req)
+                except WorkerLost:
+                    if not self.budget.try_spend():
+                        self._count("lost")
+                        self._count("budget_exhausted")
+                        return error_response(
+                            req, "WorkerLost",
+                            f"worker {link.wid} died mid-submit; "
+                            "retry budget exhausted",
+                        )
+                    self._count("failovers")
+                    self._count("budget_spent")
+                    continue
+                if resp.get("ok") and resp.get("job_id"):
+                    self._note_job(
+                        resp["job_id"], resp, req=req, wid=link.wid
+                    )
+                self._count("routed")
+                return resp
+        # status and cancel: the owner first; after a rescue re-homed the
+        # job any healthy worker can answer.
+        jid = req.get("job_id")
+        entry = self._job_owners.get(jid) if jid else None
+        link = None
+        if entry is not None:
+            owner = self._link_by_wid(entry["wid"])
+            if owner is not None and owner.healthy and not owner.draining:
+                link = owner
+        if link is None:
+            link = self.pick(None)
+        if link is None:
+            return error_response(
+                req, "WorkerLost", "no healthy workers in the fabric",
+            )
+        try:
+            resp = await link.request(req)
+        except WorkerLost:
+            return error_response(
+                req, "WorkerLost", f"worker {link.wid} died mid-{op}",
+            )
+        if resp.get("ok") and jid:
+            self._note_job(jid, resp)
+        self._count("routed")
+        return resp
+
+    async def _job_watchdog(self) -> None:
+        """Orphan rescue: a tracked, unfinished job whose owner's link is
+        down has its original ``submit`` re-sent to a survivor, which
+        resumes it from the journal in the shared jobs dir. Budget-gated
+        like any failover."""
+        interval = max(self.fcfg.probe_ms / 1000.0, 0.05)
+        while True:
+            await asyncio.sleep(interval)
+            for jid, entry in list(self._job_owners.items()):
+                if entry.get("state") in _JOB_TERMINAL:
+                    continue
+                owner = self._link_by_wid(entry["wid"])
+                if owner is not None and owner.healthy:
+                    continue
+                nxt = self.pick(entry["req"].get("path"),
+                                exclude={entry["wid"]})
+                if nxt is None or not self.budget.try_spend():
+                    continue
+                self._count("budget_spent")
+                try:
+                    resp = await nxt.request(dict(entry["req"]))
+                except WorkerLost:
+                    continue
+                if resp.get("ok"):
+                    self._count("job_rescues")
+                    flight.record("job_rescue", job_id=jid,
+                                  worker=nxt.wid, was=entry["wid"])
+                    self._note_job(jid, resp, wid=nxt.wid)
 
     # ------------------------------------------------------------ streaming
     @staticmethod

@@ -19,7 +19,10 @@ the announce line. Once listening it prints ONE JSON line on stdout,
 the pool (and operators scripting attach mode) learn the bound address
 when the listen spec asked for port 0. SIGTERM and SIGINT drain: new work
 is refused with a typed ``Draining`` error, in-flight requests and queued
-batcher ticks finish unshed, then the process exits.
+batcher ticks finish unshed, then the process exits. ``SPARK_BAM_JOBS``
+sets the worker's job plane (workers that share its ``dir`` resume each
+other's jobs), and ``SPARK_BAM_DISK_CHAOS`` installs the disk-fault seam
+before the announce.
 
 The mesh is ``local_mesh()`` over this process's devices, never the
 global process group: a serving worker answers only its own requests, and
@@ -130,6 +133,7 @@ def serve_worker(
 
     from spark_bam_tpu_torch import obs
     from spark_bam_tpu_torch.core.config import Config
+    from spark_bam_tpu_torch.core.faults import maybe_install_disk_chaos_from_env
     from spark_bam_tpu_torch.obs import flight
     from spark_bam_tpu_torch.parallel.mesh import init_distributed, local_mesh
     from spark_bam_tpu_torch.serve.server import ServerThread
@@ -159,6 +163,10 @@ def serve_worker(
     # warm-tier proof) reads it.
     if obs.registry() is None:
         obs.configure()
+    # Disk-fault chaos rides the environment into pool workers as fabric
+    # chaos rides SPARK_BAM_FABRIC: every worker injects the same seeded
+    # schedule, and the flight context names it.
+    maybe_install_disk_chaos_from_env()
 
     config = Config.from_env()
     if serve:

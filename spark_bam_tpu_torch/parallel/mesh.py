@@ -611,6 +611,16 @@ def mesh_steps(mesh: Mesh) -> MeshSteps:
         return st
 
 
+def release_mesh_steps(group) -> None:
+    """Forget the cached steps of every mesh over ``group``: after this
+    (and ``dist.destroy_process_group``) the process group lives only as
+    long as the caller's own meshes do."""
+    with _mesh_steps_lock:
+        for key in [k for k, st in _mesh_steps.items()
+                    if st.mesh.group is group]:
+            del _mesh_steps[key]
+
+
 def batch_windows(buf: np.ndarray, window: int, halo: int, batch: int,
                   at_eof: bool = True, truth: np.ndarray | None = None):
     """Cut a flat buffer into a (B, W + PAD) batch of overlapping windows.

@@ -34,6 +34,7 @@ loop's ServeConfig spec.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import struct
 
@@ -46,6 +47,7 @@ from spark_bam_tpu_torch.parallel.mesh import (
     init_distributed,
     make_mesh,
     mesh_steps,
+    release_mesh_steps,
 )
 from spark_bam_tpu_torch.parallel.stream_mesh import count_reads_sharded
 from spark_bam_tpu_torch.tpu.checker import PAD
@@ -113,9 +115,25 @@ def _join(coordinator, num_processes: int, process_id: int,
     return make_mesh(devices)
 
 
-def _leave() -> None:
-    if dist.is_initialized():
-        dist.destroy_process_group()
+def _leave(together: bool = True) -> None:
+    """Leave the group and tear it down while the interpreter is whole.
+    After a clean run (``together``) a barrier keeps one process from
+    closing its gloo pairs while the other is still in the last
+    collective. Dropping the cached steps' hold on the group frees it
+    (and joins its threads) once the caller's mesh goes, before the
+    process exits: held by the process-wide step cache, it was torn down
+    at interpreter exit, racing the peer's teardown, and that aborted the
+    process now and then ("terminate called without an active
+    exception")."""
+    if not dist.is_initialized():
+        return
+    group = dist.group.WORLD
+    if together:
+        dist.barrier()
+    release_mesh_steps(group)
+    del group
+    dist.destroy_process_group()
+    gc.collect()
 
 
 def run_worker(coordinator: str | None, num_processes: int, process_id: int,
@@ -123,6 +141,7 @@ def run_worker(coordinator: str | None, num_processes: int, process_id: int,
                init_file=None, backend: str | None = None) -> dict:
     """Join the group, run one check step over a global batch (one window
     per global device), return the reduced stats."""
+    ok = False
     try:
         mesh = _join(coordinator, num_processes, process_id, local_devices,
                      init_file, backend)
@@ -143,8 +162,9 @@ def run_worker(coordinator: str | None, num_processes: int, process_id: int,
         step = mesh_steps(mesh).check_step()
         _, _, totals = step(mesh.shard(windows), ns, np.ones(n_local, bool),
                             mesh.shard(truth), lengths, 1)
+        ok = True
     finally:
-        _leave()
+        _leave(together=ok)
     # Every row counts its records but the 9 chains the trailing noise
     # breaks (a boundary needs 10 consecutive records).
     exp_tp = sum(40 + r - 9 for r in range(n_global))
@@ -176,14 +196,16 @@ def run_worker_bam(path: str, coordinator: str | None, num_processes: int,
     blocks), checks its rows on its devices, and the count is all-reduced:
     ``count_reads_sharded`` with this process's mesh."""
     stats: dict = {}
+    ok = False
     try:
         mesh = _join(coordinator, num_processes, process_id, local_devices,
                      init_file, backend)
         count = count_reads_sharded(
             path, Config(), mesh=mesh, window_uncompressed=row_bytes,
             halo=halo, chunk_bytes=chunk_bytes, stats_out=stats)
+        ok = True
     finally:
-        _leave()
+        _leave(together=ok)
     return {
         "mode": "bam",
         "path": str(path),

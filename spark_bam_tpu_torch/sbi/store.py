@@ -24,7 +24,6 @@ remote byte channel yet.
 
 from __future__ import annotations
 
-import errno
 import hashlib
 import itertools
 import logging
@@ -32,6 +31,9 @@ import os
 import threading
 from dataclasses import dataclass
 
+from spark_bam_tpu_torch import obs
+from spark_bam_tpu_torch.core import faults
+from spark_bam_tpu_torch.core.atomic import ResourceExhausted, map_write_error
 from spark_bam_tpu_torch.sbi.format import (
     SbiFormatError,
     SbiIndex,
@@ -130,13 +132,13 @@ def cache_status_line(path, config) -> str:
 
 # ------------------------------------------------------------------- store
 _TMP_SEQ = itertools.count()
-#: errnos of a full or failing sidecar filesystem: after one, write-through
-#: degrades to read-only until ``reset_cache_write_degrade``.
-_EXHAUSTED = frozenset(getattr(errno, n) for n in
-                       ("ENOSPC", "EDQUOT", "EIO", "ENOMEM")
-                       if hasattr(errno, n))
 _write_disabled = False
 _write_disabled_lock = threading.Lock()
+
+
+def cache_writes_disabled() -> bool:
+    """Whether a full or failing disk latched write-through off."""
+    return _write_disabled
 
 
 def reset_cache_write_degrade() -> None:
@@ -263,16 +265,15 @@ class CacheStore:
         try:
             if self.cache_dir:
                 os.makedirs(self.cache_dir, exist_ok=True)
-            with open(tmp, "wb") as f:
+            with faults.wrap_disk(open(tmp, "wb")) as f:
                 f.write(blob)
-            os.replace(tmp, sidecar)
+            faults.disk_replace(tmp, sidecar)
         except OSError as exc:
             # A cache write never fails the run it accelerates; a full or
             # failing disk latches the cache to read-only.
-            if exc.errno in _EXHAUSTED:
-                mapped = OSError(exc.errno,
-                                 f"sidecar write: {exc.strerror or exc}",
-                                 sidecar)
+            obs.count("cache.write_errors")
+            mapped = map_write_error(exc, "sidecar write", path=sidecar)
+            if isinstance(mapped, ResourceExhausted):
                 with _write_disabled_lock:
                     _write_disabled = True
                 log.warning("split-index cache degraded to read-only: %s",
@@ -280,8 +281,8 @@ class CacheStore:
                 _record("skipped", f"write degraded to cache-off: {mapped}",
                         sidecar)
             else:
-                log.info("split-index cache write failed: %s", exc)
-                _record("skipped", f"write failed: {exc}", sidecar)
+                log.info("split-index cache write failed: %s", mapped)
+                _record("skipped", f"write failed: {mapped}", sidecar)
             return None
         finally:
             if os.path.exists(tmp):  # failure path only; replace moved it

@@ -3,8 +3,9 @@ shedding (reference ``spark_bam_tpu/serve/admission.py``).
 
 Three request classes share the daemon: *plan* (split plans, record-start
 indexes: bursty, index-bound), *scan* (count verdicts, fleet loads,
-batches, aggregates: device-bound) and *control* (the durable-job ops,
-which this port answers ``Unsupported``). Each has its own inflight cap so
+batches, aggregates, rewrites: device-bound) and *control* (the
+durable-job ops: table lookups and thread starts; the job manager gates
+the real capacity). Each has its own inflight cap so
 a flood of one class cannot starve the other. Over-limit arrivals are
 rejected synchronously with :class:`Overloaded` carrying a Retry-After
 hint from the observed service-latency median

@@ -15,20 +15,26 @@ do the work the one-shot paths rebuild per call:
 Scan-class requests (``count``, ``fleet``) are cut into window rows and
 answered through the :class:`~spark_bam_tpu_torch.serve.batcher.Batcher`;
 ``batch`` and ``aggregate`` run on the worker pool over the warm parse;
+``rewrite`` runs the write path (``rewrite.py``) on the worker pool;
 plan-class requests (``plan``, ``record_starts``) run on the worker pool
-against the index tier.
+against the index tier. Control-class requests (``submit``,
+``job_status``, ``job_cancel``) reach the durable job plane
+(``jobs/manager.py``): each job runs on a daemon thread of its own,
+beside the batcher's ticks on the same device.
 
 Every device step runs on the mesh's devices: the batcher's ticks across
-the mesh, the starts, the parse and the filters on its first device, the
-aggregate through the mesh's agg step. A failure there is an error
-response; nothing answers in the device's place. The mesh defaults to
+the mesh, the starts, the parse, the filters, the rewrite's codec lanes
+and every job on its first device, the aggregate through the mesh's agg
+step. A failure there is an error response (a job's: its ``failed``
+state); nothing answers in the device's place. The mesh defaults to
 every visible CUDA device (``local_mesh()``), raising without one; pass
 ``mesh=local_mesh(["cpu"])`` to serve from the CPU (the plain versions).
 
-Ops this port does not serve yet answer ``Unsupported`` naming the ROADMAP
-item that will: ``submit``, ``job_status``, ``job_cancel`` and ``rewrite``
-(Queue 1 item 12(c)), ``telemetry`` (item 15). ``alerts`` answers as the
-reference does without a configured SLO.
+The one op this port does not serve yet, ``telemetry``, answers
+``Unsupported`` naming the ROADMAP item that will (Queue 1 item 15).
+``alerts`` answers as the reference does without a configured SLO, and a
+paused job's alert takes the reference's no-SLO branch: a ``slo_alert``
+record in the flight recorder.
 """
 
 from __future__ import annotations
@@ -45,9 +51,12 @@ import numpy as np
 from spark_bam_tpu_torch import obs
 from spark_bam_tpu_torch.bam.header import read_header
 from spark_bam_tpu_torch.bgzf.flat import flatten_file
+from spark_bam_tpu_torch.core.atomic import ResourceExhausted
 from spark_bam_tpu_torch.core.config import Config
 from spark_bam_tpu_torch.core.faults import LatencyTracker
+from spark_bam_tpu_torch.jobs.manager import JobManager
 from spark_bam_tpu_torch.obs import account as obs_account
+from spark_bam_tpu_torch.obs import flight
 from spark_bam_tpu_torch.parallel.mesh import local_mesh, mesh_steps
 from spark_bam_tpu_torch.serve.admission import CLASS_OF, AdmissionGate
 from spark_bam_tpu_torch.serve.batcher import Batcher, RowTask
@@ -69,10 +78,6 @@ _LATENCY_WINDOW = 512
 #: Ops of the protocol this port answers ``Unsupported``, with the ROADMAP
 #: Queue 1 item that will serve each.
 UNSERVED = {
-    "submit": "12(c)",
-    "job_status": "12(c)",
-    "job_cancel": "12(c)",
-    "rewrite": "12(c)",
     "telemetry": "15",
 }
 
@@ -259,6 +264,8 @@ class SplitService:
             "scan": self.serve_cfg.scan_queue,
             "control": 8,
         })
+        self.jobs = JobManager(config=config, alert_fn=self._job_alert,
+                               device=self.device)
         self.pool = ThreadPoolExecutor(
             max_workers=self.serve_cfg.workers, thread_name_prefix="serve-worker"
         )
@@ -299,9 +306,15 @@ class SplitService:
             return None
         return FabricChaos(seed, spec)
 
+    def _job_alert(self, name: str, **fields) -> None:
+        """A paused job pages where the reference's alerts land without an
+        SLO engine: the flight recorder."""
+        flight.record("slo_alert", objective=name, state="firing", **fields)
+
     # ------------------------------------------------------------ lifecycle
     def close(self) -> None:
         self._closed = True
+        self.jobs.close(timeout=1.0)
         self.batcher.close()
         self.pool.shutdown(wait=False, cancel_futures=True)
         self.resolve_pool.shutdown(wait=False, cancel_futures=True)
@@ -384,6 +397,15 @@ class SplitService:
         except TimeoutError as exc:
             obs.count("serve.shed")
             resp = error_response(req, "DeadlineExceeded", str(exc))
+        except ResourceExhausted as exc:
+            # Retryable exhaustion (disk, memory, the job plane's
+            # deferrals), typed so clients and the router pace a retry.
+            resp = error_response(
+                req, "ResourceExhausted", str(exc),
+                retry_after_ms=round(getattr(
+                    exc, "retry_after_ms", self.retry_after_ms()
+                ), 3),
+            )
         except FileNotFoundError as exc:
             resp = error_response(req, "NotFound", str(exc))
         except Exception as exc:
@@ -568,6 +590,100 @@ class SplitService:
             counts[fs.path] = int(count)
             total += int(count)
         return {"paths": counts, "total": total}
+
+    def _handle_rewrite(self, req: dict, deadline_ts) -> dict:
+        """Re-block and re-compress ``path`` into ``out`` through the write
+        path (``rewrite.py``): the card's lanes when the service config (or
+        the request's ``deflate`` spec) turns them on, the sidecars written
+        from the packing metadata when ``index`` is set. Scan-class: the
+        codec competes with count and fleet for the device."""
+        from spark_bam_tpu_torch.compress.config import DeflateConfig
+        from spark_bam_tpu_torch.rewrite import rewrite_bam
+
+        path = req["path"]
+        out = req.get("out")
+        if not out:
+            raise ServiceError("ProtocolError", "rewrite needs an 'out' path")
+        deflate = req.get("deflate")
+        if deflate is not None:
+            try:
+                DeflateConfig.parse(deflate)
+            except ValueError as exc:
+                raise ServiceError("ProtocolError", str(exc)) from exc
+        # ``resume_from`` is accepted and ignored: rewrite sends no frames,
+        # and its output commit is atomic, so a failover re-runs it.
+        try:
+            block_payload = int(req.get("block_payload") or 0xFF00)
+            level = int(req.get("level") or 6)
+        except (TypeError, ValueError) as exc:
+            raise ServiceError("ProtocolError", str(exc)) from exc
+        with obs.span("serve.rewrite", path=str(path)):
+            res = rewrite_bam(
+                path, out,
+                block_payload=block_payload, level=level, deflate=deflate,
+                index=bool(req.get("index")), config=self.config,
+                device=self.device,
+            )
+        return {
+            "path": str(path),
+            "out": str(out),
+            "count": res.count,
+            "n_blocks": res.n_blocks,
+            "bytes_out": res.bytes_out,
+            "sidecars": dict(res.sidecars),
+        }
+
+    # ----------------------------------------------------------- job plane
+    #: request fields forwarded into a job spec.
+    _JOB_FIELDS = ("path", "out", "block_payload", "level", "deflate",
+                   "index", "columns", "batch_rows")
+
+    def _handle_submit(self, req: dict, deadline_ts) -> dict:
+        """Admit a durable job (``jobs/manager.py``): ``job`` picks the
+        runner (rewrite, export, transcode), the spec fields are the
+        one-shot ops'. A spec's job id is deterministic, so a retry is
+        idempotent and a resubmit of a paused or dead job resumes it."""
+        from spark_bam_tpu_torch.jobs.runner import RUNNERS
+
+        job = req.get("job")
+        if job not in RUNNERS:
+            raise ServiceError(
+                "ProtocolError",
+                f"submit needs job ∈ {{{', '.join(sorted(RUNNERS))}}}, "
+                f"got {job!r}",
+            )
+        spec = {"op": job}
+        spec.update(
+            (k, req[k]) for k in self._JOB_FIELDS
+            if req.get(k) is not None
+        )
+        try:
+            status = self.jobs.submit(spec)
+        except ValueError as exc:
+            raise ServiceError("ProtocolError", str(exc)) from exc
+        return status
+
+    def _job_or_404(self, req: dict) -> str:
+        jid = req.get("job_id")
+        if not jid:
+            raise ServiceError("ProtocolError", "missing 'job_id'")
+        return str(jid)
+
+    def _handle_job_status(self, req: dict, deadline_ts) -> dict:
+        status = self.jobs.status(self._job_or_404(req))
+        if status is None:
+            raise ServiceError(
+                "NotFound", f"no job {req.get('job_id')!r} on this worker"
+            )
+        return status
+
+    def _handle_job_cancel(self, req: dict, deadline_ts) -> dict:
+        status = self.jobs.cancel(self._job_or_404(req))
+        if status is None:
+            raise ServiceError(
+                "NotFound", f"no job {req.get('job_id')!r} on this worker"
+            )
+        return status
 
     def _filtered(self, fs: _FileState, req: dict, tags_required,
                   deadline_ts, what: str):
@@ -861,8 +977,10 @@ class SplitService:
             "latency_p99_ms": _percentile(all_lat, 0.99),
             "split_resolutions": resolutions,
             "ops": ops,
-            # The durable-job table: no job plane in this port yet.
-            "jobs": {},
+            # The durable-job table: id → state (job_status has the rest).
+            "jobs": {
+                j["job_id"]: j["state"] for j in self.jobs.jobs()
+            },
             "accounting": self.accountant.snapshot(),
             "slo": None,
             **self._knobs(),

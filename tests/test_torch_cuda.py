@@ -1179,3 +1179,127 @@ def test_fabric_on_gpu_equals_cpu(gpu, tmp_path, stream):
     assert got[0][0]["count"] == m["reads"]
     assert launches["prefilter_check_flags"] > 0
     assert launches["full_check_flags"] > 0     # the batch's cold starts
+
+
+def test_jobs_on_gpu_equal_cpu(gpu, tmp_path):
+    """A ``mode=fixed`` rewrite job and an export job on the card, each
+    interrupted and resumed, equal the same jobs on the CPU; the rewrite
+    launches the fixed-Huffman lanes, the export the device inflate and
+    the prefilter."""
+    from spark_bam_tpu_torch.jobs.runner import (
+        JobCancelled,
+        run_export_job,
+        run_rewrite_job,
+    )
+
+    src = tmp_path / "src.bam"
+    m = synth_bam(src, 3 << 20, seed=18, unit_reads=3000)
+    cfg = Config(columnar="rows=2000")
+
+    class TripAt:
+        def __init__(self, n):
+            self.left = n
+
+        def is_set(self):
+            self.left -= 1
+            return self.left <= 0
+
+    def run(device, tag):
+        rspec = {"op": "rewrite", "path": str(src),
+                 "out": str(tmp_path / f"{tag}.bam"), "block_payload": 20000,
+                 "deflate": "mode=fixed"}
+        espec = {"op": "export", "path": str(src),
+                 "out": str(tmp_path / f"{tag}.sbcr")}
+        with pytest.raises(JobCancelled):
+            run_rewrite_job(rspec, str(tmp_path / f"{tag}_r"),
+                            checkpoint=700, cancel=TripAt(1500),
+                            device=device)
+        rres = run_rewrite_job(rspec, str(tmp_path / f"{tag}_r"),
+                               checkpoint=700, device=device)
+        with pytest.raises(JobCancelled):
+            run_export_job(espec, str(tmp_path / f"{tag}_e"), config=cfg,
+                           checkpoint=2, cancel=TripAt(3), device=device)
+        eres = run_export_job(espec, str(tmp_path / f"{tag}_e"), config=cfg,
+                              checkpoint=2, device=device)
+        return (rres, eres, (tmp_path / f"{tag}.bam").read_bytes(),
+                (tmp_path / f"{tag}.sbcr").read_bytes())
+
+    K.reset_launch_counts()
+    got = run(gpu, "card")
+    launches = dict(K.LAUNCHES)
+    want = run("cpu", "cpu")
+    strip = ("out",)
+    for g, w in zip(got[:2], want[:2]):
+        assert ({k: v for k, v in g.items() if k not in strip}
+                == {k: v for k, v in w.items() if k not in strip})
+    assert got[2:] == want[2:]
+    assert got[0]["count"] == got[1]["rows"] == m["reads"]
+    assert got[0]["resumed"] and got[1]["resumed"]
+    for kernel in ("deflate_fixed_lanes", "tokenize", "lz77_resolve",
+                   "prefilter_check_flags"):
+        assert launches[kernel] > 0, kernel
+
+
+def test_export_job_beside_counting_clients_on_gpu(gpu, tmp_path):
+    """An export job in an in-process worker on the card, while 8 threads
+    count through the same service, writes the container it writes alone;
+    the counts stay right."""
+    import threading
+    import time
+
+    from spark_bam_tpu_torch.serve import SplitService
+
+    src = str(tmp_path / "e.bam")
+    m = synth_bam(src, 4 << 20, seed=19, unit_reads=4000)
+    cnt = str(tmp_path / "c.bam")
+    mc = synth_bam(cnt, 2 << 20, seed=20, unit_reads=3000)
+    svc = SplitService(Config(
+        serve="window=256KB,halo=32KB,batch=8,tick=2,workers=8",
+        jobs=f"dir={tmp_path / 'jobs'},frames=2,mem=1.0",
+        columnar="rows=1500"))
+
+    def export_job(out):
+        jid = svc.submit({"op": "submit", "job": "export", "path": src,
+                          "out": out}).result(timeout=600)["job_id"]
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline:
+            st = svc.submit({"op": "job_status", "job_id": jid}).result(
+                timeout=600)
+            if st["state"] != "running":
+                return st
+            time.sleep(0.01)
+        raise AssertionError("export job did not finish")
+
+    try:
+        alone = export_job(str(tmp_path / "alone.sbcr"))
+        assert alone["state"] == "done", alone
+        stop = threading.Event()
+        bad = []
+
+        def client():
+            try:
+                while not stop.is_set():
+                    r = svc.submit({"op": "count", "path": cnt}).result(
+                        timeout=600)
+                    if r.get("count") != mc["reads"]:
+                        bad.append(r)
+            except Exception as e:     # a thread's failure fails the test
+                bad.append(repr(e))
+
+        threads = [threading.Thread(target=client) for _ in range(8)]
+        for t in threads:
+            t.start()
+        try:
+            busy = export_job(str(tmp_path / "busy.sbcr"))
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=600)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        svc.close()
+    assert not bad
+    assert busy["state"] == "done", busy
+    assert busy["result"]["rows"] == alone["result"]["rows"] == m["reads"]
+    assert ((tmp_path / "busy.sbcr").read_bytes()
+            == (tmp_path / "alone.sbcr").read_bytes())

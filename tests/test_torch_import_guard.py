@@ -20,9 +20,17 @@ import chip_smoke
 bad = sorted(n for n in sys.modules
              if n in ("jax", "jaxlib", "spark_bam_tpu")
              or n.startswith(("jax.", "jaxlib.", "spark_bam_tpu.")))
+print(",".join(names))
 print(len(names))
 print(bad)
 """
+
+#: Modules the guard must have imported by name: the job plane among them.
+MUST_IMPORT = {"spark_bam_tpu_torch.jobs", "spark_bam_tpu_torch.jobs.journal",
+               "spark_bam_tpu_torch.jobs.manager",
+               "spark_bam_tpu_torch.jobs.runner",
+               "spark_bam_tpu_torch.jobs.scrub",
+               "spark_bam_tpu_torch.parallel.executor"}
 
 
 def test_port_imports_no_jax():
@@ -31,9 +39,10 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    count, bad = proc.stdout.strip().splitlines()[-2:]
+    names, count, bad = proc.stdout.strip().splitlines()[-3:]
     assert bad == "[]", f"port pulled in {bad}"
     assert int(count) >= 50   # every submodule was imported
+    assert MUST_IMPORT <= set(names.split(","))
 
 
 def test_smoke_script_alone_fails(tmp_path):
