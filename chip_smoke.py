@@ -44,7 +44,7 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
 5. Long reads (60-110 kb) at a 256 KiB window and 64 KiB halo, which the
    chains outrun: both count loops must still be exact (through the escape
    retry), ``full_spans`` must defer, and the card's summary must equal
-   the CPU's.
+   the CPU's on a 2 MiB BAM of 16 such reads.
 6. The resident count: ``StreamChecker.count_reads_resident`` over the
    1 GiB BAM at the default geometry (host-zlib windows packed four to a
    resident chunk, each chunk one CUDA graph replay of its window bodies):
@@ -63,8 +63,9 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    events), then with a loci and flag filter (the mask equals a NumPy
    filter over the unfiltered columns); the load edge corpus
    (``benchmarks/load_cases.py``) on the card, on the CPU and with the
-   funnel off (``full_check_flags``), equal batches under every filter,
-   tags included; the long reads' exact spills; ``load_reads_columnar``
+   funnel off (``full_check_flags``), equal batches, and equal under
+   every filter applied to them on the card and on the CPU, tags
+   included; the long reads' exact spills; ``load_reads_columnar``
    and ``record_starts`` on the small BAM, card against CPU (the CPU's
    columns parsed and filtered over its one whole-file check).
 8. The sharded workloads (``parallel/``) on ``make_mesh()``, every card:
@@ -94,7 +95,8 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    device memory. Then with a loci and flag filter (= the oracle over
    NumPy-masked columns, reusing the first run's record starts); the
    mesh's agg step on every card and on a
-   two-entry mesh of one card (= one device); card = CPU on the small BAM,
+   two-entry mesh of one card (= one device); card = CPU on the small BAM
+   (the CPU's parse and reduction over phase 7's CPU record starts),
    the load edge corpus under tag filters and an unmapped BAM with no
    reference sequences (``benchmarks/agg_cases.py``; empty coverage).
 
@@ -111,7 +113,7 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    result, zero launches; its wall beside phase 9's); on the small BAM,
    ``compute-splits`` in the default mode card = CPU, the plan card = CPU
    with a sentinel-only last split (``PLAN_NONE``) and a touched sidecar
-   invalidated and recomputed. The time per boundary at the reference's
+   invalidated and recomputed (= a cold run on the card). The time per boundary at the reference's
    2 MiB splits: ``benchmarks/profile_splits.py``.
 
 11. The columnar export (``export_phase``): ``export`` of the 1 GiB BAM
@@ -129,7 +131,7 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    flag,pos,name,cigar --columnar codec=zlib``). Then card bytes = CPU
    bytes on the small BAM and a 2 MiB long-read BAM (rows in file order)
    for codecs none, zlib and deflate, unfiltered and with a loci and flag
-   filter.
+   filter (the small BAM: none and deflate unfiltered, zlib filtered).
 
 12. The write path (``write_phase``): ``crc32_lanes`` and
    ``deflate_fixed_lanes`` (``csrc/deflate.cu``) against their plain
@@ -139,7 +141,8 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    overflowing lane), and their CUDA-event times on the writer's own
    payloads at lanes 16 and 128; ``BgzfWriter`` over the 1 GiB BAM's
    uncompressed stream under mode=fixed and mode=stored at lanes 16 and
-   128 and under mode=off (host zlib, on its first 64 MiB), timed by
+   128 (the 128-lane runs on its first 256 MiB) and under mode=off
+   (host zlib, on its first 64 MiB), timed by
    ``benchmarks/profile_write.py::timed_write`` (staging, H2D, kernel,
    wait, D2H, assembly, write), every member inflated back by host zlib
    against its payload and its row, every 64th equal to the host
@@ -168,9 +171,10 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    the long reads' escape to the exact count, ``batch`` over sockets and
    shm = ``export``'s file byte for byte (unfiltered, loci and flags, an
    empty flag filter), ``aggregate`` = ``aggregate``, ``Overloaded`` at
-   ``scan_queue=1``, a ``deadline_ms`` shed, ``drain``; its count, plan,
-   batch and aggregate responses = the same service's on a CPU mesh. A
-   count with ``--funnel off`` runs its rows through ``full_check_flags``.
+   ``scan_queue=1``, a ``deadline_ms`` shed, ``drain``; its count (of the
+   last third), plan, batch and aggregate responses = the same service's
+   on a CPU mesh. A count with ``--funnel off`` runs its rows through
+   ``full_check_flags``.
 
 14. The serve fabric (``fabric_phase``): (a) ``python -m
    spark_bam_tpu_torch fabric --fabric workers=2,probe=500,stream=1 --serve
@@ -194,10 +198,10 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
 15. The durable job plane (``jobs_phase``), its oracles phase 11's
    container and phase 12's rewrites (no clean job of its own): (a)
    ``python -m spark_bam_tpu_torch export --durable --jobs
-   dir=...,frames=8`` of the 1 GiB BAM in a subprocess, stopped and
+   dir=...,frames=1`` of the 40 MiB BAM in a subprocess, stopped and
    SIGKILLed once its journal holds two checkpoints, then the same command
    in-process through ``cli.main``: it resumes, and its ``.sbcr`` = phase
-   11's byte for byte (its wall beside phase 11's, the journal's appends,
+   11's card export of that BAM byte for byte (its wall beside phase 11's, the journal's appends,
    checkpointed bytes a second, redone bytes). (b) Two ``WorkerPool``
    workers on the card sharing a jobs dir (``SPARK_BAM_JOBS``) behind an
    in-process ``Router``: ``submit job=transcode deflate=mode=fixed`` of
@@ -212,8 +216,25 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    128 MiB BAM paused by a seeded ENOSPC mid-run (the alert in the flight
    record), resubmitted without chaos: = phase 12's output.
 
+16. The host DEFLATE tokenizer (``host_tokenize_phase``, ``inflate
+   tokenize=host``): (a) ``native/tokenize.cpp`` built by g++ (its build
+   seconds); (b) on the first window's rows the host planes, ``out_lens``
+   and verdicts = the ``tokenize`` kernel's, and on 48 rows (32 seeded
+   byte-mutants) the same refusals and first refused index; host tokenize
+   + pack ms on every thread and on one beside the kernel's ms, the packed
+   (pinned) and raw (pageable) copies' bytes and ms, ``lz77_resolve`` on
+   the packed planes (``benchmarks/profile_tokenize.py::
+   host_device_split``); (c) ``count_reads`` of the 1 GiB BAM under
+   ``tokenize=host`` = the generator's, no demotion, no ``tokenize``
+   launch, one ``lz77_resolve`` a window, its wall beside phase 3's; (d)
+   the 40 MiB BAM: ``inflate_file_device`` (both routes) = ``flatten_file``,
+   the full-check summary = phase 4's card and CPU summaries, the load's
+   batches and the sharded count = the device route's; (e) the export of
+   a refused record mid-file (``load_cases.write_refused_mid_bam``): 601
+   rows in the writer's order, card = CPU byte for byte.
+
 Launch counters are set to 0 just before each main path (3, 4, 6, 7, 8,
-9, 10, 11, 12, 13, 14, 15) and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
+9, 10, 11, 12, 13, 14, 15, 16) and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
 and, last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero; without CUDA, or without the package beside
 it, it exits non-zero before printing a result.
@@ -432,6 +453,7 @@ def load_phase(port, bam, manifest, long_bam, long_manifest, small, work,
     load's fixed columns in file order (phase 11's reference)."""
     import weakref
 
+    from spark_bam_tpu_torch.bam.header import read_header
     from spark_bam_tpu_torch.benchmarks import load_cases
     from spark_bam_tpu_torch.benchmarks.synth import record_positions
     from spark_bam_tpu_torch.load import tpu_load
@@ -533,33 +555,44 @@ def load_phase(port, bam, manifest, long_bam, long_manifest, small, work,
         stream_check.parse_flat_records = real_flat
         tpu_load.StreamChecker = real_checker
 
-    # The edge corpus: card, CPU and funnel off, under every filter.
+    # The edge corpus: card, CPU and funnel off, then every filter on the
+    # card and on the CPU over those batches (``_apply_filter``, the
+    # filter ``stream_read_batches`` runs on each window's batch; one
+    # stream a side instead of one a filter is a depth cut, PERF.md §4).
     edges = work / "edges.bam"
     em = load_cases.write_bam(edges, seed=0)
     w0, h0 = load_cases.GEOMETRY
     cfg = port.Config(window_size=w0, halo_size=h0)
     off = port.Config(window_size=w0, halo_size=h0, funnel="off")
-    off_launches: dict = {}
     t0 = time.perf_counter()
+    all_card = list(port.stream_read_batches(edges, cfg))
+    all_cpu = list(port.stream_read_batches(edges, cfg, device="cpu"))
+    batches_equal(all_card, all_cpu, "edges unfiltered")
+    before = dict(K.LAUNCHES)
+    funnel_off = list(port.stream_read_batches(edges, off))
+    off_launches = {k: v - before[k] for k, v in K.LAUNCHES.items()}
+    batches_equal(funnel_off, all_card, "edges funnel off")
+    spilled = sum(len(b) for base, b in all_card if base == -1)
+    found = sum(len(b) for _, b in all_card)
+    require(spilled >= load_cases.LONG_READS, spilled)
+    require(found == em["records"] - len(em["refused"]),
+            (found, em["records"]))
+    edge_header = read_header(edges)
+
+    def filtered(batches, dev_, loci, fr, ff):
+        out = []
+        for base, b in batches:
+            b = parser.ReadBatch(dict(b.columns), b.starts, b.buf)
+            out.append((base, tpu_load._apply_filter(
+                b, edge_header, loci, fr, ff, device=dev_)))
+        return out
+
     for loci in (None,) + load_cases.LOCI:
         for fr, ff in ((0, 0),) + load_cases.FLAG_FILTERS:
-            kw = dict(loci=loci, flags_required=fr, flags_forbidden=ff)
-            on_card = list(port.stream_read_batches(edges, cfg, **kw))
-            on_cpu = list(port.stream_read_batches(edges, cfg, device="cpu",
-                                                   **kw))
+            on_card = filtered(all_card, dev, loci, fr, ff)
+            on_cpu = filtered(all_cpu, "cpu", loci, fr, ff)
             label = f"edges {loci} {fr:#x}/{ff:#x}"
             batches_equal(on_card, on_cpu, label)
-            if loci is None and not fr and not ff:
-                before = dict(K.LAUNCHES)
-                funnel_off = list(port.stream_read_batches(edges, off))
-                off_launches = {k: v - before[k]
-                                for k, v in K.LAUNCHES.items()}
-                batches_equal(funnel_off, on_card, label + " funnel off")
-                spilled = sum(len(b) for base, b in on_card if base == -1)
-                found = sum(len(b) for _, b in on_card)
-                require(spilled >= load_cases.LONG_READS, spilled)
-                require(found == em["records"] - len(em["refused"]),
-                        (found, em["records"]))
             for tags in load_cases.TAG_FILTERS:
                 for (_, a), (_, b) in zip(on_card, on_cpu):
                     require((tpu_load._tag_presence_mask(a, tags)
@@ -610,7 +643,7 @@ def load_phase(port, bam, manifest, long_bam, long_manifest, small, work,
         f"load_reads_columnar equal on card and CPU (the CPU's columns from "
         f"its one whole-file check); {time.perf_counter() - t0:.1f} s")
     load_cols = {c: np.concatenate(v) for c, v in parts.items()}
-    return load_launches, off_launches, load_cols
+    return load_launches, off_launches, load_cols, rs_cpu.starts
 
 
 def _two_process_count(bam, work, backend: str) -> list[dict]:
@@ -861,7 +894,8 @@ def _agg_equal(got: dict, want: dict, label: str) -> None:
                 f"{label}: {k} differs")
 
 
-def agg_phase(port, bam, manifest, small, work, card) -> tuple[dict, dict]:
+def agg_phase(port, bam, manifest, small, work, card,
+              small_starts) -> tuple[dict, dict]:
     """Phase 9, the aggregate; returns its kernel launch counts on the
     1 GiB aggregate and that aggregate's result, wall, host split and peak
     host RSS (phase 10's reference)."""
@@ -1015,12 +1049,25 @@ def agg_phase(port, bam, manifest, small, work, card) -> tuple[dict, dict]:
     del cols, masked
 
     # Card against CPU: the small BAM, the edge corpus under tag filters,
-    # and an unmapped BAM with no reference sequences (nc 0).
+    # and an unmapped BAM with no reference sequences (nc 0). The small
+    # BAM's CPU side parses and reduces over phase 7's CPU record starts
+    # (its own whole-file CPU check was a depth cut, PERF.md §4; phase 7
+    # holds those starts = the card's).
+    from spark_bam_tpu_torch.bam.header import read_header
+    from spark_bam_tpu_torch.bgzf.flat import flatten_file
+    from spark_bam_tpu_torch.tpu.parser import parse_flat_records
+
     t0 = time.perf_counter()
     a = port.aggregate(small)
-    b = port.aggregate(small, device="cpu")
-    _agg_equal(a["metrics"], b["metrics"], "small BAM")
-    require(a["rows"] == b["rows"] > 0, (a["rows"], b["rows"]))
+    cpu_batch = parse_flat_records(flatten_file(small).data, small_starts,
+                                   device="cpu")
+    b_metrics = AK.aggregate_planes(
+        cpu_batch.columns, AggConfig.parse(""),
+        len(read_header(small).contig_lengths), device="cpu")
+    _agg_equal(a["metrics"], b_metrics, "small BAM")
+    require(a["rows"] == int(cpu_batch.columns["valid"].sum()) > 0,
+            a["rows"])
+    del cpu_batch
     edges = work / "agg_edges.bam"
     load_cases.write_bam(edges, seed=0)
     w0, h0 = load_cases.GEOMETRY
@@ -1279,9 +1326,12 @@ def split_phase(port, bam, manifest, small, work, card, agg_ref) -> dict:
         cli.compute_splits(small, size, port.Config(cache="readwrite"),
                            spark_bam=True, out=out)
         stale = _report_lines(out)
+        # The stale recompute against a cold run without the cache, on the
+        # card (the CPU's cold run was a depth cut, PERF.md §4: the card =
+        # CPU line above holds the card's splits).
         cold = io.StringIO()
         cli.compute_splits(small, size, port.Config(), spark_bam=True,
-                           device="cpu", out=cold)
+                           out=cold)
         require(stale[0].startswith("cache: invalidated (stale sidecar: "
                                     "file mtime changed); written ("),
                 stale[0])
@@ -1299,8 +1349,8 @@ def split_phase(port, bam, manifest, small, work, card, agg_ref) -> dict:
 def export_phase(port, bam, manifest, load_cols, small, small_manifest,
                  work, card, keep: dict) -> dict:
     """Phase 11, the columnar export; returns its kernel launch counts on
-    the 1 GiB export, and leaves its container and wall in ``keep`` (phase
-    15's oracle)."""
+    the 1 GiB export, and leaves the small BAM's default container and its
+    wall in ``keep`` (phase 15's oracle)."""
     import dataclasses
 
     from spark_bam_tpu_torch.bam.header import read_header
@@ -1397,8 +1447,6 @@ def export_phase(port, bam, manifest, load_cols, small, small_manifest,
         f"the generator's, {checked} sampled rows' var columns = _var_piece "
         f"(first and last 8,192, every 997th); {read_s:.1f} s")
 
-    keep["export_sbcr"] = out.rename(work / "keep" / "smoke.sbcr")
-    keep["export_wall"] = wall
     for f in out_dir.iterdir():
         f.unlink()
 
@@ -1438,13 +1486,23 @@ def export_phase(port, bam, manifest, load_cols, small, small_manifest,
         for q in ({}, query):
             cpu_pieces = (filtered(unfiltered, header, q) if q
                           else unfiltered)
-            for codec in ("none", "zlib", "deflate"):
+            # The small BAM takes each codec once (all three under both
+            # queries was a depth cut, PERF.md §4); the long reads all.
+            codecs = (("none", "zlib", "deflate") if label != "small" else
+                      ("zlib",) if q else ("none", "deflate"))
+            for codec in codecs:
                 spec = f"codec={codec}"
                 card_out, cpu_out = out_dir / "card.sbcr", out_dir / "cpu.sbcr"
+                t1 = time.perf_counter()
                 got = port.export(path, card_out,
                                   config=dataclasses.replace(cfg,
                                                              columnar=spec),
                                   **q)
+                if label == "small" and not q and codec == "none":
+                    # Phase 15 (a)'s oracle: the default container.
+                    keep["export_small_wall"] = time.perf_counter() - t1
+                    keep["export_small_sbcr"] = work / "keep" / "small.sbcr"
+                    shutil.copyfile(card_out, keep["export_small_sbcr"])
                 cex.export_dataset(iter(cpu_pieces), cpu_out,
                                    ccfg=ColumnarConfig.parse(spec),
                                    contigs=contigs)
@@ -1640,8 +1698,11 @@ def write_phase(port, bam, manifest, small, small_manifest, work,
                      "mode=stored,lanes=128", "mode=off"):
             out = out_dir / "w.bgzf"
             # Host zlib takes ~70 s a GiB: its yardstick runs on the first
-            # 64 MiB (the whole GiB: benchmarks/profile_write.py).
-            src = stream[: 64 << 20] if spec == "mode=off" else stream
+            # 64 MiB (the whole GiB: benchmarks/profile_write.py); the
+            # 128-lane writers on the first 256 MiB (a depth cut, PERF.md
+            # §4).
+            src = (stream[: 64 << 20] if spec == "mode=off" else
+                   stream[: 256 << 20] if "lanes=128" in spec else stream)
             K.reset_launch_counts()
             r = timed_write(src, spec, out)
             name = "writer_" + spec.replace("mode=", "").replace(",lanes=",
@@ -2143,11 +2204,13 @@ def serve_phase(port, bam, manifest, small, small_manifest, long_bam,
                     stats_b = c.request("stats")
                     paths["serve_b"] = dict(K.LAUNCHES)
                     row_b = _row_cost(svc_b, files["small"])
-                    # Card = CPU on the 40 MiB BAM.
+                    # Card = CPU on the 40 MiB BAM (the count over its
+                    # last third: the whole file's and two thirds' CPU
+                    # counts were a depth cut, PERF.md §4; the clients
+                    # above hold the whole-file count to the generator's).
                     t0 = time.perf_counter()
-                    for req in ({"op": "count", "path": files["small"]},
-                                {"op": "count", "path": files["small"],
-                                 "start": small_size // 3},
+                    for req in ({"op": "count", "path": files["small"],
+                                 "start": 2 * small_size // 3},
                                 {"op": "plan", "path": files["small"],
                                  "split_size": 4 << 20},
                                 {"op": "batch", "path": files["small"],
@@ -2587,8 +2650,9 @@ def _first_fault_seed(kind: int, rate: float, lo: int, hi: int) -> int:
 def jobs_phase(port, bam, manifest, small, small_manifest, work, card,
                keep: dict) -> dict:
     """Phase 15, the durable job plane on the card; returns the kernel
-    launches of its in-process paths. Its oracles are phase 11's container
-    and phase 12's rewrites (``keep``): it runs no clean job of its own."""
+    launches of its in-process paths. Its oracles are phase 11's small-BAM
+    container and phase 12's rewrites (``keep``): it runs no clean job of
+    its own."""
     import io
     import signal
 
@@ -2620,11 +2684,14 @@ def jobs_phase(port, bam, manifest, small, small_manifest, work, card,
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     try:
         # ---- (a) export --durable as users run it: killed, then resumed -
+        # On the 40 MiB BAM, a checkpoint a frame (the 1 GiB BAM's, eight
+        # frames a checkpoint, was a depth cut: PERF.md §4).
         out = out_dir / "durable.sbcr"
         argv = ["export", "--durable", "--jobs",
-                f"dir={jobs_root / 'export'},frames=8", "-o", str(out),
-                str(bam)]
-        jid = job_id_of({"op": "export", "path": str(bam), "out": str(out)})
+                f"dir={jobs_root / 'export'},frames=1", "-o", str(out),
+                str(small)]
+        jid = job_id_of({"op": "export", "path": str(small),
+                         "out": str(out)})
         journal = jobs_root / "export" / jid / "journal.sbj"
         t0 = time.perf_counter()
         proc = subprocess.Popen(
@@ -2660,10 +2727,11 @@ def jobs_phase(port, bam, manifest, small, small_manifest, work, card,
         paths["jobs_durable_export"] = dict(K.LAUNCHES)
         require(rc == 0, f"export --durable resumed: rc {rc}")
         res = json.loads(buf.getvalue())
-        require(res["resumed"] and res["rows"] == manifest["reads"]
-                and res["batches"] == -(-manifest["reads"] // 8192), res)
-        require(_same_file(out, keep["export_sbcr"]),
-                "the resumed durable export != phase 11's smoke.sbcr")
+        reads = small_manifest["reads"]
+        require(res["resumed"] and res["rows"] == reads
+                and res["batches"] == -(-reads // 8192), res)
+        require(_same_file(out, keep["export_small_sbcr"]),
+                "the resumed durable export != phase 11's small.sbcr")
         require(all(paths["jobs_durable_export"][k] > 0
                     for k in COUNT_KERNELS)
                 and paths["jobs_durable_export"]["full_check_flags"] == 0,
@@ -2671,13 +2739,13 @@ def jobs_phase(port, bam, manifest, small, small_manifest, work, card,
         recs = read_journal(journal)
         fresh = [r for r in recs if r["t"] == "ckpt"][len(banked):]
         ck_bytes = sum(r["seg_bytes"] for r in fresh)
-        log(f"jobs (a) export --durable of the 1 GiB BAM (frames=8): "
+        log(f"jobs (a) export --durable of the 40 MiB BAM (frames=1): "
             f"SIGKILLed {killed_s:.3f} s after launch with "
             f"{len(banked)} checkpoints ({banked[-1]['frames']} frames, "
             f"{banked[-1]['offset']} bytes) durable; the same command "
             f"in-process resumed and finished in {resume_s:.3f} s (phase "
-            f"11's plain export {keep['export_wall']:.3f} s): .sbcr = phase "
-            f"11's byte for byte ({out.stat().st_size} bytes, {res['rows']} "
+            f"11's plain export {keep['export_small_wall']:.3f} s): .sbcr = "
+            f"phase 11's byte for byte ({out.stat().st_size} bytes, {res['rows']} "
             f"rows, {res['batches']} frames); redone bytes "
             f"{res['redone_bytes']}; journal appends {len(recs)} "
             f"({res['checkpoints']} checkpoints), this run's checkpoints "
@@ -2889,6 +2957,210 @@ def jobs_phase(port, bam, manifest, small, small_manifest, work, card,
     return paths
 
 
+def host_tokenize_phase(port, bam, manifest, small, small_manifest,
+                        summary_card, summary_cpu, work, card,
+                        fused_s) -> tuple[dict, dict]:
+    """Phase 16: ``inflate tokenize=host``, the host DEFLATE tokenizer
+    (``native/tokenize.cpp``) feeding the card's ``lz77_resolve``. Returns
+    the launches of each path, counted from zero around it, and the first
+    window's host/device split."""
+    import dataclasses
+
+    from spark_bam_tpu_torch.benchmarks import load_cases
+    from spark_bam_tpu_torch.benchmarks.profile_tokenize import (
+        host_device_split,
+    )
+    from spark_bam_tpu_torch.bgzf.flat import flatten_file, stage_run_payloads
+    from spark_bam_tpu_torch.columnar.native import NativeReader
+    from spark_bam_tpu_torch.core.channel import open_channel
+    from spark_bam_tpu_torch.device import sync
+    from spark_bam_tpu_torch.native import build as nbuild
+    from spark_bam_tpu_torch.tpu import kernels as K
+    from spark_bam_tpu_torch.tpu.inflate import inflate_file_device
+    from spark_bam_tpu_torch.tpu.tokenize_device import STRIDE
+
+    dev = torch.device("cuda", 0)
+    host = "tokenize=host"
+    t_phase = time.perf_counter()
+    out: dict = {}
+
+    # (a) The tokenizer's library, built by g++ from the checkout's source.
+    lib_path = nbuild.library_path()
+    prebuilt = lib_path.exists()
+    t0 = time.perf_counter()
+    nbuild.load()
+    log(f"host tokenizer: {lib_path.name} "
+        + (f"already built ({time.perf_counter() - t0:.3f} s to load)"
+           if prebuilt else f"built by g++ in {nbuild.build_seconds:.3f} s"))
+    cpu_model = "unknown"
+    with contextlib.suppress(OSError), open("/proc/cpuinfo") as f:
+        cpu_model = next((ln.split(":", 1)[1].strip() for ln in f
+                          if ln.startswith("model name")), cpu_model)
+    log(f"host CPU: {cpu_model}, {os.cpu_count()} cores visible")
+
+    # (b) The first window's rows: host planes = the tokenize kernel's (in
+    # host_device_split), then the verdicts and refused index on the
+    # window's first 16 rows and 32 seeded byte-mutants of them.
+    checker = port.StreamChecker(bam, port.Config(inflate=host))
+    group0 = checker.pipeline.groups[0]
+    with open_channel(bam) as ch:
+        split = host_device_split(ch, group0, dev)
+        staged, clens = stage_run_payloads(ch, group0)
+    rng = np.random.default_rng(16)
+    rows_b, rows_c = [], []
+    for i in range(48):
+        row = staged[i % 16].copy()
+        if i >= 16:
+            hits = rng.integers(0, clens[i % 16], size=1 + i % 4)
+            row[hits] ^= rng.integers(1, 256, size=len(hits)).astype(np.uint8)
+        rows_b.append(row)
+        rows_c.append(int(clens[i % 16]))
+    m_staged = torch.from_numpy(np.stack(rows_b)).to(dev)
+    m_clens = torch.tensor(rows_c, dtype=torch.int32, device=dev)
+    k_lit, k_dist, k_lens, k_ok = K.tokenize(m_staged, m_clens)
+    k_ok = k_ok.cpu().numpy()
+    comp = np.stack(rows_b).reshape(-1)
+    offs = np.arange(48, dtype=np.int64) * staged.shape[1]
+    lens = np.array(rows_c, dtype=np.int64)
+    h_lit = np.zeros((48, STRIDE), np.uint8)
+    h_dist = np.zeros((48, STRIDE), np.uint16)
+    h_lens = np.zeros(48, np.int64)
+    verdicts = []
+    for i in range(48):
+        verdicts.append(nbuild.tokenize_deflate(
+            comp, offs[i:i + 1], lens[i:i + 1], h_lit[i:i + 1],
+            h_dist[i:i + 1], h_lens[i:i + 1]) == 0)
+    verdicts = np.array(verdicts)
+    require(np.array_equal(verdicts, k_ok), "host and kernel verdicts differ")
+    acc = np.flatnonzero(verdicts)
+    kl, kd = k_lit.cpu().numpy(), _as_long(k_dist).cpu().numpy()
+    require(np.array_equal(h_lit[acc], kl[acc])
+            and np.array_equal(h_dist[acc].astype(np.int64), kd[acc])
+            and np.array_equal(h_lens[acc], k_lens.cpu().numpy()[acc]),
+            "host planes differ from the kernel's on accepted mutants")
+    first_bad = nbuild.tokenize_deflate(
+        comp, offs, lens, np.zeros((48, STRIDE), np.uint8),
+        np.zeros((48, STRIDE), np.uint16), np.zeros(48, np.int64))
+    want_bad = int(np.flatnonzero(~k_ok)[0]) + 1 if (~k_ok).any() else 0
+    require(first_bad == want_bad, (first_bad, want_bad))
+    per_32mib = (32 << 20) / max(split["uncompressed_bytes"], 1)
+    log(f"host tokenizer vs the tokenize kernel, first window "
+        f"({split['blocks']} blocks, {split['uncompressed_bytes']} bytes): "
+        f"planes and out_lens bit-identical; 48 rows (32 mutants): "
+        f"{int((~k_ok).sum())} refused by both, first refused index "
+        f"{first_bad} = the kernel's; host tokenize + pack "
+        f"{split['host_tokenize_pack_ms']:.1f} ms on {split['threads']} "
+        f"threads ({split['host_tokenize_pack_ms'] * per_32mib:.1f} ms per "
+        f"32 MiB), {split['host_tokenize_pack_ms_1_thread']:.1f} ms on one "
+        f"(threads overlap: "
+        f"{split['host_tokenize_pack_ms_1_thread'] / split['host_tokenize_pack_ms']:.2f}x)"
+        f"; tokenize kernel {split['tokenize_kernel_ms']:.3f} ms; packed "
+        f"H2D {split['packed_h2d_bytes']} bytes {split['packed_h2d_ms']:.3f} "
+        f"ms (pinned), raw H2D {split['raw_h2d_bytes']} bytes "
+        f"{split['raw_h2d_ms']:.3f} ms (pageable); lz77_resolve on the "
+        f"packed planes {split['lz77_on_packed_ms']:.3f} ms")
+    del m_staged, k_lit, k_dist
+
+    # (c) count-reads of the 1 GiB BAM, fused, under tokenize=host.
+    K.reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    got = checker.count_reads()
+    sync(dev)
+    host_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    windows = len(checker.pipeline.groups)
+    require(got == manifest["reads"], (got, manifest["reads"]))
+    require(checker.tokenize_demotions == 0, "the host route demoted")
+    require(launches["tokenize"] == 0, launches)
+    require(launches["lz77_resolve"] == windows, launches)
+    require(launches["prefilter_check_flags"] >= windows, launches)
+    log(f"count-reads tokenize=host: {got} reads (= the generator's, 0 "
+        f"demotions) in {host_s:.3f} s = {got / host_s:.0f} reads/s, beside "
+        f"{fused_s:.3f} s on the device tokenizer (phase 3); {windows} "
+        f"windows, launches {launches} = "
+        f"{sum(launches.values()) / windows:.2f} kernel launches a window "
+        f"({card})")
+    out["count_reads_host_tokenize"] = launches
+
+    # (d) The 40 MiB BAM under tokenize=host on the card, against the
+    # device route on the card and the CPU's results.
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    flat = flatten_file(small)
+    for spec in (host, ""):
+        view = inflate_file_device(small, spec)
+        require(np.array_equal(view.data, flat.data)
+                and np.array_equal(view.block_flat, flat.block_flat),
+                f"inflate_file_device [{spec or 'device'}] != flatten_file")
+    del view, flat
+    s_host = port.full_check_summary_streaming(small,
+                                               port.Config(inflate=host))
+    require(summaries_equal(s_host, summary_card)
+            and summaries_equal(s_host, summary_cpu),
+            "tokenize=host full-check summary differs")
+
+    def load_rows(cfg):
+        rows = []
+        for base, batch in port.stream_read_batches(small, cfg):
+            v = batch.columns["valid"]
+            rows.append((base, batch.starts[v],
+                         {k: c[v] for k, c in batch.columns.items()}))
+        return rows
+
+    lh, ld = load_rows(port.Config(inflate=host)), load_rows(port.Config())
+    require(len(lh) == len(ld) and all(
+        a[0] == b[0] and np.array_equal(a[1], b[1])
+        and all(np.array_equal(a[2][k], b[2][k]) for k in a[2])
+        for a, b in zip(lh, ld)), "tokenize=host load batches differ")
+    n_rows = sum(len(r[1]) for r in lh)
+    require(n_rows == small_manifest["reads"], (n_rows, small_manifest))
+    del lh, ld
+    mesh = port.make_mesh()
+    stats: dict = {}
+    sh = port.count_reads_sharded(small, port.Config(inflate=host),
+                                  mesh=mesh, stats_out=stats)
+    sd = port.count_reads_sharded(small, port.Config(), mesh=mesh)
+    require(sh == sd == small_manifest["reads"], (sh, sd))
+    require(stats["tokenize_demotions"] == 0, stats)
+    sync(dev)
+    small_launches = dict(K.LAUNCHES)
+    log(f"40 MiB BAM tokenize=host on the card: inflate_file_device = the "
+        f"device route's = flatten_file; full-check summary = the device "
+        f"route's (phase 4) = the CPU's; load batches = the device route's "
+        f"({n_rows} rows = the generator's); sharded count {sh} = the "
+        f"device route's; launches {small_launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    out["small_host_tokenize"] = small_launches
+
+    # (e) The export of a refused record mid-file: the record path's 601
+    # rows, in the writer's order, card = CPU byte for byte.
+    K.reset_launch_counts()
+    rm = work / "refused_mid.bam"
+    rm_manifest = load_cases.write_refused_mid_bam(rm)
+    for geo in ({}, dict(zip(("window_size", "halo_size"),
+                             load_cases.GEOMETRY))):
+        cfg = port.Config(**geo)
+        card_out, cpu_out = work / "rm_card.sbcr", work / "rm_cpu.sbcr"
+        res = port.export(rm, card_out, config=cfg)
+        port.export(rm, cpu_out, config=dataclasses.replace(cfg),
+                    device="cpu")
+        blob = card_out.read_bytes()
+        names = []
+        for b in NativeReader(blob).iter_batches():
+            names += [b.columns["name"].value(i).decode()
+                      for i in range(b.num_rows)]
+        require(res["rows"] == rm_manifest["records"] == 601, res)
+        require(names == rm_manifest["names"], "exported names differ")
+        require(blob == cpu_out.read_bytes(), "refused-mid export card != CPU")
+    sync(dev)
+    out["export_refused_mid"] = dict(K.LAUNCHES)
+    log(f"export past a refused record mid-file: 601 rows in the writer's "
+        f"order at both geometries, card = CPU byte for byte; phase 16 "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out, split
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2932,6 +3204,16 @@ def main() -> int:
             log("  " + line.strip())
 
     dev = torch.device("cuda", 0)
+    phase_walls: list = []
+    phase_t = [time.perf_counter()]
+
+    def phase_done(label: str) -> None:
+        """Log the wall of the phase that just ended (from the last mark)."""
+        now = time.perf_counter()
+        phase_walls.append((label, now - phase_t[0]))
+        log(f"phase {label}: {now - phase_t[0]:.1f} s")
+        phase_t[0] = now
+
     work = ROOT / "spark_bam_tpu_torch" / "_build" / "smoke"
     work.mkdir(parents=True, exist_ok=True)
     try:
@@ -3247,6 +3529,7 @@ def main() -> int:
         del lit, dist, staged
         torch.cuda.empty_cache()
 
+        phase_done("2 (synthetic BAM, kernels)")
         # ---- end to end: count-reads, fused device path, then classic -----
         checker = port.StreamChecker(bam, port.Config())
         K.reset_launch_counts()
@@ -3276,6 +3559,7 @@ def main() -> int:
                 f"({card})")
         log(f"funnel: {checker.funnel_stats}; launches {launches}")
 
+        phase_done("3 (count-reads)")
         # ---- end to end: full-check, then one pass over its spans --------
         K.reset_launch_counts()
         sync(dev)
@@ -3334,6 +3618,7 @@ def main() -> int:
             f"{card_s:.3f} s, card from host-zlib windows {host_zlib_s:.3f} "
             f"s, CPU (plain versions on host-zlib windows) {cpu_s:.3f} s")
 
+        phase_done("4 (full-check)")
         # ---- long reads: chains outrun a 64 KiB halo ---------------------
         geo = (256 << 10, 64 << 10)
         long_reads = long_manifest["reads"]
@@ -3353,33 +3638,46 @@ def main() -> int:
         require(tiled == lc.total, (tiled, lc.total))
         require(deferred > 0, "long reads must defer")
         require(zeros == long_reads, (zeros, long_reads))
-        long_card = port.full_check_summary_streaming(long_bam, port.Config(),
+        # Card = CPU on 16 of those reads (2 MiB; the 8 MiB BAM's CPU
+        # summary was a depth cut, PERF.md §4).
+        long2 = work / "long2.bam"
+        synth_bam(long2, 2 << 20, seed=9, unit_reads=8,
+                  read_len=(60_000, 110_000))
+        long_card = port.full_check_summary_streaming(long2, port.Config(),
                                                       *geo)
         long_cpu = port.full_check_summary_streaming(
-            long_bam, port.Config(), *geo, device="cpu")
+            long2, port.Config(), *geo, device="cpu")
         require(summaries_equal(long_card, long_cpu),
                 "long-read card and CPU summaries differ")
+        long2.unlink()
         log(f"long reads: {long_reads} reads counted exactly on both loops "
             f"through the escape retry; full_spans {deferred} deferred "
-            f"re-emissions; card summary equals CPU")
+            f"re-emissions; card summary equals CPU on a 2 MiB BAM of 16 "
+            f"of them")
 
+        phase_done("5 (long reads)")
         resident_launches = resident_phase(
             port, bam, manifest, long_bam, long_manifest, small,
             small_manifest, card, fused_s, classic_s)
 
-        load_launches, off_launches, load_cols = load_phase(
+        phase_done("6 (resident)")
+        load_launches, off_launches, load_cols, small_starts = load_phase(
             port, bam, manifest, long_bam, long_manifest, small, work, card)
 
+        phase_done("7 (load)")
         sharded_launches = sharded_phase(
             port, bam, manifest, summary, fc_s, fused_s, small,
             small_manifest, on_card, work, card)
 
+        phase_done("8 (sharded)")
         agg_launches, agg_ref = agg_phase(port, bam, manifest, small, work,
-                                          card)
+                                          card, small_starts)
 
+        phase_done("9 (aggregate)")
         split_launches = split_phase(port, bam, manifest, small, work, card,
                                      agg_ref)
 
+        phase_done("10 (splits)")
         keep: dict = {}
         (work / "keep").mkdir(exist_ok=True)
         export_launches = export_phase(
@@ -3387,21 +3685,31 @@ def main() -> int:
             card, keep)
         del load_cols
 
+        phase_done("11 (export)")
         write_rows, write_launches = write_phase(
             port, bam, manifest, small, small_manifest, work, card, keep)
 
+        phase_done("12 (write)")
         serve_launches = serve_phase(
             port, bam, manifest, small, small_manifest, long_bam,
             long_manifest, work, card, agg_ref)
         del agg_ref
 
+        phase_done("13 (serve)")
         fabric_launches = fabric_phase(port, bam, manifest, small,
                                        small_manifest, work, card)
 
+        phase_done("14 (fabric)")
         jobs_launches = jobs_phase(port, bam, manifest, small,
                                    small_manifest, work, card, keep)
         shutil.rmtree(work / "keep", ignore_errors=True)
 
+        phase_done("15 (jobs)")
+        host_launches, host_split = host_tokenize_phase(
+            port, bam, manifest, small, small_manifest, on_card, on_cpu,
+            work, card, fused_s)
+
+        phase_done("16 (host tokenizer)")
         for row in rows:
             row["launches"] = launches[row["name"]]
             row["launches_by_path"] = {
@@ -3424,7 +3732,12 @@ def main() -> int:
                    for path, n in fabric_launches.items()},
                 **{path: n[row["name"]]
                    for path, n in jobs_launches.items()},
+                **{path: n[row["name"]]
+                   for path, n in host_launches.items()},
             }
+            if row["name"] == "tokenize":
+                # The host engine of the same entropy phase (phase 16).
+                row["host_engine"] = host_split
             if row["name"] in FABRIC_KERNELS:
                 row["launches_note"] = FABRIC_NOTE + " " + JOBS_NOTE
             else:
@@ -3435,8 +3748,11 @@ def main() -> int:
                 for path, n in (*write_launches.items(),
                                 *serve_launches.items(),
                                 *fabric_launches.items(),
-                                *jobs_launches.items())}
+                                *jobs_launches.items(),
+                                *host_launches.items())}
             row["launches_note"] = JOBS_NOTE
+        log("phase walls (s): " + ", ".join(
+            f"{label} {wall:.1f}" for label, wall in phase_walls))
         print(json.dumps({"kernels": rows + write_rows}), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -37,6 +37,11 @@ the halo (their starts spill and decode exactly); the last record ends at
 the end of the file. The refused record goes first, so no other record's
 chain runs through it.
 
+``write_refused_mid_bam(path)`` writes seeded reads with the refused
+empty-name record in the middle of the file, where the chains of the
+records before it run through it: the checker refuses those starts, the
+record path (and so the export) reads them.
+
 ``LOCI``, ``FLAG_FILTERS`` and ``TAG_FILTERS`` are the filters the tests
 and the smoke apply to it: loci with a whole contig, an empty range, a
 contig absent from the header and an interval whose end is a record's
@@ -267,6 +272,37 @@ def write_bam(path, seed: int = 0, fillers: int = 1200) -> dict:
         "header_bytes": len(header),
         "uncompressed_bytes": len(header) + len(stream),
     }
+
+
+def write_refused_mid_bam(path, fillers: int = 600, seed: int = 5,
+                          after: int = 300) -> dict:
+    """``fillers`` seeded reads at positions 10,000 + 50·i with the refused
+    empty-name record written after filler ``after`` (the 301st), in
+    ``BLOCK``-byte blocks: the checker refuses every start whose chain of
+    ``reads_to_check`` records reaches the empty name, while the record
+    path reads through it. Returns the manifest (``starts``, ``names``,
+    ``records``)."""
+    rng = np.random.default_rng(seed)
+    header = _header()
+    stream = bytearray()
+    starts: list[int] = []
+    names: list[str] = []
+
+    def put(name: str, rec: bytes) -> None:
+        starts.append(len(header) + len(stream))
+        names.append(name)
+        stream.extend(rec)
+
+    for i in range(fillers):
+        put(f"fill{i:05d}", _filler(rng, i, 10_000 + 50 * i))
+        if i == after:
+            put("", edge_records(0)["empty_name"])
+    blob = compress_blocks(header) + b"".join(
+        compress_block(bytes(stream[i: i + BLOCK]))
+        for i in range(0, len(stream), BLOCK)) + BGZF_EOF
+    Path(path).write_bytes(blob)
+    return {"starts": np.array(starts, dtype=np.int64), "names": names,
+            "records": len(starts)}
 
 
 def _header() -> bytes:

@@ -19,6 +19,15 @@ cycles, literals and match runs (from the token planes), and a least-
 squares split of the non-table cycles into cycles per literal and per
 match run; then the card's name, power limit and top SM clock. One JSON
 line last.
+
+``host_device_split`` (in the JSON line under ``split``, and called by
+``chip_smoke.py``'s host tokenizer phase) sets the two routes of the
+entropy phase side by side on the same window, as the reference's
+``bench.py`` does per group: the host tokenizer's tokenize + pack into a
+pinned slot (``inflate tokenize=host``; with every thread and with one),
+the packed copy's bytes and CUDA-event time, and ``lz77_resolve`` on the
+packed planes; against the raw payload copy's bytes and time (pageable,
+as ``stage_group_device`` copies) and the ``tokenize`` kernel's time.
 """
 
 from __future__ import annotations
@@ -127,6 +136,84 @@ def _run(lib, staged, clens):
     return a.elapsed_time(z), (lit, dist, olens, ok)
 
 
+def _events_ms(fn, reps: int = 5) -> float:
+    """CUDA-event median of ``fn`` on the current stream."""
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        z.record()
+        z.synchronize()
+        times.append(a.elapsed_time(z))
+    return statistics.median(times)
+
+
+def host_device_split(ch, group, dev: torch.device, reps: int = 3,
+                      threads: int = 8) -> dict:
+    """The host and the device entropy phase of one window group (see the
+    module docstring): host wall ms (``time.perf_counter``, medians of
+    ``reps``), copy and kernel ms by CUDA events. Holds the host planes
+    equal to the ``tokenize`` kernel's first; raises when they differ."""
+    import time
+
+    from spark_bam_tpu_torch.bgzf.flat import stage_run_payloads
+    from spark_bam_tpu_torch.tpu import kernels as K
+    from spark_bam_tpu_torch.tpu.inflate import (
+        PackedStaging,
+        _resolve_packed,
+        _unpack_tokens,
+        tokenize_group,
+    )
+
+    staging = PackedStaging(dev, 2)
+    host_ms, groups = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        groups.append(tokenize_group(ch, group, staging, threads))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        if len(groups) > 1:    # keep one slot's group for the copies
+            staging.release(groups.pop(0).slot)
+    g = groups[0]
+    t0 = time.perf_counter()
+    tokenize_group(ch, group, None, 1)
+    one_ms = (time.perf_counter() - t0) * 1e3
+    host = torch.from_numpy(g.packed)
+    packed_dev = torch.empty(host.numel(), dtype=torch.uint8, device=dev)
+    packed_h2d_ms = _events_ms(
+        lambda: packed_dev.copy_(host, non_blocking=True))
+    staged, clens = stage_run_payloads(ch, group)
+    staged_t, clens_t = torch.from_numpy(staged), torch.from_numpy(clens)
+    raw_h2d_ms = _events_ms(lambda: (staged_t.to(dev), clens_t.to(dev)))
+    staged_d, clens_d = staged_t.to(dev), clens_t.to(dev)
+    lit, dist, olens, ok = K.tokenize(staged_d, clens_d)
+    h_lit, h_dist = _unpack_tokens(packed_dev)
+    b = g.b
+    if not (torch.equal(lit, h_lit)
+            and torch.equal(dist.view(torch.int16), h_dist.view(torch.int16))
+            and bool(ok[:b].all())
+            and np.array_equal(olens[:b].cpu().numpy(), g.out_lens)):
+        raise AssertionError("host planes differ from the tokenize kernel's")
+    tok_ms = _events_ms(lambda: K.tokenize(staged_d, clens_d))
+    lz_ms = _events_ms(lambda: _resolve_packed(packed_dev.clone()))
+    clone_ms = _events_ms(lambda: packed_dev.clone())
+    staging.release(g.slot)
+    return {
+        "blocks": b, "rows": int(staged.shape[0]),
+        "uncompressed_bytes": int(g.out_lens.sum()),
+        "host_tokenize_pack_ms": statistics.median(host_ms),
+        "host_tokenize_pack_ms_runs": host_ms,
+        "host_tokenize_pack_ms_1_thread": one_ms, "threads": threads,
+        "packed_h2d_bytes": int(host.numel()),
+        "packed_h2d_ms": packed_h2d_ms,
+        "lz77_on_packed_ms": max(lz_ms - clone_ms, 0.0),
+        "raw_h2d_bytes": int(staged.nbytes + clens.nbytes),
+        "raw_h2d_ms": raw_h2d_ms,
+        "tokenize_kernel_ms": tok_ms,
+    }
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--against", action="append", default=[], type=Path)
@@ -195,6 +282,10 @@ def main(argv=None) -> None:
             "cycles_per_symbol_mean": float(
                 ((row_cycles - tab_cycles) / (lits + runs)).mean()),
         }
+        with open_channel(bam) as ch:
+            result["split"] = host_device_split(
+                ch, checker.pipeline.groups[0], dev)
+        print(f"host vs device entropy phase: {result['split']}")
         print(card)
         print(json.dumps(result))
     finally:

@@ -357,11 +357,12 @@ def _render_report(p: Printer, crit_idx, crit_masks, two_idx, two_masks,
 
 
 def full_check(path, print_limit: int = 10, device=None, out=None,
-               sharded: bool = False, devices: int | None = None) -> dict:
+               sharded: bool = False, devices: int | None = None,
+               config: Config | None = None) -> dict:
     """The streaming full-check report of one BAM (reduced across the mesh
     with ``sharded``); returns its summary."""
     p = Printer(out=out, limit=print_limit)
-    config = Config()
+    config = Config() if config is None else config
     metas = blocks_metadata(path)
     if sharded:
         s = full_check_summary_sharded(path, config,
@@ -931,6 +932,14 @@ def _add_knobs(p, split_help: str) -> None:
     p.add_argument("--max-read-size", type=int, default=None)
 
 
+def _add_inflate(p) -> None:
+    p.add_argument(
+        "--inflate", default=None, metavar="SPEC",
+        help="read-path inflate knobs, e.g. 'tokenize=host' (bare "
+             "'device'/'host' ok): where the DEFLATE entropy phase of the "
+             "device inflate runs (SPARK_BAM_INFLATE works too)")
+
+
 def _add_cache(p) -> None:
     p.add_argument(
         "--cache", default=None, metavar="MODE",
@@ -949,15 +958,15 @@ def _positive_int(s: str) -> int:
 def _config(args) -> Config:
     """``SPARK_BAM_CACHE``, ``SPARK_BAM_COLUMNAR``, ``SPARK_BAM_DEFLATE``,
     ``SPARK_BAM_FAULTS``, ``SPARK_BAM_SERVE``, ``SPARK_BAM_FABRIC``,
-    ``SPARK_BAM_JOBS`` and ``SPARK_BAM_DISK_CHAOS``, then the command's
-    flags: the split size, the checker knobs, ``--cache``,
-    ``--columnar``, ``--deflate``, ``--serve``, ``--funnel``,
-    ``--fabric``, ``--jobs`` and ``--disk-chaos`` (a bad size or spec is
-    a usage error)."""
+    ``SPARK_BAM_JOBS``, ``SPARK_BAM_DISK_CHAOS`` and ``SPARK_BAM_INFLATE``,
+    then the command's flags: the split size, the checker knobs,
+    ``--cache``, ``--columnar``, ``--deflate``, ``--serve``, ``--funnel``,
+    ``--fabric``, ``--jobs``, ``--disk-chaos`` and ``--inflate`` (a bad
+    size or spec is a usage error)."""
     kw = {}
     for knob in ("bgzf_blocks_to_check", "reads_to_check", "max_read_size",
                  "cache", "columnar", "deflate", "serve", "funnel",
-                 "fabric", "jobs", "disk_chaos"):
+                 "fabric", "jobs", "disk_chaos", "inflate"):
         value = getattr(args, knob, None)
         if value is not None:
             kw[knob] = value
@@ -1051,14 +1060,17 @@ def main(argv=None) -> int:
         "--record-starts", action="store_true",
         help="also index every record-start virtual position (the "
              "streaming check over the file)")
+    for p in (cr, fc, cb, ag, cs, ix):
+        _add_inflate(p)
     ib = sub.add_parser("index-blocks", help="write the .blocks sidecar")
     ir = sub.add_parser("index-records", help="write the .records sidecar")
     ir.add_argument("-t", "--throw-on-truncation", action="store_true")
     ex = sub.add_parser("export",
                         help="write a BAM's records as columnar batches")
     ex.add_argument("-m", "--max-split-size", default=None,
-                    help="split size of the record loaders; the frames "
-                         "follow the row target, so it changes nothing")
+                    help="split size of the record loaders (default "
+                         "32MB): each split's records follow the chain "
+                         "from its first start")
     ex.add_argument(
         "-i", "--intervals", default=None, metavar="LOCI",
         help="genomic loci to restrict to, e.g. 'chr1:5k-10k,chr2' "
@@ -1075,6 +1087,7 @@ def main(argv=None) -> int:
              "columns=flag+pos+name' (SPARK_BAM_COLUMNAR works too)")
     ex.add_argument("-o", "--out", dest="export_out", required=True,
                     help="output file path")
+    _add_inflate(ex)
     sc = sub.add_parser(
         "scrub", help="check rewritten and exported artifacts end to end")
     sc.add_argument(
@@ -1220,7 +1233,8 @@ def _run(args) -> int:
         print(f"Wrote {count} records to {out_path}", file=sys.stderr)
         return 0
     if args.cmd in ("count-reads", "full-check"):
-        kw = dict(sharded=args.sharded, devices=args.devices)
+        kw = dict(sharded=args.sharded, devices=args.devices,
+                  config=_config(args))
         if args.cmd == "count-reads":
             count_reads(args.path, args.num_iterations, args.device,
                         resident=args.resident, **kw)

@@ -53,9 +53,11 @@ def format_bytes(n: int) -> str:
 class InflateConfig:
     """The ``Config.inflate`` spec: ``tokenize=…,kernel=…,donate=…``.
 
-    ``tokenize`` says where the DEFLATE entropy phase runs. This port has
-    only the device tokenizer (the hand-written CUDA kernel), so ``auto``
-    resolves to ``device`` and ``host`` is refused. ``kernel`` names a
+    ``tokenize`` says where the DEFLATE entropy phase runs: ``device`` (the
+    hand-written CUDA kernel over the raw payloads), ``host`` (the C++
+    host tokenizer, whose packed token planes ship to the device), or
+    ``auto``, which in this port resolves to ``device`` on every device
+    (the reference's ``auto`` means ``host`` off the TPU). ``kernel`` names a
     tokenizer engine of the reference package; the port has one engine,
     so only ``auto`` is served. ``donate`` names the reference's jit buffer
     donation; eager PyTorch has none, and the port always resolves LZ77 in
@@ -65,6 +67,10 @@ class InflateConfig:
     tokenize: str = "auto"
     kernel: str = "auto"
     donate: str = "on"
+
+    def resolve_tokenize(self) -> str:
+        """``host`` or ``device``: where the entropy phase runs."""
+        return "host" if self.tokenize == "host" else "device"
 
     @staticmethod
     @functools.lru_cache(maxsize=64)
@@ -93,12 +99,6 @@ class InflateConfig:
                 )
             kw[key] = value
         cfg = InflateConfig(**kw)
-        if cfg.tokenize == "host":
-            raise ValueError(
-                "inflate tokenize=host needs a host DEFLATE tokenizer, which "
-                "the slice that ports the host tokenizer will serve; this "
-                "port tokenizes on the device (tokenize=device or auto)"
-            )
         if cfg.kernel != "auto":
             raise ValueError(
                 f"inflate kernel={cfg.kernel} names an engine of the JAX "
@@ -129,7 +129,7 @@ class Config:
     window_size: int = 24 << 20
     halo_size: int = 4 << 20            # trailing bytes so chains can complete
     funnel: str = "auto"                # on | off | auto
-    # None = auto: on (the device inflate is the only one this port has).
+    # None = auto: on (the device inflate; host zlib only when False).
     device_inflate: bool | None = None
     # None = auto: follows device_inflate.
     fused_count: bool | None = None
@@ -208,7 +208,7 @@ class Config:
 
     #: The knobs ``from_env`` reads, as ``SPARK_BAM_<KNOB>``.
     ENV_KNOBS = ("cache", "columnar", "deflate", "faults", "serve", "fabric",
-                 "jobs", "disk_chaos")
+                 "jobs", "disk_chaos", "inflate")
 
     @classmethod
     def from_env(cls, env=None) -> "Config":
@@ -218,8 +218,9 @@ class Config:
         ``SPARK_BAM_FAULTS`` as the ``faults`` spec,
         ``SPARK_BAM_SERVE`` as the ``serve`` spec,
         ``SPARK_BAM_FABRIC`` as the ``fabric`` spec,
-        ``SPARK_BAM_JOBS`` as the ``jobs`` spec and
-        ``SPARK_BAM_DISK_CHAOS`` as the ``disk_chaos`` spec, as the
+        ``SPARK_BAM_JOBS`` as the ``jobs`` spec,
+        ``SPARK_BAM_DISK_CHAOS`` as the ``disk_chaos`` spec and
+        ``SPARK_BAM_INFLATE`` as the ``inflate`` spec, as the
         reference's ``Config.from_env`` maps them (the store's
         ``SPARK_BAM_CACHE_DIR`` and ``SPARK_BAM_CACHE_BUDGET`` are read by
         ``sbi.store.CacheStore.from_env``)."""

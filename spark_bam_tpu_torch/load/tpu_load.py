@@ -10,7 +10,8 @@ with the interval/flag filters where the columns are.
 - ``count_reads_tpu``: the record count, per-window counts reduced on the
   device;
 - ``stream_read_batches``: ``ReadBatch``es per window, filtered;
-- ``stream_ordered_batches``: the same with each row's flat offset and a
+- ``stream_ordered_batches``: the export's records (the record path's
+  chains over the checker's starts) with each row's flat offset and a
   floor, for the export's merge into file order;
 - ``load_reads_columnar``: one ``ReadBatch`` of every (or every filtered)
   record of a file.
@@ -287,13 +288,21 @@ def stream_ordered_batches(
     flags_forbidden: int = 0,
     device=None,
 ):
-    """``stream_read_batches``' records for consumers that put rows back
-    in file order (the export): ``(abs_starts, batch, floor)`` items from
-    ``StreamChecker.ordered_read_batches``, filtered as there. Nothing
-    runs until the first item is asked for."""
+    """The export's records, for consumers that put rows back in file
+    order: ``(abs_starts, batch, floor)`` items from
+    ``StreamChecker.ordered_read_batches``, following the record path's
+    split chains (``load.record_chain``: a refused record that a chain
+    runs through is read, at ``config``'s split size), filtered as
+    ``stream_read_batches`` filters. Nothing runs until the first item is
+    asked for."""
+    from spark_bam_tpu_torch.load.record_chain import RecordChain
+
     checker = StreamChecker(path, config, device=device)
+    chain = RecordChain(
+        checker, config.split_size_or(Config.LOAD_SPLIT_SIZE_DEFAULT))
     filtered = loci is not None or flags_required or flags_forbidden
-    for abs_starts, batch, floor in checker.ordered_read_batches():
+    for abs_starts, batch, floor in chain.follow(
+            checker.ordered_read_batches()):
         if filtered:
             batch = _apply_filter(batch, checker.header, loci,
                                   flags_required, flags_forbidden,

@@ -19,10 +19,14 @@ sequential carry, which is what lets processes split the file):
 
 Each row is inflated on its device (``stage_group_device`` →
 ``inflate_window_raw``: the ``tokenize`` and ``lz77_resolve`` kernels and
-the assembly) straight into the step's row tensor there; with
-``device_inflate=False`` rows come from host zlib through pinned memory.
-A tokenizer verdict of False re-inflates that row with host zlib and is
-counted in ``tokenize_demotions``; any other failure raises. Steps are
+the assembly; under ``Config.inflate`` ``tokenize=host``,
+``tokenize_group`` → ``inflate_window_tokens``: the host tokenizer's
+packed planes, ``lz77_resolve`` and the assembly) straight into the
+step's row tensor there; with ``device_inflate=False`` rows come from
+host zlib through pinned memory. A device tokenizer verdict of False, or
+a row the host tokenizer refuses, re-inflates that row with host zlib and
+is counted in ``tokenize_demotions``; any other failure raises (the
+reference re-inflates after any device error). Steps are
 double-buffered: a worker thread assembles step i + 1 into the other of
 two row buffers per device, on its own CUDA stream, after the step that
 last read that buffer (an event), while step i runs.
@@ -64,8 +68,17 @@ from spark_bam_tpu_torch.check.vectorized import check_flat
 from spark_bam_tpu_torch.core.channel import open_channel
 from spark_bam_tpu_torch.core.config import Config
 from spark_bam_tpu_torch.parallel.mesh import Mesh, make_mesh, mesh_steps
-from spark_bam_tpu_torch.tpu.checker import PAD, inflate_window_raw
-from spark_bam_tpu_torch.tpu.inflate import stage_group_device, window_plan
+from spark_bam_tpu_torch.tpu.checker import (
+    PAD,
+    inflate_window_raw,
+    inflate_window_tokens,
+)
+from spark_bam_tpu_torch.tpu.inflate import (
+    TokenizeError,
+    stage_group_device,
+    tokenize_group,
+    window_plan,
+)
 from spark_bam_tpu_torch.tpu.stream_check import (
     StreamChecker,
     _next_pow2,
@@ -191,6 +204,8 @@ class _ShardedStream:
         self.kernel_window = _next_pow2(
             min(row_bound, max(self.total, 1 << 16)))
         self.device_inflate = config.device_inflate is not False
+        self.host_tokenize = (
+            config.inflate_config.resolve_tokenize() == "host")
         self.n_local = self.n_global // self.num_processes
         self.step_rows_local = _step_rows(self.kernel_window, self.n_local,
                                           chunk_bytes)
@@ -222,13 +237,27 @@ class _ShardedStream:
         out_row[data.numel():].zero_()
 
     def _device_row(self, ch, run, n: int, out_row):
-        """Inflate a row on its device into ``out_row``; returns the
-        tokenizer's () verdict."""
+        """Inflate a row on its device into ``out_row``; returns the device
+        tokenizer's () verdict, or None under ``tokenize=host``, where a
+        row the host tokenizer refuses goes to host zlib (counted)."""
         dev = out_row.device
+        carry = torch.zeros(1, dtype=torch.uint8, device=dev)
+        if self.host_tokenize:
+            try:
+                group = tokenize_group(ch, run)
+            except TokenizeError:
+                self.tokenize_demotions += 1
+                self._host_row(ch, run, out_row)
+                return None
+            padded, _ = inflate_window_tokens(
+                group.to_device(dev),
+                torch.from_numpy(group.out_lens).to(dev), carry, 0, n,
+                window=self.kernel_window, halo=1)
+            out_row.copy_(padded)
+            return None
         staged, clens, usizes = stage_group_device(ch, run, dev)
         exp = np.zeros(staged.shape[0], dtype=np.int32)
         exp[: len(usizes)] = usizes
-        carry = torch.zeros(1, dtype=torch.uint8, device=dev)
         padded, _, tok_ok = inflate_window_raw(
             staged, clens, torch.from_numpy(exp).to(dev), carry, 0, n,
             window=self.kernel_window, halo=1)
@@ -267,8 +296,9 @@ class _ShardedStream:
                     run, n, at_eof, own = self._row_range(g)
                     base = int(self.flat_starts[g])
                     if self.device_inflate:
-                        oks.append((r, run,
-                                    self._device_row(ch, run, n, rows[r])))
+                        ok = self._device_row(ch, run, n, rows[r])
+                        if ok is not None:
+                            oks.append((r, run, ok))
                     else:
                         self._host_row(ch, run, rows[r])
                     ns[j], eofs[j], owns[j] = n, at_eof, own

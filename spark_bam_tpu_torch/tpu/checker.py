@@ -17,6 +17,9 @@ and re-checks escaped lanes on the host, the reference's ``Checker``
 plug-in face. ``count_scan`` counts the windows of a resident chunk
 (reference ``checker.count_scan``); on a CUDA device ``make_count_scan``
 gives ``CountScanGraphs``, which runs a chunk as one CUDA graph replay.
+``count_window_raw`` and ``count_window_tokens`` fuse a window's device
+inflate with its count: from raw payloads through the ``tokenize`` kernel,
+or from the host tokenizer's packed planes.
 
 Scalars the reference traces (``n``, ``at_eof``, ``lo``, ``own``,
 ``carry_len``, ``num_contigs``) are plain Python values here: the host knows
@@ -56,6 +59,7 @@ from spark_bam_tpu_torch.tpu.kernels import (
     prefilter_check_flags,
     tokenize,
 )
+from spark_bam_tpu_torch.tpu.inflate import _resolve_packed
 from spark_bam_tpu_torch.tpu.tokenize_device import STRIDE
 
 __all__ = [
@@ -611,6 +615,39 @@ def count_window_raw(staged, clens, exp_lens, carry, lengths,
                      reads_to_check, funnel)
     return {**r, "carry": next_carry(padded, own, halo), "rounds": rounds,
             "tok_ok": tok_ok}
+
+
+def inflate_window_tokens(packed, out_lens, carry, carry_len: int, n: int,
+                          *, window: int, halo: int):
+    """The device half of the ``tokenize=host`` route for one window: the
+    packed token planes (``inflate.pack_tokens``' layout, on the device)
+    unpacked as views, LZ77 resolved in place over the lit plane, and the
+    (window + PAD,) window assembled behind the halo carry from the rows'
+    ``out_lens`` (``_assemble``). Returns ``(padded, rounds)``."""
+    resolved, rounds = _resolve_packed(packed)
+    padded = _assemble(resolved, out_lens, carry, carry_len, n,
+                       window=window, halo=halo)
+    return padded, rounds
+
+
+def count_window_tokens(packed, out_lens, carry, lengths, num_contigs: int,
+                        carry_len: int, n: int, at_eof: bool, lo: int,
+                        own: int, *, window: int, halo: int,
+                        reads_to_check: int = 10, funnel: bool = True
+                        ) -> dict:
+    """The device-resident count of one window from host-tokenized packed
+    planes (reference ``checker.count_window_tokens`` with
+    ``_count_from_planes``): ``inflate_window_tokens``, then
+    ``count_window`` over the owned span ``[lo, own)`` and the next
+    ``carry``. Returns ``count``, ``esc_count``, ``survivors``, ``carry``
+    and ``rounds``. The host already checked every row's size against its
+    footer, so there is no verdict to return."""
+    padded, rounds = inflate_window_tokens(packed, out_lens, carry,
+                                           carry_len, n, window=window,
+                                           halo=halo)
+    r = count_window(padded, lengths, num_contigs, n, at_eof, lo, own,
+                     reads_to_check, funnel)
+    return {**r, "carry": next_carry(padded, own, halo), "rounds": rounds}
 
 
 @dataclass

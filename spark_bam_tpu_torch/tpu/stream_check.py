@@ -10,17 +10,21 @@ out of the owned span.
 Windows are inflated on the device unless ``Config.device_inflate`` is
 False: worker threads stage each window group's raw BGZF payloads there,
 and the ``tokenize`` and ``lz77_resolve`` kernels inflate it behind a halo
-carry that stays on the device. With ``device_inflate=False`` host zlib
-inflates each window and it is copied to the device.
+carry that stays on the device. Under ``Config.inflate`` ``tokenize=host``
+the worker threads run the entropy phase instead (the host tokenizer,
+packed planes in pinned buffers) and only ``lz77_resolve`` runs on the
+device. With ``device_inflate=False`` host zlib inflates each window and
+it is copied to the device.
 
 Two loops count, with the same pacing (``ring_depth`` windows un-synced),
 flushes (``flush_every`` windows between device→host transfers) and escape
 checkpoints (window 4, then every flush):
 
 - ``_count_reads_fused`` (the default): ``checker.count_window_raw``
-  inflates and counts each window on the device. A window whose tokenizer
-  verdict (``tok_ok``) is False demotes the whole count to the classic
-  loop, counted in ``tokenize_demotions``.
+  (``count_window_tokens`` under ``tokenize=host``) inflates and counts
+  each window on the device. A window whose tokenizer verdict (``tok_ok``)
+  is False, or a group the host tokenizer refuses, demotes the whole count
+  to the classic loop, counted in ``tokenize_demotions``.
 - the classic loop in ``count_reads``: host zlib inflates, and each padded
   window goes to the device for ``checker.count_window``.
 
@@ -63,6 +67,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from spark_bam_tpu_torch import obs
 from spark_bam_tpu_torch.bam.header import read_header
 from spark_bam_tpu_torch.bgzf.block import BgzfError
 from spark_bam_tpu_torch.bgzf.flat import (
@@ -90,11 +95,20 @@ from spark_bam_tpu_torch.tpu.checker import (
     check_window,
     count_window,
     count_window_raw,
+    count_window_tokens,
     inflate_window_raw,
+    inflate_window_tokens,
     make_count_scan,
     next_carry,
 )
-from spark_bam_tpu_torch.tpu.inflate import InflatePipeline, stage_group_device
+from spark_bam_tpu_torch.tpu.inflate import (
+    InflatePipeline,
+    PackedGroup,
+    PackedStaging,
+    TokenizeError,
+    stage_group_device,
+    tokenize_group,
+)
 from spark_bam_tpu_torch.tpu.parser import parse_flat_records, parse_window
 
 
@@ -395,10 +409,33 @@ class StreamChecker:
         total = acc.finish()
         return self._count_via_spans() if total is None else total
 
+    def _producer(self, ch):
+        """The worker-thread half of the device inflate of one group and
+        the errors that refuse a group: ``tokenize_group`` into pinned
+        staging slots under ``Config.inflate`` ``tokenize=host``, else
+        ``stage_group_device``."""
+        if self.config.inflate_config.resolve_tokenize() == "host":
+            staging = (PackedStaging(self.device, self.pipeline.depth + 1)
+                       if self.device.type == "cuda" else None)
+            threads = self.pipeline.threads
+
+            def produce(group):
+                return tokenize_group(ch, group, staging, threads)
+
+            return produce, (BgzfError, EOFError, TokenizeError)
+
+        def stage(group):
+            return stage_group_device(ch, group, self.device)
+
+        return stage, (BgzfError, EOFError)
+
     def _count_reads_fused(self) -> int | None:
         """The device-resident loop; None demotes to the classic loop (a
-        payload the staging refuses, or a tokenizer verdict of False), and
-        every demotion is counted in ``tokenize_demotions``."""
+        payload the staging or the host tokenizer refuses, or a device
+        tokenizer verdict of False), and every demotion is counted in
+        ``tokenize_demotions``. Under ``tokenize=host`` worker threads
+        tokenize and pack ``pipeline.depth`` groups ahead and each window
+        is one packed copy and ``count_window_tokens``."""
         groups = self.pipeline.groups
         if not groups:
             return 0
@@ -413,34 +450,40 @@ class StreamChecker:
         demoted = False
         depth = self.pipeline.depth
         ch = open_channel(self.path)
+        produce, refusals = self._producer(ch)
+        kw = dict(window=w, halo=halo,
+                  reads_to_check=self.config.reads_to_check,
+                  funnel=self.config.funnel_enabled())
         pool = ThreadPoolExecutor(max_workers=depth)
         try:
-            pending = [pool.submit(stage_group_device, ch, g, self.device)
-                       for g in groups[:depth]]
+            pending = [pool.submit(produce, g) for g in groups[:depth]]
             for gi in range(len(groups)):
                 try:
-                    staged, clens, usizes = pending.pop(0).result()
-                except (BgzfError, EOFError):
+                    item = pending.pop(0).result()
+                except refusals:
                     demoted = True
                     break
                 if gi + depth < len(groups):
-                    pending.append(pool.submit(
-                        stage_group_device, ch, groups[gi + depth],
-                        self.device))
-                n = carry_len + int(usizes.sum())
+                    pending.append(pool.submit(produce, groups[gi + depth]))
+                n = carry_len + sum(m.uncompressed_size for m in groups[gi])
                 at_eof = gi == len(groups) - 1
                 own_end = n if at_eof else max(n - halo, 0)
                 lo = min(max(self.header_end_abs - base, 0), own_end)
-                exp = np.zeros(staged.shape[0], dtype=np.int32)
-                exp[: len(usizes)] = usizes
-                out = count_window_raw(
-                    staged, clens, torch.from_numpy(exp).to(self.device),
-                    carry, lens_dev, nc, carry_len, n, at_eof, lo, own_end,
-                    window=w, halo=halo,
-                    reads_to_check=self.config.reads_to_check,
-                    funnel=self.config.funnel_enabled(),
-                )
-                ok_ring.append(out["tok_ok"])
+                if isinstance(item, PackedGroup):
+                    out = count_window_tokens(
+                        item.to_device(self.device),
+                        torch.from_numpy(item.out_lens).to(self.device),
+                        carry, lens_dev, nc, carry_len, n, at_eof, lo,
+                        own_end, **kw)
+                else:
+                    staged, clens, usizes = item
+                    exp = np.zeros(staged.shape[0], dtype=np.int32)
+                    exp[: len(usizes)] = usizes
+                    out = count_window_raw(
+                        staged, clens, torch.from_numpy(exp).to(self.device),
+                        carry, lens_dev, nc, carry_len, n, at_eof, lo,
+                        own_end, **kw)
+                    ok_ring.append(out["tok_ok"])
                 carry = out["carry"]
                 carry_len = n - own_end
                 ring.push()
@@ -448,7 +491,7 @@ class StreamChecker:
                     ring.wait_oldest()
                     # A rejected row anywhere demotes the whole count; the
                     # classic loop restarts from the first window.
-                    if not bool(ok_ring.pop(0)):
+                    if ok_ring and not bool(ok_ring.pop(0)):
                         demoted = True
                         break
                 stop = acc.add(out, n)
@@ -462,6 +505,7 @@ class StreamChecker:
             demoted = True
         if demoted:
             self.tokenize_demotions += 1
+            obs.count("inflate.tokenize_demotions")
             return None
         return self._finish(acc)
 
@@ -481,24 +525,28 @@ class StreamChecker:
 
     def _device_windows(self):
         """``(padded, n, base, own_end, at_eof, None)`` per window, inflated
-        on the device: worker threads stage each group's raw payloads there,
-        and ``inflate_window_raw`` tokenizes, resolves and assembles it
-        behind the halo carry, which stays on the device. A group the
-        staging refuses, or whose tokenizer verdict is False, demotes that
-        window alone to host zlib (as the reference's pipeline does),
-        counted in ``tokenize_demotions``."""
+        on the device behind the halo carry, which stays there: worker
+        threads stage each group's raw payloads on the device and
+        ``inflate_window_raw`` tokenizes, resolves and assembles it, or,
+        under ``tokenize=host``, tokenize and pack it on the host and
+        ``inflate_window_tokens`` resolves and assembles the packed planes.
+        A group the staging or the host tokenizer refuses, or whose device
+        tokenizer verdict is False, demotes that window alone to host zlib
+        (as the reference's pipeline does), counted in
+        ``tokenize_demotions``."""
         groups = self.pipeline.groups
         w, halo = self.kernel_window, self.halo
         carry = torch.zeros(halo, dtype=torch.uint8, device=self.device)
         carry_len = base = 0
         depth = self.pipeline.depth
         ch = open_channel(self.path)
+        produce, refusals = self._producer(ch)
         pool = ThreadPoolExecutor(max_workers=depth)
 
         def stage(group):
             try:
-                return stage_group_device(ch, group, self.device)
-            except (BgzfError, EOFError):
+                return produce(group)
+            except refusals:
                 return None
 
         try:
@@ -509,7 +557,12 @@ class StreamChecker:
                     pending.append(pool.submit(stage, groups[gi + depth]))
                 n = carry_len + sum(m.uncompressed_size for m in group)
                 padded = None
-                if staged is not None:
+                if isinstance(staged, PackedGroup):
+                    padded, _ = inflate_window_tokens(
+                        staged.to_device(self.device),
+                        torch.from_numpy(staged.out_lens).to(self.device),
+                        carry, carry_len, n, window=w, halo=halo)
+                elif staged is not None:
                     rows, clens, usizes = staged
                     exp = np.zeros(rows.shape[0], dtype=np.int32)
                     exp[: len(usizes)] = usizes
@@ -520,6 +573,7 @@ class StreamChecker:
                         padded = None
                 if padded is None:
                     self.tokenize_demotions += 1
+                    obs.count("inflate.tokenize_demotions")
                     data = inflate_blocks(ch, group,
                                           self.pipeline.threads).data
                     padded = torch.zeros(w + PAD, dtype=torch.uint8,

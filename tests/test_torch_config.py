@@ -60,7 +60,6 @@ def test_from_reference(kw):
 @pytest.mark.parametrize("kw,needle", [
     (dict(funnel="OFF"), "Bad funnel mode"),
     (dict(funnel="maybe"), "Bad funnel mode"),
-    (dict(inflate="tokenize=host"), "host DEFLATE tokenizer"),
     (dict(inflate="kernel=pallas"), "one device tokenizer"),
     (dict(inflate="donate=off"), "always resolves LZ77 in place"),
     (dict(inflate="bogus=1"), "Unknown inflate key"),
@@ -68,6 +67,27 @@ def test_from_reference(kw):
 def test_unserved_values_raise(kw, needle):
     with pytest.raises(ValueError, match=needle):
         Config(**kw)
+
+
+def test_tokenize_host_parses_and_routes_to_the_host_tokenizer():
+    """``inflate="tokenize=host"`` is served: it parses as the reference's
+    spec does, and the streaming count's producer is the host tokenizer
+    (``tokenize_group`` into packed planes), not the raw staging."""
+    from spark_bam_tpu.core.inflate_config import InflateConfig as JInflate
+    from spark_bam_tpu_torch.tpu import stream_check
+
+    cfg = Config(inflate="tokenize=host")
+    assert cfg.inflate_config.tokenize == JInflate.parse(
+        "tokenize=host").tokenize == "host"
+    assert cfg.inflate_config.resolve_tokenize() == "host"
+    assert Config().inflate_config.resolve_tokenize() == "device"
+    sc = object.__new__(stream_check.StreamChecker)
+    sc.config, sc.device = cfg, torch.device("cpu")
+    sc.pipeline = stream_check.InflatePipeline.__new__(
+        stream_check.InflatePipeline)
+    produce, refusals = sc._producer(ch=None)
+    assert stream_check.TokenizeError in refusals
+    assert "tokenize_group" in produce.__code__.co_names
 
 
 @pytest.mark.parametrize("mode", ["on", "off", "auto"])

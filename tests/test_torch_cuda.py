@@ -298,6 +298,28 @@ def test_count_on_gpu_equals_cpu(gpu, tmp_path):
     assert cpu.count_reads() == m["reads"]
 
 
+def test_host_tokenize_count_on_gpu_equals_cpu(gpu, tmp_path):
+    """``inflate tokenize=host``: the host tokenizer's packed planes go to
+    the card in pinned slots and ``lz77_resolve`` and the prefilter count
+    them; the ``tokenize`` kernel never launches. The count equals the
+    CPU's packed route, the generator's, with no demotion."""
+    p = tmp_path / "h.bam"
+    m = synth_bam(p, 3 << 20, seed=5, unit_reads=2000)
+    cfg = Config(inflate="tokenize=host")
+    K.reset_launch_counts()
+    sc = StreamChecker(p, cfg, window_uncompressed=1 << 20, halo=256 << 10)
+    assert sc.count_reads() == m["reads"]
+    assert sc.tokenize_demotions == 0
+    windows = len(sc.pipeline.groups)
+    assert K.LAUNCHES["tokenize"] == 0
+    assert K.LAUNCHES["lz77_resolve"] == windows
+    assert K.LAUNCHES["prefilter_check_flags"] >= windows
+    cpu = StreamChecker(p, cfg, window_uncompressed=1 << 20, halo=256 << 10,
+                        device="cpu")
+    assert cpu.count_reads() == m["reads"]
+    assert cpu.tokenize_demotions == 0
+
+
 def test_default_geometry_small_file_launches_every_kernel(gpu, tmp_path):
     """A BAM of a few MiB at the default 24 MiB window / 4 MiB halo runs
     the fused loop on the card: all three kernels launch, none demotes."""

@@ -6,7 +6,8 @@ decoded records); the port builds its batches from the parse and puts
 spilled and deferred rows back in file order. Cases: sorted and indexed
 random BAMs under loci and flag filters, projections, row targets and
 codecs; the load edge corpus (cigars of 65 and 300 ops, an empty name at
-the header's end); long reads whose records spill, with the spill flush
+the header's end); an empty name mid-file, whose chained records the
+checker refuses and the record path reads; long reads whose records spill, with the spill flush
 threshold at 1, 3 and its default; chains that escape the halo and
 resolve through the deferral path; an empty selection. Arrow and Parquet
 read back (pyarrow) to the JAX sinks' tables, and ``python -m
@@ -140,6 +141,46 @@ def test_edge_corpus_equals_jax(bams, tmp_path, columnar):
             assert got_name == b""
         elif want_name is not None:
             assert got_name == want_name, case
+
+
+def _names(blob: bytes) -> list:
+    names = []
+    for b in NativeReader(blob).iter_batches():
+        names += [b.columns["name"].value(i) for i in range(b.num_rows)]
+    return names
+
+
+@pytest.mark.parametrize("geometry", [None, lc.GEOMETRY],
+                         ids=["default", "edge_geometry"])
+def test_refused_record_mid_file_exports_its_chain(tmp_path, geometry):
+    """A refused record mid-file: every start whose chain of
+    ``reads_to_check`` records reaches it is refused by the checker, yet
+    the record path reads them all, so the export writes all 601 rows as
+    JAX's does (591 before the export followed the chain)."""
+    path = str(tmp_path / "refused_mid.bam")
+    m = lc.write_refused_mid_bam(path)
+    cfg = Config() if geometry is None else Config(window_size=geometry[0],
+                                                   halo_size=geometry[1])
+    got, want, summary = _both(tmp_path, path, cfg)
+    assert got == want
+    assert summary["rows"] == m["records"] == 601
+    assert _names(got) == [n.encode() for n in m["names"]]
+
+
+@pytest.mark.parametrize("split_size", [2_000, 5_000, 9_000])
+def test_refused_record_chain_per_split_equals_jax(tmp_path, split_size):
+    """The record path chains each split from its own first start; at
+    small split sizes the port's chain walk still equals JAX's export,
+    with and without a flag filter."""
+    path = str(tmp_path / "refused_mid.bam")
+    lc.write_refused_mid_bam(path)
+    for kw in ({}, {"flags_forbidden": 0x4}):
+        p_out, j_out = tmp_path / "p.sbcr", tmp_path / "j.sbcr"
+        api.export(path, str(p_out), device="cpu",
+                   config=Config(split_size=split_size), **kw)
+        jax_export(path, str(j_out), config=JaxConfig(split_size=split_size),
+                   **kw)
+        assert p_out.read_bytes() == j_out.read_bytes()
 
 
 def _pieces(path, config):

@@ -677,6 +677,25 @@ def test_export_spec_columns_and_rows_equal_jax(tmp_path, bam_path, columns,
     assert res["columns"] == jres["columns"] and res["rows"] == jres["rows"]
 
 
+def test_export_job_reads_the_chain_past_a_refused_record(tmp_path):
+    """The export job writes what JAX's does where the checker refuses a
+    record mid-file: all 601 rows, byte for byte."""
+    from spark_bam_tpu_torch.benchmarks.load_cases import (
+        write_refused_mid_bam,
+    )
+
+    path = str(tmp_path / "refused_mid.bam")
+    write_refused_mid_bam(path)
+    spec = {"op": "export", "path": path}
+    jres = jrunner.run_export_job(dict(spec, out=str(tmp_path / "j.sbcr")),
+                                  str(tmp_path / "jj"), checkpoint=2)
+    res = run_export_job(dict(spec, out=str(tmp_path / "p.sbcr")),
+                         str(tmp_path / "pj"), checkpoint=2, device="cpu")
+    assert ((tmp_path / "p.sbcr").read_bytes()
+            == (tmp_path / "j.sbcr").read_bytes())
+    assert res["rows"] == jres["rows"] == 601
+
+
 def test_export_job_takes_no_cpu_fallback(tmp_path, bam_path, monkeypatch):
     """Without a card and without ``device="cpu"`` the export job raises
     before any frame is written (the journal keeps only its spec)."""

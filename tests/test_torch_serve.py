@@ -394,6 +394,23 @@ def test_plan_cache_read_only_miss_resolves_live(bams, tmp_path, monkeypatch):
         svc.close()
 
 
+def test_batch_keeps_the_checker_starts_past_a_refused_record(
+        tmp_path, jsvc, service):
+    """``batch`` parses the checker's record starts, as the reference's
+    does: where the checker refuses a record mid-file its frames hold the
+    591 accepted rows (the export follows the record path: 601)."""
+    from spark_bam_tpu_torch.benchmarks.load_cases import (
+        write_refused_mid_bam,
+    )
+
+    path = str(tmp_path / "refused_mid.bam")
+    write_refused_mid_bam(path)
+    req = {"op": "batch", "path": path}
+    got, want = _ask(service, req), _ask(jsvc, req)
+    assert _split(got) == _split(want)
+    assert got["rows"] == 591
+
+
 # ------------------------------------------------------------ coalescing
 def test_batched_counts_equal_sequential(service, bams):
     """Concurrent requests coalesced into shared ticks answer byte for
