@@ -51,7 +51,8 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    the generator's count, its wall beside the fused and classic counts,
    the graphs captured, replays and launches a replay runs, then again
    on the same checker (graphs reused); the long reads exact through the
-   escape retry; the small BAM counted equally on the card and the CPU.
+   escape retry; a 4 MiB BAM of the small BAM's seed counted equally on
+   the card and the CPU.
    Both flag kernels were also captured in a graph at W = 2^25 in step 2
    and replayed over four windows of different bytes and lengths, on one
    stream and on a second, bit-identical to their plain versions on every
@@ -111,7 +112,7 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    cache off, then warm with ``--cache read`` (equal splits, zero launches,
    zero resolutions); the aggregate warm from the sidecar (= phase 9's
    result, zero launches; its wall beside phase 9's); on the small BAM,
-   ``compute-splits`` in the default mode card = CPU, the plan card = CPU
+   ``compute-splits -s`` card = CPU, the plan card = CPU
    with a sentinel-only last split (``PLAN_NONE``) and a touched sidecar
    invalidated and recomputed (= a cold run on the card). The time per boundary at the reference's
    2 MiB splits: ``benchmarks/profile_splits.py``.
@@ -140,8 +141,8 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    128 over ``benchmarks/write_cases.py`` (lengths 0 to STRIDE, an
    overflowing lane), and their CUDA-event times on the writer's own
    payloads at lanes 16 and 128; ``BgzfWriter`` over the 1 GiB BAM's
-   uncompressed stream under mode=fixed and mode=stored at lanes 16 and
-   128 (the 128-lane runs on its first 256 MiB) and under mode=off
+   uncompressed stream's first 256 MiB under mode=fixed and mode=stored at
+   lanes 16 and 128 and under mode=off
    (host zlib, on its first 64 MiB), timed by
    ``benchmarks/profile_write.py::timed_write`` (staging, H2D, kernel,
    wait, D2H, assembly, write), every member inflated back by host zlib
@@ -233,8 +234,25 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    a refused record mid-file (``load_cases.write_refused_mid_bam``): 601
    rows in the writer's order, card = CPU byte for byte.
 
+17. The record path and the reference's check commands
+   (``record_phase``), on the 40 MiB BAM at 2 MiB splits: ``count-reads``
+   (``load_bam``, every strict split start resolved on the card by
+   ``prefilter_check_flags`` windows, against hadoop-bam's count: ``Read
+   counts matched``; its wall split into the split resolution and the
+   host record decode); ``load_splits_and_reads`` card = CPU;
+   ``check-bam`` default and ``-s`` against the ``.records`` sidecar, the
+   eager verdict from ``full_check_flags`` windows (its time beside the
+   seqdoop verdict's on the host) = phase 7's CPU plain run's starts and a
+   CPU plain check of the first MiB at every exact position;
+   ``check-blocks``; ``time-load`` and ``compare-splits`` on a 4 MiB BAM
+   of the same seed (with the refused record's BAM); ``index-bam`` of a
+   sorted BAM and ``load_bam_intervals`` = a brute-force overlap; and
+   ``count-reads`` of the refused record's BAM: 601. Every card launch of
+   the two flag kernels there is held against its plain version on the
+   same inputs.
+
 Launch counters are set to 0 just before each main path (3, 4, 6, 7, 8,
-9, 10, 11, 12, 13, 14, 15, 16) and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
+9, 10, 11, 12, 13, 14, 15, 16, 17) and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
 and, last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero; without CUDA, or without the package beside
 it, it exits non-zero before printing a result.
@@ -244,6 +262,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import json
 import os
 import shutil
@@ -385,6 +404,7 @@ def resident_phase(port, bam, manifest, long_bam, long_manifest, small,
                    small_manifest, card, fused_s, classic_s) -> dict:
     """Phase 6, the resident count; returns its kernel launch counts on
     the 1 GiB count."""
+    from spark_bam_tpu_torch.benchmarks.synth import synth_bam
     from spark_bam_tpu_torch.tpu import kernels as K
 
     want = manifest["reads"]
@@ -434,13 +454,18 @@ def resident_phase(port, bam, manifest, long_bam, long_manifest, small,
     require(got == long_manifest["reads"] and retries == [1],
             f"long-read resident count {got}, {len(retries)} escape retries")
     t0 = time.perf_counter()
-    on_card = port.StreamChecker(small, port.Config()).count_reads_resident()
-    on_cpu = port.StreamChecker(small, port.Config(),
+    # Card = CPU on a 4 MiB BAM of the small BAM's seed (its 40 MiB CPU
+    # count was a depth cut, PERF.md §4).
+    mid = Path(small).with_name("resident_mid.bam")
+    mid_manifest = synth_bam(mid, 4 << 20, seed=8)
+    on_card = port.StreamChecker(mid, port.Config()).count_reads_resident()
+    on_cpu = port.StreamChecker(mid, port.Config(),
                                 device="cpu").count_reads_resident()
-    require(on_card == on_cpu == small_manifest["reads"],
-            f"small BAM resident count card {on_card}, CPU {on_cpu}")
+    require(on_card == on_cpu == mid_manifest["reads"],
+            f"4 MiB BAM resident count card {on_card}, CPU {on_cpu}")
+    mid.unlink()
     log(f"resident long reads: {got} reads exact through one escape retry; "
-        f"small BAM: card = CPU = {on_cpu}; {time.perf_counter() - t0:.1f} s")
+        f"4 MiB BAM: card = CPU = {on_cpu}; {time.perf_counter() - t0:.1f} s")
     del checker, runner, lc
     torch.cuda.empty_cache()
     return launches
@@ -1304,9 +1329,13 @@ def split_phase(port, bam, manifest, small, work, card, agg_ref) -> dict:
         size = 4 << 20
         sentinel = sentinel_split_size(small)
         got = {}
+        # spark-bam's splits (-s): the hadoop-bam leg is host code, the
+        # same on either device (its two runs here were a depth cut,
+        # PERF.md §4; phase 17 runs it).
         for d in (None, "cpu"):
             out = io.StringIO()
-            cli.compute_splits(small, size, port.Config(), device=d, out=out)
+            cli.compute_splits(small, size, port.Config(), spark_bam=True,
+                               device=d, out=out)
             got[d] = _report_lines(out)
         require(got[None] == got["cpu"], "compute-splits: card and CPU "
                                          "differ")
@@ -1699,10 +1728,9 @@ def write_phase(port, bam, manifest, small, small_manifest, work,
             out = out_dir / "w.bgzf"
             # Host zlib takes ~70 s a GiB: its yardstick runs on the first
             # 64 MiB (the whole GiB: benchmarks/profile_write.py); the
-            # 128-lane writers on the first 256 MiB (a depth cut, PERF.md
-            # §4).
-            src = (stream[: 64 << 20] if spec == "mode=off" else
-                   stream[: 256 << 20] if "lanes=128" in spec else stream)
+            # card's writers on the first 256 MiB (depth cuts, PERF.md §4).
+            src = stream[: 64 << 20] if spec == "mode=off" else stream[
+                : 256 << 20]
             K.reset_launch_counts()
             r = timed_write(src, spec, out)
             name = "writer_" + spec.replace("mode=", "").replace(",lanes=",
@@ -3161,6 +3189,294 @@ def host_tokenize_phase(port, bam, manifest, small, small_manifest,
     return out, split
 
 
+def _held_kernels(checker_mod, K):
+    """Spies on the check's two flag-kernel wrappers: each launch goes on
+    as it was, a card call's inputs are kept, and ``held()`` later runs
+    each kept call's plain version on the same inputs and returns the largest
+    difference (the plain versions count no launch)."""
+    kept = {"prefilter_check_flags": [], "full_check_flags": []}
+    real = {name: getattr(checker_mod, name) for name in kept}
+
+    def spy(name):
+        def call(padded, lengths, num_contigs, n):
+            out = real[name](padded, lengths, num_contigs, n)
+            if padded.is_cuda:
+                n_in = n.clone() if isinstance(n, torch.Tensor) else n
+                kept[name].append((padded.clone(), lengths.clone(),
+                                   num_contigs, n_in, out))
+            return out
+        return call
+
+    def held() -> dict:
+        errs = {}
+        for name, calls in kept.items():
+            err = 0
+            for padded, lengths, nc, n, out in calls:
+                if name == "prefilter_check_flags":
+                    want = K._prefilter_compact(
+                        padded, lengths, nc, n,
+                        K.lane_capacity(padded.numel() - K.PAD))
+                    err = max(err, max_abs_err(zip(out, want)))
+                else:
+                    want = K._compute_flags(padded, lengths, nc, n)
+                    err = max(err, max_abs_err([(out, want)]))
+            errs[name] = (len(calls), err)
+            calls.clear()
+        return errs
+
+    for name in kept:
+        setattr(checker_mod, name, spy(name))
+    return held, lambda: [setattr(checker_mod, n, f) for n, f in real.items()]
+
+
+def record_phase(port, small, small_manifest, small_starts, work,
+                 card) -> tuple[dict, dict]:
+    """Phase 17, the record path and the reference's check commands on
+    the card: ``count-reads`` (``load_bam`` with its strict split starts
+    resolved on the card against hadoop-bam's count), ``load_splits_and_
+    reads`` card = CPU, ``check-bam`` (default and ``-s``) with the eager
+    verdict from ``full_check_flags``, ``check-blocks``, ``time-load``,
+    ``compare-splits``, ``index-bam`` with ``load_bam_intervals``, and the
+    refused record's 601. Every launch of the two flag kernels on these
+    paths is held against its plain version on the same inputs. Returns
+    the launches of each path, counted from zero around it, and the
+    largest kernel-against-plain difference of each kernel."""
+    import re
+
+    from spark_bam_tpu_torch import cli, cli_app
+    from spark_bam_tpu_torch.bam.header import read_header
+    from spark_bam_tpu_torch.bam.index_records import index_records
+    from spark_bam_tpu_torch.bam.record import BamRecord
+    from spark_bam_tpu_torch.bam.writer import write_bam_result
+    from spark_bam_tpu_torch.benchmarks import load_cases
+    from spark_bam_tpu_torch.benchmarks.synth import synth_bam
+    from spark_bam_tpu_torch.device import sync
+    from spark_bam_tpu_torch.load import api, boundary
+    from spark_bam_tpu_torch.load.intervals import LociSet
+    from spark_bam_tpu_torch.tpu import checker as checker_mod
+    from spark_bam_tpu_torch.tpu import kernels as K
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    out: dict = {}
+    errs: dict = {}
+    held, restore = _held_kernels(checker_mod, K)
+    reads = small_manifest["reads"]
+
+    def run_cli(*argv) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            require(cli.main(list(argv)) == 0, argv)
+        return buf.getvalue()
+
+    def note(path: str) -> None:
+        sync(dev)
+        out[path] = dict(K.LAUNCHES)
+        for name, (calls, err) in held().items():
+            n_prev, e_prev = errs.get(name, (0, 0))
+            errs[name] = (n_prev + calls, max(e_prev, err))
+            require(err == 0, f"{name} differs from plain on {path}: {err}")
+        K.reset_launch_counts()
+
+    try:
+        # (a) count-reads at 2 MiB splits: load_bam (every strict split
+        # start resolved on the card before the partitions) against hadoop-bam.
+        resolving = []
+        real_starts = api._strict_starts
+
+        def timed_starts(*a, **kw):
+            t0 = time.perf_counter()
+            got = real_starts(*a, **kw)
+            resolving.append(time.perf_counter() - t0)
+            return got
+
+        api._strict_starts = timed_starts
+        boundary.STATS.reset()
+        K.reset_launch_counts()
+        try:
+            text = run_cli("count-reads", "-m", "2MB", str(small))
+        finally:
+            api._strict_starts = real_starts
+        note("record_count_reads")
+        spark_ms = int(re.search(r"spark-bam read-count time: (\d+)",
+                                 text).group(1))
+        hadoop_ms = int(re.search(r"hadoop-bam read-count time: (\d+)",
+                                  text).group(1))
+        require(f"Read counts matched: {reads}" in text.splitlines(), text)
+        require(out["record_count_reads"]["prefilter_check_flags"] > 0,
+                out["record_count_reads"])
+        resolve_s = resolving[0]
+        decode_s = spark_ms / 1e3 - resolve_s
+        log(f"count-reads -m 2MB, 40 MiB BAM: Read counts matched: {reads}; "
+            f"spark-bam (load_bam) {spark_ms} ms = {reads / spark_ms * 1e3:.0f}"
+            f" reads/s: split resolution on the card {resolve_s:.3f} s "
+            f"({resolve_s / (spark_ms / 1e3):.1%}; "
+            f"{boundary.STATS.resolutions} boundaries, "
+            f"{boundary.STATS.windows} check_window calls, "
+            f"{boundary.STATS.boundary_demotions} demotions, ms each "
+            f"{[round(x, 2) for x in boundary.STATS.ms]}), record decode "
+            f"and executor {decode_s:.3f} s ({reads / decode_s:.0f} records/s, "
+            f"{decode_s / reads * 1e6:.1f} us a record); hadoop-bam "
+            f"{hadoop_ms} ms; launches {out['record_count_reads']} ({card})")
+
+        # (b) load_splits_and_reads: the card's splits = the CPU's.
+        t0 = time.perf_counter()
+        splits, _ = api.load_splits_and_reads(small, "2MB", device=dev)
+        card_s = time.perf_counter() - t0
+        note("record_load_splits")
+        t0 = time.perf_counter()
+        cpu_splits, _ = api.load_splits_and_reads(small, "2MB", device="cpu")
+        cpu_s = time.perf_counter() - t0
+        require(splits == cpu_splits and len(splits) > 1, "splits differ")
+        require(out["record_load_splits"]["prefilter_check_flags"] > 0,
+                out["record_load_splits"])
+        log(f"load_splits_and_reads -m 2MB: {len(splits)} splits, card = CPU "
+            f"(card {card_s:.3f} s, CPU plain {cpu_s:.3f} s); launches "
+            f"{out['record_load_splits']}")
+
+        # (c) check-bam, default and -s: the eager verdict at every position
+        # from full_check_flags windows on the card.
+        if not Path(f"{small}.records").exists():
+            index_records(small)
+        report = io.StringIO()
+        ctx = cli_app.CheckerContext(small, port.Config(),
+                                     cli_app.Printer(out=report), device=dev)
+        ctx.view
+        sync(dev)
+        t0 = time.perf_counter()
+        eager = ctx.eager_result
+        sync(dev)
+        eager_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ctx.seqdoop_verdict
+        seqdoop_s = time.perf_counter() - t0
+        note("record_check_bam")
+        cli_app.check_bam(ctx)
+        cli_app.check_bam(ctx, spark_bam=True)
+        lines = report.getvalue().splitlines()
+        require(lines.count(f"{reads} reads") == 2, lines[:12])
+        require("All calls matched!" in lines[lines.index(
+            f"{reads} reads", 4):], "eager against the .records truth")
+        require(out["record_check_bam"]["full_check_flags"] > 0,
+                out["record_check_bam"])
+        # The CPU plain run's verdict: phase 7's whole-file check on the
+        # CPU (its record starts), and a plain check of the first MiB.
+        header_end = read_header(small).uncompressed_size
+        starts = np.flatnonzero(eager.verdict)
+        require(np.array_equal(starts[starts >= header_end], small_starts),
+                "eager verdict differs from the CPU plain run's")
+        head = 1 << 20
+        from spark_bam_tpu_torch.tpu.checker import TpuChecker
+
+        plain = TpuChecker(ctx.lengths, window=head, halo=head // 4,
+                           device="cpu").check_buffer(ctx.view.data[:head],
+                                                      at_eof=False)
+        exact = plain.exact & ~plain.escaped
+        for k in ("verdict", "fail_mask", "reads_before"):
+            require(np.array_equal(getattr(plain, k)[exact],
+                                   getattr(eager, k)[:head][exact]), k)
+        log(f"check-bam, 40 MiB BAM ({ctx.view.size} positions): eager "
+            f"verdict on the card {eager_s:.3f} s (full_check_flags "
+            f"{out['record_check_bam']['full_check_flags']} launches, its "
+            f"host recheck included) against the seqdoop verdict on the host "
+            f"{seqdoop_s:.3f} s; = the CPU plain run's starts (phase 7) and "
+            f"its first MiB at every exact position; default report "
+            f"{lines[4:6]}; -s: all calls matched ({card})")
+
+        # (d) check-blocks on the same context.
+        blocks_out = io.StringIO()
+        ctx.printer = cli_app.Printer(out=blocks_out)
+        t0 = time.perf_counter()
+        cli_app.check_blocks(ctx)
+        blocks_s = time.perf_counter() - t0
+        require("BGZF blocks" in blocks_out.getvalue(), blocks_out.getvalue())
+        log(f"check-blocks {blocks_s:.3f} s: "
+            f"{blocks_out.getvalue().splitlines()[0]}")
+        del ctx, eager
+
+        # (e) time-load and (f) compare-splits (with the refused record's
+        # BAM) on a 4 MiB BAM of the same seed at 512 KiB splits: each
+        # hadoop-bam leg runs the seqdoop guesser over its whole file (the
+        # 40 MiB BAM's was a depth cut, PERF.md §4).
+        mid = work / "mid17.bam"
+        synth_bam(mid, 4 << 20, seed=8)
+        text = run_cli("time-load", "-m", "512KB", str(mid))
+        note("record_time_load")
+        require("threw" not in text and "partition-start reads matched"
+                in text, text)
+        require(out["record_time_load"]["prefilter_check_flags"] > 0,
+                out["record_time_load"])
+        log(f"time-load -m 512KB, 4 MiB BAM: "
+            f"{' / '.join(ln for ln in text.splitlines() if ln)}; launches "
+            f"{out['record_time_load']}")
+        rm = work / "refused_mid17.bam"
+        load_cases.write_refused_mid_bam(rm)
+        listing = work / "bams17.txt"
+        listing.write_text(f"{mid}\n{rm}\n")
+        text = run_cli("compare-splits", "-m", "512KB", str(listing))
+        note("record_compare_splits")
+        require("2 BAMs' splits" in text.splitlines()[0], text)
+        require(out["record_compare_splits"]["prefilter_check_flags"] > 0,
+                out["record_compare_splits"])
+        log(f"compare-splits -m 512KB over the 4 MiB and the refused "
+            f"record's BAMs: {text.splitlines()[0]}; launches "
+            f"{out['record_compare_splits']}")
+
+        # (g) index-bam of a coordinate-sorted BAM, then load_bam_intervals
+        # against a brute-force overlap of the records written.
+        sorted_bam = work / "sorted17.bam"
+        hdr = read_header(small)
+        names = list(hdr.contig_names)
+        records = []
+        for i in range(60_000):
+            ref = 0 if i < 40_000 else 1
+            pos = 10_000 + 97 * (i if ref == 0 else i - 40_000)
+            n = 60 + i % 91
+            flag = 4 if i % 1000 == 7 else 0
+            records.append(BamRecord(ref, pos, 60, 0, flag, -1, -1, 0,
+                                     f"s{i}", [] if flag else [(n, 0)],
+                                     "A" * n, bytes([30]) * n))
+        records += [BamRecord(-1, -1, 0, 0, 4, -1, -1, 0, f"u{i}", [], "C",
+                              b"\x1e") for i in range(50)]
+        write_bam_result(sorted_bam, hdr, records)
+        t0 = time.perf_counter()
+        err_buf = io.StringIO()
+        with contextlib.redirect_stderr(err_buf):
+            require(cli.main(["index-bam", str(sorted_bam)]) == 0, "index-bam")
+        index_s = time.perf_counter() - t0
+        counts = []
+        for spec in ("chr1:100k-300k", "chr2", "chr1:1m-1m,chr2:5k-20k"):
+            loci = LociSet.parse(spec, hdr)
+            got = [r.read_name for r in api.load_bam_intervals(
+                sorted_bam, spec, "256KB").collect()]
+            want = [r.read_name for r in records if r.ref_id >= 0
+                    and not r.is_unmapped
+                    and loci.overlaps(names[r.ref_id], r.pos, r.end_pos())]
+            require(got == want, f"load_bam_intervals {spec}")
+            counts.append(len(got))
+        log(f"index-bam of a sorted BAM of {len(records)} records in "
+            f"{index_s:.3f} s ({err_buf.getvalue().strip()}); "
+            f"load_bam_intervals = the brute-force overlap: {counts} records")
+
+        # (h) count-reads of the refused record's BAM: 601.
+        text = run_cli("count-reads", str(rm))
+        require("Read counts matched: 601" in text.splitlines(), text)
+        text = run_cli("count-reads", "-m", "16KB", str(rm))
+        require("Read counts matched: 601" in text.splitlines(), text)
+        note("record_count_reads_refused")
+        require(out["record_count_reads_refused"]["prefilter_check_flags"] > 0,
+                out["record_count_reads_refused"])
+        log(f"count-reads of the refused record's BAM: Read counts matched: "
+            f"601 at 32 MiB and 16 KiB splits; launches "
+            f"{out['record_count_reads_refused']}")
+    finally:
+        restore()
+    log(f"phase 17 kernels held against plain on the record path "
+        f"(calls, max_abs_err): {errs}; phase 17 "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3710,6 +4026,10 @@ def main() -> int:
             work, card, fused_s)
 
         phase_done("16 (host tokenizer)")
+        record_launches, record_errs = record_phase(
+            port, small, small_manifest, small_starts, work, card)
+
+        phase_done("17 (record path)")
         for row in rows:
             row["launches"] = launches[row["name"]]
             row["launches_by_path"] = {
@@ -3734,7 +4054,13 @@ def main() -> int:
                    for path, n in jobs_launches.items()},
                 **{path: n[row["name"]]
                    for path, n in host_launches.items()},
+                **{path: n[row["name"]]
+                   for path, n in record_launches.items()},
             }
+            if row["name"] in record_errs:
+                calls, err = record_errs[row["name"]]
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                row["record_path_calls_held"] = calls
             if row["name"] == "tokenize":
                 # The host engine of the same entropy phase (phase 16).
                 row["host_engine"] = host_split
@@ -3749,7 +4075,8 @@ def main() -> int:
                                 *serve_launches.items(),
                                 *fabric_launches.items(),
                                 *jobs_launches.items(),
-                                *host_launches.items())}
+                                *host_launches.items(),
+                                *record_launches.items())}
             row["launches_note"] = JOBS_NOTE
         log("phase walls (s): " + ", ".join(
             f"{label} {wall:.1f}" for label, wall in phase_walls))

@@ -7,7 +7,8 @@ code with the device reduction, so the checks compare two derivations of
 one definition. All arithmetic is int64 end to end: the oracle has no
 overflow discipline to manage, which is why it is the truth the int32
 device carry is held to. ``load.api.aggregate`` never calls it; it is no
-fallback.
+fallback. ``columns_from_records`` bridges records to its planes, so the
+record loaders' ``Dataset.aggregate`` reduces through it.
 """
 
 from __future__ import annotations
@@ -82,6 +83,44 @@ def _host_coverage(columns, spec, nc: int, valid) -> np.ndarray:
             if hi > lo:
                 row[k] += hi - lo
     return cov.reshape(-1)
+
+
+#: CIGAR op codes that consume reference bases: M, D, N, =, X, the set
+#: the device parser folds into ``ref_span`` (tpu/parser.py).
+_REF_CONSUMING = {0, 2, 3, 7, 8}
+
+
+def record_ref_span(rec) -> int:
+    """Reference span of one ``BamRecord``: the cigar lengths over the
+    ref-consuming ops, as the parser's ``ref_span`` plane holds it."""
+    return sum(n for n, op in (rec.cigar or []) if op in _REF_CONSUMING)
+
+
+def columns_from_records(records) -> "dict[str, np.ndarray]":
+    """Flat-plane columns of an iterable of ``BamRecord``s (or tuples
+    whose last element is one, the ``(Pos, record)`` load shape)."""
+    flag, mapq, tlen, lseq, pos, span, ref = [], [], [], [], [], [], []
+    for rec in records:
+        if isinstance(rec, tuple):
+            rec = rec[-1]
+        flag.append(int(rec.flag))
+        mapq.append(int(rec.mapq))
+        tlen.append(int(rec.tlen))
+        lseq.append(len(rec.seq) if rec.seq and rec.seq != "*" else 0)
+        pos.append(int(rec.pos))
+        span.append(record_ref_span(rec))
+        ref.append(int(rec.ref_id))
+    n = len(flag)
+    return {
+        "valid": np.ones(n, dtype=bool),
+        "flag": np.asarray(flag, dtype=np.int32),
+        "mapq": np.asarray(mapq, dtype=np.int32),
+        "tlen": np.asarray(tlen, dtype=np.int32),
+        "l_seq": np.asarray(lseq, dtype=np.int32),
+        "pos": np.asarray(pos, dtype=np.int32),
+        "ref_span": np.asarray(span, dtype=np.int32),
+        "ref_id": np.asarray(ref, dtype=np.int32),
+    }
 
 
 def combine(

@@ -37,6 +37,8 @@ from spark_bam_tpu_torch.core.guard import (
 
 #: Cigar ops that consume reference bases: M, D, N, =, X.
 REF_CONSUMING = (0, 2, 3, 7, 8)
+CIGAR_OPS = "MIDNSHP=X"
+FLAG_UNMAPPED = 0x4
 SEQ_CODES = "=ACMGRSVTWYHKDBN"
 
 _FIXED = struct.Struct("<iiiBBHHHiiii")  # block_size..tlen (36 bytes)
@@ -178,7 +180,27 @@ class BamRecord:
         ))
         return struct.pack("<i", len(body)) + body
 
+    @property
+    def is_unmapped(self) -> bool:
+        return bool(self.flag & FLAG_UNMAPPED)
+
+    @property
+    def read_length(self) -> int:
+        return len(self.seq)
+
+    def cigar_string(self) -> str:
+        if not self.cigar:
+            return "*"
+        return "".join(f"{length}{CIGAR_OPS[op]}"
+                       for length, op in self.cigar)
+
     def reference_span(self) -> int:
         """Bases of reference consumed (cigar ops M/D/N/=/X)."""
         return sum(length for length, op in self.cigar
                    if op in REF_CONSUMING)
+
+    def end_pos(self) -> int:
+        """0-based exclusive reference end (pos + 1 for an unmapped record
+        or an empty cigar)."""
+        span = self.reference_span()
+        return self.pos + (span if span else 1)

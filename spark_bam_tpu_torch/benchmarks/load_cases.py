@@ -42,6 +42,14 @@ empty-name record in the middle of the file, where the chains of the
 records before it run through it: the checker refuses those starts, the
 record path (and so the export) reads them.
 
+``write_seqdoop_trap_bam(path)`` writes seeded reads and one carrier
+record whose trailing ``B`` tag holds a whole fake record, a BGZF block
+starting exactly at the fake: hadoop-bam's guesser (seqdoop) takes the
+fake for a record start (it does not check the name's alphabet), the
+checker refuses it (an ``@`` in the name). With the fake's mate fields
+set on an unpaired read, hadoop-bam's reader throws ``BamFormatError``
+there; without them it reads one record too many.
+
 ``LOCI``, ``FLAG_FILTERS`` and ``TAG_FILTERS`` are the filters the tests
 and the smoke apply to it: loci with a whole contig, an empty range, a
 contig absent from the header and an interval whose end is a record's
@@ -303,6 +311,41 @@ def write_refused_mid_bam(path, fillers: int = 600, seed: int = 5,
     Path(path).write_bytes(blob)
     return {"starts": np.array(starts, dtype=np.int64), "names": names,
             "records": len(starts)}
+
+
+def write_seqdoop_trap_bam(path, fillers: int = 400, seed: int = 7,
+                           after: int = 200, mate_set: bool = True) -> dict:
+    """``fillers`` seeded reads with the carrier of a fake record written
+    after filler ``after``, the block holding the fake starting at its
+    first byte. Returns the manifest: ``records`` (the real ones) and
+    ``trap_block`` (that block's compressed offset)."""
+    rng = np.random.default_rng(seed)
+    header = _header()
+    fake = encode_record(rng=rng, name=b"fa@ke", pos=123_456,
+                         cigar=((50, 0),), flag=0,
+                         next_ref_id=0 if mate_set else -1,
+                         next_pos=99 if mate_set else -1)
+    carrier = encode_record(
+        rng=rng, name=b"carrier", pos=30_000, cigar=((60, 0),),
+        tags=tag("XB", "B", b"C" + struct.pack("<i", len(fake)) + fake))
+    stream = bytearray()
+    records = 0
+    for i in range(fillers):
+        stream.extend(_filler(rng, i, 10_000 + 50 * i))
+        records += 1
+        if i == after:
+            stream.extend(carrier)
+            records += 1
+            trap = len(stream) - len(fake)
+    cuts = sorted({*range(0, len(stream), BLOCK), trap}) + [len(stream)]
+    blob = bytearray(compress_blocks(header))
+    trap_block = None
+    for lo, hi in zip(cuts, cuts[1:]):
+        if lo == trap:
+            trap_block = len(blob)
+        blob += compress_block(bytes(stream[lo:hi]))
+    Path(path).write_bytes(bytes(blob) + BGZF_EOF)
+    return {"records": records, "trap_block": trap_block}
 
 
 def _header() -> bytes:

@@ -1,8 +1,11 @@
 """The 19-check error model's bit layout (reference full/error/Flags.scala
-bit order), the two masks the chain walk splits it into, and the
-full-check report's per-position rules and bit counts."""
+bit order), the two masks the chain walk splits it into, the full-check
+report's per-position rules and bit counts, and the host ``full``
+checker's results (``Success``, ``Flags``)."""
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -67,3 +70,60 @@ def num_failing_fields(fail_mask, reads_before):
     """Failing-field count per position: the mask's popcount plus one when
     records chained before the failure (reference Flags.scala:118-124)."""
     return _POPCOUNT[fail_mask] + (np.asarray(reads_before) > 0)
+
+
+@dataclass(frozen=True)
+class Success:
+    """A position that chained ``reads_parsed`` valid records (or met EOF
+    after at least one)."""
+    reads_parsed: int
+
+    @property
+    def call(self) -> bool:
+        return True
+
+
+@dataclass(frozen=True)
+class Flags:
+    """Every failing check of a position's first bad record, with the
+    records chained before it."""
+    tooFewFixedBlockBytes: bool = False
+    negativeReadIdx: bool = False
+    tooLargeReadIdx: bool = False
+    negativeReadPos: bool = False
+    tooLargeReadPos: bool = False
+    negativeNextReadIdx: bool = False
+    tooLargeNextReadIdx: bool = False
+    negativeNextReadPos: bool = False
+    tooLargeNextReadPos: bool = False
+    tooFewBytesForReadName: bool = False
+    nonNullTerminatedReadName: bool = False
+    nonASCIIReadName: bool = False
+    noReadName: bool = False
+    emptyReadName: bool = False
+    tooFewBytesForCigarOps: bool = False
+    invalidCigarOp: bool = False
+    emptyMappedCigar: bool = False
+    emptyMappedSeq: bool = False
+    tooFewRemainingBytesImplied: bool = False
+    readsBeforeError: int = 0
+
+    @property
+    def call(self) -> bool:
+        return False
+
+    def to_mask(self) -> int:
+        return sum(1 << i for i, name in enumerate(FLAG_NAMES)
+                   if getattr(self, name))
+
+    @staticmethod
+    def from_mask(mask: int, reads_before_error: int = 0) -> "Flags":
+        return Flags(**{name: bool(mask & (1 << i))
+                        for i, name in enumerate(FLAG_NAMES)},
+                     readsBeforeError=reads_before_error)
+
+    def true_flags(self) -> list[str]:
+        return [name for name in FLAG_NAMES if getattr(self, name)]
+
+    def __str__(self) -> str:
+        return ",".join(self.true_flags())

@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 
 from spark_bam_tpu_torch.bgzf.flat import FlatView, flatten_file
+from spark_bam_tpu_torch.check.checker import register_checker
 from spark_bam_tpu_torch.core.pos import Pos
 
 MAX_BYTES_READ = 3 * 0xFFFF * 2  # upstream BAMSplitGuesser.MAX_BYTES_READ
@@ -217,7 +218,7 @@ class SeqdoopChecker:
         self._verdict: np.ndarray | None = None
 
     @staticmethod
-    def open(path) -> "SeqdoopChecker":
+    def open(path, config=None) -> "SeqdoopChecker":
         from spark_bam_tpu_torch.bam.header import read_header
 
         return SeqdoopChecker(flatten_file(path),
@@ -228,6 +229,10 @@ class SeqdoopChecker:
         if self._verdict is None:
             self._verdict = seqdoop_check_flat(self.view, self.num_contigs)
         return self._verdict
+
+    def __call__(self, pos: Pos) -> bool:
+        return bool(self.verdict[self.view.flat_of_pos(pos.block_pos,
+                                                       pos.offset)])
 
     def next_read_start(self, start: Pos, max_read_size: int = 10_000_000) -> Pos | None:
         starts = self.view.block_starts
@@ -240,3 +245,11 @@ class SeqdoopChecker:
             return Pos(*self.view.pos_of_flat(int(true_flat[j])))
         return None
 
+    def close(self) -> None:
+        pass
+
+
+
+@register_checker("seqdoop")
+def _make_seqdoop(path, config, **kw):
+    return SeqdoopChecker.open(path, config)

@@ -1,19 +1,34 @@
-"""Command line: ``python -m spark_bam_tpu_torch COMMAND ... PATH``.
+"""Command line: ``python -m spark_bam_tpu_torch COMMAND ... PATH``. This
+module parses and dispatches; the record path's commands and the checker
+context live in ``cli_app.py``.
 
-``count-reads [-n N] [--resident | --sharded]`` prints the reference CLI's
-standalone count lines (``spark-bam read-count time: MS`` and ``Read count:
-N`` per iteration) and, but for ``--sharded``, its ``funnel:`` line;
-``--resident`` (or ``Config.resident_scan``) counts with one device
-dispatch per resident chunk (``StreamChecker.count_reads_resident``),
-``--sharded`` across the mesh (``parallel.stream_mesh.count_reads_sharded``).
+``count-reads [-n N] [-m SIZE]`` prints the reference's default output:
+spark-bam's count (``load_bam(...).count()``, every strict split start
+resolved on the device) against hadoop-bam's, with both times and ``Read
+counts matched: N`` (or the mismatch line, or hadoop-bam's exception).
+``--resident`` and ``--sharded`` print the reference CLI's standalone
+count lines (``spark-bam read-count time: MS`` and ``Read count: N`` per
+iteration) and, but for ``--sharded``, its ``funnel:`` line: ``--resident``
+(or ``Config.resident_scan``) counts with one device dispatch per resident
+chunk (``StreamChecker.count_reads_resident``), ``--sharded`` across the
+mesh (``parallel.stream_mesh.count_reads_sharded``).
 ``full-check [-l N] [--sharded]`` prints the reference's streaming
 full-check report (``full-check --streaming``; with ``--sharded`` the
 report reduced across the mesh, the same output): the critical and
 two-check sections with ``block:offset`` positions, the total error counts
-and the ``funnel:`` line. ``check-bam --sharded [--cache MODE]`` prints the
-reference's sharded check-bam report against the ``.records`` sidecar,
-its ``.sbi`` cache line included; the eager-against-seqdoop check-bam is
-not ported.
+and the ``funnel:`` line. ``check-bam [-s|-u] [-i RANGES]`` prints the
+reference's check report: the eager checker (its verdict at every position
+on the device) against the seqdoop checker, or ``-s`` / ``-u`` one of them
+against the ``.records`` sidecar, over the blocks starting inside the
+``-i`` byte ranges; ``check-bam --sharded [--cache MODE]`` prints the
+reference's sharded report against the ``.records`` sidecar, its ``.sbi``
+cache line included (``-u`` and ``-i`` are refused there, as the
+reference refuses them). ``check-blocks [-s|-u] [-i RANGES]`` compares
+the same checkers' first record start in every BGZF block;
+``compare-splits [-m SIZE] BAMS-FILE`` spark-bam's and hadoop-bam's
+splits of every BAM listed; ``time-load [-m SIZE]`` times each split's
+first read through both loaders; ``index-bam [-o OUT]`` writes the
+``.bai`` of a coordinate-sorted BAM.
 
 ``aggregate [-a SPEC] [-i LOCI] [--flags-required N] [--flags-forbidden N]
 [-t TG]... [--format tsv|json] [--cache MODE] [-o OUT]`` prints the
@@ -97,7 +112,6 @@ entries of ``--device`` (``--device cpu --devices 4``: a 4-entry CPU mesh).
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import os
@@ -106,18 +120,20 @@ import time
 
 import numpy as np
 
+from spark_bam_tpu_torch import cli_app
 from spark_bam_tpu_torch.bgzf.flat import metas_block_table, pos_of_flat_tables
 from spark_bam_tpu_torch.bgzf.index_blocks import blocks_metadata
 from spark_bam_tpu_torch.check.flags import FLAG_NAMES, bit_counts
 from spark_bam_tpu_torch.agg.plan import AggConfig
 from spark_bam_tpu_torch.compress.config import DeflateConfig
+from spark_bam_tpu_torch.cli_app import Printer, UsageError, funnel_status_line
 from spark_bam_tpu_torch.core.config import Config, format_bytes, parse_bytes
 from spark_bam_tpu_torch.core.faults import (
     install_disk_chaos,
     parse_disk_chaos,
     uninstall_disk_chaos,
 )
-from spark_bam_tpu_torch.core.stats import Stats, format_bytes_binary
+from spark_bam_tpu_torch.core.stats import Stats
 from spark_bam_tpu_torch.fabric.config import FabricConfig
 from spark_bam_tpu_torch.jobs.manager import JobsConfig, job_id_of
 from spark_bam_tpu_torch.serve.config import ServeConfig
@@ -154,73 +170,6 @@ from spark_bam_tpu_torch.tpu.stream_check import (
 RC_FINDINGS = 3
 
 
-class UsageError(ValueError):
-    """A flag or argument the command cannot serve: printed as one
-    ``error: ...`` line with exit code 2."""
-
-
-class Printer:
-    """The reference CLI's output helpers: echo, indentation, and sampled
-    lists that print ``{total} things:`` when everything fits the print
-    limit, else the truncated header, the first ``limit`` items and a
-    tab-ellipsis line."""
-
-    def __init__(self, out=None, limit: int = 10):
-        self.out = out or sys.stdout
-        self.limit = limit
-        self._indent = 0
-
-    def echo(self, *lines: str) -> None:
-        for line in lines:
-            for part in str(line).split("\n"):
-                self.out.write(("\t" * self._indent + part + "\n") if part
-                               else "\n")
-
-    @contextlib.contextmanager
-    def indent(self):
-        self._indent += 1
-        try:
-            yield
-        finally:
-            self._indent -= 1
-
-    def print_limited(self, items: list, total: int | None = None,
-                      header: str | None = None, truncated_header=None,
-                      item_indent: int = 1) -> None:
-        total = total if total is not None else len(items)
-        if self.limit and total > self.limit:
-            shown = items[: self.limit]
-            if truncated_header:
-                self.echo(truncated_header(len(shown)))
-            for item in shown:
-                self.echo("\t" * item_indent + str(item))
-            self.echo("\t…")
-        else:
-            if header:
-                self.echo(header)
-            for item in items[:total]:
-                self.echo("\t" * item_indent + str(item))
-
-
-def funnel_status_line(config: Config, stats: dict | None = None,
-                       full_masks: bool = False) -> str:
-    """The ``funnel: …`` line: the configured mode, whether the two-stage
-    prefilter ran on this path, and its measured reduction."""
-    mode = config.funnel
-    if not config.funnel_enabled(full_masks):
-        why = "disabled" if mode == "off" else (
-            "full per-position flag masks requested")
-        return f"funnel: off ({mode}: {why})"
-    if stats and stats.get("screened"):
-        screened = int(stats["screened"])
-        survivors = int(stats["survivors"])
-        return (
-            f"funnel: on ({mode}): {screened} positions -> {survivors} "
-            f"survivors, {screened / max(survivors, 1):.1f}x reduction"
-        )
-    return f"funnel: on ({mode})"
-
-
 def _sharded_mesh(device=None, devices: int | None = None):
     """The ``--sharded`` mesh: every visible CUDA device (the first
     ``devices`` of them), or ``devices`` entries of ``device``."""
@@ -246,6 +195,11 @@ def count_reads(path, iterations: int = 1, device=None, out=None,
                 sharded: bool = False, devices: int | None = None) -> int:
     out = sys.stdout if out is None else out
     config = Config() if config is None else config
+    if not (sharded or resident or config.resident_scan):
+        return cli_app.count_reads(
+            path, Printer(out=out),
+            config.split_size_or(Config.LOAD_SPLIT_SIZE_DEFAULT), config,
+            iterations, device)
     if sharded:
         if resident:
             raise UsageError("--resident and --sharded are mutually "
@@ -385,30 +339,43 @@ def full_check(path, print_limit: int = 10, device=None, out=None,
 
 
 def check_bam(path, device=None, out=None, sharded: bool = False,
-              devices: int | None = None, config: Config | None = None
-              ) -> dict:
-    """check-bam against the ``.records`` sidecar across the mesh; prints
-    the reference's sharded report and returns its confusion stats."""
-    if not sharded:
-        raise UsageError(
-            "check-bam compares the eager and seqdoop checkers without "
-            "--sharded, which is not ported; run check-bam --sharded")
-    p = Printer(out=out)
+              devices: int | None = None, config: Config | None = None,
+              spark_bam: bool = False, hadoop_bam: bool = False,
+              ranges=None, print_limit: int = 10) -> dict | None:
+    """check-bam's report: by default the eager verdict (on ``device``)
+    against seqdoop's or, with ``spark_bam`` / ``hadoop_bam``, one of them
+    against the ``.records`` sidecar; with ``sharded`` the eager verdict
+    against the sidecar across the mesh, whose confusion stats it
+    returns."""
     config = Config() if config is None else config
+    if not sharded:
+        ctx = cli_app.CheckerContext(path, config,
+                                     Printer(out=out, limit=print_limit),
+                                     ranges=ranges, device=device)
+        cli_app.check_bam(ctx, spark_bam, hadoop_bam)
+        return None
+    # --sharded is eager against the truth (-s composes); the seqdoop
+    # oracle and byte ranges have no sharded path, as in the reference.
+    if hadoop_bam:
+        raise UsageError(
+            "--sharded scores the eager checker against the .records "
+            "truth; the seqdoop oracle (-u) has no sharded path")
+    if ranges is not None:
+        raise UsageError(
+            "--sharded checks the whole file; -i/--intervals is not "
+            "supported on the sharded path")
+    p = Printer(out=out)
     metas = blocks_metadata(path)
     mesh = _sharded_mesh(device, devices)
     stats = check_bam_sharded(path, config, mesh=mesh, metas=metas)
     # The data blocks' compressed bytes (the EOF sentinel excluded), as
     # the reference's report sums them.
     compressed = sum(m.compressed_size for m in metas)
-    total = stats["positions"]
-    p.echo(f"{total} uncompressed positions",
-           f"{format_bytes_binary(compressed)} compressed",
-           "Compression ratio: %.2f" % (total / compressed),
-           f"{stats['true_positives'] + stats['false_negatives']} reads",
-           f"checked across {stats['devices']} device(s)",
-           cache_status_line(path, config),
-           funnel_status_line(config))
+    cli_app.print_report_header(
+        p, stats["positions"], compressed,
+        stats["true_positives"] + stats["false_negatives"])
+    p.echo(f"checked across {stats['devices']} device(s)",
+           cache_status_line(path, config), funnel_status_line(config))
     if not stats["false_positives"] and not stats["false_negatives"]:
         p.echo("All calls matched!")
     else:
@@ -990,16 +957,65 @@ def _config(args) -> Config:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m spark_bam_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    cr = sub.add_parser("count-reads", help="count the records of a BAM")
+    cr = sub.add_parser(
+        "count-reads", help="count the records of a BAM: spark-bam's loader "
+                            "against hadoop-bam's")
     cr.add_argument("-n", "--num-iterations", type=int, default=1)
     cr.add_argument("--resident", action="store_true",
                     help="one device dispatch per resident chunk of windows")
+    _add_knobs(cr, "split size of the record loaders (byte shorthand like "
+                   "2MB ok; default 32MB)")
     fc = sub.add_parser("full-check",
                         help="all 19 checks at every position of a BAM")
     fc.add_argument("-l", "--print-limit", type=int, default=10)
-    cb = sub.add_parser("check-bam",
-                        help="the checker against the .records sidecar")
-    _add_cache(cb)
+    cb = sub.add_parser(
+        "check-bam", help="the eager checker against seqdoop's, or either "
+                          "against the .records sidecar")
+    ck = sub.add_parser(
+        "check-blocks", help="the checkers' first record start in every "
+                             "BGZF block")
+    for p in (cb, ck):
+        _add_knobs(p, "split size (byte shorthand like 2MB ok)")
+        p.add_argument("-s", "--spark-bam", action="store_true",
+                       help="score the eager checker against the .records "
+                            "index")
+        p.add_argument("-u", "--upstream", action="store_true",
+                       help="score the seqdoop checker against the "
+                            ".records index")
+        p.add_argument(
+            "-i", "--intervals", default=None,
+            help="comma-separated compressed byte-ranges (start-end|"
+                 "start+len|point, byte shorthand ok); only blocks "
+                 "starting inside are checked")
+        p.add_argument("-l", "--print-limit", type=int, default=10)
+        p.add_argument("-o", "--out", default=None,
+                       help="write the report here instead of stdout")
+        _add_cache(p)
+    ck.add_argument("--device", default=None,
+                    help="torch device (default: the current CUDA device)")
+    ck.add_argument("path")
+    cp = sub.add_parser(
+        "compare-splits", help="spark-bam's and hadoop-bam's splits of many "
+                               "BAMs")
+    tl = sub.add_parser(
+        "time-load", help="each split's first read through spark-bam's and "
+                          "hadoop-bam's loaders")
+    for p in (cp, tl):
+        _add_knobs(p, "split size (byte shorthand like 2MB ok; default "
+                      "32MB)")
+        p.add_argument("-l", "--print-limit", type=int, default=10)
+        p.add_argument("-o", "--out", default=None,
+                       help="write the report here instead of stdout")
+        _add_cache(p)
+        p.add_argument("--device", default=None,
+                       help="torch device (default: the current CUDA "
+                            "device)")
+    cp.add_argument("bams", help="file holding one BAM path a line")
+    tl.add_argument("path")
+    ib_ = sub.add_parser("index-bam",
+                         help="write the .bai of a coordinate-sorted BAM")
+    ib_.add_argument("-o", "--out", default=None)
+    ib_.add_argument("path")
     for p in (cr, fc, cb):
         p.add_argument("--sharded", action="store_true",
                        help="across every device of the mesh")
@@ -1241,6 +1257,9 @@ def _run(args) -> int:
         else:
             full_check(args.path, args.print_limit, args.device, **kw)
         return 0
+    if args.cmd == "index-bam":
+        cli_app.index_bam(args.path, args.out)
+        return 0
     if args.cmd == "scrub":
         if args.warn:
             import logging
@@ -1305,6 +1324,37 @@ def _run(args) -> int:
             if out is not None:
                 out.close()
     else:
-        check_bam(args.path, args.device, sharded=args.sharded,
-                  devices=args.devices, config=config)
+        _run_check(args, config, split)
     return 0
+
+
+def _run_check(args, config: Config, split: int) -> None:
+    """check-bam, check-blocks, compare-splits and time-load, each
+    writing its report to ``-o`` or stdout."""
+    from spark_bam_tpu_torch.core.ranges import parse_ranges
+
+    try:
+        ranges = parse_ranges(getattr(args, "intervals", None))
+    except ValueError as e:
+        raise UsageError(str(e)) from e
+    out = open(args.out, "w") if args.out else None
+    try:
+        p = Printer(out=out, limit=args.print_limit)
+        if args.cmd == "check-bam":
+            check_bam(args.path, args.device, out, sharded=args.sharded,
+                      devices=args.devices, config=config,
+                      spark_bam=args.spark_bam, hadoop_bam=args.upstream,
+                      ranges=ranges, print_limit=args.print_limit)
+        elif args.cmd == "compare-splits":
+            cli_app.compare_splits(args.bams, p, split, config,
+                                   device=args.device)
+        else:
+            ctx = cli_app.CheckerContext(args.path, config, p, ranges=ranges,
+                                         device=args.device)
+            if args.cmd == "check-blocks":
+                cli_app.check_blocks(ctx, args.spark_bam, args.upstream)
+            else:
+                cli_app.time_load(ctx, split)
+    finally:
+        if out is not None:
+            out.close()

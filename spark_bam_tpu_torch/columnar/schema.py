@@ -11,7 +11,7 @@ contiguous ``uint8`` values buffer, so conversion to ``large_utf8`` /
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Iterable, Iterator
 
 import numpy as np
 
@@ -81,6 +81,68 @@ class RecordBatch:
             else:
                 total += col.nbytes
         return total
+
+
+class BatchBuilder:
+    """Row-at-a-time accumulator of ``BamRecord``s: ``append`` a record,
+    ``build`` a batch of the rows so far (and start over). Its renderings
+    equal the parser-plane producer's (``columnar/from_parser.py``) byte
+    for byte."""
+
+    def __init__(self, columns=None):
+        self.columns = normalize_columns(columns)
+        self._fixed = {c: [] for c in self.columns if c in FIXED_COLUMNS}
+        self._var = {c: bytearray() for c in self.columns if c in VAR_COLUMNS}
+        self._offsets = {c: [0] for c in self._var}
+        self._rows = 0
+
+    def __len__(self) -> int:
+        return self._rows
+
+    def append(self, rec) -> None:
+        for c, acc in self._fixed.items():
+            acc.append(getattr(rec, c))
+        for c, buf in self._var.items():
+            if c == "name":
+                piece = rec.read_name.encode("latin-1")
+            elif c == "cigar":
+                piece = rec.cigar_string().encode("latin-1")
+            elif c == "seq":
+                piece = rec.seq.encode("latin-1")
+            elif c == "qual":
+                piece = bytes(rec.qual)
+            else:  # tags
+                piece = bytes(rec.tags)
+            buf.extend(piece)
+            self._offsets[c].append(len(buf))
+        self._rows += 1
+
+    def build(self) -> RecordBatch:
+        cols: "dict[str, np.ndarray | VarColumn]" = {}
+        for c in self.columns:
+            if c in self._fixed:
+                cols[c] = np.asarray(self._fixed[c], dtype=np.int32)
+            else:
+                cols[c] = VarColumn(
+                    np.asarray(self._offsets[c], dtype=np.int64),
+                    np.frombuffer(bytes(self._var[c]), dtype=np.uint8),
+                )
+        batch = RecordBatch(cols, self._rows)
+        self.__init__(self.columns)
+        return batch
+
+
+def batches_from_records(records: Iterable, batch_rows: int, columns=None
+                         ) -> Iterator[RecordBatch]:
+    """Lazy batches of a record iterator; items may be bare
+    ``BamRecord``s or tuples whose last element is one."""
+    builder = BatchBuilder(columns)
+    for item in records:
+        builder.append(item[-1] if isinstance(item, tuple) else item)
+        if len(builder) >= batch_rows:
+            yield builder.build()
+    if len(builder):
+        yield builder.build()
 
 
 def empty_batch(columns) -> RecordBatch:

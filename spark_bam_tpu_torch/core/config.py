@@ -188,6 +188,8 @@ class Config:
 
     #: The load path's raw split size (hadoop's file-split default).
     LOAD_SPLIT_SIZE_DEFAULT = 32 << 20
+    #: The block planner's partition size (reference Blocks.scala:64).
+    CHECK_SPLIT_SIZE_DEFAULT = 2 << 20
 
     def __post_init__(self):
         if self.funnel not in ("on", "off", "auto"):

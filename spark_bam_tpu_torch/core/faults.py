@@ -1,8 +1,10 @@
-"""Fault policy (reference ``spark_bam_tpu/core/faults.py``): the retry
-schedule a header or split read runs under (``with_retries``), the policy the
-serve daemon's deadlines and its client's ``Overloaded`` retries read
-(``FaultPolicy``), and the rolling latency median behind the daemon's
-Retry-After hint (``LatencyTracker``).
+"""Fault policy (reference ``spark_bam_tpu/core/faults.py``): the error
+classes a retry can never fix (``Unrecoverable``, ``BlockCorruptionError``
+and the tolerant stream's ``BlockGapError``), the retry schedule a header
+or split read runs under (``with_retries``), the policy the partition
+executor, the serve daemon's deadlines and its client's ``Overloaded``
+retries read (``FaultPolicy``), and the rolling latency median behind the
+daemon's Retry-After hint (``LatencyTracker``).
 
 ``FaultPolicy`` parses the same compact ``k=v,...`` spec as the
 reference's (``Config.faults`` / ``SPARK_BAM_FAULTS``). ``_mix`` and
@@ -29,6 +31,35 @@ from functools import lru_cache
 from spark_bam_tpu_torch import obs
 
 
+class Unrecoverable:
+    """Marker mixin: errors no retry can fix (corruption, parse failures
+    of deterministic inputs). The partition executor fails such an
+    attempt at once instead of spending its retry budget on it."""
+
+
+class BlockCorruptionError(IOError, Unrecoverable):
+    """A BGZF block failed its inflate, ISIZE or CRC-32 check:
+    deterministic damage. Strict mode raises it; tolerant mode
+    quarantines the block."""
+
+
+class BlockGapError(IOError, Unrecoverable):
+    """Tolerant-mode resync marker: the block at ``damaged_start`` was
+    unreadable and the stream's next sound block starts at ``resync``
+    (None when no later block header chains: the damage runs to EOF).
+    A tolerant ``BlockStream`` raises it once so the record layer can
+    find a record boundary past the gap and go on (``load/api.py``)."""
+
+    def __init__(self, damaged_start: int, resync: int | None, reason: str):
+        super().__init__(
+            f"unreadable BGZF block at {damaged_start} "
+            f"(resync at {resync}): {reason}"
+        )
+        self.damaged_start = damaged_start
+        self.resync = resync
+        self.reason = reason
+
+
 #: OSError subclasses that are deterministic in practice: retrying a
 #: missing file only delays the real error.
 _NONRETRYABLE_OS = (
@@ -41,8 +72,10 @@ _NONRETRYABLE_OS = (
 
 def retryable(exc: BaseException) -> bool:
     """Transient transport errors (the OSError family, timeouts) are worth
-    a fresh attempt; deterministic filesystem errors and everything else
-    are not."""
+    a fresh attempt; corruption (``Unrecoverable``), deterministic
+    filesystem errors and everything else are not."""
+    if isinstance(exc, Unrecoverable):
+        return False
     if isinstance(exc, _NONRETRYABLE_OS):
         return False
     return isinstance(exc, (OSError, TimeoutError))

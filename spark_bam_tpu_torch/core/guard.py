@@ -7,23 +7,31 @@ that cannot be what they claim.
 - ``StructurallyInvalid``: a field contradicts the format;
 - ``LimitExceeded``: well-formed but beyond ``DecodeLimits``.
 
-All three are ``MalformedInputError``, a ``ValueError``. ``current_limits``
-gives the defaults: the reference's ``SPARK_BAM_LIMITS`` and scoped
-overrides and the tolerant quarantine are not ported. The write errors'
-``ResourceExhausted`` and ``map_write_error`` live in ``core/atomic.py``;
-``preflight_space`` refuses to start a write that cannot fit.
+All three are ``MalformedInputError``, a ``ValueError`` and
+``Unrecoverable``: no retry re-reads other bytes. ``RecordGapError`` is the
+tolerant record stream's resync marker (a garbage length prefix), and the
+loss tallies (``note_quarantined_records``, ``note_quarantined_block``,
+``loss_totals``) count what a tolerant load quarantined, for the
+executor's ``JobReport``. ``current_limits`` gives the defaults: the
+reference's ``SPARK_BAM_LIMITS`` and scoped overrides are not ported. The
+write errors' ``ResourceExhausted`` and ``map_write_error`` live in
+``core/atomic.py``; ``preflight_space`` refuses to start a write that
+cannot fit.
 """
 
 from __future__ import annotations
 
 import errno
 import os
+import threading
 from dataclasses import dataclass, fields
 
+from spark_bam_tpu_torch import obs
 from spark_bam_tpu_torch.core.atomic import ResourceExhausted
+from spark_bam_tpu_torch.core.faults import Unrecoverable
 
 
-class MalformedInputError(ValueError):
+class MalformedInputError(ValueError, Unrecoverable):
     """The bytes are not a well-formed instance of the format. ``path`` and
     ``pos`` locate the damage where the parser knows them."""
 
@@ -50,6 +58,19 @@ class StructurallyInvalid(MalformedInputError):
 class LimitExceeded(MalformedInputError):
     """Structurally plausible but beyond the active ``DecodeLimits``, or a
     payload no BGZF member can carry."""
+
+
+class RecordGapError(IOError, Unrecoverable):
+    """Tolerant-mode record resync marker: the record at virtual position
+    ``pos`` declared a length prefix no record can have, so the stream
+    cannot skip it locally. A tolerant record stream raises it once; the
+    load layer finds the next provable record boundary with the checker
+    and resumes (the block layer's analog is ``BlockGapError``)."""
+
+    def __init__(self, pos, reason: str):
+        super().__init__(f"unreadable BAM record at {pos}: {reason}")
+        self.pos = pos
+        self.reason = reason
 
 
 @dataclass(frozen=True)
@@ -99,3 +120,36 @@ def preflight_space(path, need_bytes: int, margin: float = 1.1) -> None:
             f"filesystem has {free} free",
             errno_=errno.ENOSPC, path=path,
         )
+
+
+class _LossTally:
+    """Process-wide quarantine counts, read around a ``run_partitions``
+    call so its ``JobReport`` states what a tolerant load lost."""
+
+    __slots__ = ("lock", "records", "blocks")
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.records = 0
+        self.blocks = 0
+
+
+_loss = _LossTally()
+
+
+def note_quarantined_records(n: int = 1) -> None:
+    obs.count("guard.quarantined_records", n)
+    with _loss.lock:
+        _loss.records += n
+
+
+def note_quarantined_block() -> None:
+    obs.count("guard.quarantined_blocks")
+    with _loss.lock:
+        _loss.blocks += 1
+
+
+def loss_totals() -> tuple[int, int]:
+    """(quarantined records, quarantined blocks) since process start."""
+    with _loss.lock:
+        return _loss.records, _loss.blocks

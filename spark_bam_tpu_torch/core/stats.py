@@ -65,10 +65,13 @@ def percentile_ladder(n: int) -> list[float]:
 
 
 class Stats:
-    """Summary statistics of a numeric sample, reference-style rendering."""
+    """Summary statistics of a numeric sample, reference-style rendering.
+    ``rounded`` renders every derived value rounded to an integer (the
+    check-blocks histogram, CheckBlocks.scala's truncatedDouble)."""
 
-    def __init__(self, values: Iterable[float]):
+    def __init__(self, values: Iterable[float], rounded: bool = False):
         self.values = list(values)
+        self.rounded = rounded
         self.n = len(self.values)
         if self.n:
             self.mean = sum(self.values) / self.n
@@ -79,10 +82,23 @@ class Stats:
             self.median = _quantile(self.sorted, 50)
             self.mad = _quantile(sorted(abs(v - self.median) for v in self.values), 50)
 
+    @staticmethod
+    def from_hist(pairs: Iterable[tuple[float, int]],
+                  rounded: bool = False) -> "Stats":
+        """Stats of a histogram: ``(value, count)`` pairs expand by
+        weight."""
+        values: list[float] = []
+        for v, count in sorted(pairs):
+            values.extend([v] * int(count))
+        return Stats(values, rounded=rounded)
+
+    def _fmt(self, x) -> str:
+        return str(round(x)) if self.rounded else fmt_num(x)
+
     def show(self) -> str:
         if not self.n:
             return "(empty)"
-        f = fmt_num
+        f = self._fmt
         lines = [
             f"N: {self.n},"
             f" μ/σ: {f(round(self.mean, 1))}/{f(round(self.stddev, 1))},"
@@ -99,9 +115,10 @@ class Stats:
         return "\n".join(lines)
 
 
-def format_bytes_binary(n: int) -> str:
+def format_bytes_binary(n: int, include_b: bool = False) -> str:
     """hammerlab-bytes format: 1024-based, 3 significant figures, K/M/G/T
-    suffix ("583K", "25.6K")."""
+    suffix ("583K", "25.6K"; with ``include_b`` "519KB")."""
+    suffix = "B" if include_b else ""
     for unit, shift in (("E", 60), ("P", 50), ("T", 40), ("G", 30), ("M", 20), ("K", 10)):
         if n >= (1 << shift):
             v = n / (1 << shift)
@@ -111,5 +128,5 @@ def format_bytes_binary(n: int) -> str:
                 s = f"{v:.1f}".rstrip("0").rstrip(".")
             else:
                 s = str(round(v))
-            return f"{s}{unit}"
-    return str(n)
+            return f"{s}{unit}{suffix}"
+    return f"{n}{suffix}"

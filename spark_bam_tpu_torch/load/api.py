@@ -1,6 +1,24 @@
 """Library entry points over whole files (the JAX package's
-``spark_bam_tpu/load/api.py``): the aggregate, the columnar export and
-the resolved split starts.
+``spark_bam_tpu/load/api.py``): the record loaders, the aggregate, the
+columnar export and the resolved split starts.
+
+The record loaders (``load_bam``, ``load_reads_and_positions``,
+``load_splits_and_reads``, ``load_reads``, ``load_bam_intervals``) return
+lazy ``Dataset``s partitioned as the reference partitions its RDDs
+(CanLoadBam.scala:59-382): one partition a raw file split, its records
+streamed from its first record start up to the next split's range, each
+decoded on the host from a seekable record stream (host zlib, as the
+reference reads them). Their strict split starts come from the device:
+every one is resolved by the calling process before any partition runs, by
+``resolve_split_start`` (``load/boundary.py``: the ``prefilter_check_flags``
+kernel) on ``device``, or served by a warm ``.sbi`` plan. A split whose
+resolution raised re-raises inside its own partition, so the executor's
+retries and quarantine see it as the reference's do. Tolerant mode
+(``FaultPolicy.mode=tolerant``) resolves inside the partition on the host
+with the eager checker over a tolerant stream, the reference's semantics
+there: a damaged block inside the boundary scan surfaces as a
+``BlockGapError`` to resync past, and a garbage length prefix as a
+``RecordGapError``. No partition touches the device.
 
 ``aggregate`` reduces a query over a BAM to kilobytes of statistics
 without materializing records: the whole-file flat view, the boundary
@@ -27,17 +45,39 @@ cache writes.
 
 from __future__ import annotations
 
+import dataclasses
+import os
+
 import numpy as np
 
+from spark_bam_tpu_torch import obs
 from spark_bam_tpu_torch.agg.kernels import aggregate_planes
 from spark_bam_tpu_torch.agg.plan import AggConfig
-from spark_bam_tpu_torch.bam.header import read_header
+from spark_bam_tpu_torch.bam.bai import BaiIndex, Chunk, merge_chunks
+from spark_bam_tpu_torch.bam.header import BamHeader, read_header
+from spark_bam_tpu_torch.bam.iterators import SeekableRecordStream
+from spark_bam_tpu_torch.bgzf.find_block_start import find_block_start
 from spark_bam_tpu_torch.bgzf.flat import flatten_file
+from spark_bam_tpu_torch.bgzf.stream import (
+    SeekableBlockStream,
+    SeekableUncompressedBytes,
+)
+from spark_bam_tpu_torch.check.checker import NoReadFoundException
+from spark_bam_tpu_torch.check.eager import EagerChecker
+from spark_bam_tpu_torch.core.channel import open_channel
 from spark_bam_tpu_torch.core.config import Config, parse_bytes
-from spark_bam_tpu_torch.core.faults import with_retries
+from spark_bam_tpu_torch.core.faults import (
+    BlockCorruptionError,
+    BlockGapError,
+    with_retries,
+)
+from spark_bam_tpu_torch.core.guard import MalformedInputError, RecordGapError
+from spark_bam_tpu_torch.core.pos import Pos
 from spark_bam_tpu_torch.device import resolve_device
+from spark_bam_tpu_torch.load.dataset import Dataset
 from spark_bam_tpu_torch.load.intervals import LociSet
-from spark_bam_tpu_torch.load.splits import FileSplit, file_splits
+from spark_bam_tpu_torch.load.splits import FileSplit, Split, file_splits
+from spark_bam_tpu_torch.parallel.executor import ParallelConfig
 from spark_bam_tpu_torch.load.tpu_load import (
     _apply_filter,
     record_starts,
@@ -186,10 +226,7 @@ def split_starts(path, split_size=None, config: Config = Config(),
     stays flat); the others resolve on ``device`` under the config's fault
     policy, through ``pool`` (an executor) when given. None marks a split
     that owns no record start or whose scan budget ran out."""
-    from spark_bam_tpu_torch.load.boundary import (
-        NoReadFoundException,
-        resolve_split_start,
-    )
+    from spark_bam_tpu_torch.load.boundary import resolve_split_start
 
     dev = resolve_device(device)
     size = (parse_bytes(split_size) if split_size is not None
@@ -216,3 +253,325 @@ def split_starts(path, split_size=None, config: Config = Config(),
                    else [resolve(s) for s in missing])
         resolved.update(zip(missing, results))
     return [(s, resolved.get(s)) for s in splits]
+
+
+# ------------------------------------------------------------ record loaders
+def _tolerant_checker(path, header: BamHeader, config: Config) -> EagerChecker:
+    return EagerChecker(
+        SeekableUncompressedBytes(
+            SeekableBlockStream(open_channel(path), tolerant=True)),
+        header.contig_lengths, config.reads_to_check)
+
+
+def _tolerant_next_start(path, start: Pos, header: BamHeader,
+                         config: Config) -> Pos | None:
+    """The first provable record boundary at or past ``start`` on a
+    tolerant stream; None when the damage runs to EOF or no boundary can
+    be proven (the rest of the partition is lost with it)."""
+    checker = _tolerant_checker(path, header, config)
+    try:
+        return checker.next_read_start(start, config.max_read_size)
+    except BlockGapError as nxt:
+        # The scan region is damaged too: chase the next gap (resync
+        # offsets strictly increase, so this ends).
+        if nxt.resync is None or nxt.resync <= start.block_pos:
+            return None
+        return _tolerant_next_start(path, Pos(nxt.resync, 0), header, config)
+    except (NoReadFoundException, BlockCorruptionError, MalformedInputError,
+            EOFError):
+        return None
+    finally:
+        checker.close()
+
+
+def _tolerant_record_resync(path, gap: BlockGapError, header: BamHeader,
+                            config: Config) -> Pos | None:
+    """After a quarantined block: the first provable record boundary at
+    or past the resynced block (the stream's resync found the block)."""
+    if gap.resync is None:
+        return None
+    return _tolerant_next_start(path, Pos(gap.resync, 0), header, config)
+
+
+def _resolve_split_start_host(path, split: FileSplit, header: BamHeader,
+                              config: Config) -> Pos | None:
+    """Tolerant mode's split start, inside the partition (reference
+    ``_resolve_split_start``, load/api.py:44-115): find-block-start, then
+    the eager checker over a tolerant stream; a damaged block inside the
+    scan resyncs past it."""
+    obs.count("load.split_resolutions")
+    first = header.end_pos
+    if split.start <= first.block_pos < split.end:
+        return first
+    with open_channel(path) as ch:
+        block_start = find_block_start(ch, split.start,
+                                       config.bgzf_blocks_to_check,
+                                       path=str(path))
+    if block_start >= split.end:
+        return None
+    checker = _tolerant_checker(path, header, config)
+    try:
+        return checker.next_read_start(Pos(block_start, 0),
+                                       config.max_read_size)
+    except BlockGapError as gap:
+        pos = _tolerant_record_resync(path, gap, header, config)
+        if pos is None or pos.block_pos >= split.end:
+            return None
+        return pos
+    finally:
+        checker.close()
+
+
+#: No start resolved for this split yet (distinct from None: a resolved
+#: "this split owns no record start").
+_UNRESOLVED = object()
+
+
+class _Raised:
+    """A resolution that raised before the partitions ran: its partition
+    re-raises it."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
+def _iter_split_records(path, split: FileSplit, header: BamHeader,
+                        config: Config, start_pos=_UNRESOLVED):
+    """``(Pos, BamRecord)`` of one split: from its first record start to
+    the first record at or past the split's end."""
+    if isinstance(start_pos, _Raised):
+        raise start_pos.error
+    if start_pos is _UNRESOLVED:
+        start_pos = _resolve_split_start_host(path, split, header, config)
+    if start_pos is None:
+        return
+    tolerant = config.fault_policy.tolerant
+    stream = SeekableRecordStream(
+        SeekableUncompressedBytes(
+            SeekableBlockStream(open_channel(path), tolerant=tolerant)),
+        header)
+    records = 0
+    try:
+        stream.seek(start_pos)
+        it = iter(stream)
+        while True:
+            try:
+                pos, rec = next(it)
+            except StopIteration:
+                break
+            except BlockGapError as gap:
+                # Tolerant only: the damaged block is quarantined; resume
+                # at the next provable record boundary past it. Records
+                # overlapping the damage are lost with it.
+                resume = _tolerant_record_resync(path, gap, header, config)
+                if resume is None or resume.block_pos >= split.end:
+                    break
+                stream.seek(resume)
+                it = iter(stream)
+                continue
+            except RecordGapError as gap:
+                # Tolerant only: a garbage length prefix; prove a boundary
+                # with the checker just past it.
+                resume = _tolerant_next_start(
+                    path, Pos(gap.pos.block_pos, gap.pos.offset + 1),
+                    header, config)
+                if resume is None or resume.block_pos >= split.end:
+                    break
+                stream.seek(resume)
+                it = iter(stream)
+                continue
+            if pos.block_pos >= split.end:
+                break
+            records += 1
+            yield pos, rec
+    finally:
+        stream.close()
+        obs.count("load.records", records)
+        obs.count("load.partitions")
+
+
+def _strict_starts(path, splits, header: BamHeader, config: Config,
+                   size: int, dev) -> dict:
+    """``{split: Pos | None | _Raised}``: the warm ``.sbi`` plan's starts
+    and, in strict mode, every other split resolved on ``dev`` here, in
+    the calling process (tolerant mode resolves the rest in its
+    partitions)."""
+    from spark_bam_tpu_torch.load.boundary import resolve_split_start
+
+    starts = dict(_consult_split_cache(path, splits, header, config, size,
+                                       dev))
+    policy = config.fault_policy
+    if policy.tolerant:
+        return starts
+    for split in splits:
+        if split in starts:
+            continue
+        try:
+            starts[split] = with_retries(
+                lambda: resolve_split_start(path, split, header, config,
+                                            device=dev),
+                policy, "resolve_split_start")
+        except Exception as e:
+            starts[split] = _Raised(e)
+    return starts
+
+
+def _with_split_size(config: Config, split_size) -> Config:
+    if split_size:
+        return dataclasses.replace(config, split_size=parse_bytes(split_size))
+    return config
+
+
+def load_reads_and_positions(path, split_size=None, config: Config = Config(),
+                             parallel: ParallelConfig = ParallelConfig(),
+                             device=None) -> Dataset:
+    """``(Pos, BamRecord)`` pairs of a BAM, one partition a file split of
+    ``split_size`` (default the config's, else 32 MiB; reference
+    CanLoadBam.scala:281-334). Strict split starts are resolved on
+    ``device`` (CUDA unless named) before this returns."""
+    dev = resolve_device(device)
+    config = _with_split_size(config, split_size)
+    size = config.split_size_or(Config.LOAD_SPLIT_SIZE_DEFAULT)
+    policy = config.fault_policy
+    header = with_retries(lambda: read_header(path), policy, "read_header")
+    splits = with_retries(lambda: file_splits(path, size), policy,
+                          "file_splits")
+    starts = _strict_starts(path, splits, header, config, size, dev)
+    return Dataset(
+        splits,
+        lambda split: _iter_split_records(path, split, header, config,
+                                          starts.get(split, _UNRESOLVED)),
+        parallel, policy=policy)
+
+
+def _records_only(ds: Dataset) -> Dataset:
+    compute = ds.compute
+    return Dataset(ds.partitions, lambda p: (rec for _, rec in compute(p)),
+                   ds.parallel, policy=ds.policy)
+
+
+def load_bam(path, split_size=None, config: Config = Config(),
+             parallel: ParallelConfig = ParallelConfig(),
+             device=None) -> Dataset:
+    """The records of a BAM, one partition a file split (reference
+    CanLoadBam.scala:173-243)."""
+    return _records_only(load_reads_and_positions(path, split_size, config,
+                                                  parallel, device))
+
+
+def load_splits_and_reads(path, split_size=None, config: Config = Config(),
+                          parallel: ParallelConfig = ParallelConfig(),
+                          device=None) -> tuple[list[Split], Dataset]:
+    """The resolved splits (each partition's first record start to the
+    next one's, the last to ``Pos(file size, 0)``) and the records'
+    dataset (reference CanLoadBam.scala:245-279)."""
+    ds = load_reads_and_positions(path, split_size, config, parallel, device)
+    starts = [item[0] for item in ds.first_per_partition()
+              if item is not None]
+    eof = Pos(os.path.getsize(path), 0)
+    splits = [Split(start, starts[i + 1] if i + 1 < len(starts) else eof)
+              for i, start in enumerate(starts)]
+    return splits, _records_only(ds)
+
+
+def load_reads(path, split_size=None, config: Config = Config(),
+               parallel: ParallelConfig = ParallelConfig(),
+               device=None) -> Dataset:
+    """The records of a ``.bam`` (reference CanLoadBam.scala:348-382);
+    ``.sam`` and ``.cram`` need the loaders of ROADMAP Queue 1 item 16."""
+    s = str(path)
+    if s.endswith((".sam", ".cram")):
+        raise NotImplementedError(
+            f"load_reads of {s.rsplit('.', 1)[-1].upper()} needs the SAM and "
+            "CRAM loaders (ROADMAP Queue 1 item 16), which this port does "
+            "not have yet")
+    if s.endswith(".bam"):
+        return load_bam(path, split_size, config, parallel, device)
+    raise ValueError(f"Can't tell format of path: {s}")
+
+
+# ------------------------------------------------------------------ intervals
+def interval_chunks(path, loci: LociSet, header: BamHeader,
+                    config: Config = Config()) -> list[Chunk]:
+    """The ``.bai`` chunks overlapping ``loci`` (reference
+    getIntevalChunks, CanLoadBam.scala:387-421)."""
+    bai = BaiIndex.read(str(path) + ".bai")
+    name_to_idx = {name: idx for idx, name in enumerate(header.contig_names)}
+    chunks: list[Chunk] = []
+    for contig, ivs in loci.intervals.items():
+        if contig not in name_to_idx:
+            continue
+        ref = name_to_idx[contig]
+        if not ivs:
+            ivs = [(0, int(header.contig_lengths[ref]))]
+        for s, e in ivs:
+            chunks.extend(bai.query(ref, s, e))
+    chunks.sort(key=lambda c: (c.start, c.end))
+    return merge_chunks(chunks)
+
+
+def pack_chunks(chunks: list[Chunk], split_size: int, ratio: float
+                ) -> list[list[Chunk]]:
+    """Greedy size-capped grouping of chunks into partitions (the
+    reference's cappedCostGroups, CanLoadBam.scala:85-99)."""
+    groups: list[list[Chunk]] = []
+    cur: list[Chunk] = []
+    cur_cost = 0
+    for c in chunks:
+        cost = max(c.size(ratio), 1)
+        if cur and cur_cost + cost > split_size:
+            groups.append(cur)
+            cur, cur_cost = [], 0
+        cur.append(c)
+        cur_cost += cost
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+def load_bam_intervals(path, loci: "LociSet | str", split_size=None,
+                       config: Config = Config(),
+                       parallel: ParallelConfig = ParallelConfig()
+                       ) -> Dataset:
+    """The records of an indexed BAM that overlap ``loci`` (reference
+    CanLoadBam.scala:59-138): the ``.bai`` chunks packed into partitions
+    of about ``split_size``, each read from its chunks' starts on the
+    host. A ``.sam`` path needs the SAM loader (ROADMAP Queue 1 item
+    16)."""
+    if str(path).endswith(".sam"):
+        raise NotImplementedError(
+            "load_bam_intervals of SAM needs the SAM loader (ROADMAP Queue 1 "
+            "item 16), which this port does not have yet")
+    header = with_retries(lambda: read_header(path), config.fault_policy,
+                          "read_header")
+    if isinstance(loci, str):
+        loci = LociSet.parse(loci, header)
+    config = _with_split_size(config, split_size)
+    size = config.split_size_or(Config.LOAD_SPLIT_SIZE_DEFAULT)
+    groups = pack_chunks(interval_chunks(path, loci, header, config), size,
+                         config.estimated_compression_ratio)
+    names = header.contig_names
+
+    def overlaps(rec) -> bool:
+        # Unmapped reads (placed ones too) have no genomic region.
+        if rec.ref_id < 0 or rec.is_unmapped:
+            return False
+        return loci.overlaps(names[rec.ref_id], rec.pos, rec.end_pos())
+
+    def compute(group):
+        stream = SeekableRecordStream(
+            SeekableUncompressedBytes(SeekableBlockStream(open_channel(path))),
+            header)
+        try:
+            for chunk in group:
+                stream.seek(chunk.start)
+                for pos, rec in stream:
+                    if (pos.block_pos, pos.offset) >= (chunk.end.block_pos,
+                                                       chunk.end.offset):
+                        break
+                    if overlaps(rec):
+                        yield rec
+        finally:
+            stream.close()
+
+    return Dataset(groups, compute, parallel, policy=config.fault_policy)

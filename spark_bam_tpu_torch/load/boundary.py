@@ -25,14 +25,14 @@ that end unchecked, finds the split's first block on the host
   chain jumps. The scan then goes on past it on the device.
 
 Offsets before ``max_read_size`` only are scanned: none that passes there
-raises ``NoReadFoundException`` mid-file, and returns None at a clean EOF
+raises ``NoReadFoundException`` (the checker registry's, re-exported
+here) mid-file, and returns None at a clean EOF
 (the trailing split owns no record start). There is no confirmation
 pass: an offset ``check_window`` calls exact is exact by its contract.
 """
 
 from __future__ import annotations
 
-import struct
 import time
 from dataclasses import dataclass, field
 
@@ -45,6 +45,8 @@ from spark_bam_tpu_torch.bgzf.stream import (
     SeekableBlockStream,
     SeekableUncompressedBytes,
 )
+from spark_bam_tpu_torch.check.checker import NoReadFoundException
+from spark_bam_tpu_torch.check.eager import EagerChecker
 from spark_bam_tpu_torch.core.channel import open_channel
 from spark_bam_tpu_torch.core.pos import Pos
 from spark_bam_tpu_torch.device import resolve_device
@@ -57,20 +59,6 @@ FIRST_RUN = 128 << 10
 #: Lookahead behind an escaped offset past which the host engine resolves
 #: it (the reference's ``_NATIVE_SCAN_SLACK``).
 SCAN_SLACK = 64 << 20
-
-
-class NoReadFoundException(Exception):
-    """The scan budget (``max_read_size``) ran out mid-file without a
-    record start."""
-
-    def __init__(self, path, start, max_read_size: int):
-        super().__init__(
-            f"Failed to find a valid read-start in {max_read_size} attempts"
-            f" in {path} from {start}"
-        )
-        self.path = path
-        self.start = start
-        self.max_read_size = max_read_size
 
 
 @dataclass
@@ -154,77 +142,18 @@ def _first_hit(run: _Run, lo: int, hi: int, lens, num_contigs: int,
     return (lo + first, bool(esc)) if found else None
 
 
-#: Read-name alphabet: '!'..'~' without '@' (reference Checker.scala:12-17).
-_NAME_MIN, _NAME_MAX, _NAME_EXCLUDED = 0x21, 0x7E, 0x40
-
-
-def _wrap32(x: int) -> int:
-    x &= 0xFFFFFFFF
-    return x - 0x100000000 if x >= 0x80000000 else x
-
-
-def _trunc_div2(x: int) -> int:
-    """Int division by 2 truncating toward zero, as on the JVM."""
-    return -((-x) // 2) if x < 0 else x // 2
-
-
 def _seek_resolves(path, pos: Pos, lengths: np.ndarray, config) -> bool:
-    """Exact verdict at ``pos``: the reference's eager checker
-    (``check/eager.py``, Checker.scala:18-177), record by record through a
-    seekable stream. Each record's fixed fields, name and cigar are read
-    and the rest of it is skipped, so memory stays at the records read
-    and the stream's block cache, however far a length prefix points."""
-    u = SeekableUncompressedBytes(SeekableBlockStream(open_channel(path)))
-    nc = len(lengths)
-
-    def ref_pos_error(ref_idx: int, ref_pos: int) -> bool:
-        return (ref_idx < -1 or ref_idx >= nc or ref_pos < -1
-                or (ref_idx >= 0 and ref_pos > int(lengths[ref_idx])))
-
+    """Exact verdict at ``pos``: the host eager checker
+    (``check/eager.py``), record by record through a seekable stream, so
+    memory stays at the records read and the stream's block cache,
+    however far a length prefix points."""
+    checker = EagerChecker(
+        SeekableUncompressedBytes(SeekableBlockStream(open_channel(path))),
+        lengths, config.reads_to_check)
     try:
-        u.seek(pos)
-        start = 0
-        for successes in range(config.reads_to_check):
-            fixed = u.read(36)
-            if len(fixed) < 36:
-                # Zero bytes exactly at the record edge after at least one
-                # success is a clean EOF (reference :36-39).
-                return (not fixed and u.tell() == start and successes > 0)
-            (remaining, ref_idx, ref_pos, name_len_i32, flags_n_cigar,
-             seq_len, next_ref_idx, next_ref_pos, _tlen) = struct.unpack(
-                "<9i", fixed)
-            next_offset = start + 4 + remaining
-            if ref_pos_error(ref_idx, ref_pos):
-                return False
-            name_len = name_len_i32 & 0xFF
-            if name_len in (0, 1):
-                return False
-            flags = (flags_n_cigar >> 16) & 0xFFFF
-            n_cigar = flags_n_cigar & 0xFFFF
-            if (flags & 4) == 0 and (seq_len == 0 or n_cigar == 0):
-                return False
-            n_seq_qual = _wrap32(_trunc_div2(_wrap32(seq_len + 1)) + seq_len)
-            if remaining < _wrap32(32 + name_len + 4 * n_cigar + n_seq_qual):
-                return False
-            if ref_pos_error(next_ref_idx, next_ref_pos):
-                return False
-            name = u.read(name_len)
-            if (len(name) < name_len or name[-1] != 0
-                    or any(not (_NAME_MIN <= b <= _NAME_MAX)
-                           or b == _NAME_EXCLUDED for b in name[:-1])):
-                return False
-            cigar = u.read(4 * n_cigar)
-            if len(cigar) < 4 * n_cigar or any(
-                    cigar[4 * k] & 0xF > 8 for k in range(n_cigar)):
-                return False
-            # The logical cursor goes on from next_offset while reads go
-            # on from the physical one (reference :116-125).
-            if next_offset - u.tell() > 0:
-                u.skip(next_offset - u.tell())
-            start = next_offset
-        return True
+        return checker(pos)
     finally:
-        u.close()
+        checker.close()
 
 
 def next_read_start(path, block_start: int, header, config,

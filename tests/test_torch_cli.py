@@ -1,6 +1,7 @@
 """``python -m spark_bam_tpu_torch count-reads`` and ``full-check``: the
-output of the reference CLI (the standalone count, and ``full-check
---streaming`` byte for byte), and the refusal to run without CUDA."""
+output of the reference CLI (the default count, spark-bam's record path
+against hadoop-bam's, but for its times; ``full-check --streaming`` byte
+for byte), and the refusal to run without CUDA."""
 
 import io
 import os
@@ -27,22 +28,29 @@ def bam(tmp_path_factory):
     return p
 
 
+def _untimed(text: str) -> str:
+    return re.sub(r"(read-count time: )\d+", r"\1N", text)
+
+
 @pytest.mark.parametrize("iterations", [1, 2])
-def test_count_reads_output_format(bam, capsys, iterations):
+def test_count_reads_output_format(bam, capsys, tmp_path, iterations):
     assert cli.main(["count-reads", "-n", str(iterations), "--device", "cpu",
                      str(bam)]) == 0
-    lines = capsys.readouterr().out.split("\n")
+    got = capsys.readouterr().out
+    lines = got.split("\n")
     want = count_reads_streaming(bam, JaxConfig(), use_device=False)
     for i in range(iterations):
-        assert re.fullmatch(r"spark-bam read-count time: \d+", lines[3 * i])
-        assert lines[3 * i + 1] == f"Read count: {want}"
-        assert lines[3 * i + 2] == ""
-    funnel = lines[3 * iterations]
-    m = re.fullmatch(r"funnel: on \(auto\): (\d+) positions -> (\d+) "
-                     r"survivors, (\d+\.\d)x reduction", funnel)
-    assert m, funnel
-    assert int(m.group(1)) > int(m.group(2)) > 0
-    assert lines[3 * iterations + 1:] == ["", ""]
+        assert re.fullmatch(r"spark-bam read-count time: \d+", lines[5 * i])
+        assert re.fullmatch(r"hadoop-bam read-count time: \d+",
+                            lines[5 * i + 1])
+        assert lines[5 * i + 2] == ""
+        assert lines[5 * i + 3] == f"Read counts matched: {want}"
+        assert lines[5 * i + 4] == ""
+    assert lines[5 * iterations:] == [""]
+    out = tmp_path / "jax.txt"
+    assert jax_main(["count-reads", "-n", str(iterations), str(bam), "-o",
+                     str(out)]) == 0
+    assert _untimed(got) == _untimed(out.read_text())
 
 
 def test_funnel_line_without_stats():
@@ -93,10 +101,13 @@ def test_full_check_main_prints_report(bam, capsys, tmp_path):
 
 
 def test_count_reads_returns_count(bam):
+    from spark_bam_tpu.load.api import load_bam as jax_load_bam
+
     out = io.StringIO()
     got = cli.count_reads(bam, device="cpu", out=out)
     assert got == count_reads_streaming(bam, JaxConfig(), use_device=False)
-    assert f"Read count: {got}" in out.getvalue()
+    assert got == jax_load_bam(bam).count()
+    assert f"Read counts matched: {got}" in out.getvalue()
 
 
 def test_module_entry_point_refuses_without_cuda(bam):

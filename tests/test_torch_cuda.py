@@ -1325,3 +1325,55 @@ def test_export_job_beside_counting_clients_on_gpu(gpu, tmp_path):
     assert busy["result"]["rows"] == alone["result"]["rows"] == m["reads"]
     assert ((tmp_path / "busy.sbcr").read_bytes()
             == (tmp_path / "alone.sbcr").read_bytes())
+
+
+def test_record_path_on_gpu_equals_cpu(gpu, tmp_path):
+    """``load_reads_and_positions`` with its strict split starts resolved
+    on the card (``prefilter_check_flags`` launches) gives the CPU run's
+    records; ``load_splits_and_reads`` the CPU run's splits; the refused
+    record's BAM counts 601 either way."""
+    from spark_bam_tpu_torch.benchmarks.load_cases import write_refused_mid_bam
+    from spark_bam_tpu_torch.load import api
+
+    path = tmp_path / "b.bam"
+    synth_bam(path, 2 << 20, seed=8, unit_reads=1000)
+    for size in ("64KB", "256KB"):
+        K.reset_launch_counts()
+        got = api.load_reads_and_positions(path, size, device=gpu)
+        assert K.LAUNCHES["prefilter_check_flags"] > 0
+        want = api.load_reads_and_positions(path, size, device="cpu")
+        assert [(tuple(p), r.encode()) for p, r in got.collect()] == [
+            (tuple(p), r.encode()) for p, r in want.collect()]
+        splits, _ = api.load_splits_and_reads(path, size, device=gpu)
+        cpu_splits, _ = api.load_splits_and_reads(path, size, device="cpu")
+        assert splits == cpu_splits
+    refused = tmp_path / "refused.bam"
+    write_refused_mid_bam(refused)
+    assert api.load_bam(refused, "8KB", device=gpu).count() == 601
+
+
+def test_check_bam_eager_verdict_on_gpu_equals_cpu(gpu, tmp_path):
+    """check-bam's eager verdict at every position, on the card (the
+    ``full_check_flags`` kernel), equals the CPU plain run's, and the two
+    reports are equal."""
+    from spark_bam_tpu_torch import cli
+    from spark_bam_tpu_torch.bam.index_records import index_records
+    from spark_bam_tpu_torch.cli_app import CheckerContext
+
+    path = tmp_path / "b.bam"
+    synth_bam(path, 1 << 20, seed=9, unit_reads=700)
+    index_records(path)
+    K.reset_launch_counts()
+    card = CheckerContext(path, Config(), device=gpu).eager_result
+    assert K.LAUNCHES["full_check_flags"] > 0
+    cpu = CheckerContext(path, Config(), device="cpu").eager_result
+    for k in ("verdict", "fail_mask", "reads_before", "exact", "escaped"):
+        np.testing.assert_array_equal(getattr(card, k), getattr(cpu, k), k)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        for flags in ([], ["-s"]):
+            out = tmp_path / f"{dev}{len(flags)}.txt"
+            assert cli.main(["check-bam", *flags, "--device", dev, "-o",
+                             str(out), str(path)]) == 0
+            outs.append(out.read_text())
+    assert outs[:2] == outs[2:]

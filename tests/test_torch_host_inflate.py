@@ -341,24 +341,28 @@ def test_spark_bam_inflate_env_and_cli(bams, monkeypatch, capsys):
     assert JaxConfig.from_env().inflate == "host"
     calls = []
     real = pinf.tokenize_group
-    from spark_bam_tpu_torch.tpu import stream_check
+    from spark_bam_tpu_torch.parallel import stream_mesh
 
     def spy(*a, **kw):
         calls.append(1)
         return real(*a, **kw)
 
-    monkeypatch.setattr(stream_check, "tokenize_group", spy)
-    assert main(["count-reads", "--device", "cpu", bams["rand"]]) == 0
+    # The sharded count inflates on the device route (the default
+    # count-reads is the record path's load_bam, which reads with host
+    # zlib, as the reference's does).
+    sharded = ["count-reads", "--sharded", "--device", "cpu", "--devices",
+               "1"]
+    monkeypatch.setattr(stream_mesh, "tokenize_group", spy)
+    assert main([*sharded, bams["rand"]]) == 0
     env_out = capsys.readouterr().out
     assert calls
     monkeypatch.delenv("SPARK_BAM_INFLATE")
     calls.clear()
-    assert main(["count-reads", "--device", "cpu", "--inflate",
-                 "tokenize=host", bams["rand"]]) == 0
+    assert main([*sharded, "--inflate", "tokenize=host", bams["rand"]]) == 0
     assert calls
     flag_out = capsys.readouterr().out
     calls.clear()
-    assert main(["count-reads", "--device", "cpu", bams["rand"]]) == 0
+    assert main([*sharded, bams["rand"]]) == 0
     assert not calls
     plain_out = capsys.readouterr().out
     count = [ln for ln in plain_out.splitlines() if ln.startswith("Read")]

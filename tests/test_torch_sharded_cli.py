@@ -98,8 +98,19 @@ def test_check_bam_sharded_cache_probe(small, tmp_path, capsys, indexed):
 
 
 def test_cli_refuses_what_it_cannot_serve(small, capsys):
-    assert cli.main(["check-bam", "--device", "cpu", small]) == 2
-    assert "not ported" in capsys.readouterr().err
+    """check-bam without --sharded runs (eager against seqdoop); the
+    sharded path refuses -u and -i, and --resident with --sharded, as the
+    reference does."""
+    assert cli.main(["check-bam", "--device", "cpu", small]) == 0
+    out = capsys.readouterr().out
+    assert "uncompressed positions" in out
+    assert "funnel: off (auto: host engine, no device hot path)" in out
+    assert cli.main(["check-bam", "--sharded", "-u", "--device", "cpu",
+                     small]) == 2
+    assert "no sharded path" in capsys.readouterr().err
+    assert cli.main(["check-bam", "--sharded", "-i", "0-100", "--device",
+                     "cpu", small]) == 2
+    assert "not supported on the sharded path" in capsys.readouterr().err
     assert cli.main(["count-reads", "--sharded", "--resident", "--device",
                      "cpu", small]) == 2
     assert "mutually exclusive" in capsys.readouterr().err
