@@ -38,9 +38,10 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    ``lz77_resolve``) and fully flagged there (``full_check_flags``), then
    one pass over ``StreamChecker.full_spans``: its spans must tile the file
    and its zero masks past the header must number the generator's reads.
-   A small BAM of two windows is summarised on the card, on the card from
-   host-zlib windows (``device_inflate=False``) and with ``device="cpu"``
-   on host-zlib windows (the plain flag pass): equal summaries.
+   A 40 MiB BAM of two windows is summarised on the card and on the card
+   from host-zlib windows (``device_inflate=False``), and a 4 MiB BAM of
+   the same seed at 1 MiB windows on the card and with ``device="cpu"`` on
+   host-zlib windows (the plain flag pass): equal summaries.
 5. Long reads (60-110 kb) at a 256 KiB window and 64 KiB halo, which the
    chains outrun: both count loops must still be exact (through the escape
    retry), ``full_spans`` must defer, and the card's summary must equal
@@ -229,30 +230,46 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    ``tokenize=host`` = the generator's, no demotion, no ``tokenize``
    launch, one ``lz77_resolve`` a window, its wall beside phase 3's; (d)
    the 40 MiB BAM: ``inflate_file_device`` (both routes) = ``flatten_file``,
-   the full-check summary = phase 4's card and CPU summaries, the load's
+   the full-check summary = phase 4's card summary, the load's
    batches and the sharded count = the device route's; (e) the export of
    a refused record mid-file (``load_cases.write_refused_mid_bam``): 601
    rows in the writer's order, card = CPU byte for byte.
 
 17. The record path and the reference's check commands
-   (``record_phase``), on the 40 MiB BAM at 2 MiB splits: ``count-reads``
-   (``load_bam``, every strict split start resolved on the card by
-   ``prefilter_check_flags`` windows, against hadoop-bam's count: ``Read
-   counts matched``; its wall split into the split resolution and the
-   host record decode); ``load_splits_and_reads`` card = CPU;
-   ``check-bam`` default and ``-s`` against the ``.records`` sidecar, the
-   eager verdict from ``full_check_flags`` windows (its time beside the
-   seqdoop verdict's on the host) = phase 7's CPU plain run's starts and a
-   CPU plain check of the first MiB at every exact position;
-   ``check-blocks``; ``time-load`` and ``compare-splits`` on a 4 MiB BAM
-   of the same seed (with the refused record's BAM); ``index-bam`` of a
+   (``record_phase``), on the 40 MiB BAM at 2 MiB splits: ``load_bam``
+   (every strict split start resolved on the card by
+   ``prefilter_check_flags`` windows; its wall split into the split
+   resolution and the host record decode); ``load_splits_and_reads``
+   card = CPU; ``check-bam -s`` against the ``.records`` sidecar, the
+   eager verdict from ``full_check_flags`` windows = phase 7's CPU plain
+   run's starts and a CPU plain check of the first MiB at every exact
+   position; ``check-blocks -s``; on a 4 MiB BAM of the same seed the
+   ``count-reads`` CLI (``load_bam`` against hadoop-bam's count: ``Read
+   counts matched``), the default ``check-bam`` (the eager verdict against
+   seqdoop's), ``time-load`` and ``compare-splits`` (with the refused
+   record's BAM); ``index-bam`` of a
    sorted BAM and ``load_bam_intervals`` = a brute-force overlap; and
    ``count-reads`` of the refused record's BAM: 601. Every card launch of
    the two flag kernels there is held against its plain version on the
    same inputs.
 
+18. Remote bytes and hostile bytes (``remote_phase``): the 40 MiB BAM
+   served over HTTP by the in-process fake store
+   (``benchmarks/fakestore.py``, loopback only): the streaming count with
+   device inflate over the URL at 0 and 20 ms a request = the local count,
+   with the same launches of its three kernels, beside the local wall,
+   with the GETs, bytes and adaptive depth, and under ``--remote
+   mode=legacy``; ``full-check``'s summary over the URL = local;
+   ``load_bam`` over the URL (strict split starts on the card) = local;
+   the record path's count under ``--chaos 7:io=0.05`` with retries =
+   local; ``fuzz-decode --seed 0 --mutants 100 --formats bam,bgzf,sbi`` on
+   the card with no violation (its device boundary probe launches
+   ``prefilter_check_flags`` on every BAM mutant), its mutants a second,
+   launches and peak device memory. All four kernels are held against
+   their plain versions on the URL's bytes before and after the fuzz.
+
 Launch counters are set to 0 just before each main path (3, 4, 6, 7, 8,
-9, 10, 11, 12, 13, 14, 15, 16, 17) and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
+9, 10, 11, 12, 13, 14, 15, 16, 17, 18) and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
 and, last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero; without CUDA, or without the package beside
 it, it exits non-zero before printing a result.
@@ -261,6 +278,7 @@ it, it exits non-zero before printing a result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -3125,7 +3143,8 @@ def host_tokenize_phase(port, bam, manifest, small, small_manifest,
     s_host = port.full_check_summary_streaming(small,
                                                port.Config(inflate=host))
     require(summaries_equal(s_host, summary_card)
-            and summaries_equal(s_host, summary_cpu),
+            and (summary_cpu is None
+                 or summaries_equal(s_host, summary_cpu)),
             "tokenize=host full-check summary differs")
 
     def load_rows(cfg):
@@ -3155,7 +3174,7 @@ def host_tokenize_phase(port, bam, manifest, small, small_manifest,
     small_launches = dict(K.LAUNCHES)
     log(f"40 MiB BAM tokenize=host on the card: inflate_file_device = the "
         f"device route's = flatten_file; full-check summary = the device "
-        f"route's (phase 4) = the CPU's; load batches = the device route's "
+        f"route's (phase 4); load batches = the device route's "
         f"({n_rows} rows = the generator's); sharded count {sh} = the "
         f"device route's; launches {small_launches}; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3279,8 +3298,13 @@ def record_phase(port, small, small_manifest, small_starts, work,
         K.reset_launch_counts()
 
     try:
-        # (a) count-reads at 2 MiB splits: load_bam (every strict split
-        # start resolved on the card before the partitions) against hadoop-bam.
+        # (a) load_bam at 2 MiB splits (every strict split start resolved
+        # on the card before the partitions), then the CLI's count-reads
+        # (load_bam against hadoop-bam) on a 4 MiB BAM of the same seed:
+        # hadoop-bam's seqdoop pass over the 40 MiB BAM (13-20 s) is a depth
+        # cut (PERF.md §4).
+        mid = work / "mid17.bam"
+        mid_reads = synth_bam(mid, 4 << 20, seed=8)["reads"]
         resolving = []
         real_starts = api._strict_starts
 
@@ -3294,30 +3318,39 @@ def record_phase(port, small, small_manifest, small_starts, work,
         boundary.STATS.reset()
         K.reset_launch_counts()
         try:
-            text = run_cli("count-reads", "-m", "2MB", str(small))
+            t0 = time.perf_counter()
+            n_load = api.load_bam(small, "2MB", device=dev).count()
+            spark_ms = (time.perf_counter() - t0) * 1e3
         finally:
             api._strict_starts = real_starts
         note("record_count_reads")
-        spark_ms = int(re.search(r"spark-bam read-count time: (\d+)",
-                                 text).group(1))
-        hadoop_ms = int(re.search(r"hadoop-bam read-count time: (\d+)",
-                                  text).group(1))
-        require(f"Read counts matched: {reads}" in text.splitlines(), text)
+        stats = boundary.STATS
+        resolved = (stats.resolutions, stats.windows, stats.boundary_demotions,
+                    [round(x, 2) for x in stats.ms])
+        require(n_load == reads, (n_load, reads))
         require(out["record_count_reads"]["prefilter_check_flags"] > 0,
                 out["record_count_reads"])
+        text = run_cli("count-reads", "-m", "512KB", str(mid))
+        note("record_count_reads_cli")
+        hadoop_ms = int(re.search(r"hadoop-bam read-count time: (\d+)",
+                                  text).group(1))
+        require(f"Read counts matched: {mid_reads}" in text.splitlines(),
+                text)
+        require(out["record_count_reads_cli"]["prefilter_check_flags"] > 0,
+                out["record_count_reads_cli"])
         resolve_s = resolving[0]
         decode_s = spark_ms / 1e3 - resolve_s
-        log(f"count-reads -m 2MB, 40 MiB BAM: Read counts matched: {reads}; "
-            f"spark-bam (load_bam) {spark_ms} ms = {reads / spark_ms * 1e3:.0f}"
+        log(f"load_bam -m 2MB, 40 MiB BAM: {reads} reads; "
+            f"{spark_ms:.0f} ms = {reads / spark_ms * 1e3:.0f}"
             f" reads/s: split resolution on the card {resolve_s:.3f} s "
-            f"({resolve_s / (spark_ms / 1e3):.1%}; "
-            f"{boundary.STATS.resolutions} boundaries, "
-            f"{boundary.STATS.windows} check_window calls, "
-            f"{boundary.STATS.boundary_demotions} demotions, ms each "
-            f"{[round(x, 2) for x in boundary.STATS.ms]}), record decode "
+            f"({resolve_s / (spark_ms / 1e3):.1%}; {resolved[0]} boundaries, "
+            f"{resolved[1]} check_window calls, {resolved[2]} demotions, ms "
+            f"each {resolved[3]}), record decode "
             f"and executor {decode_s:.3f} s ({reads / decode_s:.0f} records/s, "
-            f"{decode_s / reads * 1e6:.1f} us a record); hadoop-bam "
-            f"{hadoop_ms} ms; launches {out['record_count_reads']} ({card})")
+            f"{decode_s / reads * 1e6:.1f} us a record); launches "
+            f"{out['record_count_reads']}; count-reads -m 512KB of the 4 MiB "
+            f"BAM: Read counts matched: {mid_reads}, hadoop-bam {hadoop_ms} "
+            f"ms ({card})")
 
         # (b) load_splits_and_reads: the card's splits = the CPU's.
         t0 = time.perf_counter()
@@ -3334,8 +3367,8 @@ def record_phase(port, small, small_manifest, small_starts, work,
             f"(card {card_s:.3f} s, CPU plain {cpu_s:.3f} s); launches "
             f"{out['record_load_splits']}")
 
-        # (c) check-bam, default and -s: the eager verdict at every position
-        # from full_check_flags windows on the card.
+        # (c) check-bam -s: the eager verdict at every position from
+        # full_check_flags windows on the card, against the .records truth.
         if not Path(f"{small}.records").exists():
             index_records(small)
         report = io.StringIO()
@@ -3347,18 +3380,22 @@ def record_phase(port, small, small_manifest, small_starts, work,
         eager = ctx.eager_result
         sync(dev)
         eager_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ctx.seqdoop_verdict
-        seqdoop_s = time.perf_counter() - t0
         note("record_check_bam")
-        cli_app.check_bam(ctx)
         cli_app.check_bam(ctx, spark_bam=True)
         lines = report.getvalue().splitlines()
-        require(lines.count(f"{reads} reads") == 2, lines[:12])
-        require("All calls matched!" in lines[lines.index(
-            f"{reads} reads", 4):], "eager against the .records truth")
+        require(lines.count(f"{reads} reads") == 1, lines[:12])
+        require("All calls matched!" in lines,
+                "eager against the .records truth")
         require(out["record_check_bam"]["full_check_flags"] > 0,
                 out["record_check_bam"])
+        # The default report (the eager verdict against seqdoop's host
+        # pass) on the 4 MiB BAM: seqdoop over 40 MiB (11-13 s) is a depth
+        # cut (PERF.md §4).
+        t0 = time.perf_counter()
+        default = run_cli("check-bam", str(mid))
+        default_s = time.perf_counter() - t0
+        note("record_check_bam_default")
+        require("All calls matched!" in default.splitlines(), default)
         # The CPU plain run's verdict: phase 7's whole-file check on the
         # CPU (its record starts), and a plain check of the first MiB.
         header_end = read_header(small).uncompressed_size
@@ -3375,22 +3412,24 @@ def record_phase(port, small, small_manifest, small_starts, work,
         for k in ("verdict", "fail_mask", "reads_before"):
             require(np.array_equal(getattr(plain, k)[exact],
                                    getattr(eager, k)[:head][exact]), k)
-        log(f"check-bam, 40 MiB BAM ({ctx.view.size} positions): eager "
+        log(f"check-bam -s, 40 MiB BAM ({ctx.view.size} positions): eager "
             f"verdict on the card {eager_s:.3f} s (full_check_flags "
             f"{out['record_check_bam']['full_check_flags']} launches, its "
-            f"host recheck included) against the seqdoop verdict on the host "
-            f"{seqdoop_s:.3f} s; = the CPU plain run's starts (phase 7) and "
-            f"its first MiB at every exact position; default report "
-            f"{lines[4:6]}; -s: all calls matched ({card})")
+            f"host recheck included) = the CPU plain run's starts (phase 7) "
+            f"and its first MiB at every exact position, all calls matched "
+            f"the .records truth; check-bam of the 4 MiB BAM (eager against "
+            f"seqdoop on the host) {default_s:.3f} s: all calls matched "
+            f"({card})")
 
-        # (d) check-blocks on the same context.
+        # (d) check-blocks -s on the same context (the eager checker
+        # against the .records truth; seqdoop's pass is (c)'s cut).
         blocks_out = io.StringIO()
         ctx.printer = cli_app.Printer(out=blocks_out)
         t0 = time.perf_counter()
-        cli_app.check_blocks(ctx)
+        cli_app.check_blocks(ctx, spark_bam=True)
         blocks_s = time.perf_counter() - t0
         require("BGZF blocks" in blocks_out.getvalue(), blocks_out.getvalue())
-        log(f"check-blocks {blocks_s:.3f} s: "
+        log(f"check-blocks -s {blocks_s:.3f} s: "
             f"{blocks_out.getvalue().splitlines()[0]}")
         del ctx, eager
 
@@ -3398,8 +3437,6 @@ def record_phase(port, small, small_manifest, small_starts, work,
         # BAM) on a 4 MiB BAM of the same seed at 512 KiB splits: each
         # hadoop-bam leg runs the seqdoop guesser over its whole file (the
         # 40 MiB BAM's was a depth cut, PERF.md §4).
-        mid = work / "mid17.bam"
-        synth_bam(mid, 4 << 20, seed=8)
         text = run_cli("time-load", "-m", "512KB", str(mid))
         note("record_time_load")
         require("threw" not in text and "partition-start reads matched"
@@ -3475,6 +3512,257 @@ def record_phase(port, small, small_manifest, small_starts, work,
         f"(calls, max_abs_err): {errs}; phase 17 "
         f"{time.perf_counter() - t_phase:.1f} s")
     return out, errs
+
+
+def _hold_four(url, K, dev) -> dict:
+    """The four kernels on remote bytes, each against its plain version on
+    the same inputs: the first window group of ``small``'s blocks, staged
+    from ``url`` (the fake store), through ``tokenize`` and
+    ``lz77_resolve``, and the first 1 MiB of its host-zlib bytes (read over
+    ``url`` too) through both flag kernels. ``{name: max_abs_err}``; the
+    kernels' launches here are comparisons, outside every path's count."""
+    from spark_bam_tpu_torch.bam.header import read_header
+    from spark_bam_tpu_torch.bgzf.flat import inflate_blocks
+    from spark_bam_tpu_torch.bgzf.index_blocks import blocks_metadata
+    from spark_bam_tpu_torch.core.channel import open_channel
+    from spark_bam_tpu_torch.device import sync
+    from spark_bam_tpu_torch.tpu.inflate import stage_group_device, window_plan
+    from spark_bam_tpu_torch.tpu.stream_check import pad_contig_lengths
+    from spark_bam_tpu_torch.tpu.tokenize_device import tokenize_plain
+
+    metas = blocks_metadata(url)
+    group = window_plan(metas, 1 << 20)[0]
+    with open_channel(url) as ch:
+        staged, clens, usizes = stage_group_device(ch, group, dev)
+        flat = inflate_blocks(ch, group).data
+    k_tok = K.tokenize(staged, clens)
+    p_tok = tokenize_plain(staged.cpu(), clens.cpu())
+    errs = {"tokenize": max_abs_err(zip(k_tok, p_tok))}
+    k_res, _ = K.lz77_resolve(k_tok[0], k_tok[1])
+    p_res, _ = K._resolve_body(k_tok[0], k_tok[1])
+    errs["lz77_resolve"] = max_abs_err([(k_res, p_res)])
+    got = k_res.cpu().numpy()
+    start = 0
+    for r, n in enumerate(usizes):
+        require(np.array_equal(got[r, :n], flat[start: start + n]),
+                f"resolved row {r} of the URL's bytes differs from host zlib")
+        start += n
+    w = 1 << 20
+    n = min(w, len(flat))
+    padded = torch.zeros(w + K.PAD, dtype=torch.uint8, device=dev)
+    padded[:n] = torch.from_numpy(flat[:n]).to(dev)
+    lengths = read_header(url).contig_lengths
+    lens = torch.from_numpy(pad_contig_lengths(lengths)).to(dev)
+    nc = len(lengths)
+    k_pre = K.prefilter_check_flags(padded, lens, nc, n)
+    p_pre = K._prefilter_compact(padded, lens, nc, n, K.lane_capacity(w))
+    errs["prefilter_check_flags"] = max_abs_err(zip(k_pre, p_pre))
+    k_full = K.full_check_flags(padded, lens, nc, n)
+    errs["full_check_flags"] = max_abs_err(
+        [(k_full, K._compute_flags(padded, lens, nc, n))])
+    sync(dev)
+    for name, err in errs.items():
+        require(err == 0, f"{name} differs from plain on remote bytes: {err}")
+    return errs
+
+
+def remote_phase(port, small, small_manifest, local_summary, card
+                 ) -> tuple[dict, dict, dict]:
+    """Phase 18, remote bytes and hostile bytes on the card. The 40 MiB
+    BAM is served over HTTP by the in-process fake store
+    (``benchmarks/fakestore.py``, loopback): (a) the streaming count with
+    device inflate over the URL at 0 and 20 ms a request, each = the local
+    count with the same launches of its three kernels, beside the local
+    wall, with its GETs, bytes and the adaptive depth reached, and at 20
+    ms under ``--remote mode=legacy``; (b) ``full-check``'s summary over
+    the URL = the local one; (c) ``load_bam`` over the URL (strict split
+    starts on the card) = the local count; (d) the record path's count
+    under ``--chaos 7:io=0.05`` with retries = the local count; (e)
+    ``fuzz-decode --seed 0 --mutants 100 --formats bam,bgzf,sbi`` on the
+    card: no violation, its mutants a second, launches and peak device
+    memory. The four kernels are held against their plain versions on the
+    URL's bytes before and after the fuzz (a poisoned context would fail
+    the second), and every flag-kernel launch of (a)-(e) is held against
+    its plain version too. Returns the launches of each path, the held
+    errors and the phase's numbers."""
+    from spark_bam_tpu_torch import obs
+    from spark_bam_tpu_torch.benchmarks.fakestore import FakeObjectStore
+    from spark_bam_tpu_torch.core import faults
+    from spark_bam_tpu_torch.core.remote_plan import set_remote_config
+    from spark_bam_tpu_torch.device import sync
+    from spark_bam_tpu_torch.load import api
+    from spark_bam_tpu_torch.tools import fuzz_decode
+    from spark_bam_tpu_torch.tpu import checker as checker_mod
+    from spark_bam_tpu_torch.tpu import kernels as K
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    reads = small_manifest["reads"]
+    data = Path(small).read_bytes()
+    out: dict = {}
+    errs: dict = {}
+    nums: dict = {}
+    held, restore = _held_kernels(checker_mod, K)
+
+    def note(path: str) -> None:
+        sync(dev)
+        out[path] = dict(K.LAUNCHES)
+        for name, (calls, err) in held().items():
+            n_prev, e_prev = errs.get(name, (0, 0))
+            errs[name] = (n_prev + calls, max(e_prev, err))
+            require(err == 0, f"{name} differs from plain on {path}: {err}")
+        K.reset_launch_counts()
+
+    def count(path) -> tuple[int, float]:
+        sync(dev)
+        t0 = time.perf_counter()
+        n = port.StreamChecker(path, port.Config(),
+                               device=dev).count_reads()
+        sync(dev)
+        return n, time.perf_counter() - t0
+
+    try:
+        stores = {ms: FakeObjectStore(data, key="small.bam",
+                                      latency_s=ms / 1e3)
+                  for ms in (0, 20)}
+        urls = {ms: f"{s.url_base}/bucket/small.bam"
+                for ms, s in stores.items()}
+        before = _hold_four(urls[0], K, dev)
+        K.reset_launch_counts()
+
+        # (a) the streaming count: local, then over the URL at 0 / 20 ms.
+        count(small)    # warm
+        K.reset_launch_counts()
+        local_n, local_s = count(small)
+        note("remote_count_local")
+        require(local_n == reads, (local_n, reads))
+        walls = {}
+        for ms, url in urls.items():
+            store = stores[ms]
+            n0 = store.stats["requests"]
+            reg = obs.configure()
+            try:
+                got, wall = count(url)
+                gets = reg.counter("remote.gets").value
+                fetched = reg.counter("remote.bytes").value
+                depth = reg.gauge("remote.depth").max or 8
+                stalls = reg.counter("remote.stalls").value
+            finally:
+                obs.shutdown()
+            note(f"remote_count_{ms}ms")
+            require(got == reads, (ms, got, reads))
+            for name in COUNT_KERNELS:
+                require(out[f"remote_count_{ms}ms"][name]
+                        == out["remote_count_local"][name],
+                        (ms, name, out[f"remote_count_{ms}ms"],
+                         out["remote_count_local"]))
+            walls[ms] = wall
+            nums[f"count_{ms}ms"] = dict(
+                wall_s=wall, local_s=local_s, ratio=wall / local_s,
+                requests=store.stats["requests"] - n0, gets=gets,
+                bytes=fetched, file_bytes=len(data), depth=depth,
+                stalls=stalls)
+            log(f"count over the URL at {ms} ms a request: {got} reads = "
+                f"local, wall {wall:.3f} s against the local {local_s:.3f} s "
+                f"({wall / local_s:.2f}x); {store.stats['requests'] - n0} "
+                f"requests ({gets} planned GETs, {fetched} bytes of "
+                f"{len(data)}), adaptive depth reached {depth}, {stalls} "
+                f"stalls; launches {out[f'remote_count_{ms}ms']} = local "
+                f"({card})")
+        set_remote_config("mode=legacy")
+        try:
+            got, legacy_s = count(urls[20])
+        finally:
+            set_remote_config(None)
+        note("remote_count_legacy_20ms")
+        require(got == reads, (got, reads))
+        nums["count_legacy_20ms"] = dict(wall_s=legacy_s,
+                                         ratio=legacy_s / local_s)
+        log(f"count over the URL at 20 ms, --remote mode=legacy: "
+            f"{legacy_s:.3f} s ({legacy_s / local_s:.2f}x local, "
+            f"{legacy_s / walls[20]:.2f}x the planned channel); no plan "
+            f"at all reads as a whole-file plan here (the block table is "
+            f"contiguous)")
+
+        # (b) full-check's summary over the URL = local (phase 4's).
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        url_sum = port.full_check_summary_streaming(urls[0], port.Config(),
+                                                    device=dev)
+        fc_url_s = time.perf_counter() - t0
+        note("remote_full_check")
+        require(summaries_equal(url_sum, local_summary),
+                "full-check summary over the URL differs from local")
+        require(out["remote_full_check"]["full_check_flags"] > 0,
+                out["remote_full_check"])
+        log(f"full-check over the URL = local (phase 4's) in {fc_url_s:.3f} "
+            f"s; launches {out['remote_full_check']}")
+
+        # (c) load_bam over the URL, strict split starts on the card.
+        t0 = time.perf_counter()
+        n_load = api.load_bam(urls[0], "2MB", device=dev).count()
+        load_s = time.perf_counter() - t0
+        note("remote_load_bam")
+        require(n_load == reads, (n_load, reads))
+        require(out["remote_load_bam"]["prefilter_check_flags"] > 0,
+                out["remote_load_bam"])
+        log(f"load_bam over the URL at 2 MiB splits: {n_load} records = "
+            f"local in {load_s:.3f} s; launches {out['remote_load_bam']}")
+
+        # (d) the record path's count under seeded channel faults.
+        with faults.chaos("7:io=0.05") as state:
+            ds = api.load_bam(urls[0], "2MB",
+                              port.Config(faults="retries=6,backoff=0.01"),
+                              device=dev)
+            n_chaos = ds.count()
+            report = ds.last_report
+        note("remote_chaos_count")
+        require(n_chaos == reads, (n_chaos, reads))
+        require(state.injected["io"] > 0, state.injected)
+        log(f"--chaos 7:io=0.05 count over the URL: {n_chaos} = local; "
+            f"injected {state.injected}, {report.summary()}; launches "
+            f"{out['remote_chaos_count']}")
+
+        # (e) the decode fuzz on the card.
+        t0 = time.perf_counter()
+        summary = fuzz_decode.run_fuzz(seed=0, mutants_per_format=100,
+                                       formats=("bam", "bgzf", "sbi"),
+                                       device=dev)
+        fuzz_s = time.perf_counter() - t0
+        note("remote_fuzz")
+        require(summary["violations"] == [], summary["violations"][:3])
+        require(out["remote_fuzz"]["prefilter_check_flags"] > 0,
+                out["remote_fuzz"])
+        device = summary["device"]
+        require(device["launches"].get("prefilter_check_flags", 0) > 0,
+                device)
+        nums["fuzz"] = dict(seconds=fuzz_s,
+                            mutants_per_s=summary["mutants_per_s"],
+                            peak_bytes=device["peak_bytes"],
+                            launches=device["launches"],
+                            counts=summary["counts"],
+                            probes=summary["probes"])
+        log(f"fuzz-decode --seed 0 --mutants 100 --formats bam,bgzf,sbi on "
+            f"the card: no violation, {fuzz_s:.1f} s, "
+            f"{summary['mutants_per_s']:.1f} mutants/s, peak device memory "
+            f"{device['peak_bytes']} bytes above the "
+            f"{device['live_at_start_bytes']} live at its start, launches "
+            f"{device['launches']}; counts {summary['counts']}; "
+            f"device probes {summary['probes']}")
+        after = _hold_four(urls[0], K, dev)
+        K.reset_launch_counts()
+        for name, err in after.items():
+            n_prev, e_prev = errs.get(name, (0, 0))
+            errs[name] = (n_prev, max(e_prev, err, before[name]))
+        log(f"the four kernels on the URL's bytes against plain before the "
+            f"fuzz {before} and after it {after}: the context is sound")
+        for s in stores.values():
+            s.close()
+    finally:
+        restore()
+    log(f"phase 18 kernels held against plain (calls, max_abs_err): {errs}; "
+        f"phase 18 {time.perf_counter() - t_phase:.1f} s")
+    return out, errs, nums
 
 
 def main() -> int:
@@ -3916,23 +4204,31 @@ def main() -> int:
         host_zlib = port.full_check_summary_streaming(
             small, port.Config(device_inflate=False))
         host_zlib_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        # The CPU leg inflates with host zlib: the device inflate's plain
-        # versions ran on the first window above (a depth cut: PERF.md §4).
-        on_cpu = port.full_check_summary_streaming(
-            small, port.Config(device_inflate=False), device="cpu")
-        cpu_s = time.perf_counter() - t0
-        small_windows = len(port.StreamChecker(
-            small, port.Config(), device="cpu").pipeline.groups)
-        require(small_windows >= 2, small_windows)
-        require(summaries_equal(on_card, on_cpu), "card and CPU summaries "
-                                                  "differ")
         require(summaries_equal(on_card, host_zlib),
                 "device-inflated and host-zlib summaries differ")
-        log(f"full-check card vs CPU: {small_manifest['uncompressed_bytes']} "
-            f"bytes, {small_windows} windows, equal summaries; card "
-            f"{card_s:.3f} s, card from host-zlib windows {host_zlib_s:.3f} "
-            f"s, CPU (plain versions on host-zlib windows) {cpu_s:.3f} s")
+        # Card = CPU on a 4 MiB BAM of the same seed at 1 MiB windows: the
+        # CPU leg inflates with host zlib (the device inflate's plain
+        # versions ran on the first window above), and the 40 MiB BAM's
+        # CPU leg (22.7 s) is a depth cut (PERF.md §4).
+        cut = work / "cut4.bam"
+        synth_bam(cut, 4 << 20, seed=8)
+        geo = port.Config(window_size=1 << 20, halo_size=256 << 10)
+        cut_card = port.full_check_summary_streaming(cut, geo)
+        t0 = time.perf_counter()
+        cut_cpu = port.full_check_summary_streaming(
+            cut, dataclasses.replace(geo, device_inflate=False),
+            device="cpu")
+        cpu_s = time.perf_counter() - t0
+        cut_windows = len(port.StreamChecker(
+            cut, geo, device="cpu").pipeline.groups)
+        require(cut_windows >= 2, cut_windows)
+        require(summaries_equal(cut_card, cut_cpu), "card and CPU summaries "
+                                                    "differ")
+        cut.unlink()
+        log(f"full-check, 40 MiB BAM: card {card_s:.3f} s = card from "
+            f"host-zlib windows {host_zlib_s:.3f} s; card vs CPU on a 4 MiB "
+            f"BAM, {cut_windows} windows of 1 MiB: equal summaries, CPU "
+            f"(plain versions on host-zlib windows) {cpu_s:.3f} s")
 
         phase_done("4 (full-check)")
         # ---- long reads: chains outrun a 64 KiB halo ---------------------
@@ -4022,7 +4318,7 @@ def main() -> int:
 
         phase_done("15 (jobs)")
         host_launches, host_split = host_tokenize_phase(
-            port, bam, manifest, small, small_manifest, on_card, on_cpu,
+            port, bam, manifest, small, small_manifest, on_card, None,
             work, card, fused_s)
 
         phase_done("16 (host tokenizer)")
@@ -4030,6 +4326,11 @@ def main() -> int:
             port, small, small_manifest, small_starts, work, card)
 
         phase_done("17 (record path)")
+        remote_launches, remote_errs, remote_nums = remote_phase(
+            port, small, small_manifest, on_card, card)
+        log(f"phase 18 numbers: {json.dumps(remote_nums)}")
+
+        phase_done("18 (remote and fuzz)")
         for row in rows:
             row["launches"] = launches[row["name"]]
             row["launches_by_path"] = {
@@ -4056,7 +4357,13 @@ def main() -> int:
                    for path, n in host_launches.items()},
                 **{path: n[row["name"]]
                    for path, n in record_launches.items()},
+                **{path: n[row["name"]]
+                   for path, n in remote_launches.items()},
             }
+            if row["name"] in remote_errs:
+                calls, err = remote_errs[row["name"]]
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                row["remote_path_calls_held"] = calls
             if row["name"] in record_errs:
                 calls, err = record_errs[row["name"]]
                 row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -4076,7 +4383,8 @@ def main() -> int:
                                 *fabric_launches.items(),
                                 *jobs_launches.items(),
                                 *host_launches.items(),
-                                *record_launches.items())}
+                                *record_launches.items(),
+                                *remote_launches.items())}
             row["launches_note"] = JOBS_NOTE
         log("phase walls (s): " + ", ".join(
             f"{label} {wall:.1f}" for label, wall in phase_walls))

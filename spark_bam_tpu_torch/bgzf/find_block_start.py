@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from spark_bam_tpu_torch.bgzf.block import HEADER_SIZE, MAX_BLOCK_SIZE, BgzfError, parse_header
+from spark_bam_tpu_torch.core.guard import MalformedInputError
 
 
 class HeaderSearchFailedException(Exception):
@@ -31,7 +32,8 @@ class HeaderSearchFailedException(Exception):
 def _check_chain(ch, pos: int, n: int) -> None:
     """Parse up to ``n`` consecutive headers from ``pos``; EOF after the
     first is fine (the reference's ``MetadataStream.take(n)``). Raises
-    ``BgzfError`` or ``EOFError`` when ``pos`` is no block start."""
+    ``MalformedInputError``, ``BgzfError`` or ``EOFError`` when ``pos``
+    is no block start."""
     for i in range(n):
         head = ch.read_at(pos, HEADER_SIZE)
         if len(head) < HEADER_SIZE:
@@ -61,7 +63,7 @@ def find_block_start(ch, start: int, bgzf_blocks_to_check: int = 5,
             try:
                 _check_chain(ch, start + off, bgzf_blocks_to_check)
                 return start + off
-            except (BgzfError, EOFError):
+            except (BgzfError, MalformedInputError, EOFError):
                 continue
     raise HeaderSearchFailedException(path, start,
                                       min(MAX_BLOCK_SIZE, size - start))

@@ -1,11 +1,16 @@
-"""Block metadata of a local BGZF file (reference ``spark_bam_tpu/bgzf/
+"""Block metadata of a BGZF file or URL (reference ``spark_bam_tpu/bgzf/
 index_blocks.py``): by a header walk, from a ``.blocks`` sidecar, or from
 the ``.sbi`` cache's block section.
 
-``blocks_metadata`` keeps the reference's precedence for local files: a
+``blocks_metadata`` keeps the reference's precedence: for a local file a
 ``.blocks`` sidecar that checks out against the file, else the ``.sbi``
 tier (fingerprint-validated, when ``Config.cache`` reads), else the walk,
-written through to the ``.sbi`` tier when ``Config.cache`` writes.
+written through to the ``.sbi`` tier when ``Config.cache`` writes; for a
+URL the ``.sbi`` tier first (a warm hit costs the fingerprint's one GET,
+where the sidecar probe alone is a round trip to a file that is usually
+absent), then the sidecar, then the walk. Over a URL the walk's two small
+reads a block are served by the remote channel's whole-file plan
+(``core/remote_plan.py``): a few large GETs, not two round trips a block.
 ``index_blocks`` writes the ``.blocks`` sidecar: one
 ``start,compressedSize,uncompressedSize`` line per block (reference
 IndexBlocks.scala:11-52).
@@ -24,7 +29,13 @@ from spark_bam_tpu_torch.bgzf.block import (
     Metadata,
     parse_header,
 )
-from spark_bam_tpu_torch.core.channel import open_channel
+from spark_bam_tpu_torch.core.channel import (
+    is_url,
+    open_channel,
+    path_exists,
+    path_size,
+    read_text,
+)
 
 log = logging.getLogger(__name__)
 
@@ -69,8 +80,8 @@ def parse_block_line(line: str) -> Metadata:
 
 
 def read_blocks_index(path) -> list[Metadata]:
-    with open(path) as f:
-        return [parse_block_line(line) for line in f if line.strip()]
+    return [parse_block_line(line) for line in read_text(path).splitlines()
+            if line.strip()]
 
 
 def index_blocks(bam_path, out_path=None) -> tuple[str, int]:
@@ -116,25 +127,35 @@ def validate_blocks_index(blocks: list[Metadata], file_size: int
 
 def blocks_metadata(path, strict: bool = False, config=None
                     ) -> list[Metadata]:
-    """All block ``Metadata`` of a local BAM: from a ``.blocks`` sidecar
-    consistent with the file, else the ``.sbi`` tier, else by the walk
-    (written through to the ``.sbi`` tier). ``strict`` raises
-    ``StaleBlocksIndexError`` on a stale sidecar instead of rescanning."""
+    """All block ``Metadata`` of a BAM: from a ``.blocks`` sidecar
+    consistent with the file, else the ``.sbi`` tier (a URL asks that tier
+    first), else by the walk (written through to the ``.sbi`` tier).
+    ``strict`` raises ``StaleBlocksIndexError`` on a stale sidecar instead
+    of rescanning."""
     from spark_bam_tpu_torch.sbi.store import cached_blocks, store_blocks
 
+    remote = is_url(str(path))
+    if remote:
+        blocks = cached_blocks(path, config)
+        if blocks is not None:
+            return blocks
     sidecar = str(path) + ".blocks"
-    if os.path.exists(sidecar):
+    if path_exists(sidecar):
         blocks = read_blocks_index(sidecar)
-        reason = validate_blocks_index(blocks, os.path.getsize(path))
+        reason = validate_blocks_index(blocks, path_size(path))
         if reason is None:
             return blocks
         if strict:
             raise StaleBlocksIndexError(f"{sidecar}: {reason}")
         log.warning("ignoring stale .blocks sidecar %s (%s); rescanning",
                     sidecar, reason)
-    blocks = cached_blocks(path, config)
-    if blocks is not None:
-        return blocks
+    if not remote:
+        blocks = cached_blocks(path, config)
+        if blocks is not None:
+            return blocks
     blocks = scan_blocks(path)
-    store_blocks(path, blocks, config)
+    try:
+        store_blocks(path, blocks, config)
+    except Exception:  # the write-through accelerates; it never fails a run
+        log.debug("block-table write-through failed", exc_info=True)
     return blocks

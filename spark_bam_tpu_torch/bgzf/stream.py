@@ -35,6 +35,7 @@ from spark_bam_tpu_torch.bgzf.block import (
     HEADER_SIZE,
     BgzfError,
     Metadata,
+    check_isize,
     parse_header,
 )
 from spark_bam_tpu_torch.core import guard
@@ -72,10 +73,10 @@ def read_block(ch, start: int) -> tuple[bytes, int] | None:
     if len(block) != csize:
         return None
     payload = block[header_size: csize - FOOTER_SIZE]
+    isize = check_isize(int.from_bytes(block[csize - 4:], "little"), start)
     if len(payload) == 2:
         return None
     crc = int.from_bytes(block[csize - 8: csize - 4], "little")
-    isize = int.from_bytes(block[csize - 4:], "little")
     data = inflate_block_payload(payload, isize)
     if zlib.crc32(data) & 0xFFFFFFFF != crc:
         raise BlockCorruptionError(

@@ -15,7 +15,6 @@ Default split size 2 MB (ref :64).
 from __future__ import annotations
 
 import math
-import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -24,7 +23,7 @@ from spark_bam_tpu_torch.bgzf.block import Metadata
 from spark_bam_tpu_torch.bgzf.find_block_start import find_block_start
 from spark_bam_tpu_torch.bgzf.index_blocks import read_blocks_index
 from spark_bam_tpu_torch.bgzf.stream import MetadataStream
-from spark_bam_tpu_torch.core.channel import open_channel
+from spark_bam_tpu_torch.core.channel import open_channel, path_exists, path_size
 from spark_bam_tpu_torch.core.config import Config
 from spark_bam_tpu_torch.core.ranges import RangeSet
 from spark_bam_tpu_torch.parallel.executor import ParallelConfig, map_partitions
@@ -55,7 +54,7 @@ def plan_blocks(
     split_size = config.split_size_or(Config.CHECK_SPLIT_SIZE_DEFAULT)
     blocks_path = str(blocks_path) if blocks_path else str(path) + ".blocks"
 
-    if os.path.exists(blocks_path):
+    if path_exists(blocks_path):
         metas = [
             m
             for m in read_blocks_index(blocks_path)
@@ -81,7 +80,7 @@ def plan_blocks(
             ],
         )
 
-    size = os.path.getsize(path)
+    size = path_size(path)
     num_splits = math.ceil(size / split_size)
     split_idxs = [
         i

@@ -104,6 +104,20 @@ dir), and ``--disk-chaos SEED:SPEC`` installs the seeded disk-fault seam
 at entry (``fabric`` exports it as ``SPARK_BAM_DISK_CHAOS``). A bad spec
 is a usage error before any work.
 
+Every path may be a URL: ``http(s)://``, ``gs://`` and ``s3://`` (and
+schemes registered with ``core.channel.register_scheme``) read through the
+remote data plane. ``--faults SPEC`` sets the partition executor's policy
+(``retries=N``, ``mode=tolerant``, ...; with it ``export`` runs through
+the executor), ``--chaos SEED:SPEC`` installs seeded read faults over
+every channel and prints ``chaos(seed=N): injected ...`` at the end,
+``--limits SPEC`` the decode limits (process-wide for the run),
+``--remote SPEC`` the remote data plane (reset when the command ends) and
+``-w`` the root log level WARN, on the commands where the reference's
+parser takes them. ``fuzz-decode [--seed N] [--mutants M] [--formats
+bam,bgzf,sbi] [-o OUT]`` runs the decode fuzz (``tools/fuzz_decode.py``),
+prints its JSON summary and exits 1 on a violation; ``--formats cram`` is
+a usage error.
+
 Every command runs on the CUDA device unless ``--device`` names another;
 ``--sharded`` meshes are every visible CUDA device, or ``--devices N``
 entries of ``--device`` (``--device cpu --devices 4``: a 4-entry CPU mesh).
@@ -114,6 +128,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
 import os
 import sys
 import time
@@ -128,11 +143,19 @@ from spark_bam_tpu_torch.agg.plan import AggConfig
 from spark_bam_tpu_torch.compress.config import DeflateConfig
 from spark_bam_tpu_torch.cli_app import Printer, UsageError, funnel_status_line
 from spark_bam_tpu_torch.core.config import Config, format_bytes, parse_bytes
+from spark_bam_tpu_torch.core import guard
 from spark_bam_tpu_torch.core.faults import (
+    FaultPolicy,
+    install_chaos,
     install_disk_chaos,
     parse_disk_chaos,
+    uninstall_chaos,
     uninstall_disk_chaos,
 )
+from spark_bam_tpu_torch.core.guard import DecodeLimits
+from spark_bam_tpu_torch.core.remote_plan import RemoteConfig, set_remote_config
+from spark_bam_tpu_torch.parallel.executor import reset_last_report
+from spark_bam_tpu_torch.tools import fuzz_decode
 from spark_bam_tpu_torch.core.stats import Stats
 from spark_bam_tpu_torch.fabric.config import FabricConfig
 from spark_bam_tpu_torch.jobs.manager import JobsConfig, job_id_of
@@ -915,6 +938,39 @@ def _add_cache(p) -> None:
              "(SPARK_BAM_CACHE works too)")
 
 
+def _add_faults(p) -> None:
+    p.add_argument(
+        "--faults", default=None, metavar="SPEC",
+        help="fault-tolerance policy of partition execution, e.g. "
+             "'retries=3,backoff=0.05,deadline=60,hedge=2,mode=tolerant' "
+             "(SPARK_BAM_FAULTS works too)")
+    p.add_argument(
+        "--chaos", default=None, metavar="SEED:SPEC",
+        help="seeded fault injection on every opened channel, e.g. "
+             "'7:io=0.1,latency=0.05x10,short=0.02,corrupt=1e-6': the same "
+             "seed replays the same faults")
+
+
+def _add_limits(p) -> None:
+    p.add_argument(
+        "--limits", default=None, metavar="SPEC",
+        help="decode limits of untrusted input, e.g. 'record=32MB,refs=1000,"
+             "cigar=65536,alloc=1GB' (SPARK_BAM_LIMITS works too)")
+
+
+def _add_remote(p) -> None:
+    p.add_argument(
+        "--remote", default=None, metavar="SPEC",
+        help="remote data plane, e.g. 'mode=plan,depth=8,gap=128KB,"
+             "request=512KB,hedge=3,pool=64' (mode=legacy: cursor "
+             "read-ahead; depth=0 adapts; SPARK_BAM_REMOTE works too)")
+
+
+def _add_warn(p) -> None:
+    p.add_argument("-w", "--warn", action="store_true",
+                   help="root log level WARN")
+
+
 def _positive_int(s: str) -> int:
     v = int(s)
     if v <= 0:
@@ -925,15 +981,17 @@ def _positive_int(s: str) -> int:
 def _config(args) -> Config:
     """``SPARK_BAM_CACHE``, ``SPARK_BAM_COLUMNAR``, ``SPARK_BAM_DEFLATE``,
     ``SPARK_BAM_FAULTS``, ``SPARK_BAM_SERVE``, ``SPARK_BAM_FABRIC``,
-    ``SPARK_BAM_JOBS``, ``SPARK_BAM_DISK_CHAOS`` and ``SPARK_BAM_INFLATE``,
-    then the command's flags: the split size, the checker knobs,
+    ``SPARK_BAM_JOBS``, ``SPARK_BAM_DISK_CHAOS``, ``SPARK_BAM_INFLATE``,
+    ``SPARK_BAM_LIMITS`` and ``SPARK_BAM_REMOTE``, then the command's flags: the split size, the checker knobs,
     ``--cache``, ``--columnar``, ``--deflate``, ``--serve``, ``--funnel``,
-    ``--fabric``, ``--jobs``, ``--disk-chaos`` and ``--inflate`` (a bad
-    size or spec is a usage error)."""
+    ``--fabric``, ``--jobs``, ``--disk-chaos``, ``--inflate``,
+    ``--faults``, ``--limits`` and ``--remote`` (a bad size or spec is a
+    usage error)."""
     kw = {}
     for knob in ("bgzf_blocks_to_check", "reads_to_check", "max_read_size",
                  "cache", "columnar", "deflate", "serve", "funnel",
-                 "fabric", "jobs", "disk_chaos", "inflate"):
+                 "fabric", "jobs", "disk_chaos", "inflate", "faults",
+                 "limits", "remote"):
         value = getattr(args, knob, None)
         if value is not None:
             kw[knob] = value
@@ -949,6 +1007,9 @@ def _config(args) -> Config:
         JobsConfig.parse(config.jobs)
         if config.disk_chaos:
             parse_disk_chaos(config.disk_chaos)
+        FaultPolicy.parse(config.faults)
+        DecodeLimits.parse(config.limits)
+        RemoteConfig.parse(config.remote)
     except ValueError as e:
         raise UsageError(str(e)) from e
     return config
@@ -1118,8 +1179,7 @@ def main(argv=None) -> int:
         help="record-parity sampling stride (default 16; 1 = every record)")
     sc.add_argument("-o", "--out", default=None,
                     help="write the JSON report here instead of stdout")
-    sc.add_argument("-w", "--warn", action="store_true",
-                    help="root log level WARN")
+    _add_warn(sc)
     sc.add_argument(
         "paths", nargs="+",
         help="artifacts to scrub (a BAM pulls in its .blocks, .records and "
@@ -1186,8 +1246,7 @@ def main(argv=None) -> int:
         help="mesh entries a LAUNCHED worker serves: N copies of --device, "
              "or the first N CUDA devices (0: every CUDA device, or one "
              "entry of --device)")
-    fb.add_argument("-w", "--warn", action="store_true",
-                    help="root log level WARN")
+    _add_warn(fb)
     for p in (ag, cs, ix, ex, rw, sv):
         p.add_argument("--device", default=None,
                        help="torch device (default: the current CUDA device)")
@@ -1221,17 +1280,62 @@ def main(argv=None) -> int:
         p.add_argument("-o", "--out", default=None)
     for p in (ag, cs, ix, ib, ir, ex):
         p.add_argument("path")
+    fz = sub.add_parser(
+        "fuzz-decode", help="structure-aware mutation fuzzing of the BAM, "
+                            "BGZF and .sbi decoders")
+    fuzz_decode.add_arguments(fz)
+    for p in (cr, fc, cb, ck, cp, tl, cs, ag, ex, sv):
+        _add_faults(p)
+        _add_limits(p)
+        _add_remote(p)
+    for p in (ix, fb):
+        _add_faults(p)
+    for p in (sc, fz):
+        _add_limits(p)
+    for p in (cr, fc, cb, ck, cp, tl, cs, ag, ex, ix, sv):
+        _add_warn(p)
     args = ap.parse_args(argv)
+    if getattr(args, "warn", False):
+        logging.getLogger().setLevel(logging.WARNING)
     # The cache line describes this invocation only.
     reset_cache_events()
+    reset_last_report()
+    prev_limits = guard._active
+    chaos_state = None
     try:
-        return _run(args)
+        try:
+            if getattr(args, "faults", None):
+                FaultPolicy.parse(args.faults)
+            if getattr(args, "limits", None) is not None:
+                # Process-wide, so every decoder this run reaches reads them.
+                guard.set_limits(DecodeLimits.parse(args.limits))
+            if getattr(args, "remote", None) is not None:
+                set_remote_config(RemoteConfig.parse(args.remote))
+            if getattr(args, "chaos", None):
+                chaos_state = install_chaos(args.chaos)
+        except ValueError as e:
+            raise UsageError(str(e)) from e
+        rc = _run(args)
+        if args.cmd == "export":
+            cli_app.print_fault_summary(Printer())
+        if chaos_state is not None:
+            injected = ", ".join(f"{k}={v}" for k, v in
+                                 chaos_state.injected.items() if v)
+            Printer().echo(f"chaos(seed={chaos_state.seed}): injected "
+                           f"{injected or 'nothing'}")
+        return rc
     except UsageError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     finally:
         if getattr(args, "disk_chaos", None):
             uninstall_disk_chaos()
+        if chaos_state is not None:
+            uninstall_chaos()
+        if getattr(args, "remote", None) is not None:
+            # In-process callers start the next run clean.
+            set_remote_config(None)
+        guard.set_limits(prev_limits)
 
 
 def _run(args) -> int:
@@ -1260,11 +1364,9 @@ def _run(args) -> int:
     if args.cmd == "index-bam":
         cli_app.index_bam(args.path, args.out)
         return 0
+    if args.cmd == "fuzz-decode":
+        return fuzz_decode.run_from_args(args)
     if args.cmd == "scrub":
-        if args.warn:
-            import logging
-
-            logging.getLogger().setLevel(logging.WARNING)
         out = open(args.out, "w") if args.out else None
         try:
             return scrub(args.paths, args.source, args.quarantine,
@@ -1307,10 +1409,6 @@ def _run(args) -> int:
     elif args.cmd == "serve":
         serve(args.listen, args.device, config)
     elif args.cmd == "fabric":
-        if args.warn:
-            import logging
-
-            logging.getLogger().setLevel(logging.WARNING)
         fabric(args.listen, args.attach, args.worker_devices, args.device,
                config)
     elif args.cmd == "aggregate":

@@ -46,6 +46,7 @@ from spark_bam_tpu_torch.bgzf.index_blocks import blocks_metadata
 from spark_bam_tpu_torch.check.flags import Flags
 from spark_bam_tpu_torch.check.seqdoop import seqdoop_check_flat
 from spark_bam_tpu_torch.core.config import Config
+from spark_bam_tpu_torch.core.channel import path_size
 from spark_bam_tpu_torch.core.pos import Pos
 from spark_bam_tpu_torch.core.stats import Stats, format_bytes_binary
 from spark_bam_tpu_torch.device import resolve_device
@@ -203,7 +204,7 @@ class CheckerContext:
 
     @cached_property
     def compressed_size(self) -> int:
-        return os.path.getsize(self.path)
+        return path_size(self.path)
 
     @cached_property
     def selected_compressed_size(self) -> int:

@@ -185,6 +185,16 @@ class Config:
     # (``core.faults.maybe_install_disk_chaos_from_env`` / ``--disk-chaos``),
     # never lazily; ``disk_chaos_config`` parses it.
     disk_chaos: str = ""
+    # Compact DecodeLimits spec of the untrusted-byte decoders
+    # ("record=32MB,refs=1000"; "" = defaults); ``decode_limits`` parses
+    # it. The ``--limits`` flag also installs it process-wide
+    # (``core.guard.set_limits``), which the record decoder reads.
+    limits: str = ""
+    # Compact RemoteConfig spec of the remote data plane ("mode=plan,
+    # depth=8,gap=128KB,hedge=3"; "" = plan-driven, adaptive depth);
+    # ``remote_config`` parses it. The ``--remote`` flag also installs it
+    # process-wide (``core.remote_plan.set_remote_config``).
+    remote: str = ""
 
     #: The load path's raw split size (hadoop's file-split default).
     LOAD_SPLIT_SIZE_DEFAULT = 32 << 20
@@ -210,7 +220,7 @@ class Config:
 
     #: The knobs ``from_env`` reads, as ``SPARK_BAM_<KNOB>``.
     ENV_KNOBS = ("cache", "columnar", "deflate", "faults", "serve", "fabric",
-                 "jobs", "disk_chaos", "inflate")
+                 "jobs", "disk_chaos", "inflate", "limits", "remote")
 
     @classmethod
     def from_env(cls, env=None) -> "Config":
@@ -221,8 +231,10 @@ class Config:
         ``SPARK_BAM_SERVE`` as the ``serve`` spec,
         ``SPARK_BAM_FABRIC`` as the ``fabric`` spec,
         ``SPARK_BAM_JOBS`` as the ``jobs`` spec,
-        ``SPARK_BAM_DISK_CHAOS`` as the ``disk_chaos`` spec and
-        ``SPARK_BAM_INFLATE`` as the ``inflate`` spec, as the
+        ``SPARK_BAM_DISK_CHAOS`` as the ``disk_chaos`` spec,
+        ``SPARK_BAM_INFLATE`` as the ``inflate`` spec,
+        ``SPARK_BAM_LIMITS`` as the ``limits`` spec and
+        ``SPARK_BAM_REMOTE`` as the ``remote`` spec, as the
         reference's ``Config.from_env`` maps them (the store's
         ``SPARK_BAM_CACHE_DIR`` and ``SPARK_BAM_CACHE_BUDGET`` are read by
         ``sbi.store.CacheStore.from_env``)."""
@@ -249,6 +261,20 @@ class Config:
         from spark_bam_tpu_torch.compress.config import DeflateConfig
 
         return DeflateConfig.parse(self.deflate)
+
+    @property
+    def decode_limits(self):
+        """The parsed ``DecodeLimits`` of this config's ``limits`` spec."""
+        from spark_bam_tpu_torch.core.guard import DecodeLimits
+
+        return DecodeLimits.parse(self.limits)
+
+    @property
+    def remote_config(self):
+        """The parsed ``RemoteConfig`` of this config's ``remote`` spec."""
+        from spark_bam_tpu_torch.core.remote_plan import RemoteConfig
+
+        return RemoteConfig.parse(self.remote)
 
     @property
     def fault_policy(self):

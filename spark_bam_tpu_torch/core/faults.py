@@ -9,10 +9,12 @@ daemon's Retry-After hint (``LatencyTracker``).
 ``FaultPolicy`` parses the same compact ``k=v,...`` spec as the
 reference's (``Config.faults`` / ``SPARK_BAM_FAULTS``). ``_mix`` and
 ``_roll`` are the reference's splitmix64 fault rolls, bit for bit: the
-fabric's seeded chaos (``fabric/chaos.py``) and the disk-fault seam below
+read-side chaos channel (``ChaosChannel``, installed over every channel
+``open_channel`` hands out by ``install_chaos`` and the ``--chaos`` flag),
+the fabric's seeded chaos (``fabric/chaos.py``) and the disk-fault seam
 draw with them, so one seed gives both packages the same faults at the
-same writes. The reference's chaos channels (read-side faults) are not
-part of this port.
+same offsets and writes. ``ShortReadError`` is the strict block stream's
+mid-file byte loss (retryable).
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from dataclasses import dataclass
 from functools import lru_cache
 
 from spark_bam_tpu_torch import obs
+from spark_bam_tpu_torch.core import channel as _channel
+from spark_bam_tpu_torch.core.channel import ByteChannel
 
 
 class Unrecoverable:
@@ -79,6 +83,12 @@ def retryable(exc: BaseException) -> bool:
     if isinstance(exc, _NONRETRYABLE_OS):
         return False
     return isinstance(exc, (OSError, TimeoutError))
+
+
+class ShortReadError(IOError):
+    """Mid-file byte loss: the channel ended before ``channel.size``.
+    Retryable (a transient short read); a file that is truly cut short
+    ends at its size and reads as a clean end instead."""
 
 
 @dataclass(frozen=True)
@@ -160,6 +170,11 @@ class FaultPolicy:
                 kw[field] = float(value)
         return FaultPolicy(**kw)
 
+    @staticmethod
+    def from_env(env=None) -> "FaultPolicy":
+        return FaultPolicy.parse(
+            (env or os.environ).get("SPARK_BAM_FAULTS", ""))
+
 
 def with_retries(fn, policy: FaultPolicy, what: str = "operation"):
     """``fn()`` under the policy's retry schedule: a retryable error is
@@ -213,6 +228,215 @@ def _mix(seed: int, kind: int, x: int) -> int:
 
 def _roll(seed: int, kind: int, x: int, rate: float) -> bool:
     return rate > 0 and (_mix(seed, kind, x) >> 11) < rate * (1 << 53)
+
+
+class ChaosError(IOError):
+    """An injected transient I/O failure (retryable by design)."""
+
+
+# A stream per fault kind, so one offset rolls each kind independently.
+_K_IO, _K_LATENCY, _K_SHORT, _K_CORRUPT = 1, 2, 3, 4
+
+
+@dataclass(frozen=True)
+class ChaosSpec:
+    """Which read faults to inject and how often: per read request (keyed
+    by its offset), but ``corrupt``, which is per byte."""
+
+    io: float = 0.0        # transient IOError rate
+    latency: float = 0.0   # latency-spike rate
+    latency_ms: float = 10.0
+    short: float = 0.0     # short-read rate
+    corrupt: float = 0.0   # per-byte corruption rate
+
+    @staticmethod
+    def parse(spec: str) -> "ChaosSpec":
+        """``"io=0.1,latency=0.05x10,short=0.02,corrupt=1e-6"``; latency's
+        optional ``xMS`` sets the spike length (default 10 ms)."""
+        kw: dict = {}
+        for part in (spec or "").split(","):
+            part = part.strip()
+            if not part:
+                continue
+            if "=" not in part:
+                raise ValueError(f"Bad chaos entry {part!r} in {spec!r}")
+            key, value = (t.strip() for t in part.split("=", 1))
+            if key == "latency":
+                if "x" in value:
+                    rate, ms = value.split("x", 1)
+                    kw["latency"], kw["latency_ms"] = float(rate), float(ms)
+                else:
+                    kw["latency"] = float(value)
+            elif key in ("io", "short", "corrupt"):
+                kw[key] = float(value)
+            else:
+                raise ValueError(
+                    f"Unknown chaos key {key!r}: expected io, latency, "
+                    f"short, or corrupt"
+                )
+        return ChaosSpec(**kw)
+
+
+def parse_chaos(arg: str) -> "tuple[int, ChaosSpec]":
+    """``"SEED:SPEC"`` (the ``--chaos`` argument)."""
+    seed, _, spec = arg.partition(":")
+    try:
+        seed_i = int(seed)
+    except ValueError:
+        raise ValueError(f"Bad chaos seed {seed!r} in {arg!r} (want SEED:SPEC)")
+    return seed_i, ChaosSpec.parse(spec)
+
+
+#: A fired transient fault suppresses further faults of its kind in its
+#: aligned 4 KiB region, so the retry that re-reads the neighbourhood
+#: succeeds, as after a real blip.
+_TRANSIENT_RADIUS_BITS = 12
+
+
+class ChaosState:
+    """What the channels of one installation share: the transient faults
+    already fired (once per kind and 4 KiB region) and the tallies of
+    injected faults."""
+
+    def __init__(self, seed: int, spec: ChaosSpec):
+        self.seed = seed
+        self.spec = spec
+        self.lock = threading.Lock()
+        self.consumed: set = set()
+        self.injected: dict = {"io": 0, "latency": 0, "short": 0,
+                               "corrupt": 0}
+
+    def _note(self, kind: str, n: int = 1) -> None:
+        with self.lock:
+            self.injected[kind] += n
+
+    def _consume_once(self, kind: int, pos: int) -> bool:
+        """True the first time a (kind, region) fault fires."""
+        key = (kind, pos >> _TRANSIENT_RADIUS_BITS)
+        with self.lock:
+            if key in self.consumed:
+                return False
+            self.consumed.add(key)
+            return True
+
+
+class ChaosChannel(ByteChannel):
+    """A seeded fault-injecting wrapper of any ``ByteChannel``. Each
+    decision is a function of (seed, kind, offset); the transient kinds
+    (io, short) also fire only at a region's first access, so a retry
+    recovers while the set of faults replays from the seed. Corruption is
+    a pure per-byte function: persistent damage."""
+
+    def __init__(self, inner: ByteChannel, seed: int, spec: ChaosSpec,
+                 state: "ChaosState | None" = None):
+        super().__init__()
+        self.inner = inner
+        self.state = state or ChaosState(seed, spec)
+        self.seed = self.state.seed
+        self.spec = self.state.spec
+
+    def _read_at(self, pos: int, n: int):
+        if n <= 0:
+            return self.inner.read_at(pos, n)
+        seed, spec, state = self.seed, self.spec, self.state
+        if _roll(seed, _K_LATENCY, pos, spec.latency):
+            state._note("latency")
+            obs.count("chaos.latency_spikes")
+            time.sleep(spec.latency_ms / 1e3)
+        if _roll(seed, _K_IO, pos, spec.io) and state._consume_once(_K_IO, pos):
+            state._note("io")
+            obs.count("chaos.io_errors")
+            raise ChaosError(
+                f"chaos(seed={seed}): injected transient IOError at "
+                f"offset {pos}"
+            )
+        data = self.inner.read_at(pos, n)
+        if (
+            len(data) > 1
+            and _roll(seed, _K_SHORT, pos, spec.short)
+            and state._consume_once(_K_SHORT, pos)
+        ):
+            state._note("short")
+            obs.count("chaos.short_reads")
+            data = data[: len(data) // 2]
+        if spec.corrupt > 0 and len(data):
+            data = self._corrupt(pos, data)
+        return data
+
+    def _corrupt(self, pos: int, data):
+        import numpy as np
+
+        offs = np.arange(pos, pos + len(data), dtype=np.uint64)
+        z = (
+            offs
+            + np.uint64((self.seed * 0x9E3779B97F4A7C15) & _M64)
+            + np.uint64((_K_CORRUPT * 0xD1B54A32D192ED03) & _M64)
+        )
+        z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        z = z ^ (z >> np.uint64(31))
+        mask = (z >> np.uint64(11)) < np.uint64(int(self.spec.corrupt * (1 << 53)))
+        if not mask.any():
+            return data
+        out = np.frombuffer(data, dtype=np.uint8).copy()
+        # A nonzero flip: a corrupted byte always changes.
+        out[mask] ^= (z[mask] & np.uint64(0xFF)).astype(np.uint8) | np.uint8(1)
+        hits = int(mask.sum())
+        self.state._note("corrupt", hits)
+        obs.count("chaos.corrupted_bytes", hits)
+        return out.tobytes()
+
+    @property
+    def size(self) -> int:
+        return self.inner.size
+
+    def close(self) -> None:
+        self.inner.close()
+
+
+_installed: "ChaosState | None" = None
+
+
+def install_chaos(arg: "str | tuple[int, ChaosSpec]") -> ChaosState:
+    """Wrap every channel ``open_channel`` hands out from now on in a
+    ``ChaosChannel`` sharing one ``ChaosState`` (the ``--chaos`` flag);
+    returns the state, whose ``injected`` tallies the faults."""
+    global _installed
+    seed, spec = parse_chaos(arg) if isinstance(arg, str) else arg
+    state = ChaosState(seed, spec)
+    _installed = state
+    _channel.set_chaos_wrapper(
+        lambda ch, path: ChaosChannel(ch, seed, spec, state=state))
+    from spark_bam_tpu_torch.obs import flight
+
+    flight.set_context(
+        chaos_seed=seed,
+        chaos_spec=arg if isinstance(arg, str) else f"{seed}:{spec}",
+    )
+    return state
+
+
+def uninstall_chaos() -> None:
+    global _installed
+    _installed = None
+    _channel.set_chaos_wrapper(None)
+    from spark_bam_tpu_torch.obs import flight
+
+    flight.clear_context("chaos_seed", "chaos_spec")
+
+
+def installed_chaos() -> "ChaosState | None":
+    return _installed
+
+
+@contextlib.contextmanager
+def chaos(arg: "str | tuple[int, ChaosSpec]"):
+    """``with chaos("7:io=0.1"): ...``: a scoped installation."""
+    state = install_chaos(arg)
+    try:
+        yield state
+    finally:
+        uninstall_chaos()
 
 
 # -------------------------------------------------------------- disk chaos

@@ -12,22 +12,28 @@ All three are ``MalformedInputError``, a ``ValueError`` and
 tolerant record stream's resync marker (a garbage length prefix), and the
 loss tallies (``note_quarantined_records``, ``note_quarantined_block``,
 ``loss_totals``) count what a tolerant load quarantined, for the
-executor's ``JobReport``. ``current_limits`` gives the defaults: the
-reference's ``SPARK_BAM_LIMITS`` and scoped overrides are not ported. The
-write errors' ``ResourceExhausted`` and ``map_write_error`` live in
+executor's ``JobReport``. ``current_limits`` gives the active limits: an
+override installed by ``set_limits`` (the ``--limits`` flag) or
+``scoped_limits`` (a test, the decode fuzz), else the
+``SPARK_BAM_LIMITS`` spec parsed by ``DecodeLimits.parse``; the decoders
+fence their length fields with ``check_count`` and ``check_available``.
+The write errors' ``ResourceExhausted`` and ``map_write_error`` live in
 ``core/atomic.py``; ``preflight_space`` refuses to start a write that
 cannot fit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import errno
 import os
 import threading
 from dataclasses import dataclass, fields
+from functools import lru_cache
 
 from spark_bam_tpu_torch import obs
 from spark_bam_tpu_torch.core.atomic import ResourceExhausted
+from spark_bam_tpu_torch.core.config import parse_bytes
 from spark_bam_tpu_torch.core.faults import Unrecoverable
 
 
@@ -92,13 +98,101 @@ class DecodeLimits:
                 raise ValueError(f"DecodeLimits.{f.name} must be > 0: "
                                  f"{getattr(self, f.name)}")
 
+    _KEYS = {
+        "record": "max_record_bytes",
+        "max_record_bytes": "max_record_bytes",
+        "header_text": "max_header_text",
+        "text": "max_header_text",
+        "max_header_text": "max_header_text",
+        "refs": "max_refs",
+        "max_refs": "max_refs",
+        "name": "max_name_len",
+        "max_name_len": "max_name_len",
+        "cigar": "max_cigar_ops",
+        "max_cigar_ops": "max_cigar_ops",
+        "seq": "max_seq_len",
+        "max_seq_len": "max_seq_len",
+        "alloc": "alloc_budget",
+        "alloc_budget": "alloc_budget",
+    }
 
-DEFAULT_LIMITS = DecodeLimits()
+    @staticmethod
+    @lru_cache(maxsize=64)
+    def parse(spec: str) -> "DecodeLimits":
+        """``"record=32MB,refs=1000,alloc=512MB"`` (any subset; ``""``:
+        the defaults), values in the byte-size shorthand."""
+        kw: dict = {}
+        for part in (spec or "").split(","):
+            part = part.strip()
+            if not part:
+                continue
+            if "=" not in part:
+                raise ValueError(f"Bad decode-limit entry {part!r} in {spec!r}")
+            key, value = (t.strip() for t in part.split("=", 1))
+            field = DecodeLimits._KEYS.get(key.replace("-", "_"))
+            if field is None:
+                raise ValueError(
+                    f"Unknown decode-limit key {key!r}: expected one of "
+                    f"{', '.join(sorted(set(DecodeLimits._KEYS)))}"
+                )
+            kw[field] = parse_bytes(value)
+        return DecodeLimits(**kw)
+
+    @staticmethod
+    def from_env(env=None) -> "DecodeLimits":
+        return DecodeLimits.parse(
+            (env or os.environ).get("SPARK_BAM_LIMITS", ""))
+
+
+# The process-wide override (``--limits``, ``scoped_limits``); None: the
+# ``SPARK_BAM_LIMITS`` spec.
+_active: "DecodeLimits | None" = None
 
 
 def current_limits() -> DecodeLimits:
-    """The active limits: the defaults."""
-    return DEFAULT_LIMITS
+    """The active limits: the installed override, else
+    ``SPARK_BAM_LIMITS``'s."""
+    return _active if _active is not None else DecodeLimits.from_env()
+
+
+def set_limits(limits: "DecodeLimits | str | None") -> None:
+    """Install a process-wide override (``None`` uninstalls it)."""
+    global _active
+    _active = DecodeLimits.parse(limits) if isinstance(limits, str) else limits
+
+
+@contextlib.contextmanager
+def scoped_limits(limits: "DecodeLimits | str"):
+    """``with scoped_limits("record=1MB"): ...``: an override for the
+    block, the previous one restored after it."""
+    global _active
+    prev = _active
+    _active = DecodeLimits.parse(limits) if isinstance(limits, str) else limits
+    try:
+        yield _active
+    finally:
+        _active = prev
+
+
+def check_count(n: int, what: str, limit: "int | None" = None, *,
+                path=None, pos=None) -> int:
+    """A count or length read from untrusted bytes: negative raises
+    ``StructurallyInvalid``, past ``limit`` ``LimitExceeded``."""
+    if n < 0:
+        raise StructurallyInvalid(f"{what} is negative ({n})",
+                                  path=path, pos=pos)
+    if limit is not None and n > limit:
+        raise LimitExceeded(f"{what} {n} exceeds limit {limit}",
+                            path=path, pos=pos)
+    return n
+
+
+def check_available(have: int, need: int, what: str, *,
+                    path=None, pos=None) -> None:
+    """Truncation check before ``need`` bytes are consumed."""
+    if have < need:
+        raise TruncatedInput(f"{what}: need {need} bytes, have {have}",
+                             path=path, pos=pos)
 
 
 def preflight_space(path, need_bytes: int, margin: float = 1.1) -> None:

@@ -3,8 +3,9 @@ ranges.py``): comma-separated ranges ``start-end``, ``start+length`` and
 ``point``, each value in the byte-size shorthand (Range.scala:100-234,
 Ranges.scala:244-309), as ``check-bam -i`` and ``check-blocks -i`` take
 them, and a normalized interval set with point membership and window
-overlap. The reference's fetch planner of ranged reads comes with the
-remote channels.
+overlap, and the fetch planner (``plan_fetches``) that coalesces the
+byte ranges a job will touch into ranged GETs for the remote data plane
+(``core/remote_plan.py``).
 """
 
 from __future__ import annotations
@@ -58,6 +59,49 @@ class RangeSet:
 
     def __repr__(self) -> str:
         return "RangeSet(%s)" % ",".join(f"{r.start}-{r.end}" for r in self.ranges)
+
+
+# ------------------------------------------------------------- fetch planner
+def _split_run(start: int, end: int, max_request: int) -> list[ByteRange]:
+    """One coalesced run as near-equal fetches of at most ``max_request``
+    bytes (ceil-divided: a run just over the cap becomes two halves, not
+    a full request and a sliver)."""
+    length = end - start
+    n = -(-length // max_request)
+    step = -(-length // n)
+    return [ByteRange(s, min(s + step, end)) for s in range(start, end, step)]
+
+
+def plan_fetches(ranges: "RangeSet | Iterable[ByteRange]", *,
+                 gap: int = 128 << 10, max_request: int = 512 << 10
+                 ) -> list[ByteRange]:
+    """The ranged GETs that cover ``ranges``: ranges at most ``gap`` cold
+    bytes apart merge into one run (a small gap costs less than another
+    round trip), and a run longer than ``max_request`` splits into
+    near-equal fetches that can pipeline. Sorted and non-overlapping; every
+    input byte is covered, every fetch is at most ``max_request`` long,
+    and every fetched byte outside the input lies in a gap of at most
+    ``gap`` bytes."""
+    if gap < 0:
+        raise ValueError(f"gap must be >= 0: {gap}")
+    if max_request <= 0:
+        raise ValueError(f"max_request must be > 0: {max_request}")
+    rs = ranges if isinstance(ranges, RangeSet) else RangeSet(ranges)
+    fetches: list[ByteRange] = []
+    run_start = run_end = None
+    for r in rs.ranges:
+        if r.start == r.end:
+            continue
+        if run_start is None:
+            run_start, run_end = r.start, r.end
+        elif r.start - run_end <= gap:
+            run_end = max(run_end, r.end)
+        else:
+            fetches.extend(_split_run(run_start, run_end, max_request))
+            run_start, run_end = r.start, r.end
+    if run_start is not None:
+        fetches.extend(_split_run(run_start, run_end, max_request))
+    return fetches
 
 
 def parse_range(s: str) -> ByteRange:

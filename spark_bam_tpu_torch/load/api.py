@@ -31,10 +31,21 @@ filters on the device (tags on the host), and the fused reduction
 oracle.
 
 ``export`` writes a BAM query's records as columnar record batches (the
-native container, Arrow IPC or Parquet): the streaming check and record
-parse of every window on the device with the interval and flag filters
-there (``stream_ordered_batches``), the renderings and encoding on the
-host (``columnar/``).
+native container, Arrow IPC or Parquet). The route follows the fault
+policy the caller asked for, decided before any work (it is never a
+demotion after a device failure): with no ``faults`` spec, or a strict
+one with ``retries=0``, the streaming check and record parse of every
+window run on the device with the interval and flag filters there
+(``stream_ordered_batches``); with a tolerant policy or retries, the
+records come from the record path (``load_bam``, or
+``load_bam_intervals`` for loci; strict split starts on the device)
+through the partition executor, which retries and quarantines as the
+reference's export does (``columnar/export.py::export_records``). The
+renderings and encoding are on the host (``columnar/``) either way.
+
+Every entry point takes a local path or a URL (``core/channel.py``:
+``http(s)://``, ``gs://``, ``s3://``, registered schemes); ``load_fleet``
+loads many BAMs as one dataset, a partition a file.
 
 ``split_starts`` gives every raw file split its first record start, what
 the serve daemon answers ``plan`` with: from a valid ``.sbi`` split plan
@@ -46,7 +57,6 @@ cache writes.
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import numpy as np
 
@@ -64,7 +74,7 @@ from spark_bam_tpu_torch.bgzf.stream import (
 )
 from spark_bam_tpu_torch.check.checker import NoReadFoundException
 from spark_bam_tpu_torch.check.eager import EagerChecker
-from spark_bam_tpu_torch.core.channel import open_channel
+from spark_bam_tpu_torch.core.channel import open_channel, path_size
 from spark_bam_tpu_torch.core.config import Config, parse_bytes
 from spark_bam_tpu_torch.core.faults import (
     BlockCorruptionError,
@@ -147,6 +157,14 @@ def aggregate(
     }
 
 
+def export_takes_record_path(config: Config) -> bool:
+    """Whether ``export`` runs through the partition executor: a tolerant
+    policy, or a ``faults`` spec that leaves retries on."""
+    policy = config.fault_policy
+    return policy.tolerant or (bool(config.faults.strip())
+                               and policy.max_retries > 0)
+
+
 def export(
     path,
     out,
@@ -157,6 +175,7 @@ def export(
     flags_required: int = 0,
     flags_forbidden: int = 0,
     device=None,
+    parallel: ParallelConfig = ParallelConfig(),
 ) -> dict:
     """Export a BAM's records as columnar record batches to ``out``:
     ``fmt`` is ``native`` (the zero-dependency container), ``arrow`` (an
@@ -165,9 +184,12 @@ def export(
     projects the schema and ``config.columnar`` sets the row target and
     the container's codec. The bytes equal the JAX package's ``export``
     of the same query. Returns its summary: path, format, columns, rows,
-    batches, bytes, seconds and the loss fields (0: nothing is retried or
-    quarantined)."""
-    from spark_bam_tpu_torch.columnar.export import export_dataset
+    batches, bytes, seconds and the loss fields (0 on the device route;
+    the executor's on the record route, which ``parallel`` pools)."""
+    from spark_bam_tpu_torch.columnar.export import (
+        export_dataset,
+        export_records,
+    )
 
     s = str(path)
     if s.endswith((".cram", ".sam")):
@@ -176,10 +198,20 @@ def export(
             "CRAM loaders (ROADMAP Queue 1 item 16), which this port does "
             "not have yet")
     dev = resolve_device(device)
-    header = read_header(path)
+    header = with_retries(lambda: read_header(path), config.fault_policy,
+                          "read_header")
     contigs = [(str(name), int(length)) for name, length in
                zip(header.contig_names, header.contig_lengths)]
     ccfg = config.columnar_config
+    if export_takes_record_path(config):
+        ds = (load_bam_intervals(path, loci, None, config, parallel) if loci
+              else load_bam(path, None, config, parallel, dev))
+        if flags_required or flags_forbidden:
+            ds = ds.filter(
+                lambda rec: (rec.flag & flags_required) == flags_required
+                and (rec.flag & flags_forbidden) == 0)
+        return export_records(ds, out, fmt=fmt, columns=columns, ccfg=ccfg,
+                              contigs=contigs)
     pieces = stream_ordered_batches(path, config, loci, flags_required,
                                     flags_forbidden, dev)
     return export_dataset(pieces, out, fmt=fmt, columns=columns, ccfg=ccfg,
@@ -459,6 +491,41 @@ def load_bam(path, split_size=None, config: Config = Config(),
                                                   parallel, device))
 
 
+def load_fleet(paths, split_size=None, config: Config = Config(),
+               parallel: ParallelConfig = ParallelConfig(),
+               device=None) -> Dataset:
+    """Many BAMs (local paths or URLs) as one dataset, one partition a
+    file (reference ``load_fleet``, load/api.py:453-480): ``(path, Pos,
+    BamRecord)`` triples, file after file. Every file's channels share the
+    process-wide remote GET quota and the ``.sbi`` tier
+    (``core/remote_plan.py``), so many objects cannot stampede a store,
+    and each partition rides the executor's retries and quarantine.
+
+    Under ``sequential`` or ``threads`` a partition reads its file's
+    header and resolves its strict split starts on ``device`` from its
+    own thread, inside the attempt (the flag kernels' ordered tile
+    tickets make concurrent launches safe). Under ``processes`` nothing in
+    a pooled child touches CUDA: every file's strict starts are resolved
+    here, in the calling process, before any partition runs, as
+    ``load_bam``'s are."""
+    paths = [str(p) for p in paths]
+    dev = resolve_device(device)
+    inner = ParallelConfig("sequential")
+    upfront = ({p: load_reads_and_positions(p, split_size, config, inner,
+                                            dev)
+                for p in paths} if parallel.mode == "processes" else None)
+
+    def compute(path):
+        ds = (upfront[path] if upfront is not None else
+              load_reads_and_positions(path, split_size, config, inner, dev))
+        for split in ds.partitions:
+            for pos, rec in ds.compute(split):
+                yield path, pos, rec
+
+    obs.gauge("load.fleet_files").set(len(paths))
+    return Dataset(paths, compute, parallel, policy=config.fault_policy)
+
+
 def load_splits_and_reads(path, split_size=None, config: Config = Config(),
                           parallel: ParallelConfig = ParallelConfig(),
                           device=None) -> tuple[list[Split], Dataset]:
@@ -468,7 +535,7 @@ def load_splits_and_reads(path, split_size=None, config: Config = Config(),
     ds = load_reads_and_positions(path, split_size, config, parallel, device)
     starts = [item[0] for item in ds.first_per_partition()
               if item is not None]
-    eof = Pos(os.path.getsize(path), 0)
+    eof = Pos(path_size(path), 0)
     splits = [Split(start, starts[i + 1] if i + 1 < len(starts) else eof)
               for i, start in enumerate(starts)]
     return splits, _records_only(ds)

@@ -20,9 +20,9 @@ a last split that holds only the EOF sentinel.
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 
+from spark_bam_tpu_torch.core.channel import path_size
 from spark_bam_tpu_torch.core.pos import Pos
 
 
@@ -45,7 +45,7 @@ class Split:
 
 
 def file_splits(path, split_size: int) -> list[FileSplit]:
-    size = os.path.getsize(path)
+    size = path_size(path)
     return [
         FileSplit(str(path), start, min(start + split_size, size))
         for start in range(0, size, split_size)
@@ -87,7 +87,7 @@ def spark_bam_splits(path, split_size: int, config, device=None
     from spark_bam_tpu_torch.sbi.plan import plan_split_starts
 
     entries = split_plan(path, split_size, config, device=device)
-    starts, ends = plan_split_starts(entries, os.path.getsize(path))
+    starts, ends = plan_split_starts(entries, path_size(path))
     return [Split(s, e) for s, e in zip(starts, ends)]
 
 

@@ -75,6 +75,7 @@ from spark_bam_tpu_torch.tpu.checker import (
 )
 from spark_bam_tpu_torch.tpu.inflate import (
     TokenizeError,
+    open_planned,
     stage_group_device,
     tokenize_group,
     window_plan,
@@ -335,7 +336,8 @@ class _ShardedStream:
         streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
                    for d in self.mesh.devices]
         steps = list(range(0, self.per_proc, self.step_rows_local))
-        with open_channel(self.path) as ch, ThreadPoolExecutor(1) as pool:
+        with open_planned(self.path, self.metas) as ch, \
+                ThreadPoolExecutor(1) as pool:
             def submit(i):
                 return pool.submit(self._assemble, ch, steps[i], header_clamp,
                                    slots[i % 2], truth_flats, streams)

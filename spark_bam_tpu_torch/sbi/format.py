@@ -46,7 +46,12 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from spark_bam_tpu_torch.bgzf.block import Metadata
-from spark_bam_tpu_torch.core.channel import open_channel
+from spark_bam_tpu_torch.core.channel import (
+    _raw_url_channel,
+    is_url,
+    open_channel,
+)
+from spark_bam_tpu_torch.core.guard import StructurallyInvalid
 from spark_bam_tpu_torch.core.pos import Pos
 
 MAGIC = b"SBTI"
@@ -68,20 +73,10 @@ PLAN_POS = 1         # resolved virtual position
 PLAN_UNRESOLVED = 2  # scan budget exhausted at build time; re-resolve live
 
 
-class SbiFormatError(ValueError):
+class SbiFormatError(StructurallyInvalid):
     """The sidecar's bytes are not a well-formed ``.sbi`` index; the store
-    treats it as cache corruption."""
-
-
-def is_url(path) -> bool:
-    return "://" in os.fspath(path)
-
-
-def _local_only(path) -> None:
-    if is_url(path):
-        raise NotImplementedError(
-            f"{path}: a remote BAM's .sbi cache needs the remote byte "
-            "channel, which this port does not have yet; pass a local file")
+    treats it as cache corruption, and the decode fuzz as a typed
+    failure."""
 
 
 def config_digest(config) -> int:
@@ -116,10 +111,19 @@ class Fingerprint:
 
 
 def fingerprint_of(bam_path, config) -> Fingerprint:
-    """The current fingerprint of the local file ``bam_path`` under
-    ``config``."""
-    path = os.fspath(bam_path)
-    _local_only(path)
+    """The current fingerprint of ``bam_path`` under ``config``. A URL
+    has no stable mtime (0): its size and head CRC carry the check, from
+    one ranged GET on the bare backend (the answer's ``Content-Range``
+    holds the size; only a server that omits it costs a HEAD), as the
+    reference's does."""
+    path = str(bam_path)
+    if is_url(path):
+        with _raw_url_channel(path) as ch:
+            head = bytes(ch.read_at(0, HEADER_CRC_SPAN))
+            size = ch.size
+        mtime_ns = 0
+        return Fingerprint(size, mtime_ns, zlib.crc32(head) & 0xFFFFFFFF,
+                           config_digest(config))
     mtime_ns = os.stat(path).st_mtime_ns
     with open_channel(path) as ch:
         size = ch.size

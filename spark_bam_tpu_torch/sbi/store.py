@@ -1,5 +1,5 @@
 """Sidecar resolution, validation, atomic writes and LRU eviction
-(reference ``spark_bam_tpu/sbi/store.py``), for local BAMs.
+(reference ``spark_bam_tpu/sbi/store.py``).
 
 ``CacheStore`` is the one place ``.sbi`` sidecars are read and written:
 
@@ -18,8 +18,11 @@
   sidecars go after each write (reads touch mtime).
 
 Every status string is the reference's, so the CLI's ``cache:`` lines
-match. A remote (URL) BAM raises ``NotImplementedError``: the port has no
-remote byte channel yet.
+match. A URL BAM has no sidecar beside it: its index lives only under the
+shared ``SPARK_BAM_CACHE_DIR`` (keyed by the URL's digest), and without
+one a write is skipped with the reference's status line. Sidecars are
+read through the channel seam (a URL sidecar under the fault policy's
+retries), and the BAM's fingerprint is taken under those retries.
 """
 
 from __future__ import annotations
@@ -34,10 +37,11 @@ from dataclasses import dataclass
 from spark_bam_tpu_torch import obs
 from spark_bam_tpu_torch.core import faults
 from spark_bam_tpu_torch.core.atomic import ResourceExhausted, map_write_error
+from spark_bam_tpu_torch.core.channel import is_url, open_channel, path_exists
+from spark_bam_tpu_torch.core.faults import FaultPolicy, with_retries
 from spark_bam_tpu_torch.sbi.format import (
     SbiFormatError,
     SbiIndex,
-    _local_only,
     decode_sbi,
     encode_sbi,
     fingerprint_of,
@@ -150,12 +154,14 @@ def reset_cache_write_degrade() -> None:
 
 class CacheStore:
     def __init__(self, cache_dir: str | None = None,
-                 budget_bytes: int | None = None):
+                 budget_bytes: int | None = None,
+                 policy: FaultPolicy | None = None):
         self.cache_dir = str(cache_dir) if cache_dir else None
         self.budget_bytes = budget_bytes
+        self.policy = policy or FaultPolicy()
 
     @staticmethod
-    def from_env(env=None) -> "CacheStore":
+    def from_env(env=None, policy: FaultPolicy | None = None) -> "CacheStore":
         from spark_bam_tpu_torch.core.config import parse_bytes
 
         env = env if env is not None else os.environ
@@ -163,25 +169,39 @@ class CacheStore:
         return CacheStore(
             cache_dir=env.get("SPARK_BAM_CACHE_DIR") or None,
             budget_bytes=parse_bytes(budget) if budget else None,
+            policy=policy,
         )
 
     # ------------------------------------------------------------ locate
     def sidecar_path(self, bam_path) -> str:
         """Where ``bam_path``'s index lives: content-addressed under the
-        shared dir when configured, else adjacent to the BAM."""
-        s = os.fspath(bam_path)
-        _local_only(s)
+        shared dir when configured (a URL by its own text, a local path
+        by its absolute path), else adjacent to the BAM."""
+        s = str(bam_path)
         if self.cache_dir:
-            digest = hashlib.sha256(
-                os.path.abspath(s).encode()).hexdigest()[:32]
+            if not is_url(s):
+                s = os.path.abspath(s)
+            digest = hashlib.sha256(s.encode()).hexdigest()[:32]
             return os.path.join(self.cache_dir, digest + ".sbi")
         return s + ".sbi"
 
+    def _writable(self, bam_path) -> bool:
+        """A URL BAM's index is written only under the shared dir."""
+        return bool(self.cache_dir) or not is_url(str(bam_path))
+
     # -------------------------------------------------------------- read
-    @staticmethod
-    def _read_bytes(sidecar: str) -> bytes:
-        with open(sidecar, "rb") as f:
-            return f.read()
+    def _read_bytes(self, sidecar: str) -> bytes:
+        def read():
+            with open_channel(sidecar) as ch:
+                return bytes(ch.read_at(0, ch.size))
+
+        if is_url(sidecar):
+            return with_retries(read, self.policy, "read_sbi")
+        return read()
+
+    def _fingerprint(self, bam_path, config):
+        return with_retries(lambda: fingerprint_of(bam_path, config),
+                            self.policy, "fingerprint")
 
     def load(self, bam_path, config, strict: bool = False,
              _quiet: bool = False) -> SbiIndex | None:
@@ -189,7 +209,7 @@ class CacheStore:
         corrupt, recorded; ``strict`` raises on the latter two). A hit
         touches a shared-dir sidecar's mtime so eviction tracks use."""
         sidecar = self.sidecar_path(bam_path)
-        if not os.path.exists(sidecar):
+        if not path_exists(sidecar):
             if not _quiet:
                 _record("miss", "no .sbi sidecar", sidecar)
             return None
@@ -198,13 +218,14 @@ class CacheStore:
         except SbiFormatError as e:
             return self._invalid(f"corrupt sidecar: {e}", sidecar, strict,
                                  _quiet)
-        reason = index.fingerprint.mismatch(fingerprint_of(bam_path, config))
+        reason = index.fingerprint.mismatch(
+            self._fingerprint(bam_path, config))
         if reason is not None:
             return self._invalid(f"stale sidecar: {reason}", sidecar, strict,
                                  _quiet)
         if not _quiet:
             _record("hit", "fingerprint ok", sidecar)
-            if self.cache_dir:
+            if self.cache_dir and not is_url(sidecar):
                 try:
                     os.utime(sidecar)
                 except OSError:
@@ -225,13 +246,14 @@ class CacheStore:
         """Validation-only peek (no status events): the (state, reason) a
         real load would see."""
         sidecar = self.sidecar_path(bam_path)
-        if not os.path.exists(sidecar):
+        if not path_exists(sidecar):
             return "miss", f"no sidecar at {sidecar}; build with 'index'"
         try:
             index = decode_sbi(self._read_bytes(sidecar))
         except SbiFormatError as e:
             return "invalidated", f"corrupt sidecar: {e}"
-        reason = index.fingerprint.mismatch(fingerprint_of(bam_path, config))
+        reason = index.fingerprint.mismatch(
+            self._fingerprint(bam_path, config))
         if reason is not None:
             return "invalidated", f"stale sidecar: {reason}"
         sections = []
@@ -250,8 +272,14 @@ class CacheStore:
     def store(self, bam_path, index: SbiIndex) -> str | None:
         """Atomic write-through; returns the sidecar path, or None when the
         write failed or writes are latched off. Evicts over-budget
-        shared-dir entries afterwards."""
+        shared-dir entries afterwards. A URL BAM without a shared dir is
+        skipped."""
         global _write_disabled
+        if not self._writable(bam_path):
+            _record("skipped",
+                    "remote BAM needs SPARK_BAM_CACHE_DIR for caching",
+                    str(bam_path))
+            return None
         sidecar = self.sidecar_path(bam_path)
         if _write_disabled:
             _record("skipped",
@@ -294,10 +322,12 @@ class CacheStore:
     def merge_and_store(self, bam_path, config, index: SbiIndex) -> str | None:
         """Write-through that keeps the sections an existing valid sidecar
         already holds (a quiet reload: no hit or miss recorded)."""
-        try:
-            existing = self.load(bam_path, config, _quiet=True)
-        except OSError:  # an unreadable existing index: overwrite it
-            existing = None
+        existing = None
+        if self._writable(bam_path):
+            try:
+                existing = self.load(bam_path, config, _quiet=True)
+            except OSError:  # an unreadable existing index: overwrite it
+                existing = None
         if existing is not None:
             index.merge_from(existing)
         return self.store(bam_path, index)
@@ -347,7 +377,8 @@ def cached_blocks(bam_path, config=None):
     mode = config.cache_mode
     if not (mode.enabled and mode.read):
         return None
-    index = CacheStore.from_env().load(bam_path, config, strict=mode.strict)
+    index = CacheStore.from_env(policy=config.fault_policy).load(
+        bam_path, config, strict=mode.strict)
     if index is None or index.blocks is None:
         return None
     return list(index.blocks)
@@ -363,6 +394,7 @@ def store_blocks(bam_path, blocks, config=None) -> str | None:
     mode = config.cache_mode
     if not (mode.enabled and mode.write):
         return None
-    index = SbiIndex(fingerprint=fingerprint_of(bam_path, config),
+    store = CacheStore.from_env(policy=config.fault_policy)
+    index = SbiIndex(fingerprint=store._fingerprint(bam_path, config),
                      blocks=list(blocks))
-    return CacheStore.from_env().merge_and_store(bam_path, config, index)
+    return store.merge_and_store(bam_path, config, index)

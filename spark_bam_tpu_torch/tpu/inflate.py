@@ -267,6 +267,18 @@ def stage_group_device(ch, metas: list[Metadata], device: torch.device):
             torch.from_numpy(clens).to(device), usizes)
 
 
+def open_planned(path, metas):
+    """``open_channel(path)``, with the block table handed to a remote
+    channel as its exact fetch plan (``PlannedChannel.set_plan``): its
+    ranged GETs coalesce over the blocks and prefetch in plan order, as
+    the reference's ``InflatePipeline`` hands it over. A local channel
+    takes no plan."""
+    ch = open_channel(path)
+    if hasattr(ch, "set_plan"):
+        ch.set_plan((m.start, m.start + m.compressed_size) for m in metas)
+    return ch
+
+
 def window_plan(metas: list[Metadata], window_uncompressed: int
                 ) -> list[list[Metadata]]:
     """Group consecutive blocks into ≈window-sized uncompressed runs."""
@@ -301,7 +313,7 @@ class InflatePipeline:
         self.groups = window_plan(self.metas, window_uncompressed)
 
     def __iter__(self) -> Iterator[FlatView]:
-        ch = open_channel(self.path)
+        ch = open_planned(self.path, self.metas)
         pool = ThreadPoolExecutor(max_workers=self.depth)
         try:
             pending = [
@@ -428,7 +440,7 @@ def inflate_file_device(path, inflate_spec: str | None = None, device=None,
     through one resolve: the planes of the whole file are on the device at
     once (three bytes an output byte)."""
     metas = list(blocks_metadata(path))
-    with open_channel(path) as ch:
+    with open_planned(path, metas) as ch:
         return inflate_group_device(
             ch, metas, file_total=sum(m.uncompressed_size for m in metas),
             at_eof=True, inflate_spec=inflate_spec, device=device,

@@ -399,10 +399,14 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
-def _n_arg(n, dev: torch.device):
+def _n_arg(n, dev: torch.device, size: int):
     """The valid byte count for a flag kernel: ``(n, None)`` by value for
-    an int, ``(0, pointer)`` for a 0-d int32 tensor on ``dev``."""
+    an int, checked to lie in ``[0, size]`` (the padded window) before any
+    launch, ``(0, pointer)`` for a 0-d int32 tensor on ``dev``."""
     if not isinstance(n, torch.Tensor):
+        if not 0 <= int(n) <= size:
+            raise ValueError(f"n = {int(n)} lies outside the {size}-byte "
+                             "padded window")
         return int(n), None
     if n.dim() != 0 or n.dtype != torch.int32 or n.device != dev:
         raise TypeError(f"n: expected an int or a 0-d int32 tensor on {dev}, "
@@ -460,7 +464,7 @@ def prefilter_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
         raise ValueError("the window must hold fewer than 2^31 bytes")
     if padded.data_ptr() % 16:
         raise ValueError("padded must start on a 16-byte boundary")
-    n_val, n_ptr = _n_arg(n, dev)
+    n_val, n_ptr = _n_arg(n, dev, padded.numel())
     tiles = -(-w // PREFILTER_TILE)
     grid = min(tiles, _prefilter_ctas(dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -514,7 +518,7 @@ def full_check_flags(padded: torch.Tensor, lengths: torch.Tensor,
         raise ValueError("the window must hold fewer than 2^31 bytes")
     if padded.data_ptr() % 16:
         raise ValueError("padded must start on a 16-byte boundary")
-    n_val, n_ptr = _n_arg(n, dev)
+    n_val, n_ptr = _n_arg(n, dev, padded.numel())
     tiles = -(-padded.numel() // FULL_FLAGS_TILE)
     stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty(w, dtype=torch.int32, device=dev)

@@ -70,6 +70,7 @@ import torch
 from spark_bam_tpu_torch import obs
 from spark_bam_tpu_torch.bam.header import read_header
 from spark_bam_tpu_torch.bgzf.block import BgzfError
+from spark_bam_tpu_torch.core.guard import MalformedInputError
 from spark_bam_tpu_torch.bgzf.flat import (
     inflate_blocks,
     metas_block_table,
@@ -106,6 +107,7 @@ from spark_bam_tpu_torch.tpu.inflate import (
     PackedGroup,
     PackedStaging,
     TokenizeError,
+    open_planned,
     stage_group_device,
     tokenize_group,
 )
@@ -422,12 +424,13 @@ class StreamChecker:
             def produce(group):
                 return tokenize_group(ch, group, staging, threads)
 
-            return produce, (BgzfError, EOFError, TokenizeError)
+            return produce, (BgzfError, MalformedInputError, EOFError,
+                             TokenizeError)
 
         def stage(group):
             return stage_group_device(ch, group, self.device)
 
-        return stage, (BgzfError, EOFError)
+        return stage, (BgzfError, MalformedInputError, EOFError)
 
     def _count_reads_fused(self) -> int | None:
         """The device-resident loop; None demotes to the classic loop (a
@@ -449,7 +452,7 @@ class StreamChecker:
         base = 0
         demoted = False
         depth = self.pipeline.depth
-        ch = open_channel(self.path)
+        ch = open_planned(self.path, self.pipeline.metas)
         produce, refusals = self._producer(ch)
         kw = dict(window=w, halo=halo,
                   reads_to_check=self.config.reads_to_check,
@@ -539,7 +542,7 @@ class StreamChecker:
         carry = torch.zeros(halo, dtype=torch.uint8, device=self.device)
         carry_len = base = 0
         depth = self.pipeline.depth
-        ch = open_channel(self.path)
+        ch = open_planned(self.path, self.pipeline.metas)
         produce, refusals = self._producer(ch)
         pool = ThreadPoolExecutor(max_workers=depth)
 

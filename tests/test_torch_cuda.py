@@ -1377,3 +1377,49 @@ def test_check_bam_eager_verdict_on_gpu_equals_cpu(gpu, tmp_path):
                              str(out), str(path)]) == 0
             outs.append(out.read_text())
     assert outs[:2] == outs[2:]
+
+
+def test_url_count_on_gpu_equals_cpu(gpu, tmp_path):
+    """The streaming count of a BAM served over HTTP by the in-process fake
+    store, on the card (device inflate: tokenize, LZ77 and the prefilter
+    launch), equals the CPU run over the same URL and the local count."""
+    from spark_bam_tpu_torch.benchmarks.fakestore import FakeObjectStore
+
+    path = tmp_path / "b.bam"
+    synth_bam(path, 2 << 20, seed=8, unit_reads=1000)
+    cfg = Config(window_size=256 << 10, halo_size=64 << 10)
+    with FakeObjectStore(path.read_bytes(), key="b.bam",
+                         latency_s=0.002) as store:
+        url = f"{store.url_base}/bucket/b.bam"
+        K.reset_launch_counts()
+        card = StreamChecker(url, cfg, device=gpu).count_reads()
+        assert K.LAUNCHES["prefilter_check_flags"] > 0
+        assert K.LAUNCHES["tokenize"] > 0 and K.LAUNCHES["lz77_resolve"] > 0
+        cpu = StreamChecker(url, cfg, device="cpu").count_reads()
+    assert card == cpu == StreamChecker(path, cfg, device=gpu).count_reads()
+
+
+def test_fuzz_bam_mutants_on_gpu_equal_cpu(gpu):
+    """Twenty BAM mutants through the fuzz's consumer and its device
+    boundary probe on the card: the CPU run's outcomes, no violation, and
+    a prefilter launch on hostile bytes that leaves the context sound."""
+    import tempfile
+
+    from spark_bam_tpu_torch.tools import fuzz_decode as fz
+
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        (d / "base.bam").write_bytes(fz.base_bam_bytes())
+        K.reset_launch_counts()
+        for i, m in enumerate(fz.mutants_for("bam", d, fz.rng_for(0, "bam"),
+                                             20)):
+            p = d / "m.bam"
+            p.write_bytes(m)
+            for mode in (False, True):
+                card = fz.run_case(fz._consume_bam, p, mode, gpu)
+                cpu = fz.run_case(fz._consume_bam, p, mode, "cpu")
+                assert card["outcome"] == cpu["outcome"] != "untyped", i
+            card, cpu = fz.run_probe(p, gpu), fz.run_probe(p, "cpu")
+            assert card["outcome"] == cpu["outcome"] != "untyped", i
+        assert K.LAUNCHES["prefilter_check_flags"] > 0
+    torch.cuda.synchronize()

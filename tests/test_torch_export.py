@@ -407,3 +407,108 @@ def test_cli_rejects_bad_input_before_any_work(bams, tmp_path, capsys,
                  str(tmp_path / "o"), bams[0]]) == 2
     assert capsys.readouterr().err.startswith("error: ")
     assert not list(tmp_path.iterdir())
+
+
+# -------------------------------------------------- executor route (faults)
+def _damaged_block_bam(path):
+    """1,200 records in 5,000-byte blocks, one mid-file block's payload
+    flipped so its CRC fails."""
+    from spark_bam_tpu.bam.header import BamHeader as JaxHeader
+    from spark_bam_tpu.bam.header import ContigLengths
+    from spark_bam_tpu.bam.record import BamRecord as JaxRecord
+    from spark_bam_tpu.bam.writer import write_bam as jax_write_bam
+    from spark_bam_tpu.bgzf.index_blocks import blocks_metadata as jax_blocks
+    from spark_bam_tpu.core.pos import Pos as JaxPos
+
+    header = JaxHeader(ContigLengths({0: ("chr1", 1_000_000)}), JaxPos(0, 0),
+                       0, "@HD\tVN:1.6\n@SQ\tSN:chr1\tLN:1000000\n")
+    recs = (JaxRecord(ref_id=0, pos=100 + i * 50, mapq=60, bin=0, flag=0,
+                      next_ref_id=-1, next_pos=-1, tlen=0, read_name=f"r{i}",
+                      cigar=[(100, 0)], seq="ACGT" * 25, qual=bytes([30]) * 100)
+            for i in range(1200))
+    jax_write_bam(path, header, recs, block_payload=5000)
+    metas = list(jax_blocks(path))
+    with open(path, "r+b") as f:
+        f.seek(metas[4].start + 30)
+        b = f.read(1)
+        f.seek(metas[4].start + 30)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+LOSS = ("rows", "batches", "bytes", "lost_records", "quarantined", "retries")
+
+
+@pytest.mark.parametrize("split", ["16KB", "64KB"])
+def test_tolerant_export_equals_jax_on_a_damaged_bam(tmp_path, split):
+    """``faults mode=tolerant``: the export runs through the executor, and
+    its bytes, summary loss fields and JobReport equal the reference's."""
+    from spark_bam_tpu.parallel import executor as jex
+    from spark_bam_tpu.parallel.executor import ParallelConfig as JaxParallel
+    from spark_bam_tpu_torch.parallel import executor as tex
+    from spark_bam_tpu_torch.parallel.executor import ParallelConfig
+
+    path = str(tmp_path / "damaged.bam")
+    _damaged_block_bam(path)
+    spec = "mode=tolerant,backoff=0"
+    ours, theirs = tmp_path / "port.sbcr", tmp_path / "jax.sbcr"
+    got = api.export(path, ours, config=Config(faults=spec,
+                                               split_size=int(split[:2]) << 10),
+                     device="cpu", parallel=ParallelConfig("threads", 2))
+    port_rep = tex.last_report()
+    want = jax_export(path, theirs, split_size=split,
+                      config=JaxConfig(faults=spec),
+                      parallel=JaxParallel("threads", 2))
+    jax_rep = jex.last_report()
+    assert ours.read_bytes() == theirs.read_bytes()
+    assert {k: got[k] for k in LOSS} == {k: want[k] for k in LOSS}
+    assert 0 < got["rows"] < 1200 and port_rep.lost_blocks > 0
+    assert (port_rep.lost_records, port_rep.lost_blocks,
+            port_rep.quarantined, len(port_rep.partitions)) == \
+        (jax_rep.lost_records, jax_rep.lost_blocks, jax_rep.quarantined,
+         len(jax_rep.partitions))
+    # Strict on the executor route, the damage raises as the reference's
+    # strict export does.
+    with pytest.raises(Exception) as strict:
+        api.export(path, tmp_path / "s.sbcr",
+                   config=Config(faults="retries=1,backoff=0,mode=strict"),
+                   device="cpu")
+    with pytest.raises(Exception) as jax_strict:
+        jax_export(path, tmp_path / "j.sbcr",
+                   config=JaxConfig(faults="retries=1,backoff=0,mode=strict"))
+    assert type(strict.value).__name__ == type(jax_strict.value).__name__ \
+        == "BlockCorruptionError"
+
+
+def test_export_route_follows_the_policy(bams, tmp_path, monkeypatch):
+    """No faults spec (or a strict one without retries) keeps the device
+    parse; retries or tolerance take the executor, with the same bytes."""
+    calls = []
+    real = api.stream_ordered_batches
+    monkeypatch.setattr(api, "stream_ordered_batches",
+                        lambda *a, **k: calls.append("device") or real(*a, **k))
+    path = bams[0]
+    outs = {}
+    for spec, route in (("", "device"), ("retries=0", "device"),
+                        ("retries=2", "record"), ("mode=tolerant", "record")):
+        calls.clear()
+        assert api.export_takes_record_path(Config(faults=spec)) == \
+            (route == "record")
+        out = tmp_path / f"{route}-{spec or 'none'}.sbcr"
+        api.export(path, out, config=Config(faults=spec), device="cpu")
+        assert calls == (["device"] if route == "device" else [])
+        outs[spec] = out.read_bytes()
+    assert len(set(outs.values())) == 1
+
+
+def test_cli_export_tolerant_prints_the_fault_postscript(tmp_path, capsys):
+    path = str(tmp_path / "damaged.bam")
+    _damaged_block_bam(path)
+    out = tmp_path / "o.sbcr"
+    assert main(["export", "--device", "cpu", "--faults",
+                 "mode=tolerant,backoff=0", "-m", "16KB", "-o", str(out),
+                 path]) == 0
+    text = capsys.readouterr().out
+    assert "exported" in text and "quarantined" in text
+    assert jax_main(["export", "--faults", "mode=tolerant,backoff=0", "-m",
+                     "16KB", "-o", str(tmp_path / "j.sbcr"), path]) == 0
+    assert out.read_bytes() == (tmp_path / "j.sbcr").read_bytes()

@@ -174,3 +174,89 @@ def test_bad_ranges_are_usage_errors(bams, capsys):
     assert cli.main(["check-bam", "--device", "cpu", "-i", "20-10",
                      bams["rand"]]) == 2
     assert "error: Bad range" in capsys.readouterr().err
+
+
+# ------------------------------------- --faults, --chaos, --limits, --remote
+@pytest.fixture(autouse=True)
+def _jax_limits_restored():
+    """The JAX CLI's ``--limits`` stays installed in its process after the
+    run; restore it so later tests in this worker decode under their own
+    limits."""
+    from spark_bam_tpu.core import guard as jax_guard
+
+    prev = jax_guard._active
+    yield
+    jax_guard.set_limits(prev)
+
+
+FLAG_COMMANDS = ("count-reads", "full-check", "check-bam", "check-blocks",
+                 "compute-splits", "time-load", "aggregate")
+BAD_SPECS = (("--faults", "bogus=1"), ("--chaos", "x:io=0.1"),
+             ("--limits", "nope=1"), ("--remote", "mode=x"))
+
+
+@pytest.mark.parametrize("cmd", FLAG_COMMANDS)
+@pytest.mark.parametrize("flag,spec", BAD_SPECS)
+def test_bad_fault_specs_are_usage_errors_as_jax(bams, cmd, flag, spec):
+    """Each command that takes the flag in the reference's parser takes it
+    here, and a bad spec is a usage error (exit 2) before any work, as
+    the JAX CLI's."""
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        assert cli.main([cmd, "--device", "cpu", flag, spec,
+                         bams["rand"]]) == 2
+    assert "error:" in err.getvalue()
+    with contextlib.redirect_stderr(io.StringIO()):
+        assert jax_main([cmd, flag, spec, bams["rand"]]) == 2
+
+
+@pytest.mark.parametrize("flag,spec", [
+    ("--faults", "retries=2,mode=tolerant"), ("--faults", "retries=0"),
+    ("--limits", "record=1MB"), ("--remote", "depth=4")])
+def test_good_fault_specs_leave_the_count_unchanged(bams, tmp_path, flag,
+                                                    spec):
+    plain = _normalise(_port("count-reads", "-m", "16KB", bams["rand"]))
+    got = _normalise(_port("count-reads", "-m", "16KB", flag, spec,
+                           bams["rand"]))
+    want = _normalise(_jax(tmp_path, "count-reads", "-m", "16KB", flag, spec,
+                           bams["rand"]))
+    assert re.sub(r"\nchaos\(.*\n|fault tolerance:.*\n", "", got) == plain
+    assert re.sub(r"\nchaos\(.*\n|fault tolerance:.*\n", "", want) == plain
+
+
+def test_limits_reach_the_decoder_and_reset(bams):
+    from spark_bam_tpu_torch.core import guard
+    from spark_bam_tpu_torch.core.remote_plan import active_remote_config
+
+    with pytest.raises(guard.LimitExceeded):
+        cli.main(["count-reads", "--device", "cpu", "--limits", "record=40",
+                  bams["rand"]])
+    assert guard.current_limits() == guard.DecodeLimits()
+    assert cli.main(["count-reads", "--device", "cpu", "--remote",
+                     "depth=3", "-m", "64KB", bams["rand"]]) == 0
+    assert active_remote_config().depth == 0
+
+
+def test_warn_flag_sets_the_root_level(bams):
+    import logging
+
+    root = logging.getLogger()
+    level = root.level
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert cli.main(["check-blocks", "-w", "--device", "cpu",
+                             bams["rand"]]) == 0
+        assert root.level == logging.WARNING
+    finally:
+        root.setLevel(level)
+
+
+def test_chaos_count_over_retries_is_unchanged(bams, tmp_path):
+    """Seeded channel faults under the record path's retries: the count
+    equals the fault-free one, and the injected faults are reported."""
+    plain = _port("count-reads", "-m", "16KB", bams["long"])
+    n = re.search(r"Read counts matched: (\d+)", plain).group(1)
+    got = _port("count-reads", "-m", "16KB", "--chaos", "11:io=0.1",
+                "--faults", "retries=6,backoff=0", bams["long"])
+    assert re.search(rf"spark-bam found {n} reads|Read counts matched: {n}",
+                     got)
+    assert re.search(r"chaos\(seed=11\): injected io=\d+", got)

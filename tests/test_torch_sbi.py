@@ -22,6 +22,7 @@ from spark_bam_tpu.bgzf.block import Metadata as JMetadata
 from spark_bam_tpu.bgzf.flat import flatten_file as jax_flatten
 from spark_bam_tpu.core.config import Config as JConfig
 from spark_bam_tpu.core.pos import Pos as JPos
+from spark_bam_tpu_torch.benchmarks.fakestore import FakeObjectStore
 from spark_bam_tpu_torch.bgzf.block import Metadata as TMetadata
 from spark_bam_tpu_torch.bgzf.flat import flatten_file
 from spark_bam_tpu_torch.core.config import Config as TConfig
@@ -168,8 +169,15 @@ def test_fingerprint_and_virtual_offsets_equal_jax(bam):
                                   flat)
     with pytest.raises(tfmt.SbiFormatError):
         tfmt.record_starts_to_flat(view, np.array([7 << 16], np.uint64))
-    with pytest.raises(NotImplementedError, match="remote"):
-        tfmt.fingerprint_of("https://example.org/x.bam", TConfig())
+    # A URL's fingerprint (mtime 0, one ranged GET) equals the JAX
+    # package's over the same store.
+    with open(bam, "rb") as f:
+        data = f.read()
+    with FakeObjectStore(data, key="t.bam") as store:
+        url = f"{store.url_base}/bucket/t.bam"
+        got = tfmt.fingerprint_of(url, TConfig())
+        assert got.__dict__ == jfmt.fingerprint_of(url, JConfig()).__dict__
+        assert got.mtime_ns == 0 and got.size == len(data)
 
 
 # ------------------------------------------------------------------ store
