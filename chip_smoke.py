@@ -67,9 +67,10 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    (``benchmarks/load_cases.py``) on the card, on the CPU and with the
    funnel off (``full_check_flags``), equal batches, and equal under
    every filter applied to them on the card and on the CPU, tags
-   included; the long reads' exact spills; ``load_reads_columnar``
-   and ``record_starts`` on the small BAM, card against CPU (the CPU's
-   columns parsed and filtered over its one whole-file check).
+   included; the long reads' exact spills; ``record_starts`` on the small
+   BAM = the generator's starts and ``load_reads_columnar`` = the plain
+   parse and filters over them; ``record_starts`` card = CPU on a 4 MiB
+   BAM of the same seed.
 8. The sharded workloads (``parallel/``) on ``make_mesh()``, every card:
    ``count_reads_sharded`` over the 1 GiB BAM (the generator's count, no
    escape, no demotion, no fallback; wall beside the fused count; steps,
@@ -77,9 +78,8 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    reused; ``full_check_summary_sharded`` at K = 2^17 sites a row (equal
    to phase 4's streaming summary, no fallback; wall beside phase 4's; the
    most sites of any row; the full step's check and reduction per row,
-   CUDA events); ``check_bam_sharded`` against a ``.records`` sidecar from
-   the port's ``index_records`` (every read a true positive, no false
-   call); the small BAM at the default K (the site lists overflow: the
+   CUDA events); ``check_bam_sharded`` against a ``.records`` sidecar of
+   the generator's starts (every read a true positive, no false call); the small BAM at the default K (the site lists overflow: the
    fallback must give the streaming summary), and on a two-entry mesh of
    one card equal to a one-entry mesh; long reads exact through patched
    steps, full-check equal to the CPU's; two processes of
@@ -97,10 +97,11 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    device memory. Then with a loci and flag filter (= the oracle over
    NumPy-masked columns, reusing the first run's record starts); the
    mesh's agg step on every card and on a
-   two-entry mesh of one card (= one device); card = CPU on the small BAM
-   (the CPU's parse and reduction over phase 7's CPU record starts),
-   the load edge corpus under tag filters and an unmapped BAM with no
-   reference sequences (``benchmarks/agg_cases.py``; empty coverage).
+   two-entry mesh of one card (= one device); card = CPU on the load
+   edge corpus under tag filters and an unmapped BAM with no reference
+   sequences (``benchmarks/agg_cases.py``; empty coverage). The small
+   BAM's card aggregate is held against its CRAM's and the SAM's host
+   oracle in phase 20.
 
 10. Split planning with the ``.sbi`` cache (``split_phase``, under a
    temporary ``SPARK_BAM_CACHE_DIR``): ``index -m 32MB --record-starts``
@@ -132,7 +133,7 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    spark_bam_tpu_torch.benchmarks.profile_export --columns
    flag,pos,name,cigar --columnar codec=zlib``). Then card bytes = CPU
    bytes on a 4 MiB BAM of the small BAM's seed and a 2 MiB long-read BAM
-   (rows in file order), codecs none, zlib and deflate, unfiltered and
+   (rows in file order), codecs none and deflate, unfiltered and
    with a loci and flag filter. The export checks every block's CRC-32 on
    the card.
 
@@ -242,8 +243,8 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    ``prefilter_check_flags`` windows; its wall split into the split
    resolution and the host record decode); ``load_splits_and_reads``
    card = CPU; ``check-bam -s`` against the ``.records`` sidecar, the
-   eager verdict from ``full_check_flags`` windows = phase 7's CPU plain
-   run's starts and a CPU plain check of the first MiB at every exact
+   eager verdict from ``full_check_flags`` windows = the generator's
+   starts (phase 7) and a CPU plain check of the first MiB at every exact
    position; ``check-blocks -s``; on a 4 MiB BAM of the same seed the
    ``count-reads`` CLI (``load_bam`` against hadoop-bam's count: ``Read
    counts matched``), the default ``check-bam`` (the eager verdict against
@@ -292,8 +293,24 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    Phase 11's export checks each block's CRC-32 on the card too (the
    ``crc32_lanes`` row's ``export_crc`` launches).
 
+20. SAM and CRAM (``text_phase``): the 40 MiB BAM's records written as
+   CRAM by the port's writer, with rANS and with gzip (in two child
+   processes, beside the BAM side of the phase), each with its
+   ``.crai``; the 4 MiB
+   seed-8 BAM rendered as SAM. (a) ``aggregate`` with every metric over
+   the BAM, the reduction on the card, = over its CRAM and its SAM on the
+   host (int64 oracle), whole and filtered; (b) the BAM's export on the
+   device route = the CRAM's native container byte for byte; (c)
+   ``count-reads`` of the rANS CRAM = the BAM's streaming count on the
+   card; (d) ``load_cram_intervals`` with the ``.crai`` = ``load_bam_
+   intervals`` with ``index-bam``'s ``.bai``, on the sorted seed-8 unit;
+   (e) the native rANS decoder (g++ on the card's host) = the Python
+   decoder on the rANS CRAM's blocks; (f) ``fuzz-decode --formats cram``
+   with no violation. Its wall, the CRAM write and decode rates and the
+   three ``aggregate`` walls are logged.
+
 Launch counters are set to 0 just before each main path (3, 4, 6, 7, 8,
-9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19) and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
+9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20) and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
 and, last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero; without CUDA, or without the package beside
 it, it exits non-zero before printing a result.
@@ -513,8 +530,8 @@ def resident_phase(port, bam, manifest, long_bam, long_manifest, small,
     return launches
 
 
-def load_phase(port, bam, manifest, long_bam, long_manifest, small, work,
-               card) -> dict:
+def load_phase(port, bam, manifest, long_bam, long_manifest, small,
+               small_manifest, work, card) -> dict:
     """Phase 7, the load path; returns its kernel launch counts on the
     1 GiB load and on the edge corpus's funnel-off load, and the 1 GiB
     load's fixed columns in file order (phase 11's reference)."""
@@ -522,7 +539,11 @@ def load_phase(port, bam, manifest, long_bam, long_manifest, small, work,
 
     from spark_bam_tpu_torch.bam.header import read_header
     from spark_bam_tpu_torch.benchmarks import load_cases
-    from spark_bam_tpu_torch.benchmarks.synth import record_positions
+    from spark_bam_tpu_torch.benchmarks.synth import (
+        record_flat_starts,
+        record_positions,
+        synth_bam,
+    )
     from spark_bam_tpu_torch.load import tpu_load
     from spark_bam_tpu_torch.tpu import kernels as K
     from spark_bam_tpu_torch.tpu import parser, stream_check
@@ -686,31 +707,40 @@ def load_phase(port, bam, manifest, long_bam, long_manifest, small, work,
     log(f"load long reads: {len(pos)} reads, {spilled} decoded exactly from "
         f"the stream, positions = the generator's")
 
-    # Whole file: record_starts and load_reads_columnar, card against CPU.
-    # The CPU side checks the whole file once: its columns are the plain
-    # parse and filters over those starts, as load_reads_columnar's (the
-    # two other CPU whole-file checks were a depth cut, PERF.md §4).
+    # Whole file: record_starts and load_reads_columnar on the card. The
+    # 40 MiB BAM's starts against the generator's, its columns against
+    # the plain parse and filters over them; the plain whole-file check,
+    # card = CPU, on the 4 MiB seed-8 BAM (the 40 MiB BAM's CPU check was
+    # a depth cut, PERF.md §4: phase 20 holds the 40 MiB BAM's device
+    # aggregate and export against its CRAM's host decode).
     from spark_bam_tpu_torch.load.tpu_load import _apply_filter
     from spark_bam_tpu_torch.tpu.parser import parse_flat_records
 
     t0 = time.perf_counter()
+    truth = record_flat_starts(small_manifest)
     rs_card = port.record_starts(small)
-    rs_cpu = port.record_starts(small, device="cpu")
-    require((rs_card.starts == rs_cpu.starts).all()
-            and len(rs_card.starts) == len(rs_cpu.starts), "record_starts")
-    cpu_cols = parse_flat_records(rs_cpu.view.data, rs_cpu.starts,
-                                  device="cpu")
+    require(np.array_equal(np.asarray(rs_card.starts, dtype=np.int64),
+                           truth), "record_starts != the generator's")
+    cpu_cols = parse_flat_records(rs_card.view.data, truth, device="cpu")
     for kw in ({}, {"loci": "chr1:0-1000000", "flags_forbidden": 0x400}):
         a = port.load_reads_columnar(small, **kw)
         b = cpu_cols if not kw else _apply_filter(
-            cpu_cols, rs_cpu.header, kw["loci"], 0, kw["flags_forbidden"],
+            cpu_cols, rs_card.header, kw["loci"], 0, kw["flags_forbidden"],
             device="cpu")
         batches_equal([(0, a)], [(0, b)], f"load_reads_columnar {kw}")
-    log(f"load whole file: record_starts ({len(rs_card.starts)} starts) and "
-        f"load_reads_columnar equal on card and CPU (the CPU's columns from "
-        f"its one whole-file check); {time.perf_counter() - t0:.1f} s")
+    cut = work / "load4.bam"
+    synth_bam(cut, 4 << 20, seed=8)
+    rs4_card = port.record_starts(cut)
+    rs4_cpu = port.record_starts(cut, device="cpu")
+    require(np.array_equal(rs4_card.starts, rs4_cpu.starts)
+            and len(rs4_card.starts) > 0, "record_starts card != CPU")
+    cut.unlink()
+    log(f"load whole file: record_starts ({len(rs_card.starts)} starts) = "
+        f"the generator's, load_reads_columnar = the plain parse and "
+        f"filters over them; record_starts card = CPU on a 4 MiB BAM "
+        f"({len(rs4_cpu.starts)} starts); {time.perf_counter() - t0:.1f} s")
     load_cols = {c: np.concatenate(v) for c, v in parts.items()}
-    return load_launches, off_launches, load_cols, rs_cpu.starts
+    return load_launches, off_launches, load_cols, truth
 
 
 def _two_process_count(bam, work, backend: str) -> list[dict]:
@@ -745,7 +775,12 @@ def sharded_phase(port, bam, manifest, summary, fc_s, fused_s, small,
         row_ms,
         timed_full_rows,
     )
-    from spark_bam_tpu_torch.benchmarks.synth import synth_bam
+    from spark_bam_tpu_torch.benchmarks.synth import (
+        record_flat_starts,
+        synth_bam,
+    )
+    from spark_bam_tpu_torch.bgzf.flat import metas_block_table
+    from spark_bam_tpu_torch.bgzf.index_blocks import blocks_metadata
     from spark_bam_tpu_torch.parallel import mesh as pm
     from spark_bam_tpu_torch.tpu import kernels as K
 
@@ -824,9 +859,19 @@ def sharded_phase(port, bam, manifest, summary, fc_s, fused_s, small,
         f"most sites of a row {timed['most_sites']} ({two} two-check sites "
         f"in all); per row (CUDA events) {per_row}; launches {fl}")
 
-    # ---- check-bam against the port's .records sidecar -------------------
+    # ---- check-bam against a .records sidecar -----------------------------
+    # The 1 GiB BAM's sidecar holds the generator's starts (the port's
+    # index_records walk of it was a depth cut, PERF.md §4; it indexes the
+    # small and the long-read BAMs below).
     t0 = time.perf_counter()
-    _, n_records = index_records(bam)
+    flats = record_flat_starts(manifest)
+    block_starts, block_flat = metas_block_table(blocks_metadata(bam))
+    idx = np.searchsorted(block_flat, flats, side="right") - 1
+    with open(f"{bam}.records", "w") as f:
+        f.writelines(f"{b},{o}\n" for b, o in zip(
+            block_starts[idx].tolist(), (flats - block_flat[idx]).tolist()))
+    n_records = len(flats)
+    del flats, idx
     index_s = time.perf_counter() - t0
     require(n_records == want, (n_records, want))
     stats = {}
@@ -843,8 +888,9 @@ def sharded_phase(port, bam, manifest, summary, fc_s, fused_s, small,
     require(stats["fallback"] is False and stats["patched_steps"] == 0
             and stats["tokenize_demotions"] == 0, stats)
     require(all(bl[x] > 0 for x in COUNT_KERNELS), bl)
-    log(f"sharded check-bam: {cb} in {cb_s:.3f} s (.records of {n_records} "
-        f"records written in {index_s:.3f} s); launches {bl}")
+    log(f"sharded check-bam: {cb} in {cb_s:.3f} s (.records of the "
+        f"generator's {n_records} starts written in {index_s:.3f} s); "
+        f"launches {bl}")
 
     # ---- the small BAM: the default K overflows; one card as two shards --
     t0 = time.perf_counter()
@@ -961,8 +1007,8 @@ def _agg_equal(got: dict, want: dict, label: str) -> None:
                 f"{label}: {k} differs")
 
 
-def agg_phase(port, bam, manifest, small, work, card,
-              small_starts) -> tuple[dict, dict]:
+def agg_phase(port, bam, manifest, small, work, card
+              ) -> tuple[dict, dict]:
     """Phase 9, the aggregate; returns its kernel launch counts on the
     1 GiB aggregate and that aggregate's result, wall, host split and peak
     host RSS (phase 10's reference)."""
@@ -1115,26 +1161,11 @@ def agg_phase(port, bam, manifest, small, work, card,
             f"{one_s:.3f} s")
     del cols, masked
 
-    # Card against CPU: the small BAM, the edge corpus under tag filters,
-    # and an unmapped BAM with no reference sequences (nc 0). The small
-    # BAM's CPU side parses and reduces over phase 7's CPU record starts
-    # (its own whole-file CPU check was a depth cut, PERF.md §4; phase 7
-    # holds those starts = the card's).
-    from spark_bam_tpu_torch.bam.header import read_header
-    from spark_bam_tpu_torch.bgzf.flat import flatten_file
-    from spark_bam_tpu_torch.tpu.parser import parse_flat_records
-
+    # Card against CPU: the edge corpus under tag filters and an unmapped
+    # BAM with no reference sequences (nc 0). (The small BAM's CPU leg was
+    # a depth cut, PERF.md §4: phase 20 holds its card aggregate against
+    # its CRAM's host oracle.)
     t0 = time.perf_counter()
-    a = port.aggregate(small)
-    cpu_batch = parse_flat_records(flatten_file(small).data, small_starts,
-                                   device="cpu")
-    b_metrics = AK.aggregate_planes(
-        cpu_batch.columns, AggConfig.parse(""),
-        len(read_header(small).contig_lengths), device="cpu")
-    _agg_equal(a["metrics"], b_metrics, "small BAM")
-    require(a["rows"] == int(cpu_batch.columns["valid"].sum()) > 0,
-            a["rows"])
-    del cpu_batch
     edges = work / "agg_edges.bam"
     load_cases.write_bam(edges, seed=0)
     w0, h0 = load_cases.GEOMETRY
@@ -1156,7 +1187,7 @@ def agg_phase(port, bam, manifest, small, work, card,
     require(a["contigs"] == [] and m["coverage"].shape == (0,)
             and m["count"][:2].tolist() == [n_un, 0]
             and m["flagstat"][3] == n_un, (a["rows"], m["count"]))
-    log(f"aggregate card = CPU: the small BAM, the edge corpus under "
+    log(f"aggregate card = CPU: the edge corpus under "
         f"{len(filters)} filters ({len(load_cases.TAG_FILTERS)} tag sets), "
         f"an unmapped BAM of {n_un} reads with nc 0 (empty coverage); "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1568,7 +1599,7 @@ def export_phase(port, bam, manifest, load_cols, small, small_manifest,
         for q in ({}, query):
             cpu_pieces = (filtered(unfiltered, header, q) if q
                           else unfiltered)
-            for codec in ("none", "zlib", "deflate"):
+            for codec in ("none", "deflate"):
                 spec = f"codec={codec}"
                 card_out, cpu_out = out_dir / "card.sbcr", out_dir / "cpu.sbcr"
                 got = port.export(path, card_out,
@@ -1597,8 +1628,8 @@ def export_phase(port, bam, manifest, load_cols, small, small_manifest,
         f.unlink()
     cut.unlink()
     log(f"export card = CPU: a 4 MiB BAM of the small BAM's seed and long "
-        f"reads (256 KiB / 64 KiB, rows in file order), codecs none, zlib "
-        f"and deflate, unfiltered and {query}: {compared} files equal byte "
+        f"reads (256 KiB / 64 KiB, rows in file order), codecs none and "
+        f"deflate, unfiltered and {query}: {compared} files equal byte "
         f"for byte; {time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -3428,12 +3459,12 @@ def record_phase(port, small, small_manifest, small_starts, work,
         default_s = time.perf_counter() - t0
         note("record_check_bam_default")
         require("All calls matched!" in default.splitlines(), default)
-        # The CPU plain run's verdict: phase 7's whole-file check on the
-        # CPU (its record starts), and a plain check of the first MiB.
+        # The generator's starts (phase 7 holds the card's record_starts
+        # to them), and a plain check of the first MiB on the CPU.
         header_end = read_header(small).uncompressed_size
         starts = np.flatnonzero(eager.verdict)
         require(np.array_equal(starts[starts >= header_end], small_starts),
-                "eager verdict differs from the CPU plain run's")
+                "eager verdict differs from the generator's starts")
         head = 1 << 20
         from spark_bam_tpu_torch.tpu.checker import TpuChecker
 
@@ -3447,7 +3478,7 @@ def record_phase(port, small, small_manifest, small_starts, work,
         log(f"check-bam -s, 40 MiB BAM ({ctx.view.size} positions): eager "
             f"verdict on the card {eager_s:.3f} s (full_check_flags "
             f"{out['record_check_bam']['full_check_flags']} launches, its "
-            f"host recheck included) = the CPU plain run's starts (phase 7) "
+            f"host recheck included) = the generator's starts "
             f"and its first MiB at every exact position, all calls matched "
             f"the .records truth; check-bam of the 4 MiB BAM (eager against "
             f"seqdoop on the host) {default_s:.3f} s: all calls matched "
@@ -4152,6 +4183,300 @@ def obs_phase(port, bam, manifest, small, small_manifest, work, card,
     return paths, nums
 
 
+def _rans_blocks(path, containers) -> list:
+    """``(compressed payload, raw size)`` of every rANS block in the
+    containers ``containers`` (indices) of a CRAM, read off the container
+    and block headers without decoding them."""
+    from spark_bam_tpu_torch.cram import CramReader
+    from spark_bam_tpu_torch.cram.container import RANS4x8, ContainerHeader
+    from spark_bam_tpu_torch.cram.nums import Cursor
+
+    out = []
+    with CramReader(path) as r:
+        infos = r.container_infos()
+        for i in containers:
+            cur = Cursor(r.buf, infos[i].offset)
+            header = ContainerHeader.parse(cur)
+            for _ in range(header.n_blocks):
+                method, _ctype = cur.u8(), cur.u8()
+                cur.itf8()                     # content id
+                comp_size, raw_size = cur.itf8(), cur.itf8()
+                comp = bytes(cur.read(comp_size))
+                cur.u32()                      # CRC-32
+                if method == RANS4x8:
+                    out.append((comp, raw_size))
+    return out
+
+
+def text_phase(port, small, small_manifest, work, card
+               ) -> tuple[dict, dict]:
+    """Phase 20, SAM and CRAM against the BAM's device paths. The 40 MiB
+    seed-8 BAM's records are written as CRAM by the port's writer twice,
+    with rANS and with gzip, each with its ``.crai``, by two child
+    processes while this one runs the BAM side; the 4 MiB seed-8 BAM is rendered as SAM by
+    ``to_sam``; the seed-8 unit alone (16,384 sorted records) is the
+    indexed pair. (a) ``aggregate`` with every metric over the BAMs, the
+    reduction on the card (``full_check_flags`` launched), = over the
+    gzip CRAM and the SAM (host, int64 oracle), whole and filtered; (b)
+    the 40 MiB BAM's export on the device route (CRC-32 on the card) =
+    the gzip CRAM's native container byte for byte (its records are ``M``
+    runs only, so the reference-less writer changes nothing); (c)
+    ``count-reads`` of the rANS CRAM (the CLI) = the BAM's streaming
+    count on the card; (d) ``load_cram_intervals`` over a locus with the
+    ``.crai`` = ``load_bam_intervals`` over it with the ``.bai`` from
+    ``index-bam``; (e) the native rANS decoder, built by g++ here, = the
+    Python decoder on every rANS block of three containers; (f)
+    ``fuzz-decode --formats cram`` with no violation. The flag kernels'
+    launches are held against their plain versions. Returns the launches
+    of each path and the phase's numbers."""
+    from spark_bam_tpu_torch import cli
+    from spark_bam_tpu_torch.benchmarks import text_cases as tc
+    from spark_bam_tpu_torch.benchmarks.synth import synth_bam
+    from spark_bam_tpu_torch.cram import CramReader, rans
+    from spark_bam_tpu_torch.device import sync
+    from spark_bam_tpu_torch.load import api
+    from spark_bam_tpu_torch.native import build as nbuild
+    from spark_bam_tpu_torch.tpu import checker as checker_mod
+    from spark_bam_tpu_torch.tpu import kernels as K
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    reads = small_manifest["reads"]
+    d = work / "text"
+    d.mkdir(exist_ok=True)
+    out: dict = {}
+    nums: dict = {}
+    held, restore = _held_kernels(checker_mod, K)
+
+    def note(path: str) -> None:
+        sync(dev)
+        out[path] = dict(K.LAUNCHES)
+        for name, (calls, err) in held().items():
+            require(err == 0, f"{name} differs from plain on {path}: {err}")
+        K.reset_launch_counts()
+
+    def timed(fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(dev)
+        return res, time.perf_counter() - t0
+
+    def agg_equal(got, want, label):
+        require(got["rows"] == want["rows"] and got["contigs"] == want[
+            "contigs"] and list(got["metrics"]) == list(want["metrics"]),
+            label)
+        for k, v in want["metrics"].items():
+            require(got["metrics"][k].dtype == np.int64
+                    and np.array_equal(got["metrics"][k], v), (label, k))
+
+    # The rANS decoder's library: built here by g++ unless this checkout
+    # already holds it.
+    prebuilt = nbuild.library_path(nbuild.RANS_SRC).exists()
+    t0 = time.perf_counter()
+    nbuild.load_rans()
+    rans_build = (f"found built, loaded in {time.perf_counter() - t0:.3f} s"
+                  if prebuilt else
+                  f"built by g++ in {time.perf_counter() - t0:.3f} s")
+    # Both CRAMs are written by child processes (the writer is Python, one
+    # core each) while this process runs the BAM side.
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    crams = {m: d / f"small_{m}.cram" for m in ("gzip", "rans")}
+    children = {m: subprocess.Popen(
+        [sys.executable, "-m", "spark_bam_tpu_torch.benchmarks.text_cases",
+         str(small), str(path), m], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, text=True) for m, path in crams.items()}
+    written: dict = {}
+
+    def wait_for(method: str) -> Path:
+        t0 = time.perf_counter()
+        child_out, _ = children[method].communicate(timeout=900)
+        require(children[method].returncode == 0,
+                f"the {method} CRAM writer exited "
+                f"{children[method].returncode}")
+        res = json.loads(child_out.strip().splitlines()[-1])
+        require(res["records"] == reads, res)
+        written[method] = res
+        log(f"{method} CRAM (child process): {reads} records decoded from "
+            f"the BAM in {res['decode_s']:.3f} s, written in "
+            f"{res['write_s']:.3f} s ({reads / res['write_s']:,.0f} "
+            f"records/s), {crams[method].stat().st_size} bytes; waited "
+            f"{time.perf_counter() - t0:.1f} s for it")
+        return crams[method]
+
+    try:
+        K.reset_launch_counts()
+        # ---- the BAM side: the SAM, the sorted unit ----------------------
+        cut4 = d / "cut4.bam"
+        synth_bam(cut4, 4 << 20, seed=8)
+        sam = d / "cut4.sam"
+        h4, r4 = tc.bam_records(cut4)
+        n_sam = tc.write_sam(h4, r4, sam)
+        del r4
+        unit = d / "unit.bam"
+        unit_manifest = synth_bam(unit, 1, seed=8)
+        hu, ru = tc.bam_records(unit)
+        unit_cram = d / "unit.cram"
+        tc.write_cram(hu, ru, unit_cram, records_per_container=512)
+        del ru
+        log(f"text inputs: the 4 MiB BAM as SAM ({n_sam} records, "
+            f"{sam.stat().st_size} bytes); the sorted unit "
+            f"({unit_manifest['reads']} records) as CRAM")
+
+        # ---- (a) aggregate: the BAMs on the card = the SAM on the host ---
+        K.reset_launch_counts()
+        bam_agg, bam_s = timed(lambda: api.aggregate(small))
+        note("text_aggregate_bam")
+        require(out["text_aggregate_bam"]["full_check_flags"] > 0,
+                "aggregate of the BAM launched no full_check_flags")
+        require(bam_agg["rows"] == reads, (bam_agg["rows"], reads))
+        sam_bam_agg = api.aggregate(cut4)
+        note("text_aggregate_bam4")
+        sam_agg, sam_agg_s = timed(lambda: api.aggregate(sam))
+        note("text_aggregate_sam")
+        agg_equal(sam_agg, sam_bam_agg, "aggregate: SAM != the BAM's")
+        filt = dict(agg="count;flagstat;mapq;coverage:bin=100000,bins=64",
+                    loci="chr1:1m-20m,chr2", flags_forbidden=16)
+        agg_equal(api.aggregate(sam, **filt), api.aggregate(cut4, **filt),
+                  "filtered aggregate: SAM != the BAM's")
+        note("text_aggregate_filtered")
+
+        # ---- the BAM's export and count on the card ----------------------
+        bam_out, cram_out = d / "bam.sbcr", d / "cram.sbcr"
+        bam_sum, bam_exp_s = timed(lambda: api.export(small, str(bam_out)))
+        note("text_export_bam")
+        for name in (*COUNT_KERNELS, "crc32_lanes"):
+            require(out["text_export_bam"][name] > 0,
+                    f"the BAM's export launched no {name}")
+        bam_n, bam_count_s = timed(
+            lambda: port.StreamChecker(small, port.Config()).count_reads())
+        note("text_count_bam")
+        for name in COUNT_KERNELS:
+            require(out["text_count_bam"][name] > 0,
+                    f"the BAM's count launched no {name}")
+        require(bam_n == reads, (bam_n, reads))
+
+        # ---- (d) intervals: CRAM with .crai = BAM with .bai --------------
+        with contextlib.redirect_stderr(io.StringIO()):
+            require(cli.main(["index-bam", str(unit)]) == 0, "index-bam")
+        locus = "chr1:500000-1500000,chr2:100000-400000"
+        bam_iv = api.load_bam_intervals(unit, locus).collect()
+        with CramReader(unit_cram) as r:
+            n_containers = len(r.container_infos())
+        cram_ds = api.load_cram_intervals(unit_cram, locus)
+        picked = sum(len(g) for g in cram_ds.partitions)
+        cram_iv = cram_ds.collect()
+        note("text_intervals")
+        require(bam_iv and [r.encode() for r in cram_iv]
+                == [r.encode() for r in bam_iv],
+                f"intervals: CRAM {len(cram_iv)} != BAM {len(bam_iv)}")
+        require(0 < picked < n_containers, (picked, n_containers))
+        log(f"(d) {locus}: load_cram_intervals with the .crai "
+            f"({picked} of {n_containers} containers decoded) = "
+            f"load_bam_intervals with index-bam's .bai, {len(bam_iv)} "
+            f"records")
+
+        # ---- (f) fuzz-decode --formats cram ------------------------------
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["fuzz-decode", "--seed", "0", "--mutants", "200",
+                           "--formats", "cram"])
+        summary = json.loads(buf.getvalue())
+        note("text_fuzz_cram")
+        require(rc == 0 and summary["violations"] == [],
+                summary["violations"][:3])
+        nums["fuzz"] = {"counts": summary["counts"]["cram"],
+                        "mutants_per_s": summary["mutants_per_s"]}
+        log(f"(f) fuzz-decode --formats cram, 200 mutants: no violation, "
+            f"{summary['counts']['cram']}, "
+            f"{summary['mutants_per_s']:.1f} mutants/s")
+
+        # ---- (a), (b) against the gzip CRAM ------------------------------
+        gz_cram = wait_for("gzip")
+        cram_agg, cram_agg_s = timed(lambda: api.aggregate(gz_cram))
+        note("text_aggregate_cram")
+        agg_equal(cram_agg, bam_agg, "aggregate: CRAM != the BAM's")
+        nums["aggregate_s"] = {"bam": bam_s, "cram": cram_agg_s,
+                               "sam": sam_agg_s}
+        nums["cram_decode_records_per_s"] = reads / cram_agg_s
+        log(f"(a) aggregate with every metric: the 40 MiB BAM on the card "
+            f"{bam_s:.3f} s ({out['text_aggregate_bam']['full_check_flags']}"
+            f" full_check_flags launches) = its gzip CRAM on the host "
+            f"{cram_agg_s:.3f} s ({reads / cram_agg_s:,.0f} records/s "
+            f"decoded and reduced); the 4 MiB BAM on the card = its SAM on "
+            f"the host {sam_agg_s:.3f} s, whole and filtered ({card})")
+        cram_sum, cram_exp_s = timed(lambda: api.export(gz_cram,
+                                                        str(cram_out)))
+        note("text_export_cram")
+        require(bam_sum["rows"] == cram_sum["rows"] == reads,
+                (bam_sum["rows"], cram_sum["rows"]))
+        require(_same_file(bam_out, cram_out),
+                "export: the CRAM's container != the BAM's device route's")
+        nums["export_s"] = {"bam": bam_exp_s, "cram": cram_exp_s}
+        log(f"(b) export to the native container: the BAM's device route "
+            f"{bam_exp_s:.3f} s = the gzip CRAM's record route "
+            f"{cram_exp_s:.3f} s byte for byte ({bam_out.stat().st_size} "
+            f"bytes, {reads} rows)")
+        bam_out.unlink()
+        cram_out.unlink()
+
+        # ---- the rANS CRAM ------------------------------------------------
+        rans_cram = wait_for("rans")
+        nums["cram_write_records_per_s"] = {
+            m: reads / written[m]["write_s"] for m in written}
+
+        # ---- (c) count-reads of the rANS CRAM = the BAM's count ---------
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, cram_count_s = timed(lambda: require(
+                cli.main(["count-reads", str(rans_cram)]) == 0,
+                "count-reads of the CRAM failed"))
+        note("text_count_cram")
+        lines = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith("Read count: ")]
+        require(lines == [f"Read count: {bam_n}"] and bam_n == reads,
+                (buf.getvalue(), bam_n, reads))
+        nums["count_s"] = {"bam": bam_count_s, "cram_cli": cram_count_s}
+        log(f"(c) count-reads of the rANS CRAM: {lines[0]} in "
+            f"{cram_count_s:.3f} s ({reads / cram_count_s:,.0f} records/s) "
+            f"= the BAM's streaming count on the card {bam_count_s:.3f} s")
+
+        # ---- (e) native rANS = the Python decoder ------------------------
+        with CramReader(rans_cram) as r:
+            n_cont = len(r.container_infos())
+        blocks = _rans_blocks(rans_cram, sorted({0, n_cont // 2,
+                                                 n_cont - 1}))
+        raw = sum(n for _, n in blocks)
+        nat_s = py_s = 0.0
+        for comp, n in blocks:
+            t0 = time.perf_counter()
+            a = rans.decompress(comp, n)
+            t1 = time.perf_counter()
+            b = rans.decompress_python(comp, n)
+            nat_s += t1 - t0
+            py_s += time.perf_counter() - t1
+            require(a == b and len(a) == n, "native rANS != Python")
+        require(len(blocks) > 0, "the rANS CRAM holds no rANS block")
+        nums["rans"] = {"blocks": len(blocks), "raw_bytes": raw,
+                        "native_s": nat_s, "python_s": py_s,
+                        "library": rans_build}
+        log(f"(e) native rANS (its library {rans_build}) = the Python "
+            f"decoder on {len(blocks)} blocks of 3 "
+            f"containers, {raw} bytes: native {nat_s:.3f} s, Python "
+            f"{py_s:.3f} s ({py_s / max(nat_s, 1e-9):.0f}x)")
+    finally:
+        restore()
+        for child in children.values():
+            if child.poll() is None:
+                child.kill()
+            child.wait()
+        shutil.rmtree(d, ignore_errors=True)
+    nums["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 20 (SAM and CRAM): {nums['phase_s']:.1f} s")
+    return out, nums
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4665,7 +4990,8 @@ def main() -> int:
 
         phase_done("6 (resident)")
         load_launches, off_launches, load_cols, small_starts = load_phase(
-            port, bam, manifest, long_bam, long_manifest, small, work, card)
+            port, bam, manifest, long_bam, long_manifest, small,
+            small_manifest, work, card)
 
         phase_done("7 (load)")
         sharded_launches = sharded_phase(
@@ -4674,7 +5000,7 @@ def main() -> int:
 
         phase_done("8 (sharded)")
         agg_launches, agg_ref = agg_phase(port, bam, manifest, small, work,
-                                          card, small_starts)
+                                          card)
 
         phase_done("9 (aggregate)")
         split_launches = split_phase(port, bam, manifest, small, work, card,
@@ -4728,6 +5054,11 @@ def main() -> int:
         log(f"phase 19 numbers: {json.dumps(obs_nums)}")
 
         phase_done("19 (obs)")
+        text_launches, text_nums = text_phase(port, small, small_manifest,
+                                              work, card)
+        log(f"phase 20 numbers: {json.dumps(text_nums)}")
+
+        phase_done("20 (SAM and CRAM)")
         for row in rows:
             row["launches"] = launches[row["name"]]
             row["launches_by_path"] = {
@@ -4758,6 +5089,8 @@ def main() -> int:
                    for path, n in remote_launches.items()},
                 **{path: n[row["name"]]
                    for path, n in obs_launches.items()},
+                **{path: n[row["name"]]
+                   for path, n in text_launches.items()},
             }
             if row["name"] in remote_errs:
                 calls, err = remote_errs[row["name"]]
@@ -4784,7 +5117,8 @@ def main() -> int:
                                 *host_launches.items(),
                                 *record_launches.items(),
                                 *remote_launches.items(),
-                                *obs_launches.items())}
+                                *obs_launches.items(),
+                                *text_launches.items())}
             # The export's CRC-32 of every block (phase 11, the 1 GiB
             # export's device route).
             row["launches_by_path"]["export_crc"] = export_launches[

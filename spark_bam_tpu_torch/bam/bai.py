@@ -192,13 +192,13 @@ def build_bai(bam_path) -> BaiIndex:
     begin/end offsets and mapped/unmapped counts, as samtools writes them.
     """
     from spark_bam_tpu_torch.bam.iterators import RecordStream
-    from spark_bam_tpu_torch.core.channel import open_channel
+    from spark_bam_tpu_torch.core.channel import open_channel, path_size
 
     ch = open_channel(bam_path)
     stream = RecordStream.open(ch)
     header = stream.header
     n_ref = len(header.contig_names)
-    eof_pos = Pos(os.path.getsize(bam_path), 0)
+    eof_pos = Pos(path_size(bam_path), 0)
     after_pos = None  # virtual offset just past the most recent record
 
     bins: list[dict[int, list[Chunk]]] = [{} for _ in range(n_ref)]

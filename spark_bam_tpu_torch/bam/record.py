@@ -1,7 +1,10 @@
 """BAM records on the host (reference ``spark_bam_tpu/bam/record.py``):
 ``BamRecord`` with its decode and encode (what the rewrite command
-round-trips), and the reference span of one record read straight from its
-cigar words (what the load path needs, without decoding the rest).
+round-trips), its SAM line (``to_sam``, ``parse_sam_line``, the tag
+renderer and encoder: what the SAM loader and the tag filter of SAM and
+CRAM queries read), and the reference span of one record read straight
+from its cigar words (what the load path needs, without decoding the
+rest).
 
 One record::
 
@@ -26,6 +29,8 @@ from __future__ import annotations
 
 import struct
 from dataclasses import dataclass, field
+
+from typing import Sequence
 
 from spark_bam_tpu_torch.core.guard import (
     DecodeLimits,
@@ -204,3 +209,157 @@ class BamRecord:
         or an empty cigar)."""
         span = self.reference_span()
         return self.pos + (span if span else 1)
+
+    # ------------------------------------------------------------------ SAM
+    def to_sam(self, contig_names: Sequence[str]) -> str:
+        """The record as one SAM line (no newline); ``contig_names`` in
+        reference-index order, as ``BamHeader.contig_names`` holds them."""
+        rname = _contig_name(contig_names, self.ref_id)
+        if self.next_ref_id < 0:
+            rnext = "*"
+        elif self.next_ref_id == self.ref_id:
+            rnext = "="
+        else:
+            rnext = _contig_name(contig_names, self.next_ref_id)
+        qual = ("*" if not self.qual or all(q == 0xFF for q in self.qual)
+                else "".join(chr(q + 33) for q in self.qual))
+        fields = [
+            self.read_name or "*",
+            str(self.flag),
+            rname,
+            str(self.pos + 1),
+            str(self.mapq),
+            self.cigar_string(),
+            rnext,
+            str(self.next_pos + 1),
+            str(self.tlen),
+            self.seq or "*",
+            qual,
+        ]
+        return "\t".join(fields + render_tags(self.tags))
+
+
+def _contig_name(names: Sequence[str], idx: int) -> str:
+    return "*" if idx < 0 else names[idx]
+
+
+_INT_TYPES = {"c": ("<b", 1), "C": ("<B", 1), "s": ("<h", 2),
+              "S": ("<H", 2), "i": ("<i", 4), "I": ("<I", 4)}
+_ARRAY_TYPES = {**_INT_TYPES, "f": ("<f", 4)}
+
+
+def render_tags(raw: bytes) -> list[str]:
+    """The raw tag block as SAM ``TAG:TYPE:VALUE`` strings.
+
+    Total on arbitrary bytes: any inconsistency (a short value, a missing
+    NUL, a negative or overflowing B-array count, an unknown subtype)
+    stops rendering at that tag, never an unbounded loop or an untyped
+    crash (the raw bytes stay on the record either way)."""
+    out = []
+    p = 0
+    n = len(raw)
+    while p + 3 <= n:
+        tag = raw[p: p + 2].decode("latin-1")
+        typ = chr(raw[p + 2])
+        p += 3
+        if typ == "A":
+            if p >= n:
+                break
+            out.append(f"{tag}:A:{chr(raw[p])}")
+            p += 1
+        elif typ in _INT_TYPES:
+            fmt, size = _INT_TYPES[typ]
+            if p + size > n:
+                break
+            out.append(f"{tag}:i:{struct.unpack_from(fmt, raw, p)[0]}")
+            p += size
+        elif typ == "f":
+            if p + 4 > n:
+                break
+            out.append(f"{tag}:f:{struct.unpack_from('<f', raw, p)[0]:g}")
+            p += 4
+        elif typ in "ZH":
+            end = raw.find(b"\x00", p)
+            if end < 0:
+                break
+            out.append(f"{tag}:{typ}:{raw[p:end].decode('latin-1')}")
+            p = end + 1
+        elif typ == "B":
+            if p + 5 > n:
+                break
+            sub = chr(raw[p])
+            count = struct.unpack_from("<i", raw, p + 1)[0]
+            p += 5
+            entry = _ARRAY_TYPES.get(sub)
+            if entry is None or count < 0 or p + count * entry[1] > n:
+                break
+            fmt, size = entry
+            vals = [str(struct.unpack_from(fmt, raw, p + i * size)[0])
+                    for i in range(count)]
+            out.append(f"{tag}:B:{sub},{','.join(vals)}")
+            p += count * size
+        else:
+            break  # unknown type: stop rendering (raw bytes still kept)
+    return out
+
+
+def parse_sam_line(line: str, contigs_by_name: dict[str, int]) -> BamRecord:
+    """One SAM alignment line as a ``BamRecord`` (tags re-encoded; ``bin``
+    0, as the reference leaves it)."""
+    parts = line.rstrip("\n").split("\t")
+    (qname, flag, rname, pos, mapq, cigar_s, rnext, pnext, tlen, seq,
+     qual) = parts[:11]
+    ref_id = -1 if rname == "*" else contigs_by_name[rname]
+    if rnext == "*":
+        next_ref = -1
+    elif rnext == "=":
+        next_ref = ref_id
+    else:
+        next_ref = contigs_by_name[rnext]
+    cigar = []
+    if cigar_s != "*":
+        num = ""
+        for c in cigar_s:
+            if c.isdigit():
+                num += c
+            else:
+                cigar.append((int(num), CIGAR_OPS.index(c)))
+                num = ""
+    return BamRecord(
+        ref_id=ref_id,
+        pos=int(pos) - 1,
+        mapq=int(mapq),
+        bin=0,
+        flag=int(flag),
+        next_ref_id=next_ref,
+        next_pos=int(pnext) - 1,
+        tlen=int(tlen),
+        read_name=qname if qname != "*" else "",
+        cigar=cigar,
+        seq=seq if seq != "*" else "",
+        qual=b"" if qual == "*" else bytes(ord(c) - 33 for c in qual),
+        tags=b"".join(encode_tag(t) for t in parts[11:]),
+    )
+
+
+def encode_tag(s: str) -> bytes:
+    """One SAM ``TAG:TYPE:VALUE`` as BAM tag bytes (integers as ``i``)."""
+    tag, typ, value = s.split(":", 2)
+    head = tag.encode("latin-1")
+    if typ == "A":
+        return head + b"A" + value.encode("latin-1")
+    if typ == "i":
+        return head + b"i" + struct.pack("<i", int(value))
+    if typ == "f":
+        return head + b"f" + struct.pack("<f", float(value))
+    if typ in ("Z", "H"):
+        return head + typ.encode() + value.encode("latin-1") + b"\x00"
+    if typ == "B":
+        sub = value[0]
+        vals = value[2:].split(",") if len(value) > 2 else []
+        fmt = _ARRAY_TYPES[sub][0]
+        body = b"".join(struct.pack(fmt, float(v) if sub == "f" else int(v))
+                        for v in vals)
+        return (head + b"B" + sub.encode() + struct.pack("<i", len(vals))
+                + body)
+    raise ValueError(f"Unknown tag type: {s}")

@@ -11,7 +11,13 @@ count lines (``spark-bam read-count time: MS`` and ``Read count: N`` per
 iteration) and, but for ``--sharded``, its ``funnel:`` line: ``--resident``
 (or ``Config.resident_scan``) counts with one device dispatch per resident
 chunk (``StreamChecker.count_reads_resident``), ``--sharded`` across the
-mesh (``parallel.stream_mesh.count_reads_sharded``).
+mesh (``parallel.stream_mesh.count_reads_sharded``). On a ``.cram``
+path it prints the standalone lines of ``load_reads(...).count()`` (no
+hadoop-bam leg, as in the reference); ``--resident`` and ``--sharded``
+are usage errors there. ``-F/--reference FASTA`` on ``count-reads``,
+``aggregate`` and ``export`` decodes a CRAM written reference-based
+(``RR=true``); ``aggregate`` and ``export`` also read ``.sam`` and
+``.cram`` paths, on the host, as the reference does.
 ``full-check [-l N] [--sharded]`` prints the reference's streaming
 full-check report (``full-check --streaming``; with ``--sharded`` the
 report reduced across the mesh, the same output): the critical and
@@ -114,9 +120,9 @@ every channel and prints ``chaos(seed=N): injected ...`` at the end,
 ``--remote SPEC`` the remote data plane (reset when the command ends) and
 ``-w`` the root log level WARN, on the commands where the reference's
 parser takes them. ``fuzz-decode [--seed N] [--mutants M] [--formats
-bam,bgzf,sbi] [-o OUT]`` runs the decode fuzz (``tools/fuzz_decode.py``),
-prints its JSON summary and exits 1 on a violation; ``--formats cram`` is
-a usage error.
+bam,bgzf,cram,sbi] [-o OUT]`` runs the decode fuzz
+(``tools/fuzz_decode.py``), prints its JSON summary and exits 1 on a
+violation.
 
 Observability (``obs/``): ``--metrics-out PATH`` on every command (or
 ``SPARK_BAM_METRICS_OUT``) turns the metrics registry on for the run,
@@ -231,9 +237,13 @@ def _timed_counts(count_fn, iterations: int, out) -> int:
 
 def count_reads(path, iterations: int = 1, device=None, out=None,
                 resident: bool = False, config: Config | None = None,
-                sharded: bool = False, devices: int | None = None) -> int:
+                sharded: bool = False, devices: int | None = None,
+                reference=None) -> int:
     out = sys.stdout if out is None else out
     config = Config() if config is None else config
+    if str(path).endswith(".cram"):
+        return _count_cram(path, iterations, device, out, resident, config,
+                           sharded, reference)
     if not (sharded or resident or config.resident_scan):
         return cli_app.count_reads(
             path, Printer(out=out),
@@ -253,6 +263,25 @@ def count_reads(path, iterations: int = 1, device=None, out=None,
     count = _timed_counts(count_fn, iterations, out)
     out.write(funnel_status_line(config, checker.funnel_stats) + "\n\n")
     return count
+
+
+def _count_cram(path, iterations: int, device, out, resident: bool,
+                config: Config, sharded: bool, reference) -> int:
+    """``count-reads`` of a CRAM (reference count_reads.py:35-80): CRAM has
+    no BGZF blocks to window, so only the record loader counts, with no
+    hadoop-bam leg."""
+    if resident and sharded:
+        raise UsageError("--resident and --sharded are mutually exclusive")
+    for flag, on in (("--resident", resident), ("--sharded", sharded)):
+        if on:
+            raise UsageError(
+                f"{flag} supports BAM only: CRAM has no BGZF block "
+                "structure to window (use the default count-reads path)")
+    split = config.split_size_or(Config.LOAD_SPLIT_SIZE_DEFAULT)
+    return _timed_counts(
+        lambda: api.load_reads(path, split, config, device=device,
+                               reference=reference).count(),
+        iterations, out)
 
 
 def _counts_lines(counts: dict[str, int], hide_bit0: bool = False,
@@ -483,8 +512,9 @@ def _tsv_lines(result: dict):
 def aggregate(path, agg: str | None = None, loci: str | None = None,
               flags_required: int = 0, flags_forbidden: int = 0,
               tags_required=(), fmt: str = "tsv", device=None, out=None,
-              config: Config | None = None) -> dict:
-    """The aggregate report of one BAM query; returns the result."""
+              config: Config | None = None, reference=None) -> dict:
+    """The aggregate report of one BAM, CRAM or SAM query; returns the
+    result."""
     p = Printer(out=out)
     if loci:
         try:
@@ -504,7 +534,7 @@ def aggregate(path, agg: str | None = None, loci: str | None = None,
                            flags_forbidden=flags_forbidden,
                            tags_required=tuple(tags_required),
                            config=Config() if config is None else config,
-                           device=device)
+                           device=device, reference=reference)
     seconds = time.monotonic() - t0
     if fmt == "json":
         p.echo(json.dumps({
@@ -524,7 +554,7 @@ def aggregate(path, agg: str | None = None, loci: str | None = None,
 
 def export(path, out_path: str, fmt: str = "native", loci: str | None = None,
            columns: str | None = None, device=None, out=None,
-           config: Config | None = None) -> dict:
+           config: Config | None = None, reference=None) -> dict:
     """One export and its summary line (reference ``cli/export.py``);
     returns the summary."""
     from spark_bam_tpu_torch.columnar.config import ColumnarConfig
@@ -541,7 +571,8 @@ def export(path, out_path: str, fmt: str = "native", loci: str | None = None,
     except ValueError as e:   # BadLociError is one
         raise UsageError(str(e)) from e
     summary = api.export(path, out_path, loci=loci or None, fmt=fmt,
-                         columns=columns, config=config, device=device)
+                         columns=columns, config=config, device=device,
+                         reference=reference)
     cols = ",".join(summary["columns"])
     p.echo(
         f"exported {summary['rows']} rows in {summary['batches']} batches "
@@ -579,7 +610,7 @@ def rewrite(in_path, out_path, block_payload="65280", level: int = 6,
 def durable_export(path, out_path: str, fmt: str = "native",
                    loci: str | None = None, columns: str | None = None,
                    checkpoint: int | None = None, device=None, out=None,
-                   config: Config | None = None) -> dict:
+                   config: Config | None = None, reference=None) -> dict:
     """``export --durable``: the journaled export job (reference
     ``cli/main.py``), keyed by its spec under the jobs root; prints and
     returns the job's result. The job streams the whole file's native
@@ -594,7 +625,7 @@ def durable_export(path, out_path: str, fmt: str = "native",
     config = Config() if config is None else config
     if fmt != "native":
         raise UsageError("--durable export supports --format native only")
-    if loci:
+    if loci or reference:
         raise UsageError("--durable export does not take -i/--reference")
     try:
         if columns:
@@ -1000,6 +1031,11 @@ def _add_knobs(p, split_help: str) -> None:
     p.add_argument("--max-read-size", type=int, default=None)
 
 
+def _add_reference(p) -> None:
+    p.add_argument("-F", "--reference", default=None,
+                   help="FASTA for reference-based (RR=true) CRAM decode")
+
+
 def _add_inflate(p) -> None:
     p.add_argument(
         "--inflate", default=None, metavar="SPEC",
@@ -1104,6 +1140,7 @@ def main(argv=None) -> int:
     cr.add_argument("-n", "--num-iterations", type=int, default=1)
     cr.add_argument("--resident", action="store_true",
                     help="one device dispatch per resident chunk of windows")
+    _add_reference(cr)
     _add_knobs(cr, "split size of the record loaders (byte shorthand like "
                    "2MB ok; default 32MB)")
     fc = sub.add_parser("full-check",
@@ -1167,7 +1204,9 @@ def main(argv=None) -> int:
                             "or the first N CUDA devices")
         p.add_argument("path")
     ag = sub.add_parser("aggregate",
-                        help="aggregate statistics of a BAM query")
+                        help="aggregate statistics of a BAM, CRAM or SAM "
+                             "query")
+    _add_reference(ag)
     ag.add_argument(
         "-a", "--agg", default=None, metavar="SPEC",
         help="';'-separated metric[:k=v,...] spec: count, flagstat, mapq, "
@@ -1223,7 +1262,9 @@ def main(argv=None) -> int:
     ir = sub.add_parser("index-records", help="write the .records sidecar")
     ir.add_argument("-t", "--throw-on-truncation", action="store_true")
     ex = sub.add_parser("export",
-                        help="write a BAM's records as columnar batches")
+                        help="write a BAM's, CRAM's or SAM's records as "
+                             "columnar batches")
+    _add_reference(ex)
     ex.add_argument("-m", "--max-split-size", default=None,
                     help="split size of the record loaders (default "
                          "32MB): each split's records follow the chain "
@@ -1491,7 +1532,8 @@ def _run(args) -> int:
                   config=_config(args))
         if args.cmd == "count-reads":
             count_reads(args.path, args.num_iterations, args.device,
-                        resident=args.resident, **kw)
+                        resident=args.resident, reference=args.reference,
+                        **kw)
         else:
             full_check(args.path, args.print_limit, args.device, **kw)
         return 0
@@ -1529,10 +1571,11 @@ def _run(args) -> int:
     elif args.cmd == "export" and args.durable:
         durable_export(args.path, args.export_out, args.format,
                        args.intervals, args.columns, args.checkpoint,
-                       args.device, config=config)
+                       args.device, config=config, reference=args.reference)
     elif args.cmd == "export":
         export(args.path, args.export_out, args.format, args.intervals,
-               args.columns, args.device, config=config)
+               args.columns, args.device, config=config,
+               reference=args.reference)
     elif args.cmd in ("rewrite", "htsjdk-rewrite") and args.durable:
         durable_rewrite(args.in_path, args.out_path, args.block_payload,
                         args.level, args.index, args.checkpoint, args.device,
@@ -1551,7 +1594,7 @@ def _run(args) -> int:
             aggregate(args.path, args.agg, args.intervals,
                       args.flags_required, args.flags_forbidden,
                       tuple(args.tag or ()), args.format, args.device, out,
-                      config)
+                      config, args.reference)
         finally:
             if out is not None:
                 out.close()

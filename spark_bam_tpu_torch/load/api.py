@@ -43,7 +43,19 @@ through the partition executor, which retries and quarantines as the
 reference's export does (``columnar/export.py::export_records``). The
 renderings and encoding are on the host (``columnar/``) either way.
 
-Every entry point takes a local path or a URL (``core/channel.py``:
+SAM and CRAM (``load_sam``, ``load_cram``, ``load_cram_intervals`` and
+the ``.sam`` / ``.cram`` branches of ``load_reads``, ``load_bam_intervals``,
+``aggregate`` and ``export``) are host code, as in the reference: the SAM
+text is parsed line by line over newline-aligned byte ranges, CRAM
+containers are decoded by ``cram/`` (its rANS blocks by the native
+decoder), ``aggregate`` reduces them through the int64 oracle
+(``Dataset.aggregate``) and ``export`` goes through the partition executor
+(``export_records``). Nothing of them runs on the card, which the
+reference's do not either; ``aggregate`` and ``export`` still resolve
+``device`` as every entry point does. A CRAM written reference-based
+(``RR=true``) needs ``reference``, a FASTA path or ``{name: bytes}``.
+
+Every BAM entry point takes a local path or a URL (``core/channel.py``:
 ``http(s)://``, ``gs://``, ``s3://``, registered schemes); ``load_fleet``
 loads many BAMs as one dataset, a partition a file.
 
@@ -57,6 +69,7 @@ cache writes.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -74,7 +87,11 @@ from spark_bam_tpu_torch.bgzf.stream import (
 )
 from spark_bam_tpu_torch.check.checker import NoReadFoundException
 from spark_bam_tpu_torch.check.eager import EagerChecker
-from spark_bam_tpu_torch.core.channel import open_channel, path_size
+from spark_bam_tpu_torch.core.channel import (
+    open_channel,
+    path_exists,
+    path_size,
+)
 from spark_bam_tpu_torch.core.config import Config, parse_bytes
 from spark_bam_tpu_torch.core.faults import (
     BlockCorruptionError,
@@ -106,13 +123,18 @@ def aggregate(
     config: Config = Config(),
     chunk: "int | None" = None,
     device=None,
+    reference=None,
+    parallel: ParallelConfig = ParallelConfig(),
 ) -> dict:
-    """Aggregate statistics of a BAM query. ``agg`` is the compact
-    :class:`~spark_bam_tpu_torch.agg.plan.AggConfig` spec (``""``: the
-    config's ``agg``, and when that is empty every metric at defaults);
+    """Aggregate statistics of a BAM, CRAM or SAM query. ``agg`` is the
+    compact :class:`~spark_bam_tpu_torch.agg.plan.AggConfig` spec (``""``:
+    the config's ``agg``, and when that is empty every metric at defaults);
     ``loci``, the flag masks and ``tags_required`` (two-character tag
     names that must all be present) narrow the records. ``chunk`` bounds
-    the records a reduction window takes.
+    the records a reduction window takes. A BAM reduces on ``device``; a
+    CRAM (decoded with ``reference`` when it needs one) or a SAM through
+    the record loaders and the int64 oracle, partitions pooled by
+    ``parallel``, as the reference's do.
 
     Returns ``{"agg", "rows", "contigs", "metrics"}``: the canonical
     spec, the records selected, ``(name, length)`` per contig and metric
@@ -123,14 +145,11 @@ def aggregate(
         if not isinstance(t, str) or len(t) != 2:
             raise ValueError(f"tag names are exactly two chars: {t!r}")
     s = str(path)
-    if s.endswith(".cram"):
-        raise NotImplementedError(
-            "aggregate over CRAM needs the CRAM record loader, which this "
-            "port does not have yet")
-    if s.endswith(".sam"):
-        raise NotImplementedError(
-            "aggregate over SAM needs the SAM record loader, which this "
-            "port does not have yet")
+    if s.endswith((".cram", ".sam")):
+        resolve_device(device)
+        return _aggregate_records(path, plan, loci, flags_required,
+                                  flags_forbidden, tags_required, config,
+                                  parallel, reference)
     if not s.endswith(".bam"):
         raise ValueError(f"Can't tell format of path: {s}")
     dev = resolve_device(device)
@@ -147,12 +166,84 @@ def aggregate(
     rows = int(np.count_nonzero(batch.columns["valid"]))
     metrics = aggregate_planes(batch.columns, plan, nc, chunk=chunk,
                                device=dev)
-    contigs = [(name, int(length)) for name, length in
-               zip(header.contig_names, header.contig_lengths)]
     return {
         "agg": plan.canonical(),
         "rows": rows,
-        "contigs": contigs,
+        "contigs": _contig_pairs(header),
+        "metrics": metrics,
+    }
+
+
+def _sam_or_cram_dataset(path, loci, config: Config, parallel, reference
+                         ) -> "tuple[BamHeader, Dataset]":
+    """The header and the records (narrowed to ``loci`` when given) of a
+    ``.cram`` or ``.sam`` path, as the reference's ``export`` and
+    ``aggregate`` load them."""
+    if str(path).endswith(".cram"):
+        from spark_bam_tpu_torch.cram import load_cram_header
+
+        header = load_cram_header(path)
+        ds = (load_cram_intervals(path, loci, None, config, parallel,
+                                  reference=reference) if loci
+              else load_cram(path, None, config, parallel,
+                             reference=reference))
+    else:
+        header = _scan_sam_header(path)
+        ds = (_load_sam_intervals(path, loci, None, config, parallel) if loci
+              else load_sam(path, None, config, parallel))
+    return header, ds
+
+
+def _flag_filtered(ds: Dataset, flags_required: int, flags_forbidden: int
+                   ) -> Dataset:
+    """The flag half of the device filter as a record predicate: unmapped
+    reads pass unless a flag bit excludes them."""
+    if not (flags_required or flags_forbidden):
+        return ds
+    return ds.filter(lambda rec: (rec.flag & flags_required) == flags_required
+                     and (rec.flag & flags_forbidden) == 0)
+
+
+def _contig_pairs(header: BamHeader) -> list[tuple[str, int]]:
+    return [(str(name), int(length)) for name, length in
+            zip(header.contig_names, header.contig_lengths)]
+
+
+def _aggregate_records(path, plan: AggConfig, loci, flags_required: int,
+                       flags_forbidden: int, tags_required: tuple,
+                       config: Config, parallel: ParallelConfig, reference
+                       ) -> dict:
+    """``aggregate`` of a CRAM or SAM (reference load/api.py:869-899): the
+    record loaders, the predicates on the host, each partition through the
+    int64 oracle, the partials summed."""
+    from spark_bam_tpu_torch.bam.record import render_tags
+
+    header, ds = _sam_or_cram_dataset(path, loci, config, parallel,
+                                      reference)
+    ds = _flag_filtered(ds, flags_required, flags_forbidden)
+    if tags_required:
+        # Presence through the total tag renderer: a damaged entry reads
+        # as absent, the plane scan's stop-clean semantics.
+        prefixes = tuple(t + ":" for t in tags_required)
+
+        def has_tags(rec) -> bool:
+            rendered = render_tags(rec.tags)
+            return all(any(r.startswith(p) for r in rendered)
+                       for p in prefixes)
+
+        ds = ds.filter(has_tags)
+    metrics = ds.aggregate(plan, len(header.contig_names))
+    # count[0] and flagstat[0] both count the records seen.
+    if "count" in metrics:
+        rows = int(metrics["count"][0])
+    elif "flagstat" in metrics:
+        rows = int(metrics["flagstat"][0])
+    else:
+        rows = None
+    return {
+        "agg": plan.canonical(),
+        "rows": rows,
+        "contigs": _contig_pairs(header),
         "metrics": metrics,
     }
 
@@ -176,42 +267,42 @@ def export(
     flags_forbidden: int = 0,
     device=None,
     parallel: ParallelConfig = ParallelConfig(),
+    reference=None,
 ) -> dict:
-    """Export a BAM's records as columnar record batches to ``out``:
-    ``fmt`` is ``native`` (the zero-dependency container), ``arrow`` (an
-    IPC file) or ``parquet`` (those two need ``pyarrow``). ``loci`` keeps
+    """Export a BAM's, CRAM's or SAM's records as columnar record batches
+    to ``out``: ``fmt`` is ``native`` (the zero-dependency container),
+    ``arrow`` (an IPC file) or ``parquet`` (those two need ``pyarrow``). ``loci`` keeps
     the records that overlap it, the flag masks narrow them, ``columns``
     projects the schema and ``config.columnar`` sets the row target and
     the container's codec. The bytes equal the JAX package's ``export``
     of the same query. Returns its summary: path, format, columns, rows,
     batches, bytes, seconds and the loss fields (0 on the device route;
-    the executor's on the record route, which ``parallel`` pools)."""
+    the executor's on the record route, which ``parallel`` pools). A CRAM
+    (decoded with ``reference`` when it needs one) or a SAM always takes
+    the record route, as in the reference."""
     from spark_bam_tpu_torch.columnar.export import (
         export_dataset,
         export_records,
     )
 
-    s = str(path)
-    if s.endswith((".cram", ".sam")):
-        raise NotImplementedError(
-            f"export of {s.rsplit('.', 1)[-1].upper()} needs the SAM and "
-            "CRAM loaders (ROADMAP Queue 1 item 16), which this port does "
-            "not have yet")
     dev = resolve_device(device)
+    ccfg = config.columnar_config
+    if str(path).endswith((".cram", ".sam")):
+        header, ds = _sam_or_cram_dataset(path, loci, config, parallel,
+                                          reference)
+        return export_records(
+            _flag_filtered(ds, flags_required, flags_forbidden), out,
+            fmt=fmt, columns=columns, ccfg=ccfg,
+            contigs=_contig_pairs(header))
     header = with_retries(lambda: read_header(path), config.fault_policy,
                           "read_header")
-    contigs = [(str(name), int(length)) for name, length in
-               zip(header.contig_names, header.contig_lengths)]
-    ccfg = config.columnar_config
+    contigs = _contig_pairs(header)
     if export_takes_record_path(config):
         ds = (load_bam_intervals(path, loci, None, config, parallel) if loci
               else load_bam(path, None, config, parallel, dev))
-        if flags_required or flags_forbidden:
-            ds = ds.filter(
-                lambda rec: (rec.flag & flags_required) == flags_required
-                and (rec.flag & flags_forbidden) == 0)
-        return export_records(ds, out, fmt=fmt, columns=columns, ccfg=ccfg,
-                              contigs=contigs)
+        return export_records(
+            _flag_filtered(ds, flags_required, flags_forbidden), out,
+            fmt=fmt, columns=columns, ccfg=ccfg, contigs=contigs)
     pieces = stream_ordered_batches(path, config, loci, flags_required,
                                     flags_forbidden, dev)
     return export_dataset(pieces, out, fmt=fmt, columns=columns, ccfg=ccfg,
@@ -549,18 +640,220 @@ def load_splits_and_reads(path, split_size=None, config: Config = Config(),
 
 def load_reads(path, split_size=None, config: Config = Config(),
                parallel: ParallelConfig = ParallelConfig(),
-               device=None) -> Dataset:
-    """The records of a ``.bam`` (reference CanLoadBam.scala:348-382);
-    ``.sam`` and ``.cram`` need the loaders of ROADMAP Queue 1 item 16."""
+               device=None, reference=None) -> Dataset:
+    """The records of a ``.sam``, ``.bam`` or ``.cram``, by extension
+    (reference CanLoadBam.scala:348-382, which hands CRAM to hadoop-bam;
+    here it is built in). ``reference`` reaches the CRAM loader for a
+    reference-based (``RR=true``) file; the other formats ignore it."""
     s = str(path)
-    if s.endswith((".sam", ".cram")):
-        raise NotImplementedError(
-            f"load_reads of {s.rsplit('.', 1)[-1].upper()} needs the SAM and "
-            "CRAM loaders (ROADMAP Queue 1 item 16), which this port does "
-            "not have yet")
+    dev = resolve_device(device)
+    if s.endswith(".sam"):
+        return load_sam(path, split_size, config, parallel)
     if s.endswith(".bam"):
-        return load_bam(path, split_size, config, parallel, device)
+        return load_bam(path, split_size, config, parallel, dev)
+    if s.endswith(".cram"):
+        return load_cram(path, split_size, config, parallel,
+                         reference=reference)
     raise ValueError(f"Can't tell format of path: {s}")
+
+
+# ------------------------------------------------------------- SAM and CRAM
+def _scan_sam_header(path) -> BamHeader:
+    """The ``@SQ`` dictionary of a SAM file's text header, one pass over
+    its leading ``@`` lines (shared by ``load_sam`` and the interval
+    path)."""
+    from spark_bam_tpu_torch.cram.reader import header_from_contigs
+
+    entries = []
+    with open(path, "rt") as f:
+        for line in f:
+            if not line.startswith("@"):
+                break
+            if line.startswith("@SQ"):
+                fields = dict(kv.split(":", 1)
+                              for kv in line.rstrip("\n").split("\t")[1:]
+                              if ":" in kv)
+                if "SN" in fields:
+                    entries.append((fields["SN"], int(fields.get("LN", "0"))))
+    return header_from_contigs(entries)
+
+
+def load_sam(path, split_size=None, config: Config = Config(),
+             parallel: ParallelConfig = ParallelConfig()) -> Dataset:
+    """The records of a SAM text file, one partition a byte range of
+    ``split_size`` (default the config's, else 32 MiB): a range owns the
+    lines that start inside it, so each but the first skips its partial
+    first line (reference load/api.py:524-556)."""
+    from spark_bam_tpu_torch.bam.record import parse_sam_line
+
+    size = _with_split_size(config, split_size).split_size_or(
+        Config.LOAD_SPLIT_SIZE_DEFAULT)
+    header = _scan_sam_header(path)
+    by_name = {name: idx for idx, name in enumerate(header.contig_names)}
+    file_size = os.path.getsize(path)
+    ranges = [(s, min(s + size, file_size)) for s in range(0, file_size, size)]
+
+    def compute(rng):
+        start, end = rng
+        with open(path, "rb") as f:
+            f.seek(start)
+            if start > 0:
+                f.readline()  # the previous range owns this partial line
+            while f.tell() < end:
+                line = f.readline()
+                if not line:
+                    break
+                text = line.decode("latin-1")
+                if text.startswith("@"):
+                    continue
+                yield parse_sam_line(text, by_name)
+
+    return Dataset(ranges, compute, parallel, policy=config.fault_policy)
+
+
+def _load_sam_intervals(path, loci: "LociSet | str", split_size,
+                        config: Config, parallel: ParallelConfig) -> Dataset:
+    """A SAM file's records that overlap ``loci``: SAM text has no index,
+    so the whole file is read and the overlap filter alone narrows it
+    (reference load/api.py:948-978, CanLoadBam.scala:59-76)."""
+    header = _scan_sam_header(path)
+    if isinstance(loci, str):
+        loci = LociSet.parse(loci, header)
+    overlaps = _overlap_filter(loci, header)
+    ds = load_sam(path, split_size, config, parallel)
+    compute = ds.compute
+    return Dataset(ds.partitions,
+                   lambda p: (rec for rec in compute(p) if overlaps(rec)),
+                   parallel, policy=ds.policy)
+
+
+def _overlap_filter(loci: LociSet, header: BamHeader):
+    names = header.contig_names
+
+    def overlaps(rec) -> bool:
+        # Unmapped reads (placed ones too) have no genomic region.
+        if rec.ref_id < 0 or rec.is_unmapped:
+            return False
+        return loci.overlaps(names[rec.ref_id], rec.pos, rec.end_pos())
+
+    return overlaps
+
+
+def _resolve_reference(reference):
+    """A FASTA path read into ``{name: bytes}`` once (not a partition);
+    a mapping or None as given."""
+    if isinstance(reference, (str, bytes)) or hasattr(reference,
+                                                       "__fspath__"):
+        from spark_bam_tpu_torch.cram.fasta import read_fasta
+
+        return read_fasta(reference)
+    return reference
+
+
+def _group_by_size(infos, size: int) -> list[list]:
+    """Container infos grouped greedily into partitions of at most
+    ``size`` compressed bytes (a container larger alone), the container
+    analog of ``pack_chunks``."""
+    groups: list[list] = []
+    cur: list = []
+    cur_bytes = 0
+    for info in infos:
+        length = info.end - info.offset
+        if cur and cur_bytes + length > size:
+            groups.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append(info)
+        cur_bytes += length
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+def _contiguous_runs(group) -> list[tuple[int, int]]:
+    """Container infos as ``(offset, end)`` runs, so a selection with
+    gaps decodes none of the containers between its runs."""
+    runs: list[list[int]] = []
+    for info in group:
+        if runs and runs[-1][1] == info.offset:
+            runs[-1][1] = info.end
+        else:
+            runs.append([info.offset, info.end])
+    return [(s, e) for s, e in runs]
+
+
+def load_cram(path, split_size=None, config: Config = Config(),
+              parallel: ParallelConfig = ParallelConfig(),
+              reference=None) -> Dataset:
+    """The records of a CRAM, one partition a run of whole containers of
+    about ``split_size`` compressed bytes (reference load/api.py:559-584;
+    hadoop-bam's ``CRAMInputFormat`` splits at containers too).
+    ``reference`` (a FASTA path or ``{name: bytes}``) is needed only by a
+    file written reference-based (``RR=true``)."""
+    from spark_bam_tpu_torch.cram import CramReader
+
+    reference = _resolve_reference(reference)
+    size = _with_split_size(config, split_size).split_size_or(
+        Config.LOAD_SPLIT_SIZE_DEFAULT)
+    with CramReader(path) as r:
+        infos = r.container_infos()
+
+    def compute(group):
+        with CramReader(path, reference=reference) as r:
+            yield from r.records(group[0].offset, group[-1].offset + 1)
+
+    return Dataset(_group_by_size(infos, size), compute, parallel,
+                   policy=config.fault_policy)
+
+
+def load_cram_intervals(path, loci: "LociSet | str", split_size=None,
+                        config: Config = Config(),
+                        parallel: ParallelConfig = ParallelConfig(),
+                        reference=None) -> Dataset:
+    """The records of a CRAM that overlap ``loci`` (reference
+    load/api.py:616-680). With a ``PATH.crai`` only the containers whose
+    index lines overlap are decoded, as the ``.bai`` narrows
+    ``load_bam_intervals``; without one every container is, and the
+    overlap filter alone narrows the records."""
+    from spark_bam_tpu_torch.cram import CramReader
+    from spark_bam_tpu_torch.cram.crai import read_crai
+
+    reference = _resolve_reference(reference)
+    with CramReader(path) as r:
+        header = r.bam_header
+        infos = r.container_infos()
+    if isinstance(loci, str):
+        loci = LociSet.parse(loci, header)
+    name_to_idx = {name: idx for idx, name in enumerate(header.contig_names)}
+    crai_path = str(path) + ".crai"
+    selected = infos
+    if path_exists(crai_path):
+        # ref id -> 0-based intervals, a bare contig as its whole length.
+        by_ref = {
+            name_to_idx[contig]: ivs or [
+                (0, int(header.contig_lengths[name_to_idx[contig]]))]
+            for contig, ivs in loci.intervals.items()
+            if contig in name_to_idx
+        }
+        wanted = set()
+        for entry in read_crai(crai_path):
+            ivs = by_ref.get(entry.ref_seq_id)
+            if ivs and any(entry.overlaps(entry.ref_seq_id, s, e)
+                           for s, e in ivs):
+                wanted.add(entry.container_offset)
+        selected = [info for info in infos if info.offset in wanted]
+    size = _with_split_size(config, split_size).split_size_or(
+        Config.LOAD_SPLIT_SIZE_DEFAULT)
+    overlaps = _overlap_filter(loci, header)
+
+    def compute(group):
+        with CramReader(path, reference=reference) as r:
+            for offset, end in _contiguous_runs(group):
+                for rec in r.records(offset, end):
+                    if overlaps(rec):
+                        yield rec
+
+    return Dataset(_group_by_size(selected, size), compute, parallel,
+                   policy=config.fault_policy)
 
 
 # ------------------------------------------------------------------ intervals
@@ -609,12 +902,10 @@ def load_bam_intervals(path, loci: "LociSet | str", split_size=None,
     """The records of an indexed BAM that overlap ``loci`` (reference
     CanLoadBam.scala:59-138): the ``.bai`` chunks packed into partitions
     of about ``split_size``, each read from its chunks' starts on the
-    host. A ``.sam`` path needs the SAM loader (ROADMAP Queue 1 item
-    16)."""
+    host. A ``.sam`` path has no index: the whole file is read and the
+    overlap filter narrows it."""
     if str(path).endswith(".sam"):
-        raise NotImplementedError(
-            "load_bam_intervals of SAM needs the SAM loader (ROADMAP Queue 1 "
-            "item 16), which this port does not have yet")
+        return _load_sam_intervals(path, loci, split_size, config, parallel)
     header = with_retries(lambda: read_header(path), config.fault_policy,
                           "read_header")
     if isinstance(loci, str):
@@ -623,13 +914,7 @@ def load_bam_intervals(path, loci: "LociSet | str", split_size=None,
     size = config.split_size_or(Config.LOAD_SPLIT_SIZE_DEFAULT)
     groups = pack_chunks(interval_chunks(path, loci, header, config), size,
                          config.estimated_compression_ratio)
-    names = header.contig_names
-
-    def overlaps(rec) -> bool:
-        # Unmapped reads (placed ones too) have no genomic region.
-        if rec.ref_id < 0 or rec.is_unmapped:
-            return False
-        return loci.overlaps(names[rec.ref_id], rec.pos, rec.end_pos())
+    overlaps = _overlap_filter(loci, header)
 
     def compute(group):
         stream = SeekableRecordStream(

@@ -16,8 +16,9 @@ is decoded under the contract:
 Anything else is a violation. The mutants, the per-mutant outcomes and the
 ``counts`` for a seed equal the reference's (the same splitmix64 stream,
 the same corpora byte for byte, the reference's exception class names).
-The formats are ``bam``, ``bgzf`` and ``sbi``; CRAM waits for the CRAM
-reader (ROADMAP Queue 1 item 16).
+The formats are ``bam``, ``bgzf``, ``cram`` and ``sbi``. The CRAM corpus
+comes from the port's ``CramWriter`` and is decoded by its ``CramReader``
+(rANS blocks by the native decoder), on the host, as the reference's.
 
 The BAM consumer is the reference's: ``load_reads_and_positions`` at the
 default split size, whose one split starts at the header's end (the BAM
@@ -35,7 +36,7 @@ BAM first, and the campaign's peak device memory
 and the kernels' launches are logged in the summary's ``device`` entry.
 
 ``python -m spark_bam_tpu_torch fuzz-decode --seed N --mutants M
---formats bam,bgzf,sbi [-o OUT] [--device DEV]`` runs a campaign and
+--formats bam,bgzf,cram,sbi [-o OUT] [--device DEV]`` runs a campaign and
 exits 1 on a violation.
 """
 
@@ -72,6 +73,8 @@ from spark_bam_tpu_torch.core.guard import (
     scoped_limits,
 )
 from spark_bam_tpu_torch.core.pos import Pos
+from spark_bam_tpu_torch.cram.reader import CramReader
+from spark_bam_tpu_torch.cram.writer import CramWriter
 from spark_bam_tpu_torch.device import resolve_device
 from spark_bam_tpu_torch.sbi.format import (
     PLAN_POS,
@@ -82,7 +85,7 @@ from spark_bam_tpu_torch.sbi.format import (
     fingerprint_of,
 )
 
-FORMATS = ("bam", "bgzf", "sbi")
+FORMATS = ("bam", "bgzf", "cram", "sbi")
 
 #: The typed outcomes a strict parse of hostile bytes may end in.
 TYPED_ERRORS = (
@@ -203,6 +206,27 @@ def _bgzf_compress(payload: bytes, chunk: int = 4096
     return bytes(out), starts
 
 
+def _cram_corpus(tmp: Path) -> tuple[bytes, list[int]]:
+    path = tmp / "base.cram"
+    with CramWriter(path, [("chr1", 100_000)],
+                    sam_text="@SQ\tSN:chr1\tLN:100000\n",
+                    records_per_container=8, index=False) as w:
+        for i in range(16):
+            w.write(BamRecord(0, 100 + 10 * i, 30, 0, 0, -1, -1, 0, f"q{i}",
+                              [(20, 0)], "ACGTACGTACGTACGTACGT", b"I" * 20,
+                              b""))
+    data = path.read_bytes()
+    # Structural hot spots: the file definition, the SAM header's
+    # container, and the first 32 bytes of every data container (its
+    # header's itf8 fields and its first block headers).
+    offsets = list(range(0, min(64, len(data))))
+    with CramReader(path) as r:
+        for info in r.container_infos():
+            offsets.extend(range(info.offset,
+                                 min(info.offset + 32, len(data))))
+    return data, sorted(set(offsets))
+
+
 def _sbi_corpus(bam_path: Path) -> tuple[bytes, list[int]]:
     fp = fingerprint_of(bam_path, Config())
     blocks = scan_blocks(bam_path)
@@ -260,6 +284,11 @@ def _consume_bgzf(path, tolerant: bool, device) -> int:
                 # The stream already stands at the resync point.
     finally:
         stream.close()
+
+
+def _consume_cram(path, tolerant: bool, device) -> int:
+    with CramReader(str(path)) as r:
+        return sum(1 for _ in r.records())
 
 
 def _consume_sbi(path, tolerant: bool, device) -> int:
@@ -339,6 +368,11 @@ def mutants_for(fmt: str, tmp: Path, rng: _Rng, count: int):
         for _ in range(count):
             off = rng.choice(offsets) if rng.below(4) else rng.below(len(comp))
             yield _mutate(comp, off, rng)
+    elif fmt == "cram":
+        data, offsets = _cram_corpus(tmp)
+        for _ in range(count):
+            off = rng.choice(offsets) if rng.below(4) else rng.below(len(data))
+            yield _mutate(data, off, rng)
     elif fmt == "sbi":
         data, offsets = _sbi_corpus(tmp / "base.bam")
         body = data[:-4]
@@ -358,6 +392,7 @@ def mutants_for(fmt: str, tmp: Path, rng: _Rng, count: int):
 _CONSUMERS = {
     "bam": (_consume_bam, True),   # (consumer, has a tolerant mode)
     "bgzf": (_consume_bgzf, True),
+    "cram": (_consume_cram, False),
     "sbi": (_consume_sbi, False),
 }
 
@@ -368,9 +403,7 @@ def check_formats(formats) -> None:
     if bad:
         raise ValueError(
             f"unknown fuzz format(s) {', '.join(bad)}: this port fuzzes "
-            f"{', '.join(FORMATS)}" + (
-                "; CRAM needs the CRAM reader (ROADMAP Queue 1 item 16)"
-                if "cram" in bad else ""))
+            f"{', '.join(FORMATS)}")
 
 
 def rng_for(seed: int, fmt: str) -> _Rng:

@@ -307,8 +307,23 @@ def test_aggregate_rejects(bams):
         api.aggregate(bams[7], agg="bogus", device="cpu")
     with pytest.raises(ValueError):
         api.aggregate(bams[7], chunk=-1, device="cpu")
-    for ext in (".cram", ".sam"):
-        with pytest.raises(NotImplementedError, match="loader"):
-            api.aggregate("x" + ext, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         api.aggregate(bams[7])
+
+
+@pytest.mark.parametrize("ext", [".cram", ".sam"])
+def test_aggregate_sam_and_cram_equal_jax(bams, tmp_path, ext):
+    """A CRAM or SAM copy of the BAM aggregates (on the host, through the
+    int64 oracle) to the JAX package's result, and to the BAM's."""
+    from spark_bam_tpu_torch.benchmarks import text_cases
+
+    header, recs = text_cases.bam_records(bams[7])
+    path = str(tmp_path / f"r7{ext}")
+    if ext == ".cram":
+        text_cases.write_cram(header, recs, path, records_per_container=64)
+    else:
+        text_cases.write_sam(header, recs, path)
+    got = _entry(path, tags_required=(), flags_forbidden=1024)
+    bam = api.aggregate(bams[7], flags_forbidden=1024, device="cpu")
+    assert got["rows"] == bam["rows"] > 0
+    _equal(got["metrics"], bam["metrics"])

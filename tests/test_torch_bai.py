@@ -55,6 +55,21 @@ def test_index_bam_bytes_equal_jax(sorted_bams, tmp_path):
                     jidx.query(ref, s, e))
 
 
+def test_build_bai_over_a_url_equals_jax_local(sorted_bams, tmp_path):
+    """``build_bai`` takes the file's end from ``path_size``, so a URL
+    (the in-process fake store) indexes as the local file does: the same
+    ``.bai`` bytes as the JAX ``build_bai`` over the local path."""
+    from spark_bam_tpu_torch.benchmarks.fakestore import FakeObjectStore
+
+    for p in sorted_bams:
+        data = Path(p).read_bytes()
+        with FakeObjectStore(data, key="x.bam") as store:
+            url = f"{store.url_base}/b/x.bam"
+            ours, _ = bai.index_bam(url, tmp_path / "url.bai")
+        theirs, _ = jbai.index_bam(p, tmp_path / "jax.bai")
+        assert Path(ours).read_bytes() == Path(theirs).read_bytes()
+
+
 def test_interval_plan_equals_jax(sorted_bams):
     p = sorted_bams[2]
     bai.index_bam(p)

@@ -747,6 +747,30 @@ def test_aggregate_on_gpu_equals_cpu(gpu, tmp_path, kw):
         _agg_equal(got["metrics"], want["metrics"])
 
 
+@pytest.mark.parametrize("method", ["gzip", "rans"])
+def test_aggregate_bam_on_gpu_equals_its_cram(gpu, tmp_path, method):
+    """``aggregate`` over a small BAM, reduced on the card, equals
+    ``aggregate`` over its CRAM copy (decoded on the host, rANS blocks by
+    the native decoder, and reduced through the int64 oracle), with every
+    metric and under a tag and a flag filter."""
+    from spark_bam_tpu_torch import aggregate
+    from spark_bam_tpu_torch.benchmarks import agg_cases, text_cases
+
+    bam, cram = tmp_path / "t.bam", tmp_path / "t.cram"
+    agg_cases.write_tagged_bam(bam)
+    header, recs = text_cases.bam_records(bam)
+    text_cases.write_cram(header, recs, cram, method,
+                          records_per_container=64)
+    for kw in ({}, {"tags_required": ("NM",), "flags_forbidden": 16}):
+        K.reset_launch_counts()
+        got = aggregate(bam, **kw)
+        assert K.LAUNCHES["full_check_flags"] > 0
+        want = aggregate(cram, **kw)
+        assert {k: got[k] for k in ("agg", "rows", "contigs")} == {
+            k: want[k] for k in ("agg", "rows", "contigs")}
+        _agg_equal(got["metrics"], want["metrics"])
+
+
 def _split_bam(case, path):
     """A BAM of ``case`` and the split sizes its plans are held at."""
     from spark_bam_tpu_torch.benchmarks.split_cases import (

@@ -293,9 +293,27 @@ def test_failed_export_leaves_no_file(bams, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("path", ["x.sam", "x.cram"])
-def test_sam_and_cram_raise(tmp_path, path):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        api.export(str(tmp_path / path), str(tmp_path / "o"), device="cpu")
+def test_sam_and_cram_raise(bams, tmp_path, path):
+    """A missing SAM or CRAM raises what the JAX package's export raises;
+    a SAM or CRAM copy of a BAM exports the JAX package's bytes."""
+    from spark_bam_tpu_torch.benchmarks import text_cases
+
+    src, out = str(tmp_path / path), str(tmp_path / "o")
+    with pytest.raises(Exception) as got:
+        api.export(src, out, device="cpu")
+    with pytest.raises(Exception) as want:
+        jax_export(src, out)
+    assert type(got.value) is type(want.value)
+    header, recs = text_cases.bam_records(bams[SEEDS[0]])
+    if path.endswith(".cram"):
+        text_cases.write_cram(header, recs, src, records_per_container=100)
+    else:
+        text_cases.write_sam(header, recs, src)
+    summary = api.export(src, str(tmp_path / "p.sbcr"), device="cpu")
+    jsummary = jax_export(src, str(tmp_path / "j.sbcr"))
+    assert (tmp_path / "p.sbcr").read_bytes() == \
+        (tmp_path / "j.sbcr").read_bytes()
+    assert summary["rows"] == jsummary["rows"] == len(recs)
 
 
 def test_device_deflate_raises_and_leaves_no_file(bams, tmp_path,

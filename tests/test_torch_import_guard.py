@@ -30,7 +30,25 @@ MUST_IMPORT = {"spark_bam_tpu_torch.jobs", "spark_bam_tpu_torch.jobs.journal",
                "spark_bam_tpu_torch.jobs.manager",
                "spark_bam_tpu_torch.jobs.runner",
                "spark_bam_tpu_torch.jobs.scrub",
-               "spark_bam_tpu_torch.parallel.executor"}
+               "spark_bam_tpu_torch.parallel.executor",
+               "spark_bam_tpu_torch.cram", "spark_bam_tpu_torch.cram.reader",
+               "spark_bam_tpu_torch.cram.writer",
+               "spark_bam_tpu_torch.cram.rans",
+               "spark_bam_tpu_torch.native.build"}
+
+NATIVE_PROBE = r"""
+import sys
+from spark_bam_tpu_torch.cram import rans
+from spark_bam_tpu_torch.native import build
+data = bytes(range(40)) * 50
+assert rans.decompress(rans.compress(data, 1)) == data
+build.load()
+maps = open("/proc/self/maps").read()
+print(build.library_path(build.RANS_SRC).name in maps)
+print("spark_bam_tpu/native" in maps or "_spark_bam_native" in maps)
+print(sorted(n for n in sys.modules if n == "spark_bam_tpu"
+             or n.startswith("spark_bam_tpu.")))
+"""
 
 
 def test_port_imports_no_jax():
@@ -55,3 +73,16 @@ def test_smoke_script_alone_fails(tmp_path):
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_port_native_code_is_its_own():
+    """The rANS decoder and the tokenizer load the port's own libraries,
+    built from ``native/*.cpp``, and never the reference's prebuilt one."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", NATIVE_PROBE], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    ours, theirs, modules = proc.stdout.strip().splitlines()[-3:]
+    assert (ours, theirs, modules) == ("True", "False", "[]")

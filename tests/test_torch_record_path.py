@@ -165,15 +165,32 @@ def test_load_splits_and_reads_equals_jax(bams, split):
 
 
 def test_load_reads_dispatch(bams, tmp_path):
+    """``.sam`` and ``.cram`` load the JAX package's records (a SAM and a
+    CRAM copy of a BAM), a SAM's interval load scans it as the JAX
+    package's does, and an unknown extension is refused."""
+    from spark_bam_tpu_torch.benchmarks import text_cases
+
+    header, recs = text_cases.bam_records(bams["rand31"])
     for ext in ("sam", "cram"):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            api.load_reads(tmp_path / f"x.{ext}", device="cpu")
+        path = tmp_path / f"x.{ext}"
+        if ext == "cram":
+            text_cases.write_cram(header, recs, path,
+                                  records_per_container=50)
+        else:
+            text_cases.write_sam(header, recs, path)
+        got = api.load_reads(path, "4KB", device="cpu").collect()
+        assert [r.encode() for r in got] == [
+            r.encode() for r in japi.load_reads(path, "4KB").collect()]
+        assert len(got) == len(recs)
     with pytest.raises(ValueError, match="Can't tell format"):
         api.load_reads(tmp_path / "x.txt", device="cpu")
     with pytest.raises(ValueError, match="Can't tell format"):
         japi.load_reads(tmp_path / "x.txt")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        api.load_bam_intervals(tmp_path / "x.sam", "chr1")
+    loci = ",".join(header.contig_names)
+    assert [r.encode() for r in api.load_bam_intervals(
+        tmp_path / "x.sam", loci).collect()] == [
+        r.encode() for r in japi.load_bam_intervals(
+            tmp_path / "x.sam", loci).collect()]
 
 
 @pytest.mark.parametrize("mode", MODES)
