@@ -28,7 +28,16 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    Kernel times are CUDA-event medians. Then
    ``benchmarks/profile_resolve_flags.py`` on the same window: the
    clock64 phase split of LZ77 and the full pass and the rounds
-   histogram.
+   histogram. Then the benchmark's instruments (``yardstick_check``):
+   ``make_count_repeat`` on that window (one fused count captured in a
+   CUDA graph) at ``iters`` 1 and 4 must give 4x the single count, with
+   its prefilter launches counted, and its two-point slope beside the
+   fused count's one-call time; the host yardstick (``native/eager.cpp``,
+   built by g++ while nvcc builds the kernels): ``eager_check_native`` and
+   ``eager_check_window_native`` over every position of a 4 MiB seed-8
+   BAM must equal the card's eager verdict (``CheckerContext``), and
+   ``inflate_blocks_fast_into`` on the window's blocks must give host
+   zlib's bytes; positions/s and MB/s are logged.
 3. count-reads: counts the BAM through ``StreamChecker.count_reads`` at the
    default geometry (24 MiB window, 4 MiB halo, 32 MiB kernel window) on
    the fused device path, then through the classic host-zlib loop, and
@@ -309,8 +318,10 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    with no violation. Its wall, the CRAM write and decode rates and the
    three ``aggregate`` walls are logged.
 
-Launch counters are set to 0 just before each main path (3, 4, 6, 7, 8,
-9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20) and read just after; a graph replay counts the launches captured in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
+Launch counters are set to 0 just before each main path (2's
+``count_repeat``, 3, 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18,
+19, 20) and read just after; a graph replay counts the launches captured
+in it. Prints one JSON line per kernel set (``{"kernels": [...]}``)
 and, last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero; without CUDA, or without the package beside
 it, it exits non-zero before printing a result.
@@ -318,6 +329,7 @@ it, it exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -329,6 +341,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -457,6 +470,116 @@ def numpy_filter(cols, intervals, required: int, forbidden: int):
         hit |= (ref == r) & (pos < hi) & (lo < end)
     ok = ((flag & required) == required) & ((flag & forbidden) == 0)
     return ((flag & 4) == 0) & (ref >= 0) & hit & ok
+
+
+def yardstick_check(port, padded, lens_dev, nc: int, n0: int, w: int,
+                    flat0, bam, group0, work, card) -> dict:
+    """Phase 2's check of the benchmark's instruments: ``count_repeat``'s
+    CUDA graph on the first 32 MiB window, and the host yardstick (the
+    native eager checker and the fast inflate) against the card's verdict
+    and host zlib. Returns the numbers it logs."""
+    from spark_bam_tpu_torch.benchmarks.synth import synth_bam
+    from spark_bam_tpu_torch.bgzf.flat import read_run_payloads
+    from spark_bam_tpu_torch.cli_app import CheckerContext
+    from spark_bam_tpu_torch.core.channel import open_channel
+    from spark_bam_tpu_torch.device import sync
+    from spark_bam_tpu_torch.native import build as nbuild
+    from spark_bam_tpu_torch.tpu import checker as checker_mod
+    from spark_bam_tpu_torch.tpu import kernels as K
+
+    dev = padded.device
+    t_start = time.perf_counter()
+    nums: dict = {}
+    # (a) count_repeat: one fused count (funnel on, as the count path
+    # runs it) captured once, replayed 1 and 4 times.
+    single = int(checker_mod.count_window(padded, lens_dev, nc, n0, False, 0,
+                                          n0)["count"])
+    run = checker_mod.make_count_repeat(w, 10, True, dev)
+    K.reset_launch_counts()
+    r1 = int(run(padded, lens_dev, nc, n0, False, 1))
+    r4 = int(run(padded, lens_dev, nc, n0, False, 4))
+    sync(dev)
+    launches = dict(K.LAUNCHES)
+    require(r1 == single and r4 == 4 * single,
+            f"count_repeat {r1}, {r4} against the single count {single}")
+    # One eager body before the capture, then 1 + 4 replays.
+    require(launches["prefilter_check_flags"] == 6
+            and run.graphs and run.replays == 5,
+            f"count_repeat launches {launches}")
+    reps = (2, 10)
+    walls = {k: cuda_ms(lambda k=k: run(padded, lens_dev, nc, n0, False, k),
+                        reps=3) for k in reps}
+    slope = (walls[reps[1]] - walls[reps[0]]) / (reps[1] - reps[0])
+    one_ms = cuda_ms(lambda: checker_mod.count_window(
+        padded, lens_dev, nc, n0, False, 0, n0), reps=5)
+    nums["count_repeat"] = {
+        "single_count": single, "iters_1": r1, "iters_4": r4,
+        "launches": {k: v for k, v in launches.items() if v},
+        "wall_ms": {str(k): v for k, v in walls.items()},
+        "slope_ms_per_window": slope, "fused_count_one_call_ms": one_ms}
+    log(f"count_repeat: W={w}, iters 1 -> {r1}, 4 -> {r4} = 4 x {single}; "
+        f"launches {nums['count_repeat']['launches']} (one eager body, 5 "
+        f"replays); {reps[0]} iters {walls[reps[0]]:.3f} ms, {reps[1]} iters "
+        f"{walls[reps[1]]:.3f} ms: slope {slope:.3f} ms a window against "
+        f"the fused count's one call {one_ms:.3f} ms ({card})")
+    walls_s = {"count_repeat": time.perf_counter() - t_start}
+    # (b) The native eager checker over every position of a 4 MiB seed-8
+    # BAM against the card's eager verdict.
+    yard = work / "yard4.bam"
+    synth_bam(yard, 4 << 20, seed=8)
+    ctx = CheckerContext(yard, port.Config(), device=dev)
+    verdict = ctx.eager_result.verdict
+    buf, lens = ctx.view.data, ctx.lengths
+    cand = np.arange(len(buf), dtype=np.int64)
+    t0 = time.perf_counter()
+    native = nbuild.eager_check_native(buf, cand, lens)
+    eager_s = time.perf_counter() - t0
+    tri = nbuild.eager_check_window_native(buf, cand, lens, 10, True)
+    require(np.array_equal(native, verdict), "native eager != the card's")
+    require(np.array_equal(tri == 1, verdict) and not (tri == 2).any(),
+            "native windowed eager != the card's")
+    yard.unlink()
+    nums["native_eager"] = {"positions": len(buf),
+                            "records": int(verdict.sum()), "s": eager_s,
+                            "positions_per_s": len(buf) / eager_s}
+    walls_s["native_eager"] = time.perf_counter() - t_start - sum(
+        walls_s.values())
+    log(f"native eager: {len(buf)} positions, {int(verdict.sum())} records "
+        f"= the card's verdict (and the windowed form at EOF) in "
+        f"{eager_s:.3f} s = {len(buf) / eager_s:.0f} positions/s on one "
+        f"host thread")
+    # (c) The fast inflate on the first window's blocks against host zlib.
+    with open_channel(bam) as ch:
+        comp, offs, clens = read_run_payloads(ch, group0)
+    sizes = np.array([m.uncompressed_size for m in group0], np.int64)
+    out_offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    out = np.zeros(int(sizes.sum()) + 8, np.uint8)
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        nbuild.inflate_blocks_fast_into(comp, offs, clens, out, out_offs,
+                                        sizes)
+        times.append(time.perf_counter() - t0)
+    require(np.array_equal(out[: len(flat0)], flat0),
+            "fast inflate != host zlib")
+    t0 = time.perf_counter()
+    for o, c in zip(offs, clens):
+        zlib.decompress(comp[o: o + c].tobytes(), -15)
+    zlib_s = time.perf_counter() - t0
+    fast_s = min(times)
+    nums["fast_inflate"] = {"blocks": len(group0), "bytes": len(flat0),
+                            "s": fast_s, "mb_per_s": len(flat0) / fast_s / 1e6,
+                            "zlib_mb_per_s": len(flat0) / zlib_s / 1e6}
+    log(f"fast inflate: {len(group0)} blocks, {len(flat0)} bytes = host "
+        f"zlib's in {fast_s * 1e3:.1f} ms = "
+        f"{nums['fast_inflate']['mb_per_s']:.0f} MB/s (Python zlib "
+        f"{nums['fast_inflate']['zlib_mb_per_s']:.0f} MB/s), one thread")
+    walls_s["fast_inflate"] = time.perf_counter() - t_start - sum(
+        walls_s.values())
+    nums["walls_s"] = walls_s
+    nums["s"] = time.perf_counter() - t_start
+    log(f"phase 2 yardstick numbers: {json.dumps(nums)}")
+    return nums
 
 
 def resident_phase(port, bam, manifest, long_bam, long_manifest, small,
@@ -4580,6 +4703,7 @@ def main() -> int:
     from spark_bam_tpu_torch.core.channel import open_channel
     from spark_bam_tpu_torch.device import sync
     from spark_bam_tpu_torch.kernels import build
+    from spark_bam_tpu_torch.native import build as nbuild
     from spark_bam_tpu_torch.tpu import kernels as K
     from spark_bam_tpu_torch.tpu.inflate import stage_group_device
     from spark_bam_tpu_torch.tpu.stream_check import pad_contig_lengths
@@ -4595,8 +4719,13 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
+    # The host yardstick's g++ build runs beside nvcc's.
+    native_build = concurrent.futures.ThreadPoolExecutor(1).submit(
+        nbuild.load_native)
     build.load()
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    native_build.result()
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s (and the host "
+        f"yardstick's library, g++ {nbuild.build_seconds:.1f} s)")
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log("  " + line.strip())
@@ -4923,6 +5052,8 @@ def main() -> int:
         # rounds each of its rows took (kernel and plain version).
         prf.profile_lz77([], prof_dir, lit, dist, sm_mhz)
         prf.profile_full_flags([], prof_dir, padded, lens_dev, nc, n0, sm_mhz)
+        yard_nums = yardstick_check(port, padded, lens_dev, nc, n0, w, flat0,
+                                    bam, group0, work, card)
         del padded, soup, const88, long_pad, k_tok, p_tok, k_res, p_res
         del lit, dist, staged
         torch.cuda.empty_cache()
@@ -5144,6 +5275,8 @@ def main() -> int:
         for row in rows:
             row["launches"] = launches[row["name"]]
             row["launches_by_path"] = {
+                "count_repeat": yard_nums["count_repeat"]["launches"].get(
+                    row["name"], 0),
                 "count_reads": count_launches[row["name"]],
                 "full_check": fc_launches[row["name"]],
                 "resident": resident_launches[row["name"]],

@@ -36,12 +36,18 @@ device, and the ``.sbi`` split-index cache (``sbi/``) keeps plans, block
 tables and record starts, so warm ``compute-splits``, ``record_starts``
 and ``aggregate`` calls do no checker work.
 
+The record loaders (``load_bam``, ``load_reads``, ``load_sam``,
+``load_bam_intervals``, ``load_splits_and_reads``,
+``load_reads_and_positions``) are bound on first use, and ``Config``
+(``Config.from_dict``, ``Config.from_env``, ``default_config``) carries
+every ``spark.bam.*`` knob of the reference.
+
 The package imports torch, numpy and the standard library only; entry
 points run on the CUDA device unless the caller passes ``device="cpu"``,
 which runs each kernel's plain PyTorch version instead.
 """
 
-from spark_bam_tpu_torch.core.config import Config
+from spark_bam_tpu_torch.core.config import Config, default_config
 from spark_bam_tpu_torch.core.pos import Pos
 from spark_bam_tpu_torch.load.api import aggregate, export
 from spark_bam_tpu_torch.load.splits import spark_bam_splits, split_plan
@@ -72,8 +78,26 @@ from spark_bam_tpu_torch.tpu.stream_check import (
 
 __all__ = ["Config", "CountScanGraphs", "Mesh", "Pos", "StreamChecker",
            "TpuChecker", "aggregate", "check_bam_sharded",
-           "count_reads_sharded", "count_reads_tpu", "count_scan", "export",
-           "full_check_summary_sharded", "full_check_summary_streaming", "host_shard_plan",
-           "load_reads_columnar", "make_count_scan", "make_mesh",
-           "record_starts", "record_starts_streaming", "spark_bam_splits",
-           "split_plan", "stream_read_batches"]
+           "count_reads_sharded", "count_reads_tpu", "count_scan",
+           "default_config", "export", "full_check_summary_sharded",
+           "full_check_summary_streaming", "host_shard_plan", "load_bam",
+           "load_bam_intervals", "load_reads", "load_reads_and_positions",
+           "load_reads_columnar", "load_sam", "load_splits_and_reads",
+           "make_count_scan", "make_mesh", "record_starts",
+           "record_starts_streaming", "spark_bam_splits", "split_plan",
+           "stream_read_batches"]
+
+#: The record loaders, bound on first use (the reference's ``_LAZY``).
+_LAZY = {name: "spark_bam_tpu_torch.load.api"
+         for name in ("load_bam", "load_reads", "load_sam",
+                      "load_bam_intervals", "load_splits_and_reads",
+                      "load_reads_and_positions")}
+
+
+def __getattr__(name):
+    module = _LAZY.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(module), name)

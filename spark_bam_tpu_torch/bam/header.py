@@ -9,6 +9,7 @@ write path copies. Hostile bytes raise the reference's typed errors
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Mapping
 
 import numpy as np
 
@@ -21,6 +22,47 @@ from spark_bam_tpu_torch.core.guard import (
     current_limits,
 )
 from spark_bam_tpu_torch.core.pos import Pos
+
+
+class ContigLengths(Mapping[int, tuple[str, int]]):
+    """The reference's contig dictionary: reference index → (name, length),
+    in index order (reference ContigLengths.scala). The port's
+    ``BamHeader`` carries ``contig_names`` and the int32 ``contig_lengths``
+    array the device path uploads; ``contig_lengths(path)`` or
+    ``ContigLengths.of(header)`` gives this mapping."""
+
+    def __init__(self, entries):
+        self._entries: dict[int, tuple[str, int]] = dict(entries)
+
+    @staticmethod
+    def of(header: "BamHeader") -> "ContigLengths":
+        return ContigLengths(enumerate(zip(
+            header.contig_names, (int(n) for n in header.contig_lengths))))
+
+    def __getitem__(self, idx: int) -> tuple[str, int]:
+        return self._entries[idx]
+
+    def __iter__(self):
+        return iter(self._entries)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def name(self, idx: int) -> str:
+        return "*" if idx < 0 else self._entries[idx][0]
+
+    def lengths_list(self) -> list[int]:
+        """Lengths in index order."""
+        return [self._entries[i][1] for i in range(len(self._entries))]
+
+    def __repr__(self) -> str:
+        items = ", ".join(f"{i}:{n}({ln})"
+                          for i, (n, ln) in self._entries.items())
+        return f"ContigLengths({items})"
+
+    def __eq__(self, other):
+        return isinstance(other, ContigLengths) \
+            and self._entries == other._entries
 
 
 @dataclass(frozen=True)
@@ -77,3 +119,9 @@ def _parse(ch) -> BamHeader:
     return BamHeader(tuple(names), np.array(lengths, dtype=np.int32),
                      u.tell(), end_pos if end_pos is not None else Pos(0, 0),
                      text)
+
+
+def contig_lengths(path) -> ContigLengths:
+    """The contig dictionary of the BAM at ``path`` (reference
+    ``bam/header.py::contig_lengths``)."""
+    return ContigLengths.of(read_header(path))

@@ -7,6 +7,15 @@ compressed unit is then byte-repeated. Each repeat starts on a block and a
 record boundary, so the file is a valid BAM with exactly
 ``reps * records_per_unit`` reads, and a multi-GiB file costs one small
 compression plus file IO.
+
+The reference's benchmark inputs (``spark_bam_tpu/benchmarks/synth.py``,
+the same bytes for the same arguments): ``synthetic_fixture`` (a 2,500-read
+seed BAM written by the package's own encoder), ``ensure_big_bam`` (that
+fixture's record region compressed once and repeated, cached under
+``cache_dir``), ``synth_longread_bam`` and ``ensure_longread_bam``
+(PacBio-class reads, each repeat with one record longer than the 4 MiB
+halo). ``cache_dir`` defaults to ``spark_bam_bench`` under the
+temporary directory (``TMPDIR``).
 """
 
 from __future__ import annotations
@@ -14,6 +23,7 @@ from __future__ import annotations
 import json
 import os
 import struct
+import tempfile
 import zlib
 from pathlib import Path
 
@@ -166,3 +176,210 @@ def record_flat_starts(manifest: dict) -> np.ndarray:
     reps = np.arange(manifest["reps"], dtype=np.int64)[:, None] * len(unit)
     return (len(encode_header()) + reps
             + np.array(offs, dtype=np.int64)[None, :]).ravel()
+
+
+# ------------------------------------------------- the reference's inputs
+
+#: Reads in ``synthetic_fixture``'s default BAM.
+FIXTURE_READS = 2500
+
+
+def _cache_dir(cache_dir) -> Path:
+    out = (Path(tempfile.gettempdir()) / "spark_bam_bench"
+           if cache_dir is None else Path(cache_dir))
+    out.mkdir(parents=True, exist_ok=True)
+    return out
+
+
+def synthetic_fixture(cache_dir=None, reads: int = FIXTURE_READS) -> Path:
+    """The reference's in-package seed BAM: ``reads`` coordinate-sorted
+    mapped reads (80-150 bp) over two contigs, written by the package's own
+    encoder (``bam/writer.py::write_bam``, host zlib); cached in
+    ``cache_dir``."""
+    out = _cache_dir(cache_dir) / f"synthetic_fixture_{reads}.bam"
+    if out.exists():
+        return out
+    import random
+
+    from spark_bam_tpu_torch.bam.header import BamHeader
+    from spark_bam_tpu_torch.bam.record import BamRecord
+    from spark_bam_tpu_torch.bam.writer import write_bam
+
+    rng = random.Random(0x5BA17)
+    text = "@HD\tVN:1.6\tSO:coordinate\n" + "".join(
+        f"@SQ\tSN:{name}\tLN:{length}\n" for name, length in CONTIGS)
+    header = BamHeader(tuple(name for name, _ in CONTIGS),
+                       np.array([ln for _, ln in CONTIGS], dtype=np.int32),
+                       0, text=text)
+
+    def records():
+        per_contig = -(-reads // len(CONTIGS))
+        i = 0
+        for ref_id in range(len(CONTIGS)):
+            pos = 0
+            for _ in range(per_contig):
+                if i >= reads:
+                    return
+                pos += rng.randrange(1, 400)
+                read_len = rng.randrange(80, 151)
+                yield BamRecord(
+                    ref_id=ref_id, pos=pos, mapq=rng.randrange(1, 60),
+                    bin=0, flag=0, next_ref_id=-1, next_pos=-1, tlen=0,
+                    read_name=f"syn{i:06d}", cigar=[(read_len, 0)],
+                    seq="".join(rng.choices("ACGT", k=read_len)),
+                    qual=bytes(rng.randrange(2, 41)
+                               for _ in range(read_len)))
+                i += 1
+
+    tmp = out.with_suffix(".tmp")
+    write_bam(tmp, header, records())
+    os.replace(tmp, out)
+    return out
+
+
+def _count_records(rec_bytes: memoryview) -> int:
+    """Records in a flat record region (its length prefixes walked)."""
+    n, off, total = 0, 0, len(rec_bytes)
+    while off + 4 <= total:
+        (size,) = struct.unpack_from("<i", rec_bytes, off)
+        off += 4 + size
+        n += 1
+    if off != total:
+        raise ValueError("record region does not end on a record boundary")
+    return n
+
+
+def _synth_fixture_bam(out_path, target_bytes: int, fixture=None,
+                       level: int = 1) -> dict:
+    """The reference's ``synth_bam``: a BAM of at least ``target_bytes``
+    compressed bytes whose body is ``fixture``'s record region compressed
+    once and repeated (``fixture`` None or missing: ``synthetic_fixture``).
+    Returns the manifest, also written beside the file."""
+    from spark_bam_tpu_torch.bam.header import read_header
+    from spark_bam_tpu_torch.bgzf.flat import flatten_file
+
+    out_path = Path(out_path)
+    if fixture is None or not Path(fixture).exists():
+        fixture = synthetic_fixture()
+    flat = flatten_file(fixture)
+    split = read_header(fixture).uncompressed_size
+    rec_bytes = flat.data[split:].tobytes()
+    reads_per_rep = _count_records(memoryview(rec_bytes))
+    hdr_blob = compress_blocks(flat.data[:split].tobytes(), level)
+    rec_blob = compress_blocks(rec_bytes, level)
+    body = max(target_bytes - len(hdr_blob) - len(BGZF_EOF), len(rec_blob))
+    reps = -(-body // len(rec_blob))
+    tmp = out_path.with_suffix(".tmp")
+    with open(tmp, "wb") as f:
+        f.write(hdr_blob)
+        for _ in range(reps):
+            f.write(rec_blob)
+        f.write(BGZF_EOF)
+    os.replace(tmp, out_path)
+    manifest = {
+        "fixture": str(fixture),
+        "reps": reps,
+        "reads": reps * reads_per_rep,
+        "compressed_bytes": out_path.stat().st_size,
+        "uncompressed_bytes": split + reps * (flat.size - split),
+        "level": level,
+    }
+    out_path.with_suffix(".manifest.json").write_text(json.dumps(manifest))
+    return manifest
+
+
+def ensure_big_bam(target_bytes: int = 1 << 30, cache_dir=None,
+                   fixture=None) -> tuple[Path, dict]:
+    """The reference's benchmark BAM of at least ``target_bytes``
+    compressed bytes, built once into ``cache_dir`` and reused while its
+    manifest matches the file."""
+    out = _cache_dir(cache_dir) / f"big_{target_bytes >> 20}mb.bam"
+    mf = out.with_suffix(".manifest.json")
+    if out.exists() and mf.exists():
+        manifest = json.loads(mf.read_text())
+        if manifest.get("compressed_bytes") == out.stat().st_size:
+            return out, manifest
+    return out, _synth_fixture_bam(out, target_bytes, fixture)
+
+
+#: The GRCh38 chr1 length: the long reads' coordinate range.
+LONGREAD_CONTIG = ("chr1", 248_956_422)
+
+
+def _encode_longread(name: bytes, pos: int, seq_len: int, rng) -> bytes:
+    """One mapped record of a ``seq_len``-base read, its bases and
+    qualities drawn by numpy (incompressible, as PacBio data is)."""
+    n_name = len(name) + 1
+    seq_bytes = (seq_len + 1) // 2
+    remaining = 32 + n_name + 4 + seq_bytes + seq_len
+    head = struct.pack("<iiiBBHHHiiii", remaining, 0, pos, n_name, 40,
+                       reg2bin(pos, pos + seq_len), 1, 0, seq_len, -1, -1, 0)
+    cigar = struct.pack("<I", (seq_len << 4) | 0)
+    nibbles = rng.integers(0x11, 0x88, seq_bytes, dtype=np.uint8).tobytes()
+    quals = rng.integers(5, 40, seq_len, dtype=np.uint8).tobytes()
+    return head + name + b"\x00" + cigar + nibbles + quals
+
+
+def synth_longread_bam(out_path, target_bytes: int, seed: int = 0,
+                       read_lens: tuple[int, int] = (80_000, 400_000),
+                       reads_per_rep: int = 12,
+                       ultra_seq_len: int = 3_000_000,
+                       level: int = 1) -> dict:
+    """The reference's long-read BAM of at least ``target_bytes``
+    compressed bytes: ``reads_per_rep`` reads of ``read_lens`` bases and
+    one *ultra* read of ``ultra_seq_len`` bases (its record ~1.5x that many
+    bytes, past the 4 MiB halo) a repeat, the unit compressed once and
+    repeated. Returns the manifest, also written beside the file."""
+    out_path = Path(out_path)
+    rng = np.random.default_rng(seed)
+    name, ln = LONGREAD_CONTIG
+    sam = f"@HD\tVN:1.6\n@SQ\tSN:{name}\tLN:{ln}\n"
+    header_blob = (b"BAM\x01" + struct.pack("<i", len(sam)) + sam.encode()
+                   + struct.pack("<i", 1) + struct.pack("<i", len(name) + 1)
+                   + name.encode() + b"\x00" + struct.pack("<i", ln))
+    recs = []
+    pos = 1000
+    for i in range(reads_per_rep):
+        seq_len = int(rng.integers(*read_lens))
+        recs.append(_encode_longread(b"lr_%d" % i, pos, seq_len, rng))
+        pos += int(rng.integers(1_000, 50_000))
+    recs.append(_encode_longread(b"lr_ultra", pos, ultra_seq_len, rng))
+    unit = b"".join(recs)
+    hdr_blob = compress_blocks(header_blob, level)
+    unit_blob = compress_blocks(unit, level)
+    body = max(target_bytes - len(hdr_blob) - len(BGZF_EOF), len(unit_blob))
+    reps = -(-body // len(unit_blob))
+    tmp = out_path.with_suffix(".tmp")
+    with open(tmp, "wb") as f:
+        f.write(hdr_blob)
+        for _ in range(reps):
+            f.write(unit_blob)
+        f.write(BGZF_EOF)
+    os.replace(tmp, out_path)
+    manifest = {
+        "kind": "longread",
+        "reps": reps,
+        "reads": reps * (reads_per_rep + 1),
+        "ultra_reads": reps,
+        "ultra_record_bytes": len(recs[-1]),
+        "compressed_bytes": out_path.stat().st_size,
+        "uncompressed_bytes": len(header_blob) + reps * len(unit),
+        "level": level,
+        "seed": seed,
+    }
+    out_path.with_suffix(".manifest.json").write_text(json.dumps(manifest))
+    return manifest
+
+
+def ensure_longread_bam(target_bytes: int = 256 << 20, cache_dir=None,
+                        **kw) -> tuple[Path, dict]:
+    """The long-read BAM of at least ``target_bytes`` compressed bytes,
+    built once into ``cache_dir`` and reused while its manifest matches."""
+    out = _cache_dir(cache_dir) / f"longread_{target_bytes >> 20}mb.bam"
+    mf = out.with_suffix(".manifest.json")
+    if out.exists() and mf.exists():
+        manifest = json.loads(mf.read_text())
+        if (manifest.get("kind") == "longread"
+                and manifest.get("compressed_bytes") == out.stat().st_size):
+            return out, manifest
+    return out, synth_longread_bam(out, target_bytes, **kw)

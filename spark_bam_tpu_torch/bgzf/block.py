@@ -3,9 +3,10 @@ Metadata.scala, Header.scala)."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from spark_bam_tpu_torch.core.guard import StructurallyInvalid
+from spark_bam_tpu_torch.core.pos import Pos
 
 MAX_BLOCK_SIZE = 64 * 1024  # uncompressed payload never exceeds 64 KiB
 FOOTER_SIZE = 8             # CRC32 + uncompressed size, both u32
@@ -45,6 +46,52 @@ class Metadata:
     start: int             # compressed-file offset of the block start
     compressed_size: int
     uncompressed_size: int
+
+
+@dataclass
+class Block:
+    """An inflated block's payload and coordinates, with a read cursor
+    ``idx`` (what ``BlockStream`` iteration yields)."""
+    data: bytes
+    start: int
+    compressed_size: int
+    idx: int = field(default=0, compare=False)
+
+    @property
+    def uncompressed_size(self) -> int:
+        return len(self.data)
+
+    @property
+    def pos(self) -> Pos:
+        return Pos(self.start, self.idx)
+
+    @property
+    def next_start(self) -> int:
+        return self.start + self.compressed_size
+
+    def metadata(self) -> Metadata:
+        return Metadata(self.start, self.compressed_size,
+                        self.uncompressed_size)
+
+
+@dataclass(frozen=True)
+class Header:
+    """A block's header size (18 + the extra subfields' bytes) and whole
+    compressed size (reference Header.scala:14-88)."""
+    size: int
+    compressed_size: int
+
+    @staticmethod
+    def parse(buf) -> "Header":
+        """From ≥ 18 bytes; raises as ``parse_header`` does."""
+        return Header(*parse_header(buf))
+
+    @staticmethod
+    def read(ch) -> "Header":
+        """From a channel at a block start, consuming the header."""
+        header = Header.parse(ch.read_fully(HEADER_SIZE))
+        ch.skip(header.size - HEADER_SIZE)
+        return header
 
 
 def parse_header(buf) -> tuple[int, int]:

@@ -34,6 +34,7 @@ from spark_bam_tpu_torch.bgzf.block import (
     FOOTER_SIZE,
     HEADER_SIZE,
     BgzfError,
+    Block,
     Metadata,
     check_isize,
     parse_header,
@@ -92,7 +93,8 @@ def read_block(ch, start: int) -> tuple[bytes, int] | None:
 class BlockStream:
     """Inflated blocks of a channel from a compressed offset on.
     ``next_block`` returns ``(data, start)`` of the block at the cursor and
-    moves past it, or None at the file's end or its empty EOF block."""
+    moves past it, or None at the file's end or its empty EOF block;
+    iterating yields the same blocks as ``Block``s."""
 
     def __init__(self, ch, tolerant: bool = False):
         self.ch = ch
@@ -140,6 +142,16 @@ class BlockStream:
         data, csize = hit
         self.pos = start + csize
         return data, start
+
+    def __iter__(self) -> Iterator[Block]:
+        return self
+
+    def __next__(self) -> Block:
+        hit = self.next_block()
+        if hit is None:
+            raise StopIteration
+        data, start = hit
+        return Block(data, start, self.pos - start)
 
     def close(self) -> None:
         self.ch.close()

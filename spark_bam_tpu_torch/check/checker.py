@@ -60,8 +60,8 @@ def make_checker(name: str, path, config=None, **kw) -> Checker:
     ``next_read_start(pos)`` where the checker has one."""
     # Imported for their registrations.
     from spark_bam_tpu_torch.check import eager, full, indexed, seqdoop  # noqa: F401
-    from spark_bam_tpu_torch.core.config import Config
+    from spark_bam_tpu_torch.core.config import default_config
 
     if name not in _REGISTRY:
         raise KeyError(f"Unknown checker {name!r}; have {sorted(_REGISTRY)}")
-    return _REGISTRY[name](path, config or Config(), **kw)
+    return _REGISTRY[name](path, config or default_config(), **kw)

@@ -56,9 +56,9 @@ class EagerChecker:
     @staticmethod
     def open(path, config=None, tolerant: bool = False) -> "EagerChecker":
         from spark_bam_tpu_torch.bam.header import read_header
-        from spark_bam_tpu_torch.core.config import Config
+        from spark_bam_tpu_torch.core.config import default_config
 
-        config = config or Config()
+        config = config or default_config()
         return EagerChecker(
             SeekableUncompressedBytes(
                 SeekableBlockStream(open_channel(path), tolerant=tolerant)),

@@ -5,7 +5,7 @@ checker's results (``Success``, ``Flags``)."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 
@@ -125,5 +125,46 @@ class Flags:
     def true_flags(self) -> list[str]:
         return [name for name in FLAG_NAMES if getattr(self, name)]
 
+    def num_checks_failed(self) -> int:
+        """Failing checks plus one when records chained before the failure
+        (the reference's numNonZeroFields, Flags.scala:118-124)."""
+        return len(self.true_flags()) + (1 if self.readsBeforeError > 0 else 0)
+
     def __str__(self) -> str:
         return ",".join(self.true_flags())
+
+
+def flags_fields() -> list[str]:
+    """The ``Flags`` field names: the 19 checks, then ``readsBeforeError``."""
+    return [f.name for f in fields(Flags)]
+
+
+class Counts(dict):
+    """A count per flag name, summable (reference error/Counts.scala)."""
+
+    def __init__(self):
+        super().__init__({name: 0 for name in FLAG_NAMES})
+
+    def add(self, flags: Flags) -> None:
+        for name in FLAG_NAMES:
+            if getattr(flags, name):
+                self[name] += 1
+
+    def add_mask_counts(self, mask_counts: dict[int, int]) -> None:
+        """Add a histogram of flag masks (mask → positions)."""
+        for mask, count in mask_counts.items():
+            for i, name in enumerate(FLAG_NAMES):
+                if mask & (1 << i):
+                    self[name] += count
+
+    def merge(self, other: "Counts") -> "Counts":
+        for name in FLAG_NAMES:
+            self[name] += other[name]
+        return self
+
+    def show(self, indent: str = "\t") -> str:
+        """One ``count:\tname`` line a flag, the largest count first."""
+        width = max(len(str(v)) for v in self.values())
+        return "\n".join(
+            f"{indent}{str(self[name]).rjust(width)}:\t{name}"
+            for name in sorted(FLAG_NAMES, key=lambda n: -self[n]))

@@ -44,9 +44,9 @@ class FullChecker:
     @staticmethod
     def open(path, config=None) -> "FullChecker":
         from spark_bam_tpu_torch.bam.header import read_header
-        from spark_bam_tpu_torch.core.config import Config
+        from spark_bam_tpu_torch.core.config import default_config
 
-        config = config or Config()
+        config = config or default_config()
         return FullChecker(
             SeekableUncompressedBytes(SeekableBlockStream(open_channel(path))),
             read_header(path).contig_lengths, config.reads_to_check)

@@ -45,6 +45,7 @@ from spark_bam_tpu_torch.bgzf.flat import FlatView, flatten_file
 from spark_bam_tpu_torch.bgzf.index_blocks import blocks_metadata
 from spark_bam_tpu_torch.check.flags import Flags
 from spark_bam_tpu_torch.check.seqdoop import seqdoop_check_flat
+from spark_bam_tpu_torch.check.vectorized import check_flat
 from spark_bam_tpu_torch.core.config import Config
 from spark_bam_tpu_torch.core.channel import path_size
 from spark_bam_tpu_torch.core.pos import Pos
@@ -232,9 +233,14 @@ class CheckerContext:
     def eager_result(self):
         """The eager verdict, fail masks and chained reads at every
         position: ``TpuChecker.check_buffer`` (funnel off) on the
-        context's device."""
+        context's device, or the host pass ``check_flat`` when
+        ``Config.backend`` is numpy, python or native (the reference's
+        ``_use_tpu_backend``; ``auto`` never picks the host by size)."""
         from spark_bam_tpu_torch.tpu.checker import TpuChecker
 
+        if self.config.host_backend:
+            return check_flat(self.view.data, self.lengths, at_eof=True,
+                              reads_to_check=self.config.reads_to_check)
         want = min(self.config.window_size, max(self.view.size, 1))
         window = 1 << max(20, (want - 1).bit_length())
         checker = TpuChecker(self.lengths, window=window,

@@ -27,9 +27,11 @@ from spark_bam_tpu_torch.columnar.native import (
 from spark_bam_tpu_torch.columnar.schema import (
     COLUMNS,
     SCHEMA_VERSION,
+    BatchBuilder,
     RecordBatch,
     Rebatcher,
     VarColumn,
+    batches_from_records,
     concat_batches,
     iter_rows,
     normalize_columns,
@@ -40,6 +42,7 @@ from spark_bam_tpu_torch.columnar.schema import (
 __all__ = [
     "COLUMNS",
     "SCHEMA_VERSION",
+    "BatchBuilder",
     "ColumnarConfig",
     "ColumnarFormatError",
     "NativeReader",
@@ -47,6 +50,7 @@ __all__ = [
     "RecordBatch",
     "VarColumn",
     "batch_frame",
+    "batches_from_records",
     "concat_batches",
     "container_head",
     "container_meta",

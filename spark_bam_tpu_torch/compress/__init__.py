@@ -7,14 +7,25 @@ and the block codecs and zlib-stream encoder built on them
 (``codec.py``).
 """
 
-from spark_bam_tpu_torch.compress.codec import encode_zlib_stream, make_codec
+from spark_bam_tpu_torch.compress.codec import (
+    DeviceDeflateCodec,
+    HostZlibCodec,
+    encode_zlib_stream,
+    make_codec,
+)
 from spark_bam_tpu_torch.compress.config import DeflateConfig
 from spark_bam_tpu_torch.compress.huffman import (
     MAX_STORED_PAYLOAD,
+    bgzf_member,
+    fixed_member,
     fixed_pack,
     fixed_stream_bits,
+    stored_member,
+    zlib_member,
     zlib_stream,
 )
 
-__all__ = ["DeflateConfig", "MAX_STORED_PAYLOAD", "encode_zlib_stream",
-           "fixed_pack", "fixed_stream_bits", "make_codec", "zlib_stream"]
+__all__ = ["DeflateConfig", "DeviceDeflateCodec", "HostZlibCodec",
+           "MAX_STORED_PAYLOAD", "bgzf_member", "encode_zlib_stream",
+           "fixed_member", "fixed_pack", "fixed_stream_bits", "make_codec",
+           "stored_member", "zlib_member", "zlib_stream"]

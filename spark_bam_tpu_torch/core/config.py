@@ -10,12 +10,18 @@ serve them, so a run never silently takes another path than asked for.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 import re
 from dataclasses import dataclass
 
 TOKENIZE = ("host", "device", "auto")
+CHECKERS = ("eager", "full", "indexed", "seqdoop")
+#: ``Config.backend`` values that take the host engine; the rest
+#: (auto, tpu, pallas) take the card.
+HOST_BACKENDS = ("numpy", "python", "native")
+BACKENDS = ("auto", "tpu", "pallas", *HOST_BACKENDS)
 KERNEL = ("xla", "pallas", "auto")
 ONOFF = ("on", "off")
 
@@ -121,6 +127,13 @@ class Config:
     # and the ratio a split's length estimate assumes.
     split_size: int | None = None
     estimated_compression_ratio: float = 3.0
+    # The Checker plugin surface (reference docs/api.md): the checker a
+    # check command scores (eager | full | indexed | seqdoop) and the engine
+    # of the check commands' eager verdict: tpu, pallas and auto take the
+    # card; numpy, python and native the host pass ``check/vectorized.py::
+    # check_flat``. Split starts resolve on the card under every backend.
+    checker: str = "eager"
+    backend: str = "auto"
     # The .sbi split-index cache: off | read | write | readwrite, with an
     # optional ",strict" ("" = off); ``cache_mode`` parses it.
     cache: str = ""
@@ -199,6 +212,11 @@ class Config:
     # ("serve.latency:p99<1500ms@5m;serve.errors:ratio<0.1%@1h;sample=0.1";
     # "" = no objectives); ``slo_config`` parses it (obs/slo.py).
     slo: str = ""
+    warn: bool = False       # the root log-level toggle (LogArgs.scala:30-33)
+    # Accepted so reference invocations parse unchanged (PostPartitionArgs
+    # -p, default 100000) and inert: disagreement positions are one host
+    # array, annotated vectorized, with no partition count to tune.
+    post_partition_size: int = 100_000
 
     #: The load path's raw split size (hadoop's file-split default).
     LOAD_SPLIT_SIZE_DEFAULT = 32 << 20
@@ -206,11 +224,21 @@ class Config:
     CHECK_SPLIT_SIZE_DEFAULT = 2 << 20
 
     def __post_init__(self):
+        for knob, allowed in (("checker", CHECKERS), ("backend", BACKENDS)):
+            if getattr(self, knob) not in allowed:
+                raise ValueError(f"Bad {knob} {getattr(self, knob)!r} "
+                                 f"(expected {' | '.join(allowed)})")
         if self.funnel not in ("on", "off", "auto"):
             raise ValueError(
                 f"Bad funnel mode: {self.funnel!r} (expected on | off | auto)"
             )
         InflateConfig.parse(self.inflate)
+
+    @property
+    def host_backend(self) -> bool:
+        """Whether ``backend`` asks for the host engine (numpy, python or
+        native) where the check commands score the eager verdict."""
+        return self.backend in HOST_BACKENDS
 
     @property
     def cache_mode(self):
@@ -222,31 +250,76 @@ class Config:
     def split_size_or(self, default: int) -> int:
         return self.split_size if self.split_size is not None else default
 
-    #: The knobs ``from_env`` reads, as ``SPARK_BAM_<KNOB>``.
+    def replace(self, **kw) -> "Config":
+        """A copy with ``kw`` set; a ``split_size`` may be a byte string."""
+        if kw.get("split_size") is not None:
+            kw["split_size"] = parse_bytes(kw["split_size"])
+        return dataclasses.replace(self, **kw)
+
+    _PREFIX = "spark.bam."
+
+    @classmethod
+    def from_dict(cls, d: dict, base: "Config | None" = None) -> "Config":
+        """``base`` (the defaults) with the knobs of a flat ``spark.bam.*``
+        or bare-key mapping set, as the reference's ``from_dict``: ``.`` and
+        ``-`` read as ``_``, an unknown key raises ``KeyError``, and each
+        value is coerced by its field's type (byte strings for ints,
+        ``auto``/``none``/empty as None where a field takes None, ``1``/
+        ``true``/``yes`` as True)."""
+        base = base or cls()
+        fields = {f.name: f for f in dataclasses.fields(cls)}
+        kw = {}
+        for key, value in d.items():
+            name = key[len(cls._PREFIX):] if key.startswith(cls._PREFIX) \
+                else key
+            name = name.replace(".", "_").replace("-", "_")
+            if name not in fields:
+                raise KeyError(f"Unknown config key: {key}")
+            ftype = fields[name].type
+            if ftype == "int":
+                value = parse_bytes(value) if isinstance(value, str) \
+                    else int(value)
+            elif ftype == "int | None":
+                value = (None if value is None or str(value).lower()
+                         in ("auto", "none", "") else parse_bytes(value))
+            elif ftype == "float":
+                value = float(value)
+            elif ftype in ("bool", "bool | None") \
+                    and not isinstance(value, bool):
+                s = str(value).lower()
+                value = (None if ftype == "bool | None"
+                         and s in ("auto", "none", "")
+                         else s in ("1", "true", "yes"))
+            kw[name] = value
+        return base.replace(**kw)
+
+    #: The compact-spec knobs (each parsed by its own ``*_config``), read
+    #: from ``SPARK_BAM_<KNOB>`` as strings.
     ENV_KNOBS = ("cache", "columnar", "deflate", "faults", "serve", "fabric",
                  "jobs", "disk_chaos", "inflate", "limits", "remote", "slo")
 
+    #: ``SPARK_BAM_*`` names that are not knobs: the cloud endpoints and
+    #: tokens (``core/cloud.py``), the store's directory and budget
+    #: (``sbi/store.py``), the telemetry paths (``obs/``) and serve's ring
+    #: directory (``serve/shm.py``). The bare ``SPARK_BAM_CACHE`` is the
+    #: ``cache`` knob.
+    _ENV_NON_CONFIG = ("gs_", "s3_", "profile", "cache_", "metrics_out",
+                       "flight_dir", "shm_dir")
+
     @classmethod
-    def from_env(cls, env=None) -> "Config":
-        """The defaults with ``SPARK_BAM_CACHE`` as the ``cache`` spec,
-        ``SPARK_BAM_COLUMNAR`` as the ``columnar`` spec,
-        ``SPARK_BAM_DEFLATE`` as the ``deflate`` spec,
-        ``SPARK_BAM_FAULTS`` as the ``faults`` spec,
-        ``SPARK_BAM_SERVE`` as the ``serve`` spec,
-        ``SPARK_BAM_FABRIC`` as the ``fabric`` spec,
-        ``SPARK_BAM_JOBS`` as the ``jobs`` spec,
-        ``SPARK_BAM_DISK_CHAOS`` as the ``disk_chaos`` spec,
-        ``SPARK_BAM_INFLATE`` as the ``inflate`` spec,
-        ``SPARK_BAM_LIMITS`` as the ``limits`` spec,
-        ``SPARK_BAM_REMOTE`` as the ``remote`` spec and
-        ``SPARK_BAM_SLO`` as the ``slo`` spec, as the
-        reference's ``Config.from_env`` maps them (the store's
-        ``SPARK_BAM_CACHE_DIR`` and ``SPARK_BAM_CACHE_BUDGET`` are read by
-        ``sbi.store.CacheStore.from_env``)."""
+    def from_env(cls, env=None, base: "Config | None" = None) -> "Config":
+        """``base`` (the defaults) with every ``SPARK_BAM_<KNOB>`` of
+        ``env`` (``os.environ`` by default) read through ``from_dict``, as
+        the reference's ``from_env`` reads them: ``SPARK_BAM_SPLIT_SIZE=2MB``
+        is ``split_size=2097152``, ``SPARK_BAM_CACHE`` the ``cache`` spec;
+        the names in ``_ENV_NON_CONFIG`` are skipped and any other
+        unknown one raises ``KeyError``."""
         env = os.environ if env is None else env
-        kw = {k: env[f"SPARK_BAM_{k.upper()}"] for k in cls.ENV_KNOBS
-              if f"SPARK_BAM_{k.upper()}" in env}
-        return cls(**kw)
+        d = {key[len("SPARK_BAM_"):].lower(): value
+             for key, value in env.items() if key.startswith("SPARK_BAM_")}
+        d = {k: v for k, v in d.items()
+             if not k.startswith(cls._ENV_NON_CONFIG)}
+        return cls.from_dict(d, base=base) if d else (base or cls())
 
     @property
     def inflate_config(self) -> InflateConfig:
@@ -346,3 +419,8 @@ class Config:
         if self.flush_every is None:
             return auto
         return max(1, min(self.flush_every, auto))
+
+
+def default_config() -> Config:
+    """The defaults with the environment's ``SPARK_BAM_*`` knobs."""
+    return Config.from_env()

@@ -33,3 +33,11 @@ class Pos(NamedTuple):
             - other.block_pos
             + int((self.offset - other.offset) / estimated_compression_ratio),
         )
+
+
+def parse_pos(s: str) -> Pos:
+    """``"blockPos:offset"``, or a bare block position, as a ``Pos``."""
+    if ":" in s:
+        block, off = s.split(":", 1)
+        return Pos(int(block), int(off))
+    return Pos(int(s), 0)

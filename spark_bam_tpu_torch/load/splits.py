@@ -21,6 +21,7 @@ a last split that holds only the EOF sentinel.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
 
 from spark_bam_tpu_torch.core.channel import path_size
 from spark_bam_tpu_torch.core.pos import Pos
@@ -50,6 +51,25 @@ def file_splits(path, split_size: int) -> list[FileSplit]:
         FileSplit(str(path), start, min(start + split_size, size))
         for start in range(0, size, split_size)
     ]
+
+
+_LOCALITY_PROVIDER: Callable[[str, int, int], list] | None = None
+
+
+def set_locality_provider(fn: Callable[[str, int, int], list] | None
+                          ) -> None:
+    """Register ``fn(path, start, end) -> [host, ...]`` (None clears it):
+    where a deployment's storage holds a byte range (the reference's
+    ``SplitRDD.preferredLocations`` analogue, SplitRDD.scala:43-79)."""
+    global _LOCALITY_PROVIDER
+    _LOCALITY_PROVIDER = fn
+
+
+def preferred_hosts(split: FileSplit) -> list:
+    """The hosts that hold ``split``'s byte range; empty = anywhere."""
+    if _LOCALITY_PROVIDER is None:
+        return []
+    return list(_LOCALITY_PROVIDER(split.path, split.start, split.end))
 
 
 def split_plan(path, split_size: int, config, device=None) -> list:

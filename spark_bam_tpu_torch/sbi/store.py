@@ -381,6 +381,30 @@ class CacheStore:
             pass  # eviction is best-effort; the cache stays correct
 
 
+# ------------------------------------------------------------ shared store
+_shared: "CacheStore | None" = None
+_shared_lock = threading.Lock()
+
+
+def shared_store(policy: FaultPolicy | None = None) -> CacheStore:
+    """The process-wide ``CacheStore``, resolved from the environment once
+    (serve's shared index tier): the store is stateless, its sidecars live
+    on disk, so one instance serves every request; a ``policy`` given on
+    first use holds for the process."""
+    global _shared
+    with _shared_lock:
+        if _shared is None:
+            _shared = CacheStore.from_env(policy=policy)
+        return _shared
+
+
+def reset_shared_store() -> None:
+    """Drop the shared store (after ``SPARK_BAM_CACHE_DIR`` changes)."""
+    global _shared
+    with _shared_lock:
+        _shared = None
+
+
 # ------------------------------------------------------- block-table tier
 def cached_blocks(bam_path, config=None):
     """The ``.sbi`` block table of ``bam_path``, or None (cache off, miss,

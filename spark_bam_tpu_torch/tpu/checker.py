@@ -398,6 +398,40 @@ def count_scan(chunk, lengths, num_contigs: int, starts, ns, at_eofs, los,
     return {"count": total[0], "esc_count": total[1], "survivors": total[2]}
 
 
+def _warm_up(dev, body) -> None:
+    """Run ``body`` once eagerly on a side stream of ``dev``, so the kernels
+    it launches are built and loaded, and their launch set-up done, outside
+    any capture."""
+    current = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        body()
+    current.wait_stream(side)
+
+
+def _capture(dev, body):
+    """``body`` captured in a CUDA graph on a capture stream of ``dev`` (the
+    default one is made once per process, on whichever device was current
+    then): ``(graph, body's result, launches of each kernel one replay
+    runs)``."""
+    before = dict(kernels.CAPTURED)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev),
+                          capture_error_mode="thread_local"):
+        out = body()
+    launches = {k: kernels.CAPTURED[k] - before[k] for k in before
+                if kernels.CAPTURED[k] != before[k]}
+    return graph, out, launches
+
+
+def _count_replays(launches: dict, replays: int = 1) -> None:
+    """Add ``replays`` replays' captured launches to ``kernels.LAUNCHES``."""
+    with kernels._COUNT_LOCK:
+        for name, c in launches.items():
+            kernels.LAUNCHES[name] += c * replays
+
+
 class CountScanGraphs:
     """``count_scan`` on a CUDA device as one CUDA graph replay per chunk.
 
@@ -472,25 +506,11 @@ class CountScanGraphs:
         key = (kp, num_contigs)
         if key in self.graphs:
             return self.graphs[key]
-        dev = self.device
-        current = torch.cuda.current_stream(dev)
         if not self._warm:
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(current)
-            with torch.cuda.stream(side):
-                self._body(1, num_contigs)
-            current.wait_stream(side)
+            _warm_up(self.device, lambda: self._body(1, num_contigs))
             self._warm = True
-        before = dict(kernels.CAPTURED)
-        graph = torch.cuda.CUDAGraph()
-        # A capture stream on this runner's device: the default one is made
-        # once per process, on whichever device was current then.
-        with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev),
-                              capture_error_mode="thread_local"):
-            sums = self._body(kp, num_contigs)
-        launches = {k: kernels.CAPTURED[k] - before[k] for k in before
-                    if kernels.CAPTURED[k] != before[k]}
-        self.graphs[key] = (graph, sums, launches)
+        self.graphs[key] = _capture(self.device,
+                                    lambda: self._body(kp, num_contigs))
         self.captures += 1
         return self.graphs[key]
 
@@ -523,9 +543,7 @@ class CountScanGraphs:
         graph, sums, launches = self._graph(kp, int(num_contigs))
         graph.replay()
         self.replays += 1
-        with kernels._COUNT_LOCK:
-            for name, c in launches.items():
-                kernels.LAUNCHES[name] += c
+        _count_replays(launches)
         out = sums.clone()
         return {"count": out[0], "esc_count": out[1], "survivors": out[2]}
 
@@ -545,6 +563,125 @@ def make_count_scan(window: int, reads_to_check: int = 10,
         return count_scan(chunk, lengths, num_contigs, starts, ns, at_eofs,
                           los, owns, window=window,
                           reads_to_check=reads_to_check, funnel=funnel)
+
+    return run
+
+
+def _count_body(padded, lengths, num_contigs: int, n, at_eof, carry,
+                reads_to_check: int, funnel: bool):
+    """One fused count over ``[0, n)`` with the value-neutral dependency on
+    the running ``carry``: ``n`` grows by one only when ``carry < 0``,
+    which a count never is, so no repeat can be folded into another."""
+    n_eff = n + (carry < 0).to(torch.int32)
+    r = count_window(padded, lengths, num_contigs, n_eff, at_eof, 0, n_eff,
+                     reads_to_check, funnel)
+    return carry + r["count"].to(torch.int32)
+
+
+def count_repeat(padded, lengths, num_contigs: int, n, at_eof, *,
+                 window: int, iters: int, reads_to_check: int = 10,
+                 funnel: bool = False) -> torch.Tensor:
+    """The fused count of one (W + PAD,) window repeated ``iters`` times,
+    summed: a () int32 tensor equal to ``iters`` times the single count
+    (reference ``checker.count_repeat``, the chip-rate instrument: timed at
+    two ``iters``, its slope is the time of one count without the call's
+    own overhead). Each repeat carries a value-neutral dependency on the
+    running sum (``_count_body``). This is the plain loop; on a CUDA device
+    ``make_count_repeat`` replays one count captured in a CUDA graph."""
+    if padded.numel() != window + PAD:
+        raise ValueError(f"padded holds {padded.numel()} bytes, not "
+                         f"window + PAD = {window + PAD}")
+    dev = padded.device
+    n = torch.as_tensor(n, dtype=torch.int32, device=dev)
+    carry = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(iters):
+        carry = _count_body(padded, lengths, num_contigs, n, at_eof, carry,
+                            reads_to_check, funnel)
+    return carry
+
+
+class CountRepeatGraph:
+    """``count_repeat`` on a CUDA device: one count body captured in a CUDA
+    graph over static buffers (the window, the contig table, ``n``,
+    ``at_eof`` and the running sum), replayed ``iters`` times with no
+    host synchronisation between replays. Before its first capture the
+    runner runs the body once eagerly on a side stream, so the kernels are
+    built and loaded outside the capture. Every replay adds the graph's
+    captured launches to ``kernels.LAUNCHES``; a failed capture or replay
+    raises."""
+
+    def __init__(self, window: int, reads_to_check: int = 10,
+                 funnel: bool = False, device=None):
+        self.device = resolve_device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"CountRepeatGraph runs on a CUDA device, not "
+                             f"{self.device}; count_repeat is the plain loop")
+        self.window = window
+        self.reads_to_check = reads_to_check
+        self.funnel = funnel
+        dev = self.device
+        self.padded = torch.zeros(window + PAD, dtype=torch.uint8,
+                                  device=dev)
+        self.scalars = torch.zeros(2, dtype=torch.int32, device=dev)
+        self.carry = torch.zeros((), dtype=torch.int32, device=dev)
+        self.lengths = None
+        #: num_contigs → (graph, launches of each kernel one replay runs).
+        self.graphs: dict = {}
+        self.replays = 0
+
+    def _body(self, num_contigs: int) -> None:
+        n, ae = self.scalars[0], self.scalars[1]
+        self.carry.copy_(_count_body(self.padded, self.lengths, num_contigs,
+                                     n, ae, self.carry, self.reads_to_check,
+                                     self.funnel))
+
+    def _graph(self, num_contigs: int):
+        if num_contigs not in self.graphs:
+            _warm_up(self.device, lambda: self._body(num_contigs))
+            graph, _, launches = _capture(self.device,
+                                          lambda: self._body(num_contigs))
+            self.graphs[num_contigs] = (graph, launches)
+        return self.graphs[num_contigs]
+
+    def __call__(self, padded, lengths, num_contigs: int, n, at_eof,
+                 iters: int) -> torch.Tensor:
+        if padded.dim() != 1 or padded.dtype != torch.uint8 \
+                or padded.numel() != self.window + PAD:
+            raise ValueError(f"padded must be a 1-D uint8 tensor of window "
+                             f"+ PAD = {self.window + PAD} bytes")
+        if self.lengths is None or self.lengths.numel() != lengths.numel():
+            self.graphs.clear()
+            self.lengths = torch.zeros(lengths.numel(), dtype=torch.int32,
+                                       device=self.device)
+        self.padded.copy_(padded, non_blocking=True)
+        self.lengths.copy_(lengths, non_blocking=True)
+        self.scalars.copy_(torch.tensor([int(n), int(bool(at_eof))],
+                                        dtype=torch.int32), non_blocking=True)
+        graph, launches = self._graph(int(num_contigs))
+        self.carry.zero_()
+        for _ in range(iters):
+            graph.replay()
+        self.replays += iters
+        _count_replays(launches, iters)
+        return self.carry.clone()
+
+
+def make_count_repeat(window: int, reads_to_check: int = 10,
+                      funnel: bool = False, device=None):
+    """The repeated count for a fixed ``window`` (reference
+    ``checker.make_count_repeat``), called as ``(padded, lengths,
+    num_contigs, n, at_eof, iters)`` and returning the () int32 sum:
+    ``count_repeat`` on the CPU, a ``CountRepeatGraph`` on a CUDA device
+    (``device=None`` is the current CUDA device and raises without
+    one)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return CountRepeatGraph(window, reads_to_check, funnel, dev)
+
+    def run(padded, lengths, num_contigs, n, at_eof, iters: int):
+        return count_repeat(padded, lengths, num_contigs, n, at_eof,
+                            window=window, iters=iters,
+                            reads_to_check=reads_to_check, funnel=funnel)
 
     return run
 

@@ -1217,3 +1217,25 @@ def full_check_summary_streaming(
         "two_check_masks": two_mask_a,
         "positions": checker.total,
     }
+
+
+# ----------------------------------------------------------- module wrappers
+
+def stream_verdicts(path, config: Config = Config(),
+                    window_uncompressed: int | None = None,
+                    halo: int | None = None, device=None):
+    """Yield ``(base, verdict)`` spans tiling the file
+    (``StreamChecker.spans``) on ``device`` (None: the current CUDA
+    device)."""
+    yield from StreamChecker(path, config, window_uncompressed, halo,
+                             device=device).spans()
+
+
+def count_reads_streaming(path, config: Config = Config(),
+                          window_uncompressed: int | None = None,
+                          halo: int | None = None, device=None) -> int:
+    """The record count by the streaming checker
+    (``StreamChecker.count_reads``) on ``device`` (None: the current CUDA
+    device)."""
+    return StreamChecker(path, config, window_uncompressed, halo,
+                         device=device).count_reads()

@@ -1491,3 +1491,68 @@ def test_export_crc_on_gpu_equals_plain(gpu, tmp_path, monkeypatch):
         msgs.append(str(exc.value))
     assert msgs[0] == msgs[1]
     assert msgs[0].startswith("BGZF block at 1057: CRC32 mismatch")
+
+
+@pytest.mark.parametrize("funnel", [True, False], ids=["funnel", "full"])
+def test_count_repeat_graph_on_gpu_equals_plain(gpu, tmp_path, funnel):
+    """``make_count_repeat`` on the card (one count captured in a CUDA
+    graph, replayed ``iters`` times) gives ``iters`` times the CPU plain
+    count, and each replay counts its captured flag-kernel launch."""
+    from spark_bam_tpu_torch.bam.header import read_header
+    from spark_bam_tpu_torch.bgzf.flat import flatten_file
+    from spark_bam_tpu_torch.tpu import checker as ck
+    from spark_bam_tpu_torch.tpu.stream_check import pad_contig_lengths
+
+    path = tmp_path / "r.bam"
+    synth_bam(path, 3 << 20, seed=5, unit_reads=2048)
+    w = 1 << 21
+    data = flatten_file(path).data[:w]
+    buf = torch.zeros(w + K.PAD, dtype=torch.uint8)
+    buf[: len(data)] = torch.from_numpy(data)
+    lens = torch.from_numpy(pad_contig_lengths(read_header(path)
+                                               .contig_lengths))
+    n, nc = len(data), 2
+    one = int(ck.count_window(buf, lens, nc, n, False, 0, n, 10,
+                              funnel)["count"])
+    run = ck.make_count_repeat(w, 10, funnel, device=gpu)
+    kernel = "prefilter_check_flags" if funnel else "full_check_flags"
+    for k, iters in enumerate((1, 4, 3)):
+        K.reset_launch_counts()
+        got = run(buf.to(gpu), lens.to(gpu), nc, n, False, iters)
+        assert got.dtype == torch.int32 and int(got) == iters * one
+        # The first call also runs the body once eagerly before capture.
+        assert K.LAUNCHES[kernel] == iters + (k == 0)
+    assert len(run.graphs) == 1 and run.replays == 8
+
+
+def test_native_eager_equals_the_card_verdict(gpu, tmp_path):
+    """The host yardstick's verdicts (``eager_check_native`` over every
+    position, ``eager_check_window_native`` at the file's end) equal the
+    card's eager verdict (``CheckerContext``, ``full_check_flags``), and
+    its fast inflate gives zlib's bytes."""
+    from spark_bam_tpu_torch.bgzf.flat import read_run_payloads
+    from spark_bam_tpu_torch.bgzf.index_blocks import blocks_metadata
+    from spark_bam_tpu_torch.cli_app import CheckerContext
+    from spark_bam_tpu_torch.core.channel import open_channel
+    from spark_bam_tpu_torch.native import build
+
+    path = tmp_path / "b.bam"
+    synth_bam(path, 2 << 20, seed=8, unit_reads=1024)
+    ctx = CheckerContext(path, Config(), device=gpu)
+    card = ctx.eager_result.verdict
+    buf, lens = ctx.view.data, ctx.lengths
+    cand = np.arange(len(buf), dtype=np.int64)
+    assert np.array_equal(build.eager_check_native(buf, cand, lens), card)
+    tri = build.eager_check_window_native(buf, cand, lens, 10, True)
+    assert np.array_equal(tri == 1, card) and not (tri == 2).any()
+    metas = blocks_metadata(path)
+    with open_channel(path) as ch:
+        comp, offs, clens = read_run_payloads(ch, metas)
+    sizes = np.array([m.uncompressed_size for m in metas], np.int64)
+    out_offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    out = np.zeros(int(sizes.sum()) + 8, np.uint8)
+    assert build.inflate_blocks_fast_into(comp, offs, clens, out, out_offs,
+                                          sizes)
+    want = b"".join(zlib.decompress(bytes(comp[o: o + c]), -15)
+                    for o, c in zip(offs, clens))
+    assert out[: len(want)].tobytes() == want

@@ -47,7 +47,9 @@ MUST_IMPORT = {"spark_bam_tpu_torch.jobs", "spark_bam_tpu_torch.jobs.journal",
                "spark_bam_tpu_torch.analysis.rules.guard_boundary",
                "spark_bam_tpu_torch.analysis.rules.obs_contract",
                "spark_bam_tpu_torch.analysis.rules.shared_state",
-               "spark_bam_tpu_torch.obs.dashboard"}
+               "spark_bam_tpu_torch.obs.dashboard",
+               "spark_bam_tpu_torch.utils", "spark_bam_tpu_torch.utils.timer",
+               "spark_bam_tpu_torch.benchmarks.harvest"}
 
 NATIVE_PROBE = r"""
 import sys
@@ -56,8 +58,15 @@ from spark_bam_tpu_torch.native import build
 data = bytes(range(40)) * 50
 assert rans.decompress(rans.compress(data, 1)) == data
 build.load()
+import numpy as np
+assert build.eager_check_native(np.zeros(64, np.uint8), np.arange(4),
+                                np.array([100], np.int32)).shape == (4,)
+assert len(build.inflate_blocks_native(
+    np.frombuffer(b"\x03\x00", np.uint8), np.zeros(1, np.int64),
+    np.full(1, 2, np.int64), np.zeros(1, np.int64))) == 0
 maps = open("/proc/self/maps").read()
-print(build.library_path(build.RANS_SRC).name in maps)
+print(all(build.library_path(src).name in maps
+          for src in (build.RANS_SRC, build.EAGER_SRC, build.ZLIB_SRC)))
 print("spark_bam_tpu/native" in maps or "_spark_bam_native" in maps)
 print(sorted(n for n in sys.modules if n == "spark_bam_tpu"
              or n.startswith("spark_bam_tpu.")))
@@ -89,8 +98,9 @@ def test_smoke_script_alone_fails(tmp_path):
 
 
 def test_port_native_code_is_its_own():
-    """The rANS decoder and the tokenizer load the port's own libraries,
-    built from ``native/*.cpp``, and never the reference's prebuilt one."""
+    """The rANS decoder, the tokenizer and the host yardstick (the eager
+    checker and both inflates) load the port's own libraries, built from
+    ``native/*.cpp``, and never the reference's prebuilt one."""
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     proc = subprocess.run([sys.executable, "-c", NATIVE_PROBE], cwd=ROOT,
