@@ -40,7 +40,9 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    zlib's bytes; positions/s and MB/s are logged.
 3. count-reads: counts the BAM through ``StreamChecker.count_reads`` at the
    default geometry (24 MiB window, 4 MiB halo, 32 MiB kernel window) on
-   the fused device path, then through the classic host-zlib loop, and
+   the fused device path, then through the classic loop (host windows
+   inflated by the native table decoder, ``native/eager.cpp``: its
+   ``inflate.window`` spans' ms a window, each of engine ``native``), and
    checks both counts against the generator's.
 4. full-check: ``full_check_summary_streaming`` over the same BAM at the
    default geometry, its windows inflated on the card (``tokenize``,
@@ -48,15 +50,17 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    one pass over ``StreamChecker.full_spans``: its spans must tile the file
    and its zero masks past the header must number the generator's reads.
    A 40 MiB BAM of two windows is summarised on the card and on the card
-   from host-zlib windows (``device_inflate=False``), and a 4 MiB BAM of
-   the same seed at 1 MiB windows on the card and with ``device="cpu"`` on
-   host-zlib windows (the plain flag pass): equal summaries.
+   from host-inflate windows (``device_inflate=False``), and a 4 MiB BAM
+   of the same seed at 1 MiB windows on the card and with ``device="cpu"``
+   on host-inflate windows (the plain flag pass): equal summaries.
 5. Long reads (60-110 kb) at a 256 KiB window and 64 KiB halo, which the
    chains outrun: both count loops must still be exact (through the escape
-   retry), ``full_spans`` must defer, and the card's summary must equal
-   the CPU's (host-zlib windows) on a 2 MiB BAM of 16 such reads.
+   retry; each count's wall and its retry's), one ``spans()`` pass (its
+   wall; the native tri-state walk retires the deferrals) must count them
+   too, ``full_spans`` must defer, and the card's summary must equal the
+   CPU's (host-inflate windows) on a 2 MiB BAM of 16 such reads.
 6. The resident count: ``StreamChecker.count_reads_resident`` over the
-   1 GiB BAM at the default geometry (host-zlib windows packed four to a
+   1 GiB BAM at the default geometry (host-inflate windows packed four to a
    resident chunk, each chunk one CUDA graph replay of its window bodies):
    the generator's count, its wall beside the fused and classic counts,
    the graphs captured, replays and launches a replay runs, then again
@@ -91,7 +95,8 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    the generator's starts (every read a true positive, no false call); the small BAM at the default K (the site lists overflow: the
    fallback must give the streaming summary), and on a two-entry mesh of
    one card equal to a one-entry mesh; long reads exact through patched
-   steps, full-check equal to the CPU's; two processes of
+   steps (the count again in a fresh child: the escape patch's wall and
+   the child's peak RSS), full-check equal to the CPU's; two processes of
    ``parallel/multihost.py`` joined by gloo on the one card (and by NCCL,
    one card each, where there are two cards) counting the small BAM.
 
@@ -560,12 +565,12 @@ def yardstick_check(port, padded, lens_dev, nc: int, n0: int, w: int,
         nbuild.inflate_blocks_fast_into(comp, offs, clens, out, out_offs,
                                         sizes)
         times.append(time.perf_counter() - t0)
-    require(np.array_equal(out[: len(flat0)], flat0),
-            "fast inflate != host zlib")
     t0 = time.perf_counter()
-    for o, c in zip(offs, clens):
-        zlib.decompress(comp[o: o + c].tobytes(), -15)
+    by_zlib = [zlib.decompress(comp[o: o + c].tobytes(), -15)
+               for o, c in zip(offs, clens)]
     zlib_s = time.perf_counter() - t0
+    require(out[: len(flat0)].tobytes() == b"".join(by_zlib),
+            "fast inflate != host zlib")
     fast_s = min(times)
     nums["fast_inflate"] = {"blocks": len(group0), "bytes": len(flat0),
                             "s": fast_s, "mb_per_s": len(flat0) / fast_s / 1e6,
@@ -620,7 +625,7 @@ def resident_phase(port, bam, manifest, long_bam, long_manifest, small,
     gb = manifest["uncompressed_bytes"] / 1e9
     for name, s in (("resident (captures included)", first_s),
                     ("resident (graphs reused)", warm_s),
-                    ("fused device", fused_s), ("classic host-zlib", classic_s)):
+                    ("fused device", fused_s), ("classic host-inflate", classic_s)):
         log(f"count-reads {name}: {want} reads in {s:.3f} s = "
             f"{want / s:.0f} reads/s, {gb / s:.3f} GB/s inflated ({card})")
     log(f"resident: {windows} windows, {rows} rows a chunk, {chunks} graph "
@@ -1069,9 +1074,27 @@ def sharded_phase(port, bam, manifest, summary, fc_s, fused_s, small,
         lb, port.Config(device_inflate=False), device="cpu", **geo)
     require(summaries_equal(lfull, lcpu), "long-read sharded full-check "
                                           "differs from the CPU's")
+    # The count's escape patch again in a fresh child: its wall and the
+    # child's peak resident set.
+    child = subprocess.run(
+        [sys.executable, "-m",
+         "spark_bam_tpu_torch.benchmarks.profile_host_routes", "--child",
+         "sharded", "--root", str(ROOT), "--bam", str(lb), "--window",
+         str(geo["window_uncompressed"]), "--halo", str(geo["halo"])],
+        capture_output=True, text=True, cwd=ROOT, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    require(child.returncode == 0, f"the patch child failed: "
+                                   f"{child.stderr[-2000:]}")
+    pc = json.loads(child.stdout.strip().splitlines()[-1])
+    require(pc["reads"] == lm["reads"] and pc["patched_rows"] > 0
+            and not pc["fallback"], pc)
     log(f"sharded long reads: {got} reads counted and checked exactly "
         f"through {cs['patched_steps']} patched step(s) ({cs['escapes']} "
-        f"escapes); full-check equal to the CPU's; "
+        f"escapes); full-check equal to the CPU's; in a fresh child the "
+        f"count {pc['wall_s']:.3f} s, its escape patch {pc['patch_s']:.3f} "
+        f"s over {pc['patched_rows']} rows, RSS "
+        f"{pc['rss_before_mib']:.0f} MiB before the count, peak "
+        f"{pc['peak_rss_mib']:.0f} MiB during it ({card}); "
         f"{time.perf_counter() - t0:.1f} s")
 
     # ---- two processes ----------------------------------------------------
@@ -1678,7 +1701,7 @@ def export_phase(port, bam, manifest, load_cols, small, small_manifest,
     # Card = CPU on a 4 MiB BAM of the small BAM's seed and the long
     # reads, every codec, with and without a filter (the 40 MiB BAM's CPU
     # leg was a depth cut, PERF.md §4). The CPU side streams each BAM once
-    # (host zlib windows, the plain check and parse), filters copies of
+    # (host-inflate windows, the plain check and parse), filters copies of
     # its pieces on the CPU as stream_ordered_batches does, and encodes
     # each codec.
     def filtered(pieces, header, q):
@@ -3786,7 +3809,7 @@ def _hold_four(url, K, dev) -> dict:
     """The four kernels on remote bytes, each against its plain version on
     the same inputs: the first window group of ``small``'s blocks, staged
     from ``url`` (the fake store), through ``tokenize`` and
-    ``lz77_resolve``, and the first 1 MiB of its host-zlib bytes (read over
+    ``lz77_resolve``, and the first 1 MiB of its host-inflate bytes (read over
     ``url`` too) through both flag kernels. ``{name: max_abs_err}``; the
     kernels' launches here are comparisons, outside every path's count."""
     from spark_bam_tpu_torch.bam.header import read_header
@@ -3813,7 +3836,8 @@ def _hold_four(url, K, dev) -> dict:
     start = 0
     for r, n in enumerate(usizes):
         require(np.array_equal(got[r, :n], flat[start: start + n]),
-                f"resolved row {r} of the URL's bytes differs from host zlib")
+                f"resolved row {r} of the URL's bytes differs from the "
+                f"host inflate")
         start += n
     w = 1 << 20
     n = min(w, len(flat))
@@ -4692,6 +4716,7 @@ def main() -> int:
     if Path(port.__file__).resolve().parent != ROOT / "spark_bam_tpu_torch":
         raise RuntimeError(f"imported {port.__file__}, not this checkout's")
 
+    from spark_bam_tpu_torch import obs
     from spark_bam_tpu_torch.benchmarks import deflate_cases, prefilter_cases
     from spark_bam_tpu_torch.benchmarks import profile_prefilter as pfp
     from spark_bam_tpu_torch.benchmarks import profile_resolve_flags as prf
@@ -4860,7 +4885,7 @@ def main() -> int:
         start = 0
         for r, n in enumerate(usizes):
             require(np.array_equal(got[r, :n], flat0[start: start + n]),
-                    f"resolved row {r} differs from host zlib")
+                    f"resolved row {r} differs from the host inflate")
             start += n
         rle_dist = torch.ones((1, STRIDE), dtype=torch.int16, device=dev)
         rle_dist[0, 0] = 0
@@ -5071,17 +5096,39 @@ def main() -> int:
         count_launches = dict(launches)
         classic_checker = port.StreamChecker(
             bam, port.Config(fused_count=False))
-        t0 = time.perf_counter()
-        classic = classic_checker.count_reads()
-        sync(dev)
-        classic_s = time.perf_counter() - t0
+        # Under a live registry: its host inflate's spans (a few dozen
+        # events, no device sync on this loop).
+        obs.shutdown()
+        reg = obs.configure()
+        try:
+            t0 = time.perf_counter()
+            classic = classic_checker.count_reads()
+            sync(dev)
+            classic_s = time.perf_counter() - t0
+            inflate_spans = [e for e in reg.events()
+                             if e["name"] == "inflate.window"]
+        finally:
+            obs.shutdown()
+        engines = {e["attrs"].get("engine") for e in inflate_spans}
+        require(inflate_spans and engines == {"native"},
+                f"the classic loop's host inflate took {engines}")
+        inflate_ms = [e["ms"] for e in inflate_spans]
+        inflate_mib = [e["attrs"]["bytes"] / 2**20 for e in inflate_spans]
+        per_32 = statistics.median(
+            m * 32 / b for m, b in zip(inflate_ms, inflate_mib))
+        rate = sum(inflate_mib) * 2**20 / 1e3 / sum(inflate_ms)
+        log(f"classic loop's host inflate (inflate.window, engine "
+            f"{sorted(engines)}): {len(inflate_ms)} windows, median "
+            f"{statistics.median(inflate_ms):.1f} ms a window of median "
+            f"{statistics.median(inflate_mib):.1f} MiB, {per_32:.1f} ms per "
+            f"32 MiB, {rate:.0f} MB/s a window's threads ({card})")
         want = manifest["reads"]
         require(fused == want, f"fused count {fused} != generator's {want}")
         require(classic == want, f"classic count {classic} != {want}")
         require(checker.tokenize_demotions == 0, "tokenizer demoted")
         require(all(launches[k] > 0 for k in COUNT_KERNELS), launches)
         gb = manifest["uncompressed_bytes"] / 1e9
-        for name, s in (("fused device", fused_s), ("classic host-zlib",
+        for name, s in (("fused device", fused_s), ("classic host-inflate",
                                                     classic_s)):
             log(f"count-reads {name}: {want} reads in {s:.3f} s = "
                 f"{want / s:.0f} reads/s, {gb / s:.3f} GB/s inflated "
@@ -5126,13 +5173,13 @@ def main() -> int:
         on_card = port.full_check_summary_streaming(small, port.Config())
         card_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        host_zlib = port.full_check_summary_streaming(
+        host_inflated = port.full_check_summary_streaming(
             small, port.Config(device_inflate=False))
-        host_zlib_s = time.perf_counter() - t0
-        require(summaries_equal(on_card, host_zlib),
-                "device-inflated and host-zlib summaries differ")
+        host_inflated_s = time.perf_counter() - t0
+        require(summaries_equal(on_card, host_inflated),
+                "device-inflated and host-inflated summaries differ")
         # Card = CPU on a 4 MiB BAM of the same seed at 1 MiB windows: the
-        # CPU leg inflates with host zlib (the device inflate's plain
+        # CPU leg inflates on the host (the device inflate's plain
         # versions ran on the first window above), and the 40 MiB BAM's
         # CPU leg (22.7 s) is a depth cut (PERF.md §4).
         cut = work / "cut4.bam"
@@ -5151,33 +5198,56 @@ def main() -> int:
                                                     "differ")
         cut.unlink()
         log(f"full-check, 40 MiB BAM: card {card_s:.3f} s = card from "
-            f"host-zlib windows {host_zlib_s:.3f} s; card vs CPU on a 4 MiB "
+            f"host-inflate windows {host_inflated_s:.3f} s; card vs CPU on a "
+            f"4 MiB "
             f"BAM, {cut_windows} windows of 1 MiB: equal summaries, CPU "
-            f"(plain versions on host-zlib windows) {cpu_s:.3f} s")
+            f"(plain versions on host-inflate windows) {cpu_s:.3f} s")
 
         phase_done("4 (full-check)")
         # ---- long reads: chains outrun a 64 KiB halo ---------------------
         geo = (256 << 10, 64 << 10)
         long_reads = long_manifest["reads"]
+        long_walls = []
         for fused in (True, False):
             lc = port.StreamChecker(long_bam, port.Config(fused_count=fused),
                                     *geo)
             retries = []
             via_spans = lc._count_via_spans
-            lc._count_via_spans = lambda: retries.append(1) or via_spans()
+
+            def timed_retry():
+                t = time.perf_counter()
+                n = via_spans()
+                retries.append(time.perf_counter() - t)
+                return n
+
+            lc._count_via_spans = timed_retry
+            t0 = time.perf_counter()
             got = lc.count_reads()
+            long_walls.append((fused, time.perf_counter() - t0, retries))
             require(got == long_reads, f"long-read count {got} != "
                                        f"{long_reads} (fused={fused})")
-            require(retries == [1], f"expected one escape retry, got "
-                                    f"{len(retries)}")
+            require(len(retries) == 1, f"expected one escape retry, got "
+                                       f"{len(retries)}")
+        lc = port.StreamChecker(long_bam, port.Config(), *geo)
+        t0 = time.perf_counter()
+        long_spans = list(lc.spans())
+        long_spans_s = time.perf_counter() - t0
+        he = lc.header_end_abs
+        from_spans = sum(int(v[max(he - b, 0):].sum()) for b, v in long_spans)
+        require(from_spans == long_reads, (from_spans, long_reads))
+        log("long reads, walls: " + "; ".join(
+            f"count ({'fused' if f else 'classic'} loop) {s:.3f} s, its "
+            f"escape retry {r[0]:.3f} s" for f, s, r in long_walls)
+            + f"; spans() {long_spans_s:.3f} s, {len(long_spans)} emissions "
+            f"({card})")
         lc = port.StreamChecker(long_bam, port.Config(), *geo)
         tiled, zeros, deferred = tile_full_spans(lc)
         require(tiled == lc.total, (tiled, lc.total))
         require(deferred > 0, "long reads must defer")
         require(zeros == long_reads, (zeros, long_reads))
         # Card = CPU on 16 of those reads (2 MiB; the 8 MiB BAM's CPU
-        # summary was a depth cut, PERF.md §4). The CPU leg inflates with
-        # host zlib (the device inflate's plain versions ran on the first
+        # summary was a depth cut, PERF.md §4). The CPU leg inflates on
+        # the host (the device inflate's plain versions ran on the first
         # window in phase 2; its Python decoder here was a depth cut).
         long2 = work / "long2.bam"
         synth_bam(long2, 2 << 20, seed=9, unit_reads=8,
@@ -5194,7 +5264,7 @@ def main() -> int:
         log(f"long reads: {long_reads} reads counted exactly on both loops "
             f"through the escape retry; full_spans {deferred} deferred "
             f"re-emissions; card summary equals CPU on a 2 MiB BAM of 16 "
-            f"of them (CPU leg on host-zlib windows {long_cpu_s:.1f} s)")
+            f"of them (CPU leg on host-inflate windows {long_cpu_s:.1f} s)")
 
         phase_done("5 (long reads)")
         resident_launches = resident_phase(

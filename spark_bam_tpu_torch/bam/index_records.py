@@ -70,7 +70,7 @@ def _pos_at(metas, flat: int) -> Pos:
 def record_start_flats(bam_path, metas=None, strict: bool = False
                        ) -> np.ndarray:
     """Flat (uncompressed) offsets of every record start, by the
-    length-prefix walk over host-zlib runs of blocks. A length prefix out
+    length-prefix walk over host-inflated runs of blocks. A length prefix out
     of bounds raises the typed error the reference's record walk raises
     (``StructurallyInvalid`` below the fixed fields, ``LimitExceeded``
     past the decode limit), at the record's position."""

@@ -16,7 +16,7 @@ shows each one's cost.
 ``--resident`` adds the resident count (``count_reads_resident``, one CUDA
 graph replay per chunk) in the same call: a first count (graph captures
 included) split on the host clock into host inflate (waiting for the
-host-zlib windows), packing the pinned chunk, and the copies and replay
+host-inflate windows), packing the pinned chunk, and the copies and replay
 (host enqueue, and their device time by CUDA events); a second count on
 the same checker, graphs reused, split the same way; and a third under
 ``torch.profiler``, read like the fused leg. Prints one JSON line last.
@@ -123,7 +123,7 @@ def _profiled(count_fn, windows: int) -> dict:
 
 def resident_split(checker: StreamChecker) -> dict:
     """One ``count_reads_resident`` on ``checker`` split on the host clock:
-    waiting for host-zlib windows, packing rows into the pinned chunk, and
+    waiting for host-inflate windows, packing rows into the pinned chunk, and
     the runner's calls (copies in, replay, clones out: host enqueue), the
     rest being the waits for each chunk's sums; plus the device time of the
     runner's calls (CUDA events around each)."""

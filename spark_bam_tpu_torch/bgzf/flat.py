@@ -1,6 +1,7 @@
 """Flat views of runs of BGZF blocks: raw payloads for the device
-tokenizer, host-zlib inflation for the classic loop and the whole-file
-load (``flatten_file``), and the block tables that map a flat offset to
+tokenizer, host inflation (the native table decoder of ``native/eager.cpp``)
+for the classic loop, the demoted windows and the whole-file load
+(``flatten_file``), and the block tables that map a flat offset to
 ``block:offset`` and back."""
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from spark_bam_tpu_torch.bgzf.block import (
 )
 from spark_bam_tpu_torch.bgzf.index_blocks import blocks_metadata
 from spark_bam_tpu_torch.core.channel import open_channel
+from spark_bam_tpu_torch.native import build as native
 
 
 @dataclass
@@ -152,38 +154,116 @@ def _inflate_into(comp, off: int, clen: int, out: np.ndarray, usize: int,
     out[:] = np.frombuffer(data, dtype=np.uint8)
 
 
+#: Blocks a thread of the fast inflate takes at the least. The reference
+#: cuts at 32, which leaves a run of under 64 blocks on one thread; at 8,
+#: runs of 48-128 blocks inflated 1.2-2.2x faster on an H100's host, runs
+#: of 1-16 blocks alike, and runs of 256 or more are cut as the
+#: reference's (``benchmarks/profile_host_routes.py --legs short``).
+SLICE_BLOCKS = 8
+
+
+def slice_count(blocks: int, threads: int) -> int:
+    """The threads a run of ``blocks`` is inflated on."""
+    return max(1, min(threads, blocks // SLICE_BLOCKS))
+
+
+def _inflate_fast(comp, offsets, lengths, out_alloc: np.ndarray,
+                  block_flat: np.ndarray, usizes: np.ndarray, threads: int,
+                  crcs: np.ndarray | None) -> int | None:
+    """Inflate a run into ``out_alloc`` with the native table decoder, the
+    run cut into ``slice_count(blocks, threads)`` slices of blocks,
+    each on its own thread (the C call releases the GIL) and each writing
+    a disjoint output range: only the last one holds the slack. With
+    ``crcs`` (the footer words), each block's CRC-32 is checked too;
+    returns the index of the first block whose check fails, or None."""
+    n = len(offsets)
+    n_slices = slice_count(n, threads)
+    bounds = np.linspace(0, n, n_slices + 1, dtype=np.int64)
+
+    def run_slice(k: int) -> int | None:
+        lo, hi = int(bounds[k]), int(bounds[k + 1])
+        flat_lo = int(block_flat[lo])
+        flat_hi = len(out_alloc) if hi == n else int(block_flat[hi])
+        native.inflate_blocks_fast_into(
+            comp, offsets[lo:hi], lengths[lo:hi],
+            out_alloc[flat_lo:flat_hi], block_flat[lo:hi] - flat_lo,
+            usizes[lo:hi])
+        if crcs is not None:
+            for i in range(lo, hi):
+                at = int(block_flat[i])
+                got = zlib.crc32(out_alloc[at: at + int(usizes[i])])
+                if got != int(crcs[i]):
+                    return i
+        return None
+
+    if n_slices == 1:
+        return run_slice(0)
+    with ThreadPoolExecutor(max_workers=n_slices) as pool:
+        # In slice order: the first damaged block in file order.
+        return next((i for i in pool.map(run_slice, range(n_slices))
+                     if i is not None), None)
+
+
 def inflate_blocks(ch, metas: list[Metadata], threads: int = 8,
                    verify_crc: bool = False) -> FlatView:
-    """Inflate a run of blocks with host zlib (raw ``-15`` windows) across
-    a thread pool; zlib releases the GIL. ``verify_crc`` checks each
-    block's CRC-32 and raises the strict stream's ``BlockCorruptionError``
-    on a damaged payload (the export's contract)."""
+    """Inflate a run of blocks with the native table decoder
+    (``native/eager.cpp``; a block it refuses is decoded by zlib) into one
+    flat buffer. ``verify_crc`` checks each block's CRC-32 and raises the
+    strict stream's ``BlockCorruptionError`` on a damaged payload (the
+    export's contract). A run the native call refuses (a payload neither
+    decoder inflates to its footer's size) is inflated again block by
+    block with zlib, which raises the first damaged block's error in file
+    order; any other failure of the native call raises as it is."""
     comp, offsets, lengths = read_run_payloads(ch, metas)
-    usizes = [m.uncompressed_size for m in metas]
-    flat = np.concatenate([[0], np.cumsum(usizes)]).astype(np.int64)
-    out = np.empty(int(flat[-1]), dtype=np.uint8)
-    jobs = [
-        (comp, int(offsets[i]), int(lengths[i]),
-         out[flat[i]: flat[i + 1]], usizes[i],
-         metas[i].start if verify_crc else None)
-        for i in range(len(metas))
-    ]
-    total = int(flat[-1])
+    usizes = np.array([m.uncompressed_size for m in metas], dtype=np.int64)
+    block_flat = np.zeros(len(metas), dtype=np.int64)
+    if len(metas):
+        np.cumsum(usizes[:-1], out=block_flat[1:])
+    total = int(usizes.sum())
+    # 8 bytes of slack keep the decoder's word copies fast up to the last
+    # block's end; the view handed out is exact.
+    out_alloc = np.empty(total + 8, dtype=np.uint8)
+    out = out_alloc[:total]
     with obs.span("inflate.window", blocks=len(metas), bytes=total) as sp:
-        if threads > 1 and len(jobs) > 1:
-            with ThreadPoolExecutor(max_workers=threads) as pool:
-                # map yields in order: the first damaged block in file
-                # order raises.
-                list(pool.map(lambda j: _inflate_into(*j), jobs))
-        else:
-            for j in jobs:
-                _inflate_into(*j)
-        sp.set(engine="zlib")
+        engine = "zlib"   # the reference's label of an empty run
+        if metas:
+            # A library that does not build or load raises here.
+            native.load_native()
+            crcs = footer_crcs(comp, offsets, lengths) if verify_crc else None
+            try:
+                bad = _inflate_fast(comp, offsets, lengths, out_alloc,
+                                    block_flat, usizes, threads, crcs)
+            except (OSError, zlib.error):
+                # A payload neither decoder inflates to its footer's size:
+                # the per-block route raises the first damaged block's
+                # error in file order (and checks every CRC on its way).
+                # Where it finds none, the failure was not the data's.
+                _inflate_each(comp, offsets, lengths, out, block_flat,
+                              metas, verify_crc)
+                raise
+            if bad is not None:
+                at = int(block_flat[bad])
+                raise crc_mismatch(
+                    metas[bad].start, int(crcs[bad]),
+                    zlib.crc32(out[at: at + int(usizes[bad])]))
+            engine = "native"
+        sp.set(engine=engine)
     obs.count("inflate.windows")
     obs.count("inflate.blocks", len(metas))
     obs.count("inflate.bytes", total)
     block_starts, block_flat = metas_block_table(metas)
     return FlatView(out, block_starts=block_starts, block_flat=block_flat)
+
+
+def _inflate_each(comp, offsets, lengths, out: np.ndarray,
+                  block_flat: np.ndarray, metas, verify_crc: bool) -> None:
+    """Inflate a run block by block with zlib, in file order: the first
+    damaged block raises its error (``_inflate_into``'s)."""
+    for i, m in enumerate(metas):
+        at = int(block_flat[i])
+        _inflate_into(comp, int(offsets[i]), int(lengths[i]),
+                      out[at: at + m.uncompressed_size], m.uncompressed_size,
+                      m.start if verify_crc else None)
 
 
 def flatten_file(path, threads: int = 8) -> FlatView:

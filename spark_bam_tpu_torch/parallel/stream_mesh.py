@@ -12,10 +12,11 @@ sequential carry, which is what lets processes split the file):
   traded for seam independence);
 - a chain that outruns even the halo *escapes*: the step that holds it
   keeps its totals out of the result, and its rows are re-derived exactly
-  on the host (``check/vectorized.check_flat`` over a geometrically grown
-  buffer); an input dirty nearly everywhere, or a buffer that outgrows
-  the adversarial cap, re-runs through ``StreamChecker``'s deferral-exact
-  path on one device.
+  on the host over a geometrically grown buffer (verdicts by the native
+  tri-state walk, ``PATCH_CHUNK_POSITIONS`` candidates at a time; flags by
+  ``check/vectorized.check_flat``); an input dirty nearly everywhere, or a
+  buffer that outgrows the adversarial cap, re-runs through
+  ``StreamChecker``'s deferral-exact path on one device.
 
 Each row is inflated on its device (``stage_group_device`` →
 ``inflate_window_raw``: the ``tokenize`` and ``lz77_resolve`` kernels and
@@ -23,9 +24,9 @@ the assembly; under ``Config.inflate`` ``tokenize=host``,
 ``tokenize_group`` → ``inflate_window_tokens``: the host tokenizer's
 packed planes, ``lz77_resolve`` and the assembly) straight into the
 step's row tensor there; with ``device_inflate=False`` rows come from
-host zlib through pinned memory. A device tokenizer verdict of False, or
-a row the host tokenizer refuses, re-inflates that row with host zlib and
-is counted in ``tokenize_demotions``; any other failure raises (the
+the host inflate through pinned memory. A device tokenizer verdict of
+False, or a row the host tokenizer refuses, re-inflates that row on the
+host and is counted in ``tokenize_demotions``; any other failure raises (the
 reference re-inflates after any device error). Steps are
 double-buffered: a worker thread assembles step i + 1 into the other of
 two row buffers per device, on its own CUDA stream, after the step that
@@ -68,6 +69,7 @@ from spark_bam_tpu_torch.check.flags import (
 from spark_bam_tpu_torch.check.vectorized import check_flat
 from spark_bam_tpu_torch.core.channel import open_channel
 from spark_bam_tpu_torch.core.config import Config
+from spark_bam_tpu_torch.native import build as native
 from spark_bam_tpu_torch.parallel.mesh import Mesh, make_mesh, mesh_steps
 from spark_bam_tpu_torch.tpu.checker import (
     PAD,
@@ -87,6 +89,10 @@ from spark_bam_tpu_torch.tpu.stream_check import (
     full_check_summary_streaming,
     pad_contig_lengths,
 )
+
+#: Candidate positions a row's verdict patch checks at a time (its
+#: per-position state is 9 bytes each).
+PATCH_CHUNK_POSITIONS = 1 << 20
 
 
 def _plan_rows(metas: list, fresh: int, n_global: int, num_processes: int):
@@ -230,7 +236,7 @@ class _ShardedStream:
         return run, n, at_eof, own
 
     def _host_row(self, ch, run, out_row) -> None:
-        """Inflate a row with host zlib into ``out_row`` through pinned
+        """Inflate a row on the host into ``out_row`` through pinned
         memory (zeros past its bytes)."""
         data = torch.from_numpy(inflate_blocks(ch, run, threads=8).data)
         if out_row.is_cuda:
@@ -241,7 +247,7 @@ class _ShardedStream:
     def _device_row(self, ch, run, n: int, out_row):
         """Inflate a row on its device into ``out_row``; returns the device
         tokenizer's () verdict, or None under ``tokenize=host``, where a
-        row the host tokenizer refuses goes to host zlib (counted)."""
+        row the host tokenizer refuses goes to the host inflate (counted)."""
         dev = out_row.device
         carry = torch.zeros(1, dtype=torch.uint8, device=dev)
         if self.host_tokenize:
@@ -423,60 +429,67 @@ class _RowGrowth:
         return True
 
 
-def _grown_check(st: _ShardedStream, g: int, ch, need):
-    """``check_flat`` over global row ``g``'s grown buffer until ``need(res,
-    span)`` finds no owned position unresolved (or EOF); None past the
-    growth cap."""
-    rg = _RowGrowth(st, g)
-    span = rg.hi_abs - rg.lo_abs
-    lens = st.lengths[: st.num_contigs]
-    obs.count("mesh.patch_rows")
-    while True:
-        view = rg.view(ch)
-        # One host pass over the grown row (the reference cuts its walk
-        # into 1 Mi-position chunks; here a pass is the whole view).
-        obs.count("mesh.patch_chunks")
-        obs.observe("mesh.patch_chunk_positions", view.size)
-        res = check_flat(view.data, lens, at_eof=rg.at_eof,
-                         reads_to_check=st.config.reads_to_check)
-        if rg.at_eof or not need(res, span).any():
-            return res
-        if not rg.grow(view.size):
-            return None
-
-
 def _exact_row_true_positions(st: _ShardedStream, g: int, lo_clamp: int,
                               ch):
     """Exact absolute record starts inside global row ``g``'s owned span
-    from ``lo_clamp`` on: ``check_flat`` verdicts over a grown buffer,
-    grown while any owned position escaped (the reference walks its native
-    tri-state checker the same way). The escape-localized patch: a dirty
-    row re-derives from ``(path, metas)`` alone. None past the growth cap
-    (callers take the whole-file path)."""
-    lo = int(st.flat_starts[g])
-    a = max(lo_clamp - lo, 0)
-    span = int(st.sizes[g])
-    if a >= span:
+    from ``lo_clamp`` on: the native tri-state walk over a geometrically
+    grown buffer, re-checking after each growth only the candidates still
+    uncertain. The escape-localized patch: a dirty row re-derives from
+    ``(path, metas)`` alone. ``ch`` is an open channel on ``st.path`` (one
+    serves every row a caller patches). None past the growth cap (callers
+    take the whole-file path)."""
+    rg = _RowGrowth(st, g)
+    lo_eval = max(rg.lo_abs, lo_clamp)
+    if lo_eval >= rg.hi_abs:
         return np.empty(0, dtype=np.int64)
-    res = _grown_check(st, g, ch, lambda r, s: r.escaped[a:s])
-    if res is None:
-        return None
-    return lo + a + np.flatnonzero(res.verdict[a:span]).astype(np.int64)
+    lens = st.lengths[: st.num_contigs]
+    # Candidates walk the owned span in chunks, so per-position state
+    # (int64 candidate + u8 verdict, 9 bytes) stays one chunk's; ``rg`` and
+    # its view persist across chunks, so growth won by an early chunk
+    # serves the rest of the row.
+    obs.count("mesh.patch_rows")
+    view = rg.view(ch)
+    hits: list[np.ndarray] = []
+    for c_lo in range(lo_eval, rg.hi_abs, PATCH_CHUNK_POSITIONS):
+        c_hi = min(c_lo + PATCH_CHUNK_POSITIONS, rg.hi_abs)
+        cand_abs = np.arange(c_lo, c_hi, dtype=np.int64)
+        res = np.full(len(cand_abs), 2, dtype=np.uint8)
+        obs.count("mesh.patch_chunks")
+        obs.observe("mesh.patch_chunk_positions", len(cand_abs))
+        while True:
+            unc = np.flatnonzero(res == 2)
+            res[unc] = native.eager_check_window_native(
+                view.data, cand_abs[unc] - rg.lo_abs, lens,
+                reads_to_check=st.config.reads_to_check, exact_eof=rg.at_eof)
+            if rg.at_eof or not (res == 2).any():
+                hits.append(cand_abs[res == 1])
+                break
+            if not rg.grow(view.size):
+                return None
+            view = rg.view(ch)
+    return np.concatenate(hits) if hits else np.empty(0, dtype=np.int64)
 
 
 def _exact_row_flags(st: _ShardedStream, g: int, ch):
     """Exact ``(fail_mask, reads_before)`` over global row ``g``'s owned
-    span: the full flag pass of ``check_flat`` over a buffer grown until
-    every owned lane is exact and unescaped (or EOF); None past the cap."""
-    span = int(st.sizes[g])
+    span: the full flag pass of ``check_flat`` (the tri-state walk gives
+    verdicts only) over a buffer grown until every owned lane is exact and
+    unescaped (or EOF); None past the cap."""
+    rg = _RowGrowth(st, g)
+    span = rg.hi_abs - rg.lo_abs
     if span <= 0:
         return np.empty(0, np.int32), np.empty(0, np.int32)
-    res = _grown_check(st, g, ch,
-                       lambda r, s: (r.escaped | ~r.exact)[:s])
-    if res is None:
-        return None
-    return (np.asarray(res.fail_mask[:span], dtype=np.int32),
-            np.asarray(res.reads_before[:span], dtype=np.int32))
+    lens = st.lengths[: st.num_contigs]
+    while True:
+        view = rg.view(ch)
+        res = check_flat(view.data, lens, at_eof=rg.at_eof,
+                         reads_to_check=st.config.reads_to_check)
+        need = (res.escaped | ~res.exact)[:span]
+        if rg.at_eof or not need.any():
+            return (np.asarray(res.fail_mask[:span], dtype=np.int32),
+                    np.asarray(res.reads_before[:span], dtype=np.int32))
+        if not rg.grow(view.size):
+            return None
 
 
 def _step_global_rows(st: _ShardedStream, c0: int) -> list[int]:

@@ -1,6 +1,7 @@
 """BGZF inflate feeding the device (reference ``spark_bam_tpu/tpu/
-inflate.py``): the window plan, the host-zlib pipeline of the classic
-count loop, and the two routes of the two-phase device inflate.
+inflate.py``): the window plan, the host-inflate pipeline of the
+classic count loop (``bgzf/flat.py::inflate_blocks``), and the two routes
+of the two-phase device inflate.
 
 The device side of inflate is an entropy phase (bitstream → per-output-byte
 literal/distance tokens) and a copy phase, the ``lz77_resolve`` kernel
@@ -21,8 +22,8 @@ literal/distance tokens) and a copy phase, the ``lz77_resolve`` kernel
   planes and ``lz77_resolve`` resolves them in place
   (``checker.count_window_tokens``, ``inflate_group_device``). A stream
   the tokenizer refuses, or a size that disagrees with its block footer,
-  raises ``TokenizeError``; callers demote that work to host zlib and
-  count it.
+  raises ``TokenizeError``; callers demote that work to the host inflate
+  and count it.
 
 Both kernels live in ``tpu/kernels.py`` beside their plain versions.
 
@@ -437,14 +438,15 @@ def wait_stall(fut):
 
 
 class InflatePipeline:
-    """Window groups of a BGZF file and their host-zlib inflation, ``depth``
-    groups in flight on worker threads while the consumer takes the oldest.
+    """Window groups of a BGZF file and their host inflation
+    (``inflate_blocks``), ``depth`` groups in flight on worker threads while
+    the consumer takes the oldest.
     The fused device count reads only ``groups``, ``depth`` and ``total``;
     iterating yields ``FlatView`` windows for the classic count loop.
     ``metas`` reuses a block scan the caller already made; ``verify_crc``
     checks every block's CRC-32 as it inflates (the export's contract)."""
 
-    threads = 8   # zlib workers per group (zlib releases the GIL)
+    threads = 8   # inflate threads per group (the C call releases the GIL)
     depth = 2     # groups prepared ahead of the consumer
     verify_crc = False
 

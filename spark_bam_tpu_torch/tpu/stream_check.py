@@ -13,8 +13,9 @@ and the ``tokenize`` and ``lz77_resolve`` kernels inflate it behind a halo
 carry that stays on the device. Under ``Config.inflate`` ``tokenize=host``
 the worker threads run the entropy phase instead (the host tokenizer,
 packed planes in pinned buffers) and only ``lz77_resolve`` runs on the
-device. With ``device_inflate=False`` host zlib inflates each window and
-it is copied to the device.
+device. With ``device_inflate=False`` the host inflates each window
+(``bgzf/flat.py::inflate_blocks``: the native table decoder) and it is
+copied to the device.
 
 Two loops count, with the same pacing (``ring_depth`` windows un-synced),
 flushes (``flush_every`` windows between device→host transfers) and escape
@@ -25,23 +26,25 @@ checkpoints (window 4, then every flush):
   each window on the device. A window whose tokenizer verdict (``tok_ok``)
   is False, or a group the host tokenizer refuses, demotes the whole count
   to the classic loop, counted in ``tokenize_demotions``.
-- the classic loop in ``count_reads``: host zlib inflates, and each padded
+- the classic loop in ``count_reads``: the host inflates, and each padded
   window goes to the device for ``checker.count_window``.
 
-``count_reads_resident`` (``Config.resident_scan``) packs host-zlib
+``count_reads_resident`` (``Config.resident_scan``) packs host-inflate
 windows into resident chunks and counts each chunk with one dispatch of
 ``checker.make_count_scan``'s counter: on a CUDA device one CUDA graph
 replay of the chunk's window bodies.
 
 ``spans()`` and ``full_spans()`` run ``check_window`` on each window, one
 window in flight; there a refused group or a tokenizer verdict of False
-demotes that window alone to host zlib (also counted).
+demotes that window alone to the host inflate (also counted).
 
 Positions whose chains outrun the halo *escape*. A count that saw an
 escape re-runs the file through ``spans()``, which is exact: escaped owned
 positions (and, for the flag projection ``full_spans()``, inexact ones) are
 deferred into a side buffer of raw bytes that grows until their chains can
-complete, then resolve with the host engine (``check/vectorized.py``).
+complete, then resolve on the host: the verdicts by the native tri-state
+chain walk (``native/eager.cpp``) on every window, the flag projections by
+``check/vectorized.py`` once the buffer grew enough.
 
 The span contract: ``spans()`` yields ``(base, verdict)`` pairs whose True
 positions are exactly the record starts of the file. Window spans tile
@@ -104,6 +107,7 @@ from spark_bam_tpu_torch.core.channel import open_channel
 from spark_bam_tpu_torch.core.config import Config
 from spark_bam_tpu_torch.core.pos import Pos
 from spark_bam_tpu_torch.device import resolve_device
+from spark_bam_tpu_torch.native import build as native
 from spark_bam_tpu_torch.tpu.checker import (
     PAD,
     check_window,
@@ -242,7 +246,7 @@ class StreamChecker:
     ``verify_crc`` (the export's contract, as the reference's strict block
     stream has it) checks every block's CRC-32 before its window is
     checked: on the device route ``crc32_lanes`` over the resolved rows,
-    on the host-zlib route ``zlib.crc32``; a mismatch raises
+    on the host-inflate route ``zlib.crc32``; a mismatch raises
     ``BlockCorruptionError``."""
 
     def __init__(
@@ -308,7 +312,7 @@ class StreamChecker:
 
     def count_reads(self) -> int:
         """Record count: the fused device loop unless configured off or
-        demoted, else the classic host-zlib loop. ``fused_count=None``
+        demoted, else the classic host-inflate loop. ``fused_count=None``
         follows ``device_inflate``, whose ``None`` means on. Either loop
         re-runs the file through the exact ``spans()`` path when an owned
         position escaped (chains longer than the halo). With ``verify_crc``
@@ -602,7 +606,7 @@ class StreamChecker:
     # ---------------------------------------------------- the window loop
     def _host_windows(self):
         """``(padded, n, base, own_end, at_eof, buf)`` per window from the
-        host-zlib pipeline (``device_inflate=False``): the window goes to
+        host-inflate pipeline (``device_inflate=False``): the window goes to
         the device, and ``buf`` keeps its bytes on the host."""
         w = self.kernel_window
         for buf, base, own_end, _lo, at_eof in halo_windows(
@@ -621,8 +625,8 @@ class StreamChecker:
         under ``tokenize=host``, tokenize and pack it on the host and
         ``inflate_window_tokens`` resolves and assembles the packed planes.
         A group the staging or the host tokenizer refuses, or whose device
-        tokenizer verdict is False, demotes that window alone to host zlib
-        (as the reference's pipeline does), counted in
+        tokenizer verdict is False, demotes that window alone to the host
+        inflate (as the reference's pipeline does), counted in
         ``tokenize_demotions``."""
         groups = self.pipeline.groups
         w, halo = self.kernel_window, self.halo
@@ -841,27 +845,42 @@ class StreamChecker:
         def resolve(self, at_eof: bool, fields: tuple[str, ...]):
             """Re-check pendings against the grown stream; yield ``(pos,
             row)`` for each run of pendings now resolved with certainty
-            (``row`` holds one array per field). A lane retires only when
-            exact: an inexact lane's flags may still change as the buffer
-            grows past its chain, and at EOF everything is definitive.
-            Attempts run at EOF or once the stream grew by a quarter of the
-            retained span since the last one; ungated, windows shorter than
-            a record would redo the span every window (quadratic)."""
+            (``row`` holds one array per field).
+
+            The verdict projection (spans, the count) retires lanes through
+            the native tri-state chain walk on every call: it touches only
+            the records each chain visits. The flag projections need the
+            whole-buffer flag pass, and retire a lane only when exact (an
+            inexact lane's flags may still change as the buffer grows past
+            its chain; at EOF everything is definitive), so their attempts
+            run at EOF or once the stream grew by a quarter of the retained
+            span since the last one: ungated, windows shorter than a record
+            would redo the span every window (quadratic)."""
             if not len(self.pending):
                 return
             obs.count("check.defer_retries")
-            tip = self.base + len(self.buf)
-            if not at_eof and tip - self._gate_tip < (tip - self.base) // 4:
-                return
-            self._gate_tip = tip
-            res = check_flat(
-                self.buf, self.lengths, candidates=self.pending - self.base,
-                at_eof=at_eof, reads_to_check=self.rtc,
-            )
-            done = (~res.escaped) & res.exact
+            if fields == ("verdict",):
+                tri = native.eager_check_window_native(
+                    self.buf, self.pending - self.base, self.lengths,
+                    reads_to_check=self.rtc, exact_eof=at_eof)
+                done = tri != 2
+                rows = (tri[done] == 1,)
+            else:
+                tip = self.base + len(self.buf)
+                if (not at_eof
+                        and tip - self._gate_tip < (tip - self.base) // 4):
+                    return
+                self._gate_tip = tip
+                res = check_flat(
+                    self.buf, self.lengths,
+                    candidates=self.pending - self.base, at_eof=at_eof,
+                    reads_to_check=self.rtc,
+                )
+                done = (~res.escaped) & res.exact
+                rows = tuple(np.asarray(getattr(res, f))[done]
+                             for f in fields)
             positions = self._retire(done)
             obs.count("check.defer_resolved", len(positions))
-            rows = tuple(np.asarray(getattr(res, f))[done] for f in fields)
             runs = list(self._emit_runs(positions, rows))
             for k, run in enumerate(runs):
                 self._unemitted = runs[k + 1][0] if k + 1 < len(runs) else None
