@@ -28,7 +28,16 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    Kernel times are CUDA-event medians. Then
    ``benchmarks/profile_resolve_flags.py`` on the same window: the
    clock64 phase split of LZ77 and the full pass and the rounds
-   histogram. Then the benchmark's instruments (``yardstick_check``):
+   histogram. Then the funnel's stage-1 kernels (``lane_phase``,
+   ``csrc/lanes.cu``): ``bad_op_tables``, ``walk_lanes`` and
+   ``count_lanes`` bit-identical to their plain versions on the first
+   window, random bytes, the prefilter and lane edge sets
+   (``benchmarks/lane_cases.py``: int32 wraps, 65,535-op cigars, chains,
+   survivors past the capacity) and the overflowing soup at W = 2^25, at
+   ``reads_to_check`` 1 and 10 and ``at_eof`` both ways, each twice on one
+   stream and once on a second, and captured once in a CUDA graph
+   replayed over four windows on each stream; their CUDA-event times.
+   Then the benchmark's instruments (``yardstick_check``):
    ``make_count_repeat`` on that window (one fused count captured in a
    CUDA graph) at ``iters`` 1 and 4 must give 4x the single count, with
    its prefilter launches counted, and its two-point slope beside the
@@ -40,7 +49,9 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    zlib's bytes; positions/s and MB/s are logged.
 3. count-reads: counts the BAM through ``StreamChecker.count_reads`` at the
    default geometry (24 MiB window, 4 MiB halo, 32 MiB kernel window) on
-   the fused device path, then through the classic loop (host windows
+   the fused device path (again under ``torch.profiler``: its
+   ``cudaLaunchKernel`` calls a window, the device's busy share), then
+   through the classic loop (host windows
    inflated by the native table decoder, ``native/eager.cpp``: its
    ``inflate.window`` spans' ms a window, each of engine ``native``), and
    checks both counts against the generator's.
@@ -355,14 +366,16 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak memory rate
 #: The kernels of the count-reads path and of the full-check path.
-COUNT_KERNELS = ("tokenize", "lz77_resolve", "prefilter_check_flags")
+COUNT_KERNELS = ("tokenize", "lz77_resolve", "prefilter_check_flags",
+                 "bad_op_tables", "walk_lanes")
 #: The kernels that phase 14's fabric paths launch.
 FABRIC_KERNELS = ("prefilter_check_flags", "full_check_flags")
 #: Beside those kernels' rows: which of phase 14's launches the counters see.
 FABRIC_NOTE = ("fabric paths count the in-process worker's launches; the "
                "fabric command's and the pool's worker processes launch in "
                "their own processes, which these counters do not see")
-FULL_CHECK_KERNELS = ("tokenize", "lz77_resolve", "full_check_flags")
+FULL_CHECK_KERNELS = ("tokenize", "lz77_resolve", "full_check_flags",
+                      "walk_lanes")
 #: Beside every kernel's row: which of phase 15's launches the counters see.
 JOBS_NOTE = ("jobs paths count this process's jobs: the resumed durable "
              "export, the in-process worker's export job and its paused "
@@ -508,7 +521,8 @@ def yardstick_check(port, padded, lens_dev, nc: int, n0: int, w: int,
     require(r1 == single and r4 == 4 * single,
             f"count_repeat {r1}, {r4} against the single count {single}")
     # One eager body before the capture, then 1 + 4 replays.
-    require(launches["prefilter_check_flags"] == 6
+    require(all(launches[k] == 6 for k in ("prefilter_check_flags",
+                                           "bad_op_tables", "walk_lanes"))
             and run.graphs and run.replays == 5,
             f"count_repeat launches {launches}")
     reps = (2, 10)
@@ -587,6 +601,125 @@ def yardstick_check(port, padded, lens_dev, nc: int, n0: int, w: int,
     return nums
 
 
+def lane_phase(padded, lens_dev, nc: int, n0: int, w: int, halo: int, soup,
+               long_pad, long_n: int, n_odd: int, side, card) -> list:
+    """Phase 2's check of the funnel's stage-1 kernels (``bad_op_tables``,
+    ``walk_lanes`` and ``count_lanes``, ``csrc/lanes.cu``) against their
+    plain versions at W = 2^25: the first window, random bytes, the
+    prefilter edge set, the lane edge set and the overflowing soup, each at
+    ``reads_to_check`` 1 and 10 and ``at_eof`` both ways, twice on one
+    stream and once on a second (``lane_checks.hold_lanes``); one capture
+    of the three replayed over four windows on each stream
+    (``lane_checks.replay_lanes``); then their CUDA-event times on the
+    first window beside the plain versions'. Returns their two rows of the
+    ``kernels`` line."""
+    from spark_bam_tpu_torch.benchmarks import lane_cases, prefilter_cases
+    from spark_bam_tpu_torch.benchmarks.lane_checks import (
+        hold_lanes,
+        replay_lanes,
+    )
+    from spark_bam_tpu_torch.tpu import kernels as K
+
+    dev = padded.device
+    t_start = time.perf_counter()
+    errs = {"bad_op_tables": 0, "walk_lanes": 0}
+    counts = []
+
+    def hold(label, buf, n, lt, c):
+        for rtc in (1, 10):
+            for at_eof in (False, True):
+                r = hold_lanes(buf, lt, c, n, at_eof, 100, n - 50, rtc, side)
+                for k in errs:
+                    errs[k] = max(errs[k], r[k])
+                    require(r[k] == 0, f"{k} differs from plain on {label}, "
+                                       f"reads_to_check {rtc}, at_eof "
+                                       f"{at_eof}: {r[k]}")
+        counts.append(f"{label} {r['count']}")
+
+    hold("window", padded, n0, lens_dev, nc)
+    hold("random bytes", soup, w, lens_dev, nc)
+    edge = prefilter_cases.prefilter_windows(w, seed=7)
+    edge.update(lane_cases.lane_windows(w, seed=7))
+    edge["overflow_soup"] = prefilter_cases.overflow_soup(w)
+    n_edge = len(edge)
+    for label in list(edge):
+        b_np, n, l_np, c = edge.pop(label)
+        buf, lt = (torch.from_numpy(a).to(dev) for a in (b_np, l_np))
+        hold(label, buf, n, lt, c)
+    del buf
+    held_s = time.perf_counter() - t_start
+    wins = [(padded, n0, False, 0, n0 - halo), (soup, w, True, 5, w),
+            (long_pad, long_n, True, 0, long_n),
+            (padded, n_odd, False, 100, n_odd)]
+    replay_log = []
+    for label, stream in (("current", None), ("second", side)):
+        for rtc in (1, 10):
+            rep = replay_lanes(wins, lens_dev, nc, rtc, stream)
+            require(rep["replays"] == 4
+                    and not any(rep["max_abs_err"].values())
+                    and not any(rep["eager_err"].values()),
+                    f"stage-1 kernels replayed on the {label} stream, "
+                    f"reads_to_check {rtc}: {rep}")
+            replay_log.append(f"{label} stream, reads_to_check {rtc}")
+    # Times on the first window, the main path's shapes (a non-final
+    # window: its owned span ends a halo before n).
+    F, cand, n_set = K.prefilter_check_flags(padded, lens_dev, nc, n0)
+    tables = K.bad_op_tables(padded, n0)
+    own = n0 - halo
+    tab_ms = cuda_ms(lambda: K.bad_op_tables(padded, n0), reps=20)
+    tab_plain_ms = cuda_ms(lambda: K._bad_op_tables(padded, n0), reps=3)
+    count_ms = cuda_ms(lambda: K.count_lanes(
+        padded, lens_dev, nc, n0, False, F, cand, n_set, tables, 0, own),
+        reps=20)
+    lanes_ms = cuda_ms(lambda: K.walk_lanes(
+        padded, lens_dev, nc, n0, False, F, cand, n_set, tables), reps=20)
+    count_plain_ms = cuda_ms(lambda: K._count_lanes(
+        padded, lens_dev, nc, n0, False, F, cand, n_set, tables, 0, own),
+        reps=3)
+    live = min(int(n_set), cand.numel())
+    total = padded.numel()
+    tab_bytes = total + 4 * tables[0].numel() + 4 * tables[1].numel()
+    # The count reads F over the owned span, the live lanes' list entries
+    # and at least each survivor's fixed block, and writes 24 bytes.
+    walk_bytes = 4 * own + 4 * live + 36 * live + 24
+    nums = {"cases": 2 + n_edge, "held_s": held_s,
+            "survivors_first_window": int(n_set),
+            "bad_op_tables_ms": tab_ms, "bad_op_tables_plain_ms": tab_plain_ms,
+            "count_lanes_ms": count_ms, "walk_lanes_per_lane_ms": lanes_ms,
+            "count_lanes_plain_ms": count_plain_ms,
+            "bad_op_tables_bytes": tab_bytes, "count_lanes_bytes": walk_bytes,
+            "s": time.perf_counter() - t_start}
+    log(f"stage-1 kernels: bad_op_tables, walk_lanes and count_lanes "
+        f"bit-identical to plain on {2 + n_edge} windows at W={w} "
+        f"(reads_to_check 1 and 10, at_eof both ways, twice on one stream "
+        f"and once on a second; counts {', '.join(counts)}); graph "
+        f"replays over 4 windows: {', '.join(replay_log)}; first window "
+        f"{int(n_set)} survivors: bad_op_tables {tab_ms:.4f} ms (plain "
+        f"{tab_plain_ms:.3f}), count_lanes {count_ms:.4f} ms, walk_lanes "
+        f"per lane {lanes_ms:.4f} ms (plain count {count_plain_ms:.3f}) "
+        f"({card})")
+    log(f"phase 2 stage-1 numbers: {json.dumps(nums)}")
+    return [
+        dict(name="bad_op_tables", route="cuda",
+             source="spark_bam_tpu_torch/csrc/lanes.cu",
+             replaces="spark_bam_tpu/tpu/checker.py:281",
+             parity="bit-identical", max_abs_err=errs["bad_op_tables"],
+             ms=tab_ms, plain_ms=tab_plain_ms,
+             bound_ms=tab_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+             library_ms=None),
+        dict(name="walk_lanes", route="cuda",
+             source="spark_bam_tpu_torch/csrc/lanes.cu",
+             replaces="spark_bam_tpu/tpu/checker.py:441",
+             replaces_also=["spark_bam_tpu/tpu/checker.py:322",
+                            "spark_bam_tpu/tpu/checker.py:741"],
+             parity="bit-identical", max_abs_err=errs["walk_lanes"],
+             ms=count_ms, per_lane_outputs_ms=lanes_ms,
+             plain_ms=count_plain_ms,
+             bound_ms=walk_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+             library_ms=None),
+    ]
+
+
 def resident_phase(port, bam, manifest, long_bam, long_manifest, small,
                    small_manifest, card, fused_s, classic_s) -> dict:
     """Phase 6, the resident count; returns its kernel launch counts on
@@ -606,7 +739,9 @@ def resident_phase(port, bam, manifest, long_bam, long_manifest, small,
     funnel = dict(checker.funnel_stats)
     runner = checker.scan_runner
     require(got == want, f"resident count {got} != generator's {want}")
-    require(launches["prefilter_check_flags"] > 0, launches)
+    require(all(launches[k] > 0 for k in ("prefilter_check_flags",
+                                          "bad_op_tables", "walk_lanes")),
+            launches)
     require(isinstance(runner, port.CountScanGraphs), type(runner))
     windows = len(checker.pipeline.groups)
     rows = checker.resident_chunk_rows()
@@ -3411,7 +3546,9 @@ def host_tokenize_phase(port, bam, manifest, small, small_manifest,
     require(checker.tokenize_demotions == 0, "the host route demoted")
     require(launches["tokenize"] == 0, launches)
     require(launches["lz77_resolve"] == windows, launches)
-    require(launches["prefilter_check_flags"] >= windows, launches)
+    require(all(launches[k] >= windows for k in ("prefilter_check_flags",
+                                                 "bad_op_tables",
+                                                 "walk_lanes")), launches)
     log(f"count-reads tokenize=host: {got} reads (= the generator's, 0 "
         f"demotions) in {host_s:.3f} s = {got / host_s:.0f} reads/s, beside "
         f"{fused_s:.3f} s on the device tokenizer (phase 3); {windows} "
@@ -4721,6 +4858,7 @@ def main() -> int:
     from spark_bam_tpu_torch.benchmarks import profile_prefilter as pfp
     from spark_bam_tpu_torch.benchmarks import profile_resolve_flags as prf
     from spark_bam_tpu_torch.benchmarks import replay_cases, resolve_flag_cases
+    from spark_bam_tpu_torch.benchmarks.profile_count import profiled
     from spark_bam_tpu_torch.benchmarks.profile_tokenize import symbol_counts
     from spark_bam_tpu_torch.benchmarks.synth import synth_bam
     from spark_bam_tpu_torch.bgzf.flat import inflate_blocks
@@ -5077,6 +5215,8 @@ def main() -> int:
         # rounds each of its rows took (kernel and plain version).
         prf.profile_lz77([], prof_dir, lit, dist, sm_mhz)
         prf.profile_full_flags([], prof_dir, padded, lens_dev, nc, n0, sm_mhz)
+        rows += lane_phase(padded, lens_dev, nc, n0, w, halo, soup, long_pad,
+                           long_n, n_odd, side, card)
         yard_nums = yardstick_check(port, padded, lens_dev, nc, n0, w, flat0,
                                     bam, group0, work, card)
         del padded, soup, const88, long_pad, k_tok, p_tok, k_res, p_res
@@ -5134,6 +5274,15 @@ def main() -> int:
                 f"{want / s:.0f} reads/s, {gb / s:.3f} GB/s inflated "
                 f"({card})")
         log(f"funnel: {checker.funnel_stats}; launches {launches}")
+        # The same count under torch.profiler: the host's kernel launch
+        # calls a window, and the device busy share.
+        windows = len(checker.pipeline.groups)
+        prof = profiled(port.StreamChecker(bam, port.Config()).count_reads,
+                        windows, show=False)
+        require(prof["count"] == want, prof["count"])
+        log(f"count-reads fused under torch.profiler: "
+            f"{json.dumps({k: prof[k] for k in ('wall_s', 'device_busy_share', 'ms_per_window', 'host_calls')})} "
+            f"({card})")
 
         phase_done("3 (count-reads)")
         # ---- end to end: full-check, then one pass over its spans --------

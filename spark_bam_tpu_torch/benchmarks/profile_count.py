@@ -9,9 +9,13 @@ the device-busy share (kernel time over wall), the host's kernel launches
 (``cudaLaunchKernel`` calls and CPU time) and graph launches per window,
 the top operators by device time and by host time, and the card's name and
 power limit. Also times each stage of one window (staging, tokenize,
-resolve, assembly, the prefilter with its survivor compaction, deep flags,
-walk) with a device synchronise around each, which serialises them but
-shows each one's cost.
+resolve, assembly, the prefilter with its survivor compaction, the bad-op
+tables and the walk with its count, the plain deep-flag stages, the lane
+core against ``check_window`` and the full pass's compaction) with a
+device synchronise around each (a second pass, after one that takes the
+first calls' allocations), which serialises them but shows each one's
+cost, and ``count_repeat``'s slope on that window (one
+fused count captured in a CUDA graph, timed at two replay counts).
 
 ``--resident`` adds the resident count (``count_reads_resident``, one CUDA
 graph replay per chunk) in the same call: a first count (graph captures
@@ -69,7 +73,7 @@ def stage_breakdown(bam: Path, checker: StreamChecker) -> dict:
     nc = len(checker.lengths)
     g = checker.pipeline.groups[0]
     with open_channel(bam) as ch:
-        staged, clens, usizes = _timed(
+        staged, clens, usizes, _crcs = _timed(
             st, "stage+h2d", lambda: stage_group_device(ch, g, dev))
     lit, dist, _, _ = _timed(st, "tokenize", lambda: K.tokenize(staged, clens))
     res, _ = _timed(st, "lz77_resolve",
@@ -80,19 +84,64 @@ def stage_breakdown(bam: Path, checker: StreamChecker) -> dict:
     carry = torch.zeros(halo, dtype=torch.uint8, device=dev)
     padded = _timed(st, "assemble", lambda: ck._assemble(
         res, exp, carry, 0, n, window=w, halo=halo))
-    _, cand, _ = _timed(st, "prefilter and compaction", lambda:
-                        K.prefilter_check_flags(padded, lens, nc, n))
-    tables = _timed(st, "funnel_tables", lambda: ck._funnel_tables(padded, n))
-    _timed(st, "deep_flags", lambda: ck._deep_flags_at(
-        padded, lens, nc, n, tables, torch.where(cand >= 0, cand, 0)))
+    F, cand, n_set = _timed(st, "prefilter and compaction", lambda:
+                            K.prefilter_check_flags(padded, lens, nc, n))
+    tables = _timed(st, "bad_op_tables kernel",
+                    lambda: K.bad_op_tables(padded, n))
+    _timed(st, "count_lanes kernel (walk and count)", lambda: K.count_lanes(
+        padded, lens, nc, n, False, F, cand, n_set, tables, 0, n - halo,
+        checker.config.reads_to_check))
+    # The plain versions' stages, as the count ran them before the kernels.
+    plain = _timed(st, "funnel_tables (plain)",
+                   lambda: K._funnel_tables(padded, n))
+    _timed(st, "deep_flags (plain)", lambda: K._deep_flags_at(
+        padded, lens, nc, n, plain, torch.where(cand >= 0, cand, 0)))
     _timed(st, "count_window (all of the check)", lambda: ck.count_window(
         padded, lens, nc, n, False, 0, n - halo, checker.config.reads_to_check))
+    # What is left of the check in PyTorch, for the queue's order:
+    # check_window's full-width scatter-back (its time less the lane
+    # core's) and the full pass's survivor compaction.
+    _timed(st, "_check_lanes (funnel)", lambda: ck._check_lanes(
+        padded, lens, nc, n, False, checker.config.reads_to_check))
+    _timed(st, "check_window (funnel)", lambda: ck.check_window(
+        padded, lens, nc, n, False, checker.config.reads_to_check))
+    full = K.full_check_flags(padded, lens, nc, n)
+    survivor = (full == 0) & (torch.arange(w, device=dev) < n)
+    _timed(st, "_compact_mask (full pass)", lambda: K._compact_mask(
+        survivor, K.lane_capacity(w)))
+    st["count_repeat"] = repeat_slope(padded, lens, nc, n, w,
+                                      checker.config.reads_to_check)
     return st
 
 
-def _profiled(count_fn, windows: int) -> dict:
+def _events_ms(fn) -> float:
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def repeat_slope(padded, lens, nc: int, n: int, w: int,
+                 reads_to_check: int, iters=(2, 10)) -> dict:
+    """``count_repeat``'s two-point slope on one window: the device ms of
+    one fused count without the host's launch cost (CUDA events around
+    ``iters`` graph replays, the median of three calls each)."""
+    run = ck.make_count_repeat(w, reads_to_check, True, padded.device)
+    run(padded, lens, nc, n, False, 1)
+    walls = {k: sorted(_events_ms(lambda k=k: run(padded, lens, nc, n, False,
+                                                   k)) for _ in range(3))[1]
+             for k in iters}
+    slope = (walls[iters[1]] - walls[iters[0]]) / (iters[1] - iters[0])
+    return {"wall_ms": {str(k): v for k, v in walls.items()},
+            "slope_ms_per_window": slope}
+
+
+def profiled(count_fn, windows: int, show: bool = True) -> dict:
     """One count under ``torch.profiler``: wall, device busy share, and the
-    host's launch calls per window; prints the top operators."""
+    host's launch calls per window; prints the top operators with
+    ``show``."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -106,8 +155,9 @@ def _profiled(count_fn, windows: int) -> dict:
             else "self_cuda_time_total")
     dev_us = sum(getattr(e, attr) for e in ka
                  if getattr(e, "device_type", None) == DeviceType.CUDA)
-    print(ka.table(sort_by=attr, row_limit=25))
-    print(ka.table(sort_by="self_cpu_time_total", row_limit=15))
+    if show:
+        print(ka.table(sort_by=attr, row_limit=25))
+        print(ka.table(sort_by="self_cpu_time_total", row_limit=15))
     host = {}
     for e in ka:
         if e.key in ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync",
@@ -208,12 +258,14 @@ def main(argv=None) -> None:
         checker = StreamChecker(bam, Config())
         warm = checker.count_reads()
         assert warm == manifest["reads"], (warm, manifest["reads"])
+        stage_breakdown(bam, checker)    # first calls: allocations
         stages = stage_breakdown(bam, checker)
         for k, v in stages.items():
-            print(f"stage {k}: {v:.3f} ms")
+            print(f"stage {k}: {v} ms" if isinstance(v, dict)
+                  else f"stage {k}: {v:.3f} ms")
         checker = StreamChecker(bam, Config())
         windows = len(checker.pipeline.groups)
-        fused = _profiled(checker.count_reads, windows)
+        fused = profiled(checker.count_reads, windows)
         assert fused["count"] == manifest["reads"]
         result = {"card": card, "mib": args.mib, "windows": windows,
                   "reads": fused["count"], "wall_s": fused["wall_s"],
@@ -224,7 +276,7 @@ def main(argv=None) -> None:
             rc = StreamChecker(bam, Config(resident_scan=True))
             first = resident_split(rc)
             warm = resident_split(rc)
-            prof = _profiled(rc.count_reads_resident, windows)
+            prof = profiled(rc.count_reads_resident, windows)
             for leg in (first, warm, prof):
                 assert leg["count"] == manifest["reads"], leg["count"]
             print(f"resident split, first count: {first}")

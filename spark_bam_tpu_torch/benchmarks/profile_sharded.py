@@ -39,7 +39,7 @@ from spark_bam_tpu_torch import (
     full_check_summary_sharded,
     make_mesh,
 )
-from spark_bam_tpu_torch.benchmarks.profile_count import _card, _profiled
+from spark_bam_tpu_torch.benchmarks.profile_count import _card, profiled
 from spark_bam_tpu_torch.benchmarks.synth import synth_bam
 from spark_bam_tpu_torch.parallel import mesh as pm
 from spark_bam_tpu_torch.parallel import stream_mesh as sm
@@ -187,7 +187,7 @@ def main(argv=None) -> None:
                       "wall_s": wall, "host_split": split,
                       "row_card_ms": row_ms(rows["rows"]),
                       "most_sites": rows["most_sites"]}}
-        prof = _profiled(full, rows_n)
+        prof = profiled(full, rows_n)
         prof.pop("count")
         result["full_check"]["profiled"] = prof
         print(f"full-check sharded: {result['full_check']}", flush=True)
@@ -204,7 +204,7 @@ def main(argv=None) -> None:
             assert got == manifest["reads"], (name, got)
             walls[name].append(s)
         assert sharded_first == fused_first == manifest["reads"]
-        prof = _profiled(lambda: count_reads_sharded(bam, Config(),
+        prof = profiled(lambda: count_reads_sharded(bam, Config(),
                                                      mesh=mesh), rows_n)
         prof.pop("count")
         result["count"] = {"sharded_first_s": first_s,

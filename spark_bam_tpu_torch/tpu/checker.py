@@ -4,13 +4,14 @@ checker.py``), in two forms that give the same verdicts:
 - the funnel (``funnel=True``, the count path): stage 0 screens every
   offset with the fixed-block prefilter and compacts the survivors into a
   fixed-capacity lane buffer in the same launch (the CUDA kernel
-  ``prefilter_check_flags``); they get their full 19-bit mask from
-  word-level hierarchical tables and walk ``reads_to_check`` chained
-  records;
+  ``prefilter_check_flags``); stage 1 (``bad_op_tables``, then
+  ``walk_lanes`` or, for a count, ``count_lanes``: ``csrc/lanes.cu``)
+  gives each walked position the prefilter passes its full 19-bit mask
+  and walks ``reads_to_check`` chained records a lane;
 - the full pass (``funnel=False``, full-check's per-position masks): the
   CUDA kernel ``full_check_flags`` gives all 19 bits at every offset, its
   survivors compact in PyTorch (``_compact_mask``) into the same lanes and
-  walk with plain lookups into it.
+  walk (``walk_lanes``) with plain lookups into it.
 
 ``TpuChecker`` windows a flat buffer through ``check_window`` (full pass)
 and re-checks escaped lanes on the host, the reference's ``Checker``
@@ -26,10 +27,7 @@ Scalars the reference traces (``n``, ``at_eof``, ``lo``, ``own``,
 them when it queues a window. ``n``, ``at_eof``, ``lo`` and ``own`` may also
 be 0-d tensors on the window's device (``n`` int32), with the same results:
 a CUDA graph needs them so, since a Python value is frozen into the graph
-at capture. Everything else is tensor code on the
-window's device. PyTorch has no popcount and thin uint32 support, so packed
-words live in int64 with a SWAR popcount, and the reference's JVM int32 wrap
-is applied explicitly.
+at capture. Everything else is tensor code on the window's device.
 """
 
 from __future__ import annotations
@@ -39,25 +37,24 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from spark_bam_tpu_torch.check.flags import BIT, DEFINITIVE_MASK, ESCAPE_MASK
+from spark_bam_tpu_torch.check.flags import DEFINITIVE_MASK, ESCAPE_MASK
 from spark_bam_tpu_torch.check.vectorized import check_flat
 from spark_bam_tpu_torch.device import resolve_device
 from spark_bam_tpu_torch.tpu import kernels
 from spark_bam_tpu_torch.tpu.kernels import (
     PAD,
+    _as_bool,
     _compact_mask,
-    _fixed_bits,
-    _misc_at,
-    _pack_bits,
-    _popcount32,
     _prefilter_flags,
-    _take,
-    _wrap32,
+    _stage0_escapes,
+    bad_op_tables,
+    count_lanes,
     full_check_flags,
     lane_capacity,
     lz77_resolve,
     prefilter_check_flags,
     tokenize,
+    walk_lanes,
 )
 from spark_bam_tpu_torch.tpu.inflate import _resolve_packed
 from spark_bam_tpu_torch.tpu.tokenize_device import STRIDE
@@ -68,123 +65,29 @@ __all__ = [
     "count_window_raw", "inflate_window_raw", "make_count_scan", "next_carry",
 ]
 
-def _funnel_tables(p, n):
-    """Word-level prefix tables for the deep checks: packed indicator words
-    plus exclusive per-word popcount prefixes (allowed read-name bytes; bad
-    cigar-op bytes per stride-4 class)."""
-    allowed = (p >= 0x21) & (p <= 0x7E) & (p != 0x40)
-    nwords = _pack_bits(allowed)
-    nwpc = _popcount32(nwords)
-    nwpre = torch.cumsum(nwpc, 0) - nwpc
-    j = torch.arange(p.numel(), device=p.device)
-    bad_op = ((p & 0xF) > 8) & (j + 4 <= n)
-    cwords = _pack_bits(bad_op)
-    # One 1-D scan per class: a scan down dim 0 of a (words, 4) tensor runs
-    # PyTorch's outer-dim scan kernel, which took 238.6 ms per 32 MiB window
-    # on an H100 80GB HBM3 at 700 W (benchmarks/profile_count.py).
-    pcs = [_popcount32(cwords & (0x11111111 << c)) for c in range(4)]
-    cwpre4 = torch.stack([torch.cumsum(pc, 0) - pc for pc in pcs], dim=1)
-    return nwords, nwpre, cwords, cwpre4.reshape(-1)
-
-
-def _allowed_before(nwords, nwpre, q):
-    """Allowed read-name bytes at positions < q."""
-    wi = q >> 5
-    part = _popcount32(_take(nwords, wi) & ((1 << (q & 31)) - 1))
-    return _take(nwpre, wi) + part
-
-
-def _badops_before(cwords, cwpre4, q, c):
-    """Bad cigar-op bytes j < q with j ≡ c (mod 4)."""
-    wi = q >> 5
-    part = _popcount32(
-        _take(cwords, wi) & (0x11111111 << c) & ((1 << (q & 31)) - 1)
-    )
-    return _take(cwpre4, wi * 4 + c) + part
-
-
-def _deep_flags_at(p, lengths, num_contigs: int, n, tables, pos):
-    """The full 19-bit mask at positions (K,), field for field the reference
-    full pass (same overwrite, same quirks)."""
-    nwords, nwpre, cwords, cwpre4 = tables
-    total = p.numel()
-    pc = pos.clamp(0, total - 36)
-    slab = _take(p, pc[:, None] + torch.arange(36, device=p.device)[None, :])
-    slab = slab.long()
-
-    def u32at(off):
-        return (slab[:, off] | (slab[:, off + 1] << 8)
-                | (slab[:, off + 2] << 16) | (slab[:, off + 3] << 24))
-
-    remaining = _wrap32(u32at(0))
-    ref_idx = _wrap32(u32at(4))
-    ref_pos = _wrap32(u32at(8))
-    name_len = slab[:, 12]
-    fnc = u32at(16)
-    n_cigar = fnc & 0xFFFF
-    mapped = ((fnc >> 18) & 1) == 0
-    seq_len = _wrap32(u32at(20))
-    next_ref_idx = _wrap32(u32at(24))
-    next_ref_pos = _wrap32(u32at(28))
-
-    f = _fixed_bits(remaining, ref_idx, ref_pos, name_len, n_cigar, seq_len,
-                    next_ref_idx, next_ref_pos, lengths, num_contigs)
-
-    name_start = pos + 36
-    name_end = name_start + name_len
-    has_name = name_len >= 2
-    name_eof = has_name & (name_end > n)
-    f |= name_eof.long() * BIT["tooFewBytesForReadName"]
-    name_in = has_name & ~name_eof
-    last_idx = name_end - 1
-    non_null = name_in & (_take(p, last_idx) != 0)
-    f |= non_null.long() * BIT["nonNullTerminatedReadName"]
-    good = (_allowed_before(nwords, nwpre, last_idx.clamp(0, total - 1))
-            - _allowed_before(nwords, nwpre, name_start.clamp(0, total - 1)))
-    bad_chars = name_in & ~non_null & (good != name_len - 1)
-    f |= bad_chars.long() * BIT["nonASCIIReadName"]
-
-    cig_start = name_start + torch.where(name_in, name_len, 0)
-    cig_end = cig_start + 4 * n_cigar
-    cig_considered = ~name_eof
-    ccls = cig_start & 3
-    bad_count = (
-        _badops_before(cwords, cwpre4, cig_end.clamp(0, total - 1), ccls)
-        - _badops_before(cwords, cwpre4, cig_start.clamp(0, total - 1), ccls)
-    )
-    has_bad = cig_considered & (bad_count != 0)
-    f |= has_bad.long() * BIT["invalidCigarOp"]
-    cig_eof = cig_considered & ~has_bad & (cig_end > n)
-    f |= cig_eof.long() * BIT["tooFewBytesForCigarOps"]
-    empty_ok = cig_considered & ~has_bad & ~cig_eof & mapped
-    empty_seq = empty_ok & (seq_len == 0)
-    empty_cig = empty_ok & (n_cigar == 0)
-    # Swapped on purpose: reference quirk (EmptyMapped binds its fields in
-    # the other order).
-    f |= empty_seq.long() * BIT["emptyMappedCigar"]
-    f |= empty_cig.long() * BIT["emptyMappedSeq"]
-    f = torch.where(pos > n - 36, BIT["tooFewFixedBlockBytes"], f)
-    return f.int()
+def _stage0(padded, lengths, num_contigs: int, n, funnel: bool):
+    """``(F, cand, n_set)``: the stage-0 flags (the prefilter's under the
+    funnel, else the full pass's) and their survivors compacted into
+    ``lane_capacity(W)`` lanes with their () int32 count."""
+    if funnel:
+        return prefilter_check_flags(padded, lengths, num_contigs, n)
+    F = full_check_flags(padded, lengths, num_contigs, n)
+    w = padded.numel() - PAD
+    survivor = (F == 0) & (torch.arange(w, device=padded.device) < n)
+    cand, n_set = _compact_mask(survivor, lane_capacity(w))
+    return F, cand.int(), n_set.int()
 
 
 def _check_lanes(padded, lengths, num_contigs: int, n, at_eof,
                  reads_to_check: int = 10, funnel: bool = True) -> dict:
     """Flag pass (prefilter, or the full pass with ``funnel=False``) +
-    survivor compaction + chain walk, without scattering the lanes back to
-    full width (the shared core of ``check_window`` and ``count_window``)."""
+    survivor compaction + chain walk (``walk_lanes``), without scattering
+    the lanes back to full width (the core of ``check_window``; the count
+    reduces the lanes in the walk's own launch, ``count_window``)."""
     dev = padded.device
     w = padded.numel() - PAD
-    if isinstance(at_eof, torch.Tensor):
-        ae = at_eof if at_eof.dtype == torch.bool else at_eof != 0
-    else:
-        ae = torch.tensor(bool(at_eof), device=dev)
-    capacity = lane_capacity(w)
-    if funnel:
-        F, cand, n_survivors = prefilter_check_flags(padded, lengths,
-                                                     num_contigs, n)
-        n_survivors = n_survivors.long()
-    else:
-        F = full_check_flags(padded, lengths, num_contigs, n)
+    ae = _as_bool(at_eof, dev)
+    F, cand, n_set = _stage0(padded, lengths, num_contigs, n, funnel)
     in_range = torch.arange(w, device=dev) < n
     definitive0 = F & DEFINITIVE_MASK
     boundary0 = F & ESCAPE_MASK
@@ -193,99 +96,20 @@ def _check_lanes(padded, lengths, num_contigs: int, n, at_eof,
     # prefilter mask: every prefilter bit is definitive except the
     # tooFewFixedBlockBytes overwrite, where it equals the full mask.
     fail0 = (F != 0) & ((definitive0 != 0) | (ae & (boundary0 != 0)))
-    esc0 = (F != 0) & ~ae & (definitive0 == 0) & (boundary0 != 0)
+    esc0 = _stage0_escapes(F, ae)
     inexact0 = (F != 0) & ~ae & (definitive0 != 0) & (boundary0 != 0)
     res0 = torch.where(esc0, 2, torch.where(fail0, -1, 0)).to(torch.int8)
     fail_mask0 = torch.where(fail0, F, 0)
-
-    if not funnel:
-        cand, n_survivors = _compact_mask(survivor, capacity)
-    overflow = n_survivors > capacity
-    live = cand >= 0
-    if funnel:
-        # Stage 1: the full mask at the survivors, looked up by position in
-        # the walk; a walked position the prefilter rejects resolves from
-        # its prefilter bits alone.
-        tables = _funnel_tables(padded, n)
-        F_cand = _deep_flags_at(padded, lengths, num_contigs, n, tables,
-                                torch.where(live, cand, 0))
-        F_cand = torch.where(live, F_cand, 0)
-        F_deep = torch.zeros(w + 1, dtype=torch.int32, device=dev)
-        F_deep[torch.where(live, cand, w)] = F_cand
-        F_deep = F_deep[:w]
-
-        def flags_lookup(pi):
-            pre = F[pi]
-            return torch.where(pre == 0, F_deep[pi], pre)
-    else:
-        def flags_lookup(pi):
-            return F[pi]
-
-    logical = torch.where(live, cand, 0)
-    physical = logical
-    l_overflowed = torch.zeros(capacity, dtype=torch.bool, device=dev)
-    res = torch.where(live, 0, -1).to(torch.int8)
-    fail_mask = torch.zeros(capacity, dtype=torch.int32, device=dev)
-    reads_before = torch.zeros(capacity, dtype=torch.int32, device=dev)
-    reads_parsed = torch.zeros(capacity, dtype=torch.int32, device=dev)
-    exact = torch.ones(capacity, dtype=torch.bool, device=dev)
-    bound = n + 64
-
-    for step in range(reads_to_check):
-        run = res == 0
-        # EOF at a record edge (zero bytes left): eager/Checker.scala:36-39.
-        at_end = run & (physical >= n)
-        edge = (physical == logical) & ~l_overflowed & (step > 0)
-        maybe_edge = l_overflowed & (step > 0)   # comparison untrustworthy
-        eof_ok = at_end & edge & ae
-        eof_bad = at_end & ~edge & ~maybe_edge & ae
-        eof_esc = at_end & (~ae | maybe_edge)
-        res = torch.where(eof_ok, 1, res).to(torch.int8)
-        reads_parsed = torch.where(eof_ok, step, reads_parsed)
-        res = torch.where(eof_bad, -1, res).to(torch.int8)
-        fail_mask = torch.where(eof_bad, BIT["tooFewFixedBlockBytes"],
-                                fail_mask)
-        reads_before = torch.where(eof_bad, step, reads_before)
-        res = torch.where(eof_esc, 2, res).to(torch.int8)
-        run = res == 0
-
-        pi = physical.clamp(0, w - 1)
-        f = torch.where(run, flags_lookup(pi), 0)
-        definitive = f & DEFINITIVE_MASK
-        boundary = f & ESCAPE_MASK
-        fail = run & ((definitive != 0) | (ae & (boundary != 0)))
-        esc = run & ~ae & (definitive == 0) & (boundary != 0)
-        inexact = run & ~ae & (definitive != 0) & (boundary != 0)
-        res = torch.where(fail, -1, res).to(torch.int8)
-        fail_mask = torch.where(fail, f, fail_mask)
-        reads_before = torch.where(fail, step, reads_before)
-        res = torch.where(esc, 2, res).to(torch.int8)
-        exact = exact & ~inexact
-        run = res == 0
-
-        ok = run & (f == 0)
-        rem, b_end = _misc_at(padded, n, pi)
-        # Out-of-range logical cursors collapse to sentinels (±(n+64)) that
-        # keep every later comparison; a lane whose cursor would need to
-        # re-enter range is flagged via l_overflowed.
-        rem_c = rem.clamp(-bound, bound)
-        next_logical = logical + 4 + rem_c
-        clamped = next_logical.clamp(-bound, bound)
-        overflow_now = (rem > bound) | (rem < -bound) | (next_logical != clamped)
-        next_physical = torch.maximum(b_end, clamped).clamp(max=n)
-        logical = torch.where(ok, clamped, logical)
-        physical = torch.where(ok, next_physical, physical)
-        l_overflowed = l_overflowed | (ok & overflow_now)
-
-    full_chain = live & (res == 0)
-    res = torch.where(full_chain, 1, res).to(torch.int8)
-    reads_parsed = torch.where(full_chain, reads_to_check, reads_parsed)
+    # Stage 1: under the funnel the walk computes the full mask where the
+    # prefilter passes a walked position; a position it rejects resolves
+    # from its prefilter bits alone.
+    tables = bad_op_tables(padded, n) if funnel else None
+    lanes = walk_lanes(padded, lengths, num_contigs, n, at_eof, F, cand,
+                       n_set, tables, reads_to_check, funnel)
     return {
         "survivor": survivor, "res0": res0, "fail_mask0": fail_mask0,
-        "inexact0": inexact0, "cand": cand, "live": live, "res": res,
-        "fail_mask": fail_mask, "reads_before": reads_before,
-        "reads_parsed": reads_parsed, "exact": exact,
-        "overflow": overflow, "n_survivors": n_survivors,
+        "inexact0": inexact0, "cand": cand, "live": cand >= 0, **lanes,
+        "overflow": n_set > cand.numel(), "n_survivors": n_set.long(),
     }
 
 
@@ -343,21 +167,13 @@ def count_window(padded, lengths, num_contigs: int, n, at_eof, lo, own,
     """``check_window`` reduced over the owned span [lo, own) without the
     full-width scatters: () ``count`` of record starts, ``esc_count`` of
     escaped owned positions (all of them on a capacity overflow), and
-    ``survivors``."""
-    L = _check_lanes(padded, lengths, num_contigs, n, at_eof, reads_to_check,
-                     funnel)
-    w = padded.numel() - PAD
-    i = torch.arange(w, device=padded.device)
-    m = (i >= lo) & (i < own)
-    own_lane = L["live"] & (L["cand"] >= lo) & (L["cand"] < own)
-    count = (own_lane & (L["res"] == 1)).sum()
-    esc = (m & (L["res0"] == 2)).sum() + (own_lane & (L["res"] == 2)).sum()
-    overflow = L["overflow"]
-    return {
-        "count": torch.where(overflow, 0, count),
-        "esc_count": torch.where(overflow, m.sum(), esc),
-        "survivors": L["n_survivors"],
-    }
+    ``survivors``. The walk and the reduction are one ``count_lanes``
+    launch."""
+    F, cand, n_set = _stage0(padded, lengths, num_contigs, n, funnel)
+    tables = bad_op_tables(padded, n) if funnel else None
+    out = count_lanes(padded, lengths, num_contigs, n, at_eof, F, cand,
+                      n_set, tables, lo, own, reads_to_check, funnel)
+    return {"count": out[0], "esc_count": out[1], "survivors": out[2]}
 
 
 def _host_ints(x) -> np.ndarray:

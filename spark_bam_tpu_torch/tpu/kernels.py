@@ -23,6 +23,14 @@ zeroed by a captured memset just before it.
 | ``lz77_resolve``        | ``csrc/lz77.cu``      | ``lz77_resolve_pallas`` (``:250``)             |
 | ``tokenize``            | ``csrc/tokenize.cu``  | ``tokenize_pallas`` (``:299``)                 |
 
+The funnel's stage 1, jnp and ``lax.scan`` code in the reference, has two
+kernels of its own (``csrc/lanes.cu``; reference ``tpu/checker.py``):
+
+| wrapper                 | replaces (spark_bam_tpu/tpu/checker.py) |
+| ----------------------- | --------------------------------------- |
+| ``bad_op_tables``       | ``_funnel_tables`` (``:281``), ``_badops_before`` (``:312``) |
+| ``walk_lanes``, ``count_lanes`` | ``_deep_flags_at`` (``:322``), ``_misc_at`` (``:184``), the walk of ``_check_lanes`` (``:538-623``), the funnel's ``count_window`` (``:741-760``) |
+
 What bounds each on the H100 and how its design answers is noted at the
 top of its source. The tokenizer's plain version is the Python decoder in
 ``tpu/tokenize_device.py`` (a bit-serial decoder has no tensor form).
@@ -34,7 +42,7 @@ import threading
 
 import torch
 
-from spark_bam_tpu_torch.check.flags import BIT
+from spark_bam_tpu_torch.check.flags import BIT, DEFINITIVE_MASK, ESCAPE_MASK
 from spark_bam_tpu_torch.kernels.build import load
 from spark_bam_tpu_torch.tpu.tokenize_device import STRIDE, tokenize_plain
 
@@ -54,8 +62,14 @@ _EPOCHS = 1 << 32
 #: log2(64 Ki): pointer doubling collapses any chain inside a token row.
 DOUBLING_ROUNDS = (STRIDE - 1).bit_length()
 
+#: Threads a CTA of the lane walk (``kThreads`` in ``csrc/lanes.cu``).
+WALK_THREADS = 256
+#: Bitmap words a bad-op summary word covers (``kSuperWords`` there).
+_SUPER_WORDS = 1024
+
 LAUNCHES = {"prefilter_check_flags": 0, "full_check_flags": 0,
             "lz77_resolve": 0, "tokenize": 0,
+            "bad_op_tables": 0, "walk_lanes": 0,
             # the write path's lanes (compress/kernels.py)
             "crc32_lanes": 0, "deflate_fixed_lanes": 0}
 #: Launches recorded into CUDA graphs being captured (none of them ran).
@@ -238,6 +252,260 @@ def _misc_at(p, n, pos):
     return remaining, body_end
 
 
+def _bad_op_bits(p, n) -> torch.Tensor:
+    """Bad cigar-op bytes of the padded window ``p``: low nibble > 8, the
+    op's 4-byte int inside the ``n`` valid bytes."""
+    j = torch.arange(p.numel(), device=p.device)
+    return ((p & 0xF) > 8) & (j + 4 <= n)
+
+
+def _bad_op_tables(p, n):
+    """Plain version of ``bad_op_tables``: ``(words, blocks)``, int32 holding
+    uint32 bits. Bit k of ``words[i]`` is a bad op at byte 32 i + k (the
+    reference's ``cwords``); bit b of ``blocks[c, s]`` says a bad op of
+    stride-4 class c lies in the 1,024 bytes from 1,024 (32 s + b)."""
+    words = _pack_bits(_bad_op_bits(p, n))
+    nsuper = -(-words.numel() // _SUPER_WORDS)
+    full = torch.zeros(nsuper * _SUPER_WORDS, dtype=torch.int64,
+                       device=p.device)
+    full[: words.numel()] = words
+    per_block = full.view(-1, 32)
+    cls = torch.stack([((per_block & (0x11111111 << c)) != 0).any(1)
+                       for c in range(4)])
+    blocks = _pack_bits(cls.reshape(-1)).view(4, nsuper)
+    return _wrap32(words).int(), _wrap32(blocks).int()
+
+
+def _funnel_tables(p, n, cwords=None):
+    """Word-level prefix tables for the deep checks: packed indicator words
+    plus exclusive per-word popcount prefixes (allowed read-name bytes; bad
+    cigar-op bytes per stride-4 class). ``cwords`` (``bad_op_tables``'
+    words, int32) saves packing the bad ops again."""
+    allowed = (p >= 0x21) & (p <= 0x7E) & (p != 0x40)
+    nwords = _pack_bits(allowed)
+    nwpc = _popcount32(nwords)
+    nwpre = torch.cumsum(nwpc, 0) - nwpc
+    if cwords is None:
+        cwords = _pack_bits(_bad_op_bits(p, n))
+    else:
+        cwords = cwords.long() & _M32
+    # One 1-D scan per class: a scan down dim 0 of a (words, 4) tensor runs
+    # PyTorch's outer-dim scan kernel, which took 238.6 ms per 32 MiB window
+    # on an H100 80GB HBM3 at 700 W (benchmarks/profile_count.py).
+    pcs = [_popcount32(cwords & (0x11111111 << c)) for c in range(4)]
+    cwpre4 = torch.stack([torch.cumsum(pc, 0) - pc for pc in pcs], dim=1)
+    return nwords, nwpre, cwords, cwpre4.reshape(-1)
+
+
+def _allowed_before(nwords, nwpre, q):
+    """Allowed read-name bytes at positions < q."""
+    wi = q >> 5
+    part = _popcount32(_take(nwords, wi) & ((1 << (q & 31)) - 1))
+    return _take(nwpre, wi) + part
+
+
+def _badops_before(cwords, cwpre4, q, c):
+    """Bad cigar-op bytes j < q with j ≡ c (mod 4)."""
+    wi = q >> 5
+    part = _popcount32(
+        _take(cwords, wi) & (0x11111111 << c) & ((1 << (q & 31)) - 1)
+    )
+    return _take(cwpre4, wi * 4 + c) + part
+
+
+def _deep_flags_at(p, lengths, num_contigs: int, n, tables, pos):
+    """The full 19-bit mask at positions (K,), field for field the reference
+    full pass (same overwrite, same quirks)."""
+    nwords, nwpre, cwords, cwpre4 = tables
+    total = p.numel()
+    pc = pos.clamp(0, total - 36)
+    slab = _take(p, pc[:, None] + torch.arange(36, device=p.device)[None, :])
+    slab = slab.long()
+
+    def u32at(off):
+        return (slab[:, off] | (slab[:, off + 1] << 8)
+                | (slab[:, off + 2] << 16) | (slab[:, off + 3] << 24))
+
+    remaining = _wrap32(u32at(0))
+    ref_idx = _wrap32(u32at(4))
+    ref_pos = _wrap32(u32at(8))
+    name_len = slab[:, 12]
+    fnc = u32at(16)
+    n_cigar = fnc & 0xFFFF
+    mapped = ((fnc >> 18) & 1) == 0
+    seq_len = _wrap32(u32at(20))
+    next_ref_idx = _wrap32(u32at(24))
+    next_ref_pos = _wrap32(u32at(28))
+
+    f = _fixed_bits(remaining, ref_idx, ref_pos, name_len, n_cigar, seq_len,
+                    next_ref_idx, next_ref_pos, lengths, num_contigs)
+
+    name_start = pos + 36
+    name_end = name_start + name_len
+    has_name = name_len >= 2
+    name_eof = has_name & (name_end > n)
+    f |= name_eof.long() * BIT["tooFewBytesForReadName"]
+    name_in = has_name & ~name_eof
+    last_idx = name_end - 1
+    non_null = name_in & (_take(p, last_idx) != 0)
+    f |= non_null.long() * BIT["nonNullTerminatedReadName"]
+    good = (_allowed_before(nwords, nwpre, last_idx.clamp(0, total - 1))
+            - _allowed_before(nwords, nwpre, name_start.clamp(0, total - 1)))
+    bad_chars = name_in & ~non_null & (good != name_len - 1)
+    f |= bad_chars.long() * BIT["nonASCIIReadName"]
+
+    cig_start = name_start + torch.where(name_in, name_len, 0)
+    cig_end = cig_start + 4 * n_cigar
+    cig_considered = ~name_eof
+    ccls = cig_start & 3
+    bad_count = (
+        _badops_before(cwords, cwpre4, cig_end.clamp(0, total - 1), ccls)
+        - _badops_before(cwords, cwpre4, cig_start.clamp(0, total - 1), ccls)
+    )
+    has_bad = cig_considered & (bad_count != 0)
+    f |= has_bad.long() * BIT["invalidCigarOp"]
+    cig_eof = cig_considered & ~has_bad & (cig_end > n)
+    f |= cig_eof.long() * BIT["tooFewBytesForCigarOps"]
+    empty_ok = cig_considered & ~has_bad & ~cig_eof & mapped
+    empty_seq = empty_ok & (seq_len == 0)
+    empty_cig = empty_ok & (n_cigar == 0)
+    # Swapped on purpose: reference quirk (EmptyMapped binds its fields in
+    # the other order).
+    f |= empty_seq.long() * BIT["emptyMappedCigar"]
+    f |= empty_cig.long() * BIT["emptyMappedSeq"]
+    f = torch.where(pos > n - 36, BIT["tooFewFixedBlockBytes"], f)
+    return f.int()
+
+
+def _as_bool(at_eof, dev) -> torch.Tensor:
+    if isinstance(at_eof, torch.Tensor):
+        return at_eof if at_eof.dtype == torch.bool else at_eof != 0
+    return torch.tensor(bool(at_eof), device=dev)
+
+
+def _walk_lanes(padded, lengths, num_contigs: int, n, at_eof, F, cand,
+                n_set, tables, reads_to_check: int = 10,
+                funnel: bool = True) -> dict:
+    """Plain version of ``walk_lanes``: the chain walk of each survivor
+    lane, line for line the reference's ``_check_lanes`` step. Under the
+    funnel a walked position that the prefilter passes takes the deep mask
+    of its lane from a full-width scatter (0 past the capacity); the full
+    pass's flags are looked up as they are. ``tables`` is
+    ``bad_op_tables``' output (under the funnel; else unused)."""
+    dev = padded.device
+    w = padded.numel() - PAD
+    capacity = cand.numel()
+    ae = _as_bool(at_eof, dev)
+    live = cand >= 0
+    if funnel:
+        ft = _funnel_tables(padded, n, cwords=tables[0])
+        F_cand = _deep_flags_at(padded, lengths, num_contigs, n, ft,
+                                torch.where(live, cand, 0))
+        F_cand = torch.where(live, F_cand, 0)
+        F_deep = torch.zeros(w + 1, dtype=torch.int32, device=dev)
+        F_deep[torch.where(live, cand, w).long()] = F_cand
+        F_deep = F_deep[:w]
+
+        def flags_lookup(pi):
+            pre = F[pi]
+            return torch.where(pre == 0, F_deep[pi], pre)
+    else:
+        def flags_lookup(pi):
+            return F[pi]
+
+    logical = torch.where(live, cand, 0).long()
+    physical = logical
+    l_overflowed = torch.zeros(capacity, dtype=torch.bool, device=dev)
+    res = torch.where(live, 0, -1).to(torch.int8)
+    fail_mask = torch.zeros(capacity, dtype=torch.int32, device=dev)
+    reads_before = torch.zeros(capacity, dtype=torch.int32, device=dev)
+    reads_parsed = torch.zeros(capacity, dtype=torch.int32, device=dev)
+    exact = torch.ones(capacity, dtype=torch.bool, device=dev)
+    bound = n + 64
+
+    for step in range(reads_to_check):
+        run = res == 0
+        # EOF at a record edge (zero bytes left): eager/Checker.scala:36-39.
+        at_end = run & (physical >= n)
+        edge = (physical == logical) & ~l_overflowed & (step > 0)
+        maybe_edge = l_overflowed & (step > 0)   # comparison untrustworthy
+        eof_ok = at_end & edge & ae
+        eof_bad = at_end & ~edge & ~maybe_edge & ae
+        eof_esc = at_end & (~ae | maybe_edge)
+        res = torch.where(eof_ok, 1, res).to(torch.int8)
+        reads_parsed = torch.where(eof_ok, step, reads_parsed)
+        res = torch.where(eof_bad, -1, res).to(torch.int8)
+        fail_mask = torch.where(eof_bad, BIT["tooFewFixedBlockBytes"],
+                                fail_mask)
+        reads_before = torch.where(eof_bad, step, reads_before)
+        res = torch.where(eof_esc, 2, res).to(torch.int8)
+        run = res == 0
+
+        pi = physical.clamp(0, w - 1)
+        f = torch.where(run, flags_lookup(pi), 0)
+        definitive = f & DEFINITIVE_MASK
+        boundary = f & ESCAPE_MASK
+        fail = run & ((definitive != 0) | (ae & (boundary != 0)))
+        esc = run & ~ae & (definitive == 0) & (boundary != 0)
+        inexact = run & ~ae & (definitive != 0) & (boundary != 0)
+        res = torch.where(fail, -1, res).to(torch.int8)
+        fail_mask = torch.where(fail, f, fail_mask)
+        reads_before = torch.where(fail, step, reads_before)
+        res = torch.where(esc, 2, res).to(torch.int8)
+        exact = exact & ~inexact
+        run = res == 0
+
+        ok = run & (f == 0)
+        rem, b_end = _misc_at(padded, n, pi)
+        # Out-of-range logical cursors collapse to sentinels (±(n+64)) that
+        # keep every later comparison; a lane whose cursor would need to
+        # re-enter range is flagged via l_overflowed.
+        rem_c = rem.clamp(-bound, bound)
+        next_logical = logical + 4 + rem_c
+        clamped = next_logical.clamp(-bound, bound)
+        overflow_now = (rem > bound) | (rem < -bound) | (next_logical != clamped)
+        next_physical = torch.maximum(b_end, clamped).clamp(max=n)
+        logical = torch.where(ok, clamped, logical)
+        physical = torch.where(ok, next_physical, physical)
+        l_overflowed = l_overflowed | (ok & overflow_now)
+
+    full_chain = live & (res == 0)
+    res = torch.where(full_chain, 1, res).to(torch.int8)
+    reads_parsed = torch.where(full_chain, reads_to_check, reads_parsed)
+    return {"res": res, "fail_mask": fail_mask.int(),
+            "reads_before": reads_before.int(),
+            "reads_parsed": reads_parsed.int(), "exact": exact}
+
+
+def _stage0_escapes(F, at_eof) -> torch.Tensor:
+    """Offsets whose stage-0 flags resolve them as escapes (``res0 == 2``)."""
+    ae = _as_bool(at_eof, F.device)
+    return ((F != 0) & ~ae & ((F & DEFINITIVE_MASK) == 0)
+            & ((F & ESCAPE_MASK) != 0))
+
+
+def _count_lanes(padded, lengths, num_contigs: int, n, at_eof, F, cand,
+                 n_set, tables, lo, own, reads_to_check: int = 10,
+                 funnel: bool = True) -> torch.Tensor:
+    """Plain version of ``count_lanes``: ``_walk_lanes`` reduced over the
+    owned span [lo, own) (the reference's funnel ``count_window``), as a
+    (3,) int64 ``(count, esc_count, survivors)``; on a capacity overflow
+    ``(0, owned offsets, survivors)``."""
+    L = _walk_lanes(padded, lengths, num_contigs, n, at_eof, F, cand, n_set,
+                    tables, reads_to_check, funnel)
+    w = padded.numel() - PAD
+    i = torch.arange(w, device=padded.device)
+    m = (i >= lo) & (i < own)
+    own_lane = (cand >= 0) & (cand >= lo) & (cand < own)
+    count = (own_lane & (L["res"] == 1)).sum()
+    esc = ((m & _stage0_escapes(F, at_eof)).sum()
+           + (own_lane & (L["res"] == 2)).sum())
+    overflow = n_set > cand.numel()
+    return torch.stack([torch.where(overflow, 0, count),
+                        torch.where(overflow, m.sum(), esc),
+                        torch.as_tensor(n_set, device=padded.device).long()])
+
+
 def _compute_flags(p, lengths, num_contigs: int, n) -> torch.Tensor:
     """Plain version of the full pass: all 19 flag bits at every offset of
     the (W + PAD,) window ``p`` (zeros past ``n``), line for line the
@@ -271,8 +539,7 @@ def _compute_flags(p, lengths, num_contigs: int, n) -> torch.Tensor:
 
     # Stride-4 suffix sums, one 1-D scan per class (a scan down dim 0 of a
     # (N/4, 4) view runs PyTorch's slow outer-dim scan kernel on the card).
-    j = torch.arange(total, device=p.device)
-    bad_op = ((p & 0xF) > 8) & (j + 4 <= n)
+    bad_op = _bad_op_bits(p, n)
     B = torch.empty(total, dtype=torch.int64, device=p.device)
     for c in range(4):
         B[c::4] = bad_op[c::4].flip(0).cumsum(0).flip(0)
@@ -361,6 +628,9 @@ class TileStatus:
 
 _TILE_STATUS = TileStatus()
 _PREFILTER_STATUS = TileStatus(_PREFILTER_RECORD)
+#: The lane walk's count mode: a ticket counter per stream (one ticket a
+#: CTA; the last CTA sums the others' partial counts).
+_WALK_STATUS = TileStatus(1)
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
@@ -412,6 +682,24 @@ def _n_arg(n, dev: torch.device, size: int):
         raise TypeError(f"n: expected an int or a 0-d int32 tensor on {dev}, "
                         f"got a {n.dim()}-D {n.dtype} tensor on {n.device}")
     return 0, n.data_ptr()
+
+
+def _int_arg(x, name: str, dev: torch.device):
+    """A scalar for the lane kernels: ``(x, None)`` by value for a Python
+    int or bool (inside int32), ``(0, pointer, tensor)`` for a 0-d tensor
+    on ``dev`` (an int32 one as it is, another dtype converted on the
+    stream). The tensor is returned to keep it alive until the launch."""
+    if not isinstance(x, torch.Tensor):
+        v = int(x)
+        if not -(1 << 31) <= v < 1 << 31:
+            raise ValueError(f"{name} = {v} does not fit an int32")
+        return v, None, None
+    if x.dim() != 0 or x.device != dev:
+        raise TypeError(f"{name}: expected an int or a 0-d tensor on {dev}, "
+                        f"got a {x.dim()}-D tensor on {x.device}")
+    if x.dtype != torch.int32:
+        x = x.to(torch.int32)
+    return 0, x.data_ptr(), x
 
 
 _CTAS: dict = {}
@@ -608,3 +896,159 @@ def tokenize(staged: torch.Tensor, clens: torch.Tensor):
             b, c_pad, lit.data_ptr(), dist.data_ptr(), out_lens.data_ptr(),
             ok.data_ptr(), device=dev)
     return lit, dist, out_lens, ok
+
+
+def bad_op_tables(padded: torch.Tensor, n):
+    """The bad cigar-op tables of a (W + PAD,) u8 window holding ``n``
+    valid bytes (an int, or a 0-d int32 tensor on the window's device):
+    ``(words (ceil((W + PAD) / 32),) i32, blocks (4, ceil((W + PAD) /
+    32768)) i32)``, as ``_bad_op_tables``. ``walk_lanes`` answers "a bad op
+    of class c in [a, b)" from them in a bounded number of reads.
+
+    Replaces the reference's ``_funnel_tables`` (its ``cwords`` are
+    ``words``, bit for bit) with ``_badops_before``. Bound by bytes (W +
+    PAD in, an eighth of that out): a warp packs 32 KiB, 32 bits a lane a
+    step, and ballots one class summary word for it; no CTA depends on
+    another. ``padded`` must start on a 16-byte boundary."""
+    if not _on_cuda(padded):
+        return _bad_op_tables(padded, n)
+    dev = padded.device
+    _check(padded, "padded", torch.uint8, 1, dev)
+    total = padded.numel()
+    if total <= PAD or total >= 1 << 31:
+        raise ValueError("padded must hold more than PAD and fewer than "
+                         "2^31 bytes")
+    if padded.data_ptr() % 16:
+        raise ValueError("padded must start on a 16-byte boundary")
+    n_val, n_ptr = _n_arg(n, dev, total)
+    nwords = -(-total // 32)
+    nsuper = -(-nwords // _SUPER_WORDS)
+    words = torch.empty(nwords, dtype=torch.int32, device=dev)
+    blocks = torch.empty((4, nsuper), dtype=torch.int32, device=dev)
+    _launch("bad_op_tables", "sbt_bad_op_tables", padded.data_ptr(), total,
+            n_val, n_ptr, words.data_ptr(), nwords, blocks.data_ptr(),
+            nsuper, device=dev)
+    return words, blocks
+
+
+def _walk_args(padded, lengths, num_contigs, n, at_eof, F, cand, n_set,
+               tables, reads_to_check, funnel):
+    """Checks shared by ``walk_lanes`` and ``count_lanes``; the kernel's
+    leading arguments (up to ``funnel``) and the tensors they point to."""
+    dev = padded.device
+    _check(padded, "padded", torch.uint8, 1, dev)
+    _check(lengths, "lengths", torch.int32, 1, dev)
+    total = padded.numel()
+    w = total - PAD
+    _check(F, "F", torch.int32, 1, dev)
+    _check(cand, "cand", torch.int32, 1, dev)
+    if w <= 0 or total >= 1 << 31 or F.numel() != w:
+        raise ValueError("padded must hold PAD plus W > 0 bytes, fewer than "
+                         "2^31, and F one flag word an offset")
+    if cand.numel() == 0 or lengths.numel() == 0 or num_contigs < 0:
+        raise ValueError("cand and lengths non-empty; num_contigs not "
+                         "negative")
+    if reads_to_check < 0:
+        raise ValueError("reads_to_check must not be negative")
+    if padded.data_ptr() % 16:
+        raise ValueError("padded must start on a 16-byte boundary")
+    if not isinstance(n_set, torch.Tensor) or n_set.dim() != 0 \
+            or n_set.device != dev:
+        raise TypeError("n_set must be a 0-d tensor on the window's device")
+    if n_set.dtype != torch.int32:
+        n_set = n_set.to(torch.int32)
+    n_val, n_ptr = _n_arg(n, dev, total)
+    ae_val, ae_ptr, ae_t = _int_arg(at_eof, "at_eof", dev)
+    if funnel:
+        words, blocks = tables
+        _check(words, "words", torch.int32, 1, dev)
+        _check(blocks, "blocks", torch.int32, 2, dev)
+        nsuper = blocks.shape[1]
+        if words.numel() != -(-total // 32) or blocks.shape[0] != 4 \
+                or nsuper != -(-words.numel() // _SUPER_WORDS):
+            raise ValueError("tables must be bad_op_tables' of this window")
+        w_ptr, b_ptr = words.data_ptr(), blocks.data_ptr()
+    else:
+        w_ptr = b_ptr = None
+        nsuper = 0
+    args = (padded.data_ptr(), total, w, lengths.data_ptr(), lengths.numel(),
+            int(num_contigs), n_val, n_ptr, ae_val, ae_ptr, F.data_ptr(),
+            cand.data_ptr(), cand.numel(), n_set.data_ptr(), w_ptr, b_ptr,
+            nsuper, int(reads_to_check), int(bool(funnel)))
+    return args, (n_set, ae_t)
+
+
+def walk_lanes(padded: torch.Tensor, lengths: torch.Tensor, num_contigs: int,
+               n, at_eof, F: torch.Tensor, cand: torch.Tensor, n_set,
+               tables, reads_to_check: int = 10, funnel: bool = True) -> dict:
+    """The chain walk of every survivor lane of a (W + PAD,) u8 window:
+    ``F`` (W,) i32 the stage-0 flags (the prefilter's under ``funnel``,
+    else the full pass's), ``cand`` (capacity,) i32 the compacted survivors
+    (-1 past them), ``n_set`` the () i32 survivor count, ``tables``
+    ``bad_op_tables``' (unused without the funnel); ``n`` and ``at_eof``
+    ints or 0-d tensors on the window's device. Returns (capacity,)
+    ``res`` i8, ``fail_mask``, ``reads_before``, ``reads_parsed`` i32 and
+    ``exact`` bool, as ``_walk_lanes``.
+
+    Replaces the reference's ``_deep_flags_at``, ``_misc_at`` and the walk
+    of ``_check_lanes``. One thread a lane, in one launch: under the funnel
+    a walked position that the prefilter passes gets its full mask
+    computed on the spot (a survivor past the capacity walks as mask 0, as
+    in the reference's scatter); the lane's serial chain of dependent
+    loads bounds it (``csrc/lanes.cu``)."""
+    if not _on_cuda(padded):
+        return _walk_lanes(padded, lengths, num_contigs, n, at_eof, F, cand,
+                           n_set, tables, reads_to_check, funnel)
+    dev = padded.device
+    args, keep = _walk_args(padded, lengths, num_contigs, n, at_eof, F, cand,
+                            n_set, tables, reads_to_check, funnel)
+    cap = cand.numel()
+    out = {"res": torch.empty(cap, dtype=torch.int8, device=dev),
+           "fail_mask": torch.empty(cap, dtype=torch.int32, device=dev),
+           "reads_before": torch.empty(cap, dtype=torch.int32, device=dev),
+           "reads_parsed": torch.empty(cap, dtype=torch.int32, device=dev),
+           "exact": torch.empty(cap, dtype=torch.bool, device=dev)}
+    _launch("walk_lanes", "sbt_walk_lanes", *args,
+            *(out[k].data_ptr() for k in ("res", "fail_mask", "reads_before",
+                                          "reads_parsed", "exact")),
+            0, None, 0, None, None, 0, None, None, device=dev)
+    del keep
+    return out
+
+
+def count_lanes(padded: torch.Tensor, lengths: torch.Tensor, num_contigs: int,
+                n, at_eof, F: torch.Tensor, cand: torch.Tensor, n_set, tables,
+                lo, own, reads_to_check: int = 10,
+                funnel: bool = True) -> torch.Tensor:
+    """``walk_lanes`` reduced over the owned span [lo, own) in the same
+    launch: the (3,) int64 ``(count, esc_count, survivors)`` of
+    ``_count_lanes`` (``lo`` and ``own`` ints or 0-d tensors on the
+    window's device). No per-lane output is written: each CTA counts its
+    owned lanes that pass or escape and a grid-stride share of the owned
+    offsets that stage 0 resolves as escapes, and the last CTA to take a
+    ticket (kept per stream, ``TileStatus``; a captured launch gets its
+    own counter) sums the CTAs' partial counts."""
+    if not _on_cuda(padded):
+        return _count_lanes(padded, lengths, num_contigs, n, at_eof, F, cand,
+                            n_set, tables, lo, own, reads_to_check, funnel)
+    dev = padded.device
+    args, keep = _walk_args(padded, lengths, num_contigs, n, at_eof, F, cand,
+                            n_set, tables, reads_to_check, funnel)
+    lo_val, lo_ptr, lo_t = _int_arg(lo, "lo", dev)
+    own_val, own_ptr, own_t = _int_arg(own, "own", dev)
+    grid = -(-cand.numel() // WALK_THREADS)
+    partials = torch.empty(2 * grid, dtype=torch.int32, device=dev)
+    out = torch.empty(3, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with _WALK_STATUS.ordered:
+        records, base, _epoch = _WALK_STATUS.next(dev, stream, grid)
+        try:
+            _launch("walk_lanes", "sbt_walk_lanes", *args,
+                    None, None, None, None, None, lo_val, lo_ptr, own_val,
+                    own_ptr, records.data_ptr(), base, partials.data_ptr(),
+                    out.data_ptr(), device=dev)
+        except RuntimeError:
+            _WALK_STATUS.drop(dev, stream)
+            raise
+    del keep, lo_t, own_t
+    return out

@@ -1522,6 +1522,8 @@ def test_count_repeat_graph_on_gpu_equals_plain(gpu, tmp_path, funnel):
         assert got.dtype == torch.int32 and int(got) == iters * one
         # The first call also runs the body once eagerly before capture.
         assert K.LAUNCHES[kernel] == iters + (k == 0)
+        assert K.LAUNCHES["walk_lanes"] == iters + (k == 0)
+        assert K.LAUNCHES["bad_op_tables"] == (iters + (k == 0)) * funnel
     assert len(run.graphs) == 1 and run.replays == 8
 
 
@@ -1556,3 +1558,197 @@ def test_native_eager_equals_the_card_verdict(gpu, tmp_path):
     want = b"".join(zlib.decompress(bytes(comp[o: o + c]), -15)
                     for o, c in zip(offs, clens))
     assert out[: len(want)].tobytes() == want
+
+
+def _lane_cases(w):
+    """The prefilter edge set, the lane edge set and the overflowing soup
+    at one W."""
+    from spark_bam_tpu_torch.benchmarks import lane_cases
+
+    cases = prefilter_cases.prefilter_windows(w, seed=5)
+    cases.update(lane_cases.lane_windows(w, seed=5))
+    cases["overflow_soup"] = prefilter_cases.overflow_soup(w)
+    return cases
+
+
+@pytest.mark.parametrize("w", [1 << 17, 1 << 20])
+def test_lane_kernels_on_edge_windows(gpu, w):
+    """``bad_op_tables``, ``walk_lanes`` and ``count_lanes`` against their
+    plain versions on the edge sets, at ``reads_to_check`` 1 and 10 and
+    ``at_eof`` both ways: twice on one stream, once on a second."""
+    from spark_bam_tpu_torch.benchmarks.lane_checks import hold_lanes
+
+    side = torch.cuda.Stream(gpu)
+    for name, (padded, n, lens, nc) in _lane_cases(w).items():
+        buf = torch.from_numpy(padded).to(gpu)
+        lt = torch.from_numpy(lens).to(gpu)
+        for rtc in (1, 10):
+            for at_eof in (True, False):
+                got = hold_lanes(buf, lt, nc, n, at_eof, 100, n - 50, rtc,
+                                 side)
+                assert got["bad_op_tables"] == 0 and got["walk_lanes"] == 0, \
+                    (name, rtc, at_eof, got)
+
+
+@pytest.mark.parametrize("side", [False, True], ids=["current", "second"])
+def test_lane_kernels_replayed_in_a_graph_match_plain(gpu, side):
+    """The three wrappers captured once with 0-d scalars, replayed over
+    four windows of different bytes, lengths, EOF flags and owned spans,
+    with eager launches between the replays."""
+    from spark_bam_tpu_torch.benchmarks import lane_cases
+    from spark_bam_tpu_torch.benchmarks.lane_checks import replay_lanes
+
+    w = 1 << 20
+    lanes = lane_cases.lane_windows(w, seed=7)
+    pre = prefilter_cases.prefilter_windows(w, seed=7)
+    wins = [(torch.from_numpy(lanes["chains"][0]).to(gpu),
+             lanes["chains"][1], True, 0, lanes["chains"][1]),
+            (torch.from_numpy(pre["random_with_records"][0]).to(gpu),
+             pre["random_with_records"][1], False, 333, w - 4096),
+            (torch.from_numpy(lanes["int32_wrap"][0]).to(gpu),
+             lanes["int32_wrap"][1], True, 7, 5000),
+            (torch.from_numpy(pre["count_capacity_plus_1"][0]).to(gpu),
+             pre["count_capacity_plus_1"][1], False, 0, w)]
+    # One contig table for all four: RUN_CONTIGS accepts the survivor runs'
+    # indices, and the other windows' records name no contig.
+    lens = torch.from_numpy(prefilter_cases.LENGTHS).to(gpu)
+    stream = torch.cuda.Stream(gpu) if side else None
+    for rtc in (1, 10):
+        out = replay_lanes(wins, lens, prefilter_cases.RUN_CONTIGS, rtc,
+                           stream)
+        assert out["replays"] == 4
+        assert not any(out["max_abs_err"].values()), out
+        assert not any(out["eager_err"].values()), out
+
+
+def test_lane_kernels_from_concurrent_threads_match_plain(gpu):
+    """Eight host threads counting and walking on one stream: each count's
+    ticket counter and partial sums stay its own."""
+    import threading
+
+    from spark_bam_tpu_torch.benchmarks import lane_cases
+
+    w = 1 << 20
+    lens = torch.from_numpy(prefilter_cases.LENGTHS).to(gpu)
+    cases = []
+    for name, (padded, n, _lens, nc) in lane_cases.lane_windows(w).items():
+        buf = torch.from_numpy(padded).to(gpu)
+        F, cand, n_set = K.prefilter_check_flags(buf, lens, nc, n)
+        tables = K.bad_op_tables(buf, n)
+        want_c = K._count_lanes(buf, lens, nc, n, False, F, cand, n_set,
+                                tables, 10, n - 10)
+        want_l = K._walk_lanes(buf, lens, nc, n, True, F, cand, n_set, tables)
+        cases.append((buf, n, nc, F, cand, n_set, tables, want_c, want_l))
+    bad = []
+
+    def worker(i):
+        try:
+            for j in range(25):
+                buf, n, nc, F, cand, n_set, tables, want_c, want_l = \
+                    cases[(i + j) % len(cases)]
+                got_c = K.count_lanes(buf, lens, nc, n, False, F, cand, n_set,
+                                      tables, 10, n - 10)
+                got_l = K.walk_lanes(buf, lens, nc, n, True, F, cand, n_set,
+                                     tables)
+                if not (torch.equal(got_c, want_c) and all(
+                        torch.equal(got_l[k], want_l[k]) for k in want_l)):
+                    bad.append((i, j))
+        except Exception as e:         # a thread's failure fails the test
+            bad.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads)
+    assert not bad
+
+
+def test_lane_kernels_take_tensor_scalars(gpu):
+    """0-d int32 (and bool) tensors for ``n``, ``at_eof``, ``lo`` and
+    ``own`` give what ints give, and ``count_window`` on the card runs
+    through the three stage kernels, equal to the CPU route."""
+    from spark_bam_tpu_torch.benchmarks import lane_cases
+    from spark_bam_tpu_torch.tpu import checker as ck
+
+    padded, n, lens, nc = lane_cases.lane_windows(1 << 20)["chains"]
+    p, lt = torch.from_numpy(padded), torch.from_numpy(lens)
+    pg, lg = p.to(gpu), lt.to(gpu)
+
+    def t(v, dtype=torch.int32):
+        return torch.tensor(v, dtype=dtype, device=gpu)
+
+    for at_eof in (True, False):
+        want = ck.count_window(p, lt, nc, n, at_eof, 50, n - 300)
+        K.reset_launch_counts()
+        by_int = ck.count_window(pg, lg, nc, n, at_eof, 50, n - 300)
+        by_tensor = ck.count_window(pg, lg, nc, t(n), t(at_eof, torch.bool),
+                                    t(50), t(n - 300))
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["prefilter_check_flags"] == 2
+        assert K.LAUNCHES["bad_op_tables"] == 2
+        assert K.LAUNCHES["walk_lanes"] == 2
+        for k in want:
+            assert int(by_int[k]) == int(by_tensor[k]) == int(want[k]), k
+        lanes = ck._check_lanes(pg, lg, nc, t(n), t(int(at_eof)))
+        cpu = ck._check_lanes(p, lt, nc, n, at_eof)
+        for k in ("res", "fail_mask", "reads_before", "reads_parsed",
+                  "exact", "cand", "n_survivors"):
+            assert torch.equal(lanes[k].cpu(), cpu[k]), k
+
+
+def test_lane_wrappers_check_their_inputs(gpu):
+    """Shapes, dtypes and alignment of the outputs; each refusal raises
+    before a launch."""
+    w = 1 << 17
+    padded, n, lens, nc = prefilter_cases.prefilter_windows(
+        w, seed=5)["random_with_records"]
+    buf = torch.from_numpy(padded).to(gpu)
+    lt = torch.from_numpy(lens).to(gpu)
+    F, cand, n_set = K.prefilter_check_flags(buf, lt, nc, n)
+    words, blocks = K.bad_op_tables(buf, n)
+    total = w + K.PAD
+    assert words.shape == (-(-total // 32),) and words.dtype == torch.int32
+    assert blocks.shape == (4, -(-total // 32768))
+    assert blocks.dtype == torch.int32
+    lanes = K.walk_lanes(buf, lt, nc, n, True, F, cand, n_set,
+                         (words, blocks))
+    cap = K.lane_capacity(w)
+    assert {k: (v.shape, v.dtype) for k, v in lanes.items()} == {
+        "res": ((cap,), torch.int8), "fail_mask": ((cap,), torch.int32),
+        "reads_before": ((cap,), torch.int32),
+        "reads_parsed": ((cap,), torch.int32),
+        "exact": ((cap,), torch.bool)}
+    out = K.count_lanes(buf, lt, nc, n, True, F, cand, n_set,
+                        (words, blocks), 0, n)
+    assert out.shape == (3,) and out.dtype == torch.int64
+    args = (lt, nc, n, True, F, cand, n_set, (words, blocks))
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        K.bad_op_tables(torch.zeros(K.PAD + 68, dtype=torch.uint8,
+                                    device=gpu)[4:], 1)
+    with pytest.raises(ValueError, match="outside"):
+        K.bad_op_tables(buf, total + 1)
+    with pytest.raises(TypeError):
+        K.bad_op_tables(buf.int(), n)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        shifted = torch.zeros(total + 16, dtype=torch.uint8, device=gpu)
+        K.walk_lanes(shifted[4: 4 + total], *args)
+    with pytest.raises(ValueError, match="one flag word"):
+        K.walk_lanes(buf, lt, nc, n, True, F[:-1], cand, n_set,
+                     (words, blocks))
+    with pytest.raises(TypeError):
+        K.walk_lanes(buf, lt, nc, n, True, F, cand.long(), n_set,
+                     (words, blocks))
+    with pytest.raises(ValueError, match="bad_op_tables"):
+        K.walk_lanes(buf, lt, nc, n, True, F, cand, n_set,
+                     (words[:-1], blocks))
+    with pytest.raises(ValueError, match="num_contigs"):
+        K.walk_lanes(buf, lt, -1, n, True, F, cand, n_set, (words, blocks))
+    with pytest.raises(TypeError, match="n_set"):
+        K.walk_lanes(buf, lt, nc, n, True, F, cand, 5, (words, blocks))
+    with pytest.raises(ValueError, match="int32"):
+        K.count_lanes(buf, *args, 0, 1 << 40)
+    with pytest.raises(TypeError):
+        K.count_lanes(buf, *args, torch.zeros(2, dtype=torch.int32,
+                                              device=gpu), n)
