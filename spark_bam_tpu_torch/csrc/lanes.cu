@@ -63,6 +63,42 @@ constexpr int32_t kEscape = sbt::kTooFewFixedBlockBytes |
                             sbt::kTooFewBytesForCigarOps;
 constexpr int32_t kDefinitive = ((1 << 19) - 1) & ~kEscape;
 
+// profile launches: bad_op_tables, walk_lanes
+// profile phases: load, pack, ballot; F, block, name, any_bad, step
+#ifdef SBT_PROFILE
+// Profiling build only (benchmarks/profile_lanes.py): clock64 laps of each
+// table warp (load, pack, ballot: summed over its 32 steps) and of each
+// walk lane (the stage-0 flag load, the deep mask's fixed block, name
+// check and bad-op lookup, and the step's own block read and arithmetic,
+// summed over its steps), with the steps a lane took. A lap ends after an
+// instruction that consumes the lap's last load, so it counts the load's
+// latency and not just its issue.
+constexpr int kProfWarps = 8192;
+constexpr int kProfLanes = 1 << 17;
+__device__ long long g_tab_marks[3 * kProfWarps];
+__device__ long long g_walk_marks[6 * kProfLanes];
+__device__ unsigned g_prof_sink;
+struct Prof {
+  long long c[5];
+  long long t;
+  unsigned sink;
+  __host__ __device__ Prof() : c{0, 0, 0, 0, 0}, t(0), sink(0) {}
+};
+#define SBT_LAP(p, k, x)                                              \
+  do {                                                                \
+    asm volatile("add.u32 %0, %0, %1;" : "+r"((p).sink)               \
+                 : "r"((unsigned)(x)));                               \
+    const long long now_ = clock64();                                 \
+    (p).c[k] += now_ - (p).t;                                         \
+    (p).t = now_;                                                     \
+  } while (0)
+#define SBT_RESTART(p) ((p).t = clock64())
+#else
+struct Prof {};
+#define SBT_LAP(p, k, x)
+#define SBT_RESTART(p)
+#endif
+
 __global__ void __launch_bounds__(kTableThreads)
 bad_op_tables_kernel(const uint8_t* __restrict__ padded, int total,
                      int n_val, const int32_t* __restrict__ n_ptr,
@@ -73,13 +109,16 @@ bad_op_tables_kernel(const uint8_t* __restrict__ padded, int total,
   if (sb >= nsuper) return;  // the whole warp
   const long long n = n_ptr ? __ldg(n_ptr) : n_val;
   uint32_t acc = 0;  // lane c < 4: class c's summary word
+  Prof prof;
   for (int it = 0; it < 32; ++it) {
     const int wi = sb * kSuperWords + it * kBlockWords + lane;
     const long long j0 = 32LL * wi;
     uint32_t bits = 0;
+    SBT_RESTART(prof);
     if (j0 + 32 <= total) {
       const uint4* q = reinterpret_cast<const uint4*>(padded + j0);
       const uint4 a = __ldg(q), b = __ldg(q + 1);
+      SBT_LAP(prof, 0, a.x ^ b.w);
       const uint32_t v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
@@ -101,13 +140,20 @@ bad_op_tables_kernel(const uint8_t* __restrict__ padded, int total,
     else if (lim < 31)
       bits &= (2u << lim) - 1u;
     if (wi < nwords) words[wi] = bits;
+    SBT_LAP(prof, 1, bits);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const unsigned any = __ballot_sync(kAll, (bits & (kClass << c)) != 0);
       if (lane == c && any) acc |= 1u << it;
     }
+    SBT_LAP(prof, 2, acc);
   }
   if (lane < 4) blocks[lane * nsuper + sb] = acc;
+#ifdef SBT_PROFILE
+  if (lane == 0 && sb < kProfWarps)
+    for (int k = 0; k < 3; ++k) g_tab_marks[3 * sb + k] = prof.c[k];
+  if (prof.sink == 0x9E3779B9u) g_prof_sink = prof.sink;
+#endif
 }
 
 // Any bad op of class c (offsets j = c mod 4) in [a, b), 0 <= a <= b.
@@ -188,12 +234,13 @@ __device__ __forceinline__ bool name_byte_ok(uint32_t b) {
 
 // The full 19-bit mask at ``pos`` (0 <= pos < w) as the reference's
 // _deep_flags_at computes it, quirks included.
-__device__ int32_t deep_flags(const WalkArgs& a, int pos, int n) {
+__device__ int32_t deep_flags(const WalkArgs& a, int pos, int n, Prof& prof) {
   const uint8_t* p = a.padded;
   const int total = a.total;
   const int pc = min(max(pos, 0), total - 36);  // the slab's clamp
   const sbt::FixedBlock b = block_at(p, pc);
   int32_t f = sbt::fixed_bits(b, a.lengths, a.cmax, a.num_contigs);
+  SBT_LAP(prof, 1, f);
 
   const int name_len = (int)b.name_len;
   const int name_start = pos + 36;
@@ -212,6 +259,7 @@ __device__ int32_t deep_flags(const WalkArgs& a, int pos, int n) {
     for (int q = q0; q < last && good; ++q) good = name_byte_ok(__ldg(p + q));
     if (!good || last - q0 != name_len - 1) f |= sbt::kNonASCIIReadName;
   }
+  SBT_LAP(prof, 2, f);
 
   const int cig_start = name_start + (name_in ? name_len : 0);
   const int cig_end = cig_start + 4 * (int)b.n_cigar;
@@ -223,6 +271,7 @@ __device__ int32_t deep_flags(const WalkArgs& a, int pos, int n) {
     has_bad = any_bad(a.words, a.blocks, a.nsuper, qa, qb, cig_start & 3);
   }
   if (has_bad) f |= sbt::kInvalidCigarOp;
+  SBT_LAP(prof, 3, f);
   const bool cig_eof = considered && !has_bad && cig_end > n;
   if (cig_eof) f |= sbt::kTooFewBytesForCigarOps;
   const bool empty_ok =
@@ -269,12 +318,19 @@ __global__ void __launch_bounds__(kThreads) walk_lanes_kernel(WalkArgs a) {
   int r = -1, rb = 0, rp = 0;
   int32_t fm = 0;
   bool ex = true;
+  Prof prof;
+#ifdef SBT_PROFILE
+  int steps = 0;
+#endif
   if (k < a.capacity) cand = __ldg(a.cand + k);
   if (cand >= 0) {
     long long logical = cand, physical = cand;
     bool lov = false;
     r = 0;
     for (int step = 0; step < a.reads_to_check; ++step) {
+#ifdef SBT_PROFILE
+      ++steps;
+#endif
       // EOF at a record edge (zero bytes left): eager/Checker.scala:36-39.
       if (physical >= n) {
         const bool edge = physical == logical && !lov && step > 0;
@@ -292,8 +348,11 @@ __global__ void __launch_bounds__(kThreads) walk_lanes_kernel(WalkArgs a) {
         break;
       }
       const int pi = (int)clamp64(physical, 0, w - 1);
+      SBT_RESTART(prof);
       int32_t f = __ldg(a.F + pi);
-      if (a.funnel && f == 0) f = pi <= last_cand ? deep_flags(a, pi, n) : 0;
+      SBT_LAP(prof, 0, f);
+      if (a.funnel && f == 0)
+        f = pi <= last_cand ? deep_flags(a, pi, n, prof) : 0;
       if (f != 0) {
         // Every bit is definitive or an escape bit.
         const int32_t definitive = f & kDefinitive, boundary = f & kEscape;
@@ -330,6 +389,7 @@ __global__ void __launch_bounds__(kThreads) walk_lanes_kernel(WalkArgs a) {
       logical = clamped;
       physical = next_physical;
       lov = lov || overflow_now;
+      SBT_LAP(prof, 4, (unsigned)physical);
     }
     if (r == 0) {
       r = 1;
@@ -337,6 +397,13 @@ __global__ void __launch_bounds__(kThreads) walk_lanes_kernel(WalkArgs a) {
     }
   }
 
+#ifdef SBT_PROFILE
+  if (cand >= 0 && k < kProfLanes) {
+    for (int j = 0; j < 5; ++j) g_walk_marks[6 * k + j] = prof.c[j];
+    g_walk_marks[6 * k + 5] = steps;
+  }
+  if (prof.sink == 0x9E3779B9u) g_prof_sink = prof.sink;
+#endif
   if (a.res != nullptr) {
     if (k < a.capacity) {
       a.res[k] = (int8_t)r;
@@ -468,3 +535,19 @@ extern "C" int sbt_walk_lanes(
                       stream>>>(a);
   return (int)cudaGetLastError();
 }
+
+#ifdef SBT_PROFILE
+// The table warps' laps (3 a warp) and the walk lanes' laps and steps (6 a
+// lane) of the last launches, for the first ``warps`` and ``lanes``.
+extern "C" int sbt_lanes_profile(long long* tab, int warps, long long* walk,
+                                 int lanes) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(tab, g_tab_marks,
+                               3 * min(warps, kProfWarps) * sizeof(long long));
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(walk, g_walk_marks,
+                               6 * min(lanes, kProfLanes) * sizeof(long long));
+  return (int)err;
+}
+#endif
