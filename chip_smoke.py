@@ -29,14 +29,17 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
    ``benchmarks/profile_resolve_flags.py`` on the same window: the
    clock64 phase split of LZ77 and the full pass and the rounds
    histogram. Then the funnel's stage-1 kernels (``lane_phase``,
-   ``csrc/lanes.cu``): ``bad_op_tables``, ``walk_lanes`` and
-   ``count_lanes`` bit-identical to their plain versions on the first
-   window, random bytes, the prefilter and lane edge sets
-   (``benchmarks/lane_cases.py``: int32 wraps, 65,535-op cigars, chains,
-   survivors past the capacity) and the overflowing soup at W = 2^25, at
-   ``reads_to_check`` 1 and 10 and ``at_eof`` both ways, each twice on one
-   stream and once on a second, and captured once in a CUDA graph
-   replayed over four windows on each stream; their CUDA-event times.
+   ``csrc/lanes.cu``): ``bad_op_tables``, ``survivor_table``,
+   ``walk_lanes`` and ``count_lanes`` bit-identical to their plain
+   versions on the first window, random bytes, the prefilter and lane edge
+   sets (``benchmarks/lane_cases.py``: int32 wraps, 65,535-op cigars,
+   chains, survivors past the capacity, a long run of consecutive
+   survivors, the last partial super-block) and the overflowing soup at W
+   = 2^25, at ``reads_to_check`` 1 and 10 and ``at_eof`` both ways, each
+   twice on one stream and once on a second, and captured once in a CUDA
+   graph replayed over four windows on each stream, and over windows of
+   0, ``capacity``, about half and more than ``capacity`` survivors; their
+   CUDA-event times, one call and 20 in a CUDA graph.
    Then the benchmark's instruments (``yardstick_check``):
    ``make_count_repeat`` on that window (one fused count captured in a
    CUDA graph) at ``iters`` 1 and 4 must give 4x the single count, with
@@ -367,7 +370,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak memory rate
 #: The kernels of the count-reads path and of the full-check path.
 COUNT_KERNELS = ("tokenize", "lz77_resolve", "prefilter_check_flags",
-                 "bad_op_tables", "walk_lanes")
+                 "bad_op_tables", "survivor_table", "walk_lanes")
 #: The kernels that phase 14's fabric paths launch.
 FABRIC_KERNELS = ("prefilter_check_flags", "full_check_flags")
 #: Beside those kernels' rows: which of phase 14's launches the counters see.
@@ -375,7 +378,7 @@ FABRIC_NOTE = ("fabric paths count the in-process worker's launches; the "
                "fabric command's and the pool's worker processes launch in "
                "their own processes, which these counters do not see")
 FULL_CHECK_KERNELS = ("tokenize", "lz77_resolve", "full_check_flags",
-                      "walk_lanes")
+                      "survivor_table", "walk_lanes")
 #: Beside every kernel's row: which of phase 15's launches the counters see.
 JOBS_NOTE = ("jobs paths count this process's jobs: the resumed durable "
              "export, the in-process worker's export job and its paused "
@@ -522,7 +525,8 @@ def yardstick_check(port, padded, lens_dev, nc: int, n0: int, w: int,
             f"count_repeat {r1}, {r4} against the single count {single}")
     # One eager body before the capture, then 1 + 4 replays.
     require(all(launches[k] == 6 for k in ("prefilter_check_flags",
-                                           "bad_op_tables", "walk_lanes"))
+                                           "bad_op_tables", "survivor_table",
+                                           "walk_lanes"))
             and run.graphs and run.replays == 5,
             f"count_repeat launches {launches}")
     reps = (2, 10)
@@ -604,17 +608,22 @@ def yardstick_check(port, padded, lens_dev, nc: int, n0: int, w: int,
 def lane_phase(padded, lens_dev, nc: int, n0: int, w: int, halo: int, soup,
                long_pad, long_n: int, n_odd: int, side, card) -> list:
     """Phase 2's check of the funnel's stage-1 kernels (``bad_op_tables``,
-    ``walk_lanes`` and ``count_lanes``, ``csrc/lanes.cu``) against their
-    plain versions at W = 2^25: the first window, random bytes, the
-    prefilter edge set, the lane edge set and the overflowing soup, each at
+    ``survivor_table``, ``walk_lanes`` and ``count_lanes``,
+    ``csrc/lanes.cu``) against their plain versions at W = 2^25: the first
+    window, random bytes, the prefilter edge set, the lane edge set (with
+    the survivor table's: a long run of consecutive survivors, the last
+    partial super-block) and the overflowing soup, each at
     ``reads_to_check`` 1 and 10 and ``at_eof`` both ways, twice on one
     stream and once on a second (``lane_checks.hold_lanes``); one capture
-    of the three replayed over four windows on each stream
-    (``lane_checks.replay_lanes``); then their CUDA-event times on the
-    first window beside the plain versions'. Returns their two rows of the
+    of the four replayed over four windows on each stream, and over
+    windows of 0, ``capacity``, about half and more than ``capacity``
+    survivors (``lane_checks.replay_lanes``); then their CUDA-event times
+    on the first window (one call, and 20 in a CUDA graph: the device's
+    time) beside the plain versions'. Returns their three rows of the
     ``kernels`` line."""
     from spark_bam_tpu_torch.benchmarks import lane_cases, prefilter_cases
     from spark_bam_tpu_torch.benchmarks.lane_checks import (
+        graph_ms,
         hold_lanes,
         replay_lanes,
     )
@@ -622,7 +631,7 @@ def lane_phase(padded, lens_dev, nc: int, n0: int, w: int, halo: int, soup,
 
     dev = padded.device
     t_start = time.perf_counter()
-    errs = {"bad_op_tables": 0, "walk_lanes": 0}
+    errs = {"bad_op_tables": 0, "survivor_table": 0, "walk_lanes": 0}
     counts = []
 
     def hold(label, buf, n, lt, c):
@@ -640,8 +649,16 @@ def lane_phase(padded, lens_dev, nc: int, n0: int, w: int, halo: int, soup,
     hold("random bytes", soup, w, lens_dev, nc)
     edge = prefilter_cases.prefilter_windows(w, seed=7)
     edge.update(lane_cases.lane_windows(w, seed=7))
+    edge.update(lane_cases.table_windows(w, seed=7))
     edge["overflow_soup"] = prefilter_cases.overflow_soup(w)
     n_edge = len(edge)
+    # Windows of 0, capacity, about half and more than capacity survivors
+    # for one capture, under the table that accepts any contig.
+    by_count = []
+    for label in ("count_0", "count_capacity", "dense_run",
+                  "count_capacity_plus_1"):
+        b_np, n = edge[label][:2]
+        by_count.append((torch.from_numpy(b_np).to(dev), n, False, 0, n))
     for label in list(edge):
         b_np, n, l_np, c = edge.pop(label)
         buf, lt = (torch.from_numpy(a).to(dev) for a in (b_np, l_np))
@@ -651,70 +668,102 @@ def lane_phase(padded, lens_dev, nc: int, n0: int, w: int, halo: int, soup,
     wins = [(padded, n0, False, 0, n0 - halo), (soup, w, True, 5, w),
             (long_pad, long_n, True, 0, long_n),
             (padded, n_odd, False, 100, n_odd)]
+    any_lens = torch.from_numpy(lane_cases.ANY_LENGTHS).to(dev)
     replay_log = []
     for label, stream in (("current", None), ("second", side)):
         for rtc in (1, 10):
-            rep = replay_lanes(wins, lens_dev, nc, rtc, stream)
-            require(rep["replays"] == 4
-                    and not any(rep["max_abs_err"].values())
-                    and not any(rep["eager_err"].values()),
-                    f"stage-1 kernels replayed on the {label} stream, "
-                    f"reads_to_check {rtc}: {rep}")
-            replay_log.append(f"{label} stream, reads_to_check {rtc}")
+            for what, ws, lt, c in (
+                    ("four windows", wins, lens_dev, nc),
+                    ("0, capacity, ~half, capacity + 1 survivors", by_count,
+                     any_lens, lane_cases.ANY_CONTIGS)):
+                rep = replay_lanes(ws, lt, c, rtc, stream)
+                require(rep["replays"] == 4
+                        and not any(rep["max_abs_err"].values())
+                        and not any(rep["eager_err"].values()),
+                        f"stage-1 kernels replayed over {what} on the "
+                        f"{label} stream, reads_to_check {rtc}: {rep}")
+                replay_log.append(f"{what}, {label} stream, "
+                                  f"reads_to_check {rtc}")
+    del by_count
     # Times on the first window, the main path's shapes (a non-final
     # window: its owned span ends a halo before n).
     F, cand, n_set = K.prefilter_check_flags(padded, lens_dev, nc, n0)
     tables = K.bad_op_tables(padded, n0)
     own = n0 - halo
-    tab_ms = cuda_ms(lambda: K.bad_op_tables(padded, n0), reps=20)
-    tab_plain_ms = cuda_ms(lambda: K._bad_op_tables(padded, n0), reps=3)
-    count_ms = cuda_ms(lambda: K.count_lanes(
-        padded, lens_dev, nc, n0, False, F, cand, n_set, tables, 0, own),
-        reps=20)
-    lanes_ms = cuda_ms(lambda: K.walk_lanes(
-        padded, lens_dev, nc, n0, False, F, cand, n_set, tables), reps=20)
-    count_plain_ms = cuda_ms(lambda: K._count_lanes(
-        padded, lens_dev, nc, n0, False, F, cand, n_set, tables, 0, own),
-        reps=3)
+    calls = {
+        "bad_op_tables": lambda: K.bad_op_tables(padded, n0),
+        "survivor_table": lambda: K.survivor_table(
+            padded, lens_dev, nc, n0, F, cand, n_set, tables),
+        "count_lanes": lambda: K.count_lanes(
+            padded, lens_dev, nc, n0, False, F, cand, n_set, tables, 0, own),
+        "walk_lanes": lambda: K.walk_lanes(
+            padded, lens_dev, nc, n0, False, F, cand, n_set, tables)}
+    one_ms = {k: cuda_ms(f, reps=20) for k, f in calls.items()}
+    dev_ms = {k: graph_ms(f) for k, f in calls.items()}
+    plain_ms = {
+        "bad_op_tables": cuda_ms(lambda: K._bad_op_tables(padded, n0),
+                                 reps=3),
+        "survivor_table": cuda_ms(lambda: K._survivor_table(
+            padded, lens_dev, nc, n0, F, cand, n_set, tables), reps=3),
+        "count_lanes": cuda_ms(lambda: K._count_lanes(
+            padded, lens_dev, nc, n0, False, F, cand, n_set, tables, 0, own),
+            reps=3)}
     live = min(int(n_set), cand.numel())
+    q = cand[:live].long()
+    names = int(padded[q + 12].long().sum())
     total = padded.numel()
     tab_bytes = total + 4 * tables[0].numel() + 4 * tables[1].numel()
+    # The survivor table reads each survivor's list entry, flags, fixed
+    # block and name, and writes its 16-byte entry.
+    entry_bytes = (4 + 4 + 36 + 16) * live + names
     # The count reads F over the owned span, the live lanes' list entries
     # and at least each survivor's fixed block, and writes 24 bytes.
     walk_bytes = 4 * own + 4 * live + 36 * live + 24
     nums = {"cases": 2 + n_edge, "held_s": held_s,
             "survivors_first_window": int(n_set),
-            "bad_op_tables_ms": tab_ms, "bad_op_tables_plain_ms": tab_plain_ms,
-            "count_lanes_ms": count_ms, "walk_lanes_per_lane_ms": lanes_ms,
-            "count_lanes_plain_ms": count_plain_ms,
-            "bad_op_tables_bytes": tab_bytes, "count_lanes_bytes": walk_bytes,
+            "one_call_ms": one_ms, "graph_ms": dev_ms, "plain_ms": plain_ms,
+            "bad_op_tables_bytes": tab_bytes,
+            "survivor_table_bytes": entry_bytes,
+            "count_lanes_bytes": walk_bytes,
             "s": time.perf_counter() - t_start}
-    log(f"stage-1 kernels: bad_op_tables, walk_lanes and count_lanes "
-        f"bit-identical to plain on {2 + n_edge} windows at W={w} "
-        f"(reads_to_check 1 and 10, at_eof both ways, twice on one stream "
-        f"and once on a second; counts {', '.join(counts)}); graph "
-        f"replays over 4 windows: {', '.join(replay_log)}; first window "
-        f"{int(n_set)} survivors: bad_op_tables {tab_ms:.4f} ms (plain "
-        f"{tab_plain_ms:.3f}), count_lanes {count_ms:.4f} ms, walk_lanes "
-        f"per lane {lanes_ms:.4f} ms (plain count {count_plain_ms:.3f}) "
-        f"({card})")
+    log(f"stage-1 kernels: bad_op_tables, survivor_table, walk_lanes and "
+        f"count_lanes bit-identical to plain on {2 + n_edge} windows at "
+        f"W={w} (reads_to_check 1 and 10, at_eof both ways, twice on one "
+        f"stream and once on a second; counts {', '.join(counts)}); graph "
+        f"replays: {'; '.join(replay_log)}; first window {int(n_set)} "
+        f"survivors, ms one call / 20 in a CUDA graph: "
+        + ", ".join(f"{k} {one_ms[k]:.4f} / {dev_ms[k]:.4f}" for k in calls)
+        + f" (plain {', '.join(f'{k} {v:.3f}' for k, v in plain_ms.items())})"
+        f" ({card})")
     log(f"phase 2 stage-1 numbers: {json.dumps(nums)}")
     return [
         dict(name="bad_op_tables", route="cuda",
              source="spark_bam_tpu_torch/csrc/lanes.cu",
              replaces="spark_bam_tpu/tpu/checker.py:281",
              parity="bit-identical", max_abs_err=errs["bad_op_tables"],
-             ms=tab_ms, plain_ms=tab_plain_ms,
+             ms=one_ms["bad_op_tables"], graph_ms=dev_ms["bad_op_tables"],
+             plain_ms=plain_ms["bad_op_tables"],
              bound_ms=tab_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+             library_ms=None),
+        dict(name="survivor_table", route="cuda",
+             source="spark_bam_tpu_torch/csrc/lanes.cu",
+             replaces="spark_bam_tpu/tpu/checker.py:322",
+             replaces_also=["spark_bam_tpu/tpu/checker.py:184"],
+             parity="bit-identical", max_abs_err=errs["survivor_table"],
+             ms=one_ms["survivor_table"], graph_ms=dev_ms["survivor_table"],
+             plain_ms=plain_ms["survivor_table"],
+             bound_ms=entry_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
              library_ms=None),
         dict(name="walk_lanes", route="cuda",
              source="spark_bam_tpu_torch/csrc/lanes.cu",
              replaces="spark_bam_tpu/tpu/checker.py:441",
-             replaces_also=["spark_bam_tpu/tpu/checker.py:322",
-                            "spark_bam_tpu/tpu/checker.py:741"],
+             replaces_also=["spark_bam_tpu/tpu/checker.py:741"],
              parity="bit-identical", max_abs_err=errs["walk_lanes"],
-             ms=count_ms, per_lane_outputs_ms=lanes_ms,
-             plain_ms=count_plain_ms,
+             ms=one_ms["count_lanes"], graph_ms=dev_ms["count_lanes"],
+             ms_note="count_lanes: the survivor table and the count's walk",
+             per_lane_outputs_ms=one_ms["walk_lanes"],
+             per_lane_outputs_graph_ms=dev_ms["walk_lanes"],
+             plain_ms=plain_ms["count_lanes"],
              bound_ms=walk_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
              library_ms=None),
     ]
@@ -740,7 +789,8 @@ def resident_phase(port, bam, manifest, long_bam, long_manifest, small,
     runner = checker.scan_runner
     require(got == want, f"resident count {got} != generator's {want}")
     require(all(launches[k] > 0 for k in ("prefilter_check_flags",
-                                          "bad_op_tables", "walk_lanes")),
+                                          "bad_op_tables", "survivor_table",
+                                          "walk_lanes")),
             launches)
     require(isinstance(runner, port.CountScanGraphs), type(runner))
     windows = len(checker.pipeline.groups)
@@ -3548,6 +3598,7 @@ def host_tokenize_phase(port, bam, manifest, small, small_manifest,
     require(launches["lz77_resolve"] == windows, launches)
     require(all(launches[k] >= windows for k in ("prefilter_check_flags",
                                                  "bad_op_tables",
+                                                 "survivor_table",
                                                  "walk_lanes")), launches)
     log(f"count-reads tokenize=host: {got} reads (= the generator's, 0 "
         f"demotions) in {host_s:.3f} s = {got / host_s:.0f} reads/s, beside "

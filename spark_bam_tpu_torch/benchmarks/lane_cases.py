@@ -33,6 +33,25 @@ of 4,096):
   0, as in the reference).
 
 ``cigar_spans`` and ``chains`` cut their last record with ``n``.
+
+``table_windows(w, seed)`` gives the cases of the stage-1 kernels' survivor
+table and rank search (for the card and for the CPU checks of the plain
+table; ``tail_super_block`` holds more valid bytes than ``w``, so it is
+not one for the JAX package, whose extended window clamps elsewhere):
+
+- ``dense_run``: two records whose step crosses a run of consecutive
+  offsets that all survive (every byte 0x60 under a table that accepts
+  any index and position; their names end without a NUL, so their lanes
+  stop at once), about a third and an eighth of the capacity long, then a
+  chain of valid records: a lane from the record before each run reaches
+  the chain by its successor rank, a farther search than any real window
+  asks for, and a lane from the record before that one (a negative
+  ``seq_len`` leaves its logical cursor 13 bytes behind the physical one)
+  lands inside the run and searches the list itself;
+- ``tail_super_block``: ``n`` the whole padded window, random bytes over
+  the last, partial 32 KiB super-block (bad ops in its words and
+  summaries), and a chain of records from 200 bytes before ``w`` whose
+  cursors pass ``w`` (positions past ``w - 1`` read at ``w - 1``).
 """
 
 from __future__ import annotations
@@ -206,6 +225,49 @@ def overflow_chain(w: int):
     return buf, w, LENGTHS, RUN_CONTIGS
 
 
+#: A table that accepts any contig index and position (``overflow_soup``'s).
+ANY_LENGTHS = np.full(CMAX, 0x7FFFFFFF, dtype=np.int32)
+ANY_CONTIGS = 0x7FFFFFFF
+
+
+def dense_run(w: int):
+    buf = _zeros(w)
+    cap = lane_capacity(w)
+    at = 64
+    for run in (cap // 3, cap // 8):
+        # A (its step falls 13 bytes short of B's end: logical behind
+        # physical), B (remaining across the run), the run, then a chain.
+        at = _put(buf, at, record(seq_len=-9))
+        b = at
+        at = _put(buf, at, record(remaining=run + 39))
+        nat = b + 4 + run + 39
+        buf[at: nat] = 0x60
+        at = nat
+        for _ in range(12):
+            at = _put(buf, at, record())
+        at += 100
+    return buf, min(at + 64, w), ANY_LENGTHS, ANY_CONTIGS
+
+
+def tail_super_block(w: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    buf = _zeros(w)
+    total = len(buf)
+    tail = total - (total % 32768 or 32768) - 8192
+    buf[tail:] = rng.integers(0, 256, total - tail, dtype=np.uint8)
+    at = w - 200
+    while at < w + 400:
+        at = _put(buf, at, record())
+    return buf, total, *_table()
+
+
+def table_windows(w: int, seed: int = 0):
+    if w % 4096:
+        raise ValueError("w must be a multiple of 4096")
+    return {"dense_run": dense_run(w),
+            "tail_super_block": tail_super_block(w, seed)}
+
+
 def lane_windows(w: int, seed: int = 0):
     if w % 4096:
         raise ValueError("w must be a multiple of 4096")
@@ -213,4 +275,5 @@ def lane_windows(w: int, seed: int = 0):
             "chains": chains(w, seed), "overflow_chain": overflow_chain(w)}
 
 
-__all__ = ["CMAX", "implied", "lane_windows", "record"]
+__all__ = ["CMAX", "implied", "lane_windows", "record",
+           "table_windows"]

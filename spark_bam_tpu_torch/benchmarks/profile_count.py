@@ -10,7 +10,7 @@ the device-busy share (kernel time over wall), the host's kernel launches
 the top operators by device time and by host time, and the card's name and
 power limit. Also times each stage of one window (staging, tokenize,
 resolve, assembly, the prefilter with its survivor compaction, the bad-op
-tables and the walk with its count, the plain deep-flag stages, the lane
+tables, the survivor table alone and with the walk and its count, the plain deep-flag stages, the lane
 core against ``check_window`` and the full pass's compaction) with a
 device synchronise around each (a second pass, after one that takes the
 first calls' allocations), which serialises them but shows each one's
@@ -88,9 +88,12 @@ def stage_breakdown(bam: Path, checker: StreamChecker) -> dict:
                             K.prefilter_check_flags(padded, lens, nc, n))
     tables = _timed(st, "bad_op_tables kernel",
                     lambda: K.bad_op_tables(padded, n))
-    _timed(st, "count_lanes kernel (walk and count)", lambda: K.count_lanes(
-        padded, lens, nc, n, False, F, cand, n_set, tables, 0, n - halo,
-        checker.config.reads_to_check))
+    _timed(st, "survivor_table kernel", lambda: K.survivor_table(
+        padded, lens, nc, n, F, cand, n_set, tables))
+    _timed(st, "count_lanes kernels (survivor table, walk and count)",
+           lambda: K.count_lanes(padded, lens, nc, n, False, F, cand, n_set,
+                                 tables, 0, n - halo,
+                                 checker.config.reads_to_check))
     # The plain versions' stages, as the count ran them before the kernels.
     plain = _timed(st, "funnel_tables (plain)",
                    lambda: K._funnel_tables(padded, n))

@@ -14,20 +14,28 @@ and runs stage 0 on it (the package's ``prefilter_check_flags``). Then:
   ``-DSBT_PROFILE``, which turns on the source's own ``clock64`` laps; the
   source names them in a ``// profile phases:`` line, the tables' per warp
   before the ``;``, the walk's per lane after it (each lane's row ends
-  with the steps it took). Builds each ``--against`` source (another
+  with the steps it took; a source with a survivor table puts survivor
+  i's table laps in row i too). Builds each ``--against`` source (another
   ``lanes.cu``, for example a parent commit's, with ``flag_bits.cuh``
-  beside it) as it is;
+  beside it) as it is. A source that defines ``sbt_survivor_table`` walks
+  in two launches (the table, then the walk; both in every time here), one
+  without it in one (PR 24's design);
 - times every build in turns (``a b b a`` order, three times, CUDA-event
   medians of one call, host work included), then 20 calls in a row (``a b
-  b a``; the host's work per call overlaps the card's): the tables, the
+  b a``; the host's work per call overlaps the card's), then 20 calls
+  captured in one CUDA graph (``a b b a``, the device time a call: no host
+  work at all): the tables, the
   walk in count mode (``count_lanes``, owned span [0, n - halo) as the
   count path gives a non-final window) and with per-lane outputs
   (``walk_lanes``), each build's output required to equal the plain
   versions' (``kernels._bad_op_tables``, ``_count_lanes``,
-  ``_walk_lanes``) bit for bit;
+  ``_walk_lanes``) bit for bit; for a two-launch build also its survivor
+  table alone in a graph;
 - times ``count_window`` (one synchronised call, the median of five) and
   ``count_repeat``'s slope (``profile_count.repeat_slope``) with the
-  package's kernels.
+  package's kernels, and the host's time to enqueue one call of each of
+  the package's stage-1 wrappers (200 calls, no synchronisation between
+  them).
 
 Prints the medians, each phase's cycles per table warp and per walk lane
 (mean, max, share) with the steps a lane took, then the card's name,
@@ -49,6 +57,7 @@ import torch
 
 from spark_bam_tpu_torch import Config, StreamChecker
 from spark_bam_tpu_torch.benchmarks import profile_resolve_flags as prf
+from spark_bam_tpu_torch.benchmarks.lane_checks import graph_ms
 from spark_bam_tpu_torch.benchmarks.profile_count import repeat_slope
 from spark_bam_tpu_torch.benchmarks.profile_prefilter import _back_to_back_ms
 from spark_bam_tpu_torch.benchmarks.synth import synth_bam
@@ -60,10 +69,16 @@ from spark_bam_tpu_torch.tpu import kernels as K
 from spark_bam_tpu_torch.tpu.stream_check import pad_contig_lengths
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: Table warps and walk lanes whose laps a profiling build keeps
-#: (``kProfWarps`` and ``kProfLanes`` in the source).
-PROF_WARPS, PROF_LANES = 8192, 1 << 17
+#: Table warps and walk lanes whose laps a profiling build keeps (at
+#: most; ``kProfWarps`` and ``kProfLanes`` in the source).
+PROF_WARPS, PROF_LANES = 16384, 1 << 17
 LANE_KEYS = ("res", "fail_mask", "reads_before", "reads_parsed", "exact")
+_U = ctypes.c_uint
+#: ``sbt_walk_lanes`` of the one-launch design (PR 24): the deep mask on
+#: the spot, a thread a list entry.
+_ONE_LAUNCH_WALK = [_P, _I, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P,
+                    _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P,
+                    _P, _U, _P, _P, _P]
 
 
 class _Lanes:
@@ -71,11 +86,46 @@ class _Lanes:
     it, with its own ticket counter for the count."""
 
     def __init__(self, src: Path, so: Path, profile: bool = False):
-        self.lib, _ = prf._compile(src, so, "sbt_walk_lanes", profile)
-        self.lib.sbt_bad_op_tables.argtypes = build.SIGNATURES[
-            "sbt_bad_op_tables"]
-        self.lib.sbt_bad_op_tables.restype = _I
+        self.lib, _ = prf._compile(src, so, "sbt_bad_op_tables", profile)
+        self.two = "sbt_survivor_table(" in src.read_text()
+        names = (("sbt_survivor_table", "sbt_walk_lanes", "sbt_lanes_ctas")
+                 if self.two else ())
+        for name in names:
+            fn = getattr(self.lib, name)
+            fn.argtypes = build.SIGNATURES[name]
+            fn.restype = _I
+        if not self.two:
+            self.lib.sbt_walk_lanes.argtypes = _ONE_LAUNCH_WALK
+            self.lib.sbt_walk_lanes.restype = _I
+        self.ctas = self.lib.sbt_lanes_ctas() if self.two else 0
         self.status = K.TileStatus(1)
+
+    def _grid(self, cap: int) -> int:
+        if self.two:
+            return min(self.ctas, -(-cap // K.WALK_THREADS))
+        return -(-cap // K.WALK_THREADS)
+
+    def survivor(self, padded, lens, nc, n, F, cand, n_set, tables):
+        """The survivor table alone (two-launch design)."""
+        args, _, keep = K._walk_args(padded, lens, nc, n, False, F, cand,
+                                     n_set, tables, True)
+        table = torch.empty((cand.numel(), 4), dtype=torch.int32,
+                            device=padded.device)
+        self._call("sbt_survivor_table", *args, table.data_ptr(),
+                   self._grid(cand.numel()))
+        del keep
+        return table
+
+    def _args(self, padded, lens, nc, n, F, cand, n_set, tables):
+        """The walk's leading arguments: with its survivor table's (the
+        two-launch design), or the one-launch walk's."""
+        t, _, keep = K._walk_args(padded, lens, nc, n, False, F, cand, n_set,
+                                  tables, True)
+        if not self.two:
+            return (t[:6] + (n, None, 0, None) + t[8:15] + (10, 1)), keep
+        table = torch.empty((cand.numel(), 4), dtype=torch.int32,
+                            device=padded.device)
+        return t + (0, None, table.data_ptr(), 10), (keep, table)
 
     def _call(self, fn: str, *args) -> None:
         err = getattr(self.lib, fn)(*args, prf._stream())
@@ -94,8 +144,7 @@ class _Lanes:
         return words, blocks
 
     def walk(self, padded, lens, nc, n, F, cand, n_set, tables):
-        args, keep = K._walk_args(padded, lens, nc, n, False, F, cand, n_set,
-                                  tables, 10, True)
+        args, keep = self._args(padded, lens, nc, n, F, cand, n_set, tables)
         cap, dev = cand.numel(), padded.device
         out = {"res": torch.empty(cap, dtype=torch.int8, device=dev),
                "fail_mask": torch.empty(cap, dtype=torch.int32, device=dev),
@@ -106,21 +155,24 @@ class _Lanes:
                "exact": torch.empty(cap, dtype=torch.bool, device=dev)}
         self._call("sbt_walk_lanes", *args,
                    *(out[k].data_ptr() for k in LANE_KEYS),
-                   0, None, 0, None, None, 0, None, None)
+                   0, None, 0, None, None, 0, None, None,
+                   *((self._grid(cap),) if self.two else ()))
         del keep
         return out
 
     def count(self, padded, lens, nc, n, F, cand, n_set, tables, own: int):
-        args, keep = K._walk_args(padded, lens, nc, n, False, F, cand, n_set,
-                                  tables, 10, True)
         dev = padded.device
-        grid = -(-cand.numel() // K.WALK_THREADS)
+        grid = self._grid(cand.numel())
         partials = torch.empty(2 * grid, dtype=torch.int32, device=dev)
         out = torch.empty(3, dtype=torch.int64, device=dev)
+        # The ticket counter first (a captured launch zeroes its own): the
+        # two-launch walk may start before the table launch ends.
         records, base, _ = self.status.next(dev, prf._stream(), grid)
+        args, keep = self._args(padded, lens, nc, n, F, cand, n_set, tables)
         self._call("sbt_walk_lanes", *args, None, None, None, None, None,
                    0, None, own, None, records.data_ptr(), base,
-                   partials.data_ptr(), out.data_ptr())
+                   partials.data_ptr(), out.data_ptr(),
+                   *((grid,) if self.two else ()))
         del keep
         return out
 
@@ -221,7 +273,24 @@ def profile_lanes(srcs: list[Path], work: Path, padded, lens, nc: int,
         b2b = {k: statistics.median(v) for k, v in b2b.items()}
         for k, v in b2b.items():
             print(f"  {k}: {v:.4f} ms a call, 20 calls back to back")
-        result[what] = {"ms": ms, "back_to_back_ms": b2b}
+        graph = {k: [] for k in runs}
+        for k in list(runs) + list(runs)[::-1]:
+            graph[k].append(graph_ms(runs[k]))
+        graph = {k: statistics.median(v) for k, v in graph.items()}
+        for k, v in graph.items():
+            print(f"  {k}: {v:.4f} ms a call, 20 calls in a CUDA graph")
+        result[what] = {"ms": ms, "back_to_back_ms": b2b, "graph_ms": graph}
+    main = builds["lanes.cu"]
+    if main.two:
+        tabs = main.tables(padded, n)
+        table = main.survivor(padded, lens, nc, n, F, cand, n_set, tabs)
+        _equal("the survivor table", table[:live], K._survivor_table(
+            padded, lens, nc, n, F, cand, n_set, want_t)[:live])
+        result["survivor_table_graph_ms"] = statistics.median(
+            graph_ms(lambda: main.survivor(padded, lens, nc, n, F, cand,
+                                           n_set, tabs)) for _ in range(3))
+        print(f" the survivor table alone, 20 in a CUDA graph: "
+              f"{result['survivor_table_graph_ms']:.4f} ms a call")
 
     prof = _Lanes(src, work / "lanes_prof.so", profile=True)
     groups = [[x.strip() for x in g.split(",")]
@@ -229,7 +298,6 @@ def profile_lanes(srcs: list[Path], work: Path, padded, lens, nc: int,
     tab_cols, walk_cols = len(groups[0]), len(groups[1]) + 1
     tabs = prof.tables(padded, n)
     _equal("the profiling build's tables", tabs, want_t)
-    nsuper = tabs[1].shape[1]
     tab = np.zeros((PROF_WARPS, tab_cols), dtype=np.int64)
     walk = np.zeros((PROF_LANES, walk_cols), dtype=np.int64)
     prof.lib.sbt_lanes_profile.argtypes = [_P, _I, _P, _I]
@@ -237,8 +305,8 @@ def profile_lanes(srcs: list[Path], work: Path, padded, lens, nc: int,
                                   walk.ctypes.data, PROF_LANES):
         raise RuntimeError("reading the table marks failed")
     print(" profiling build, tables")
-    result["tables"]["split"] = _warp_split(tab[: min(nsuper, PROF_WARPS)],
-                                            groups[0], mhz)
+    result["tables"]["split"] = _warp_split(tab[tab.sum(1) > 0], groups[0],
+                                            mhz)
     got = prof.count(padded, lens, nc, n, F, cand, n_set, tabs, own)
     _equal("the profiling build's count", got, want_c)
     if prof.lib.sbt_lanes_profile(tab.ctypes.data, PROF_WARPS,
@@ -260,6 +328,25 @@ def profile_lanes(srcs: list[Path], work: Path, padded, lens, nc: int,
     count_window()
     result["count_window_ms"] = statistics.median(
         count_window() for _ in range(5))
+    wrappers = {
+        "bad_op_tables": lambda: K.bad_op_tables(padded, n),
+        "survivor_table": lambda: K.survivor_table(padded, lens, nc, n, F,
+                                                   cand, n_set, want_t),
+        "count_lanes": lambda: K.count_lanes(padded, lens, nc, n, False, F,
+                                             cand, n_set, want_t, 0, own),
+        "walk_lanes": lambda: K.walk_lanes(padded, lens, nc, n, False, F,
+                                           cand, n_set, want_t)}
+    result["host_enqueue_ms"] = {}
+    for k, f in wrappers.items():
+        f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            f()
+        result["host_enqueue_ms"][k] = (time.perf_counter() - t0) * 5
+        torch.cuda.synchronize()
+    print(f" host time to enqueue a call (200 calls): "
+          f"{result['host_enqueue_ms']}")
     result["count_repeat"] = repeat_slope(padded, lens, nc, n, w, 10)
     print(f" count_window (one synchronised call, median of 5): "
           f"{result['count_window_ms']:.3f} ms; count_repeat slope "

@@ -41,9 +41,12 @@ SIGNATURES = {
     "sbt_crc32_lanes": [_P, _P, _I, _P, _P, _P],
     "sbt_deflate_fixed_lanes": [_P, _P, _I, _P, _P, _P, _P, _P],
     "sbt_bad_op_tables": [_P, _I, _I, _P, _P, _I, _P, _I, _P],
-    "sbt_walk_lanes": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I,
-                       _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
-                       _I, _P, _P, _U, _P, _P, _P],
+    "sbt_lanes_ctas": [],
+    "sbt_survivor_table": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P,
+                           _P, _P, _I, _I, _P, _I, _P],
+    "sbt_walk_lanes": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P,
+                       _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I,
+                       _P, _I, _P, _P, _U, _P, _P, _I, _P],
 }
 
 _lock = threading.Lock()

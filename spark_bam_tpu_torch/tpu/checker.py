@@ -5,9 +5,9 @@ checker.py``), in two forms that give the same verdicts:
   offset with the fixed-block prefilter and compacts the survivors into a
   fixed-capacity lane buffer in the same launch (the CUDA kernel
   ``prefilter_check_flags``); stage 1 (``bad_op_tables``, then
-  ``walk_lanes`` or, for a count, ``count_lanes``: ``csrc/lanes.cu``)
-  gives each walked position the prefilter passes its full 19-bit mask
-  and walks ``reads_to_check`` chained records a lane;
+  ``walk_lanes`` or, for a count, ``count_lanes``, each a survivor table
+  and a walk: ``csrc/lanes.cu``) gives each survivor its full 19-bit mask
+  once and walks ``reads_to_check`` chained records a lane;
 - the full pass (``funnel=False``, full-check's per-position masks): the
   CUDA kernel ``full_check_flags`` gives all 19 bits at every offset, its
   survivors compact in PyTorch (``_compact_mask``) into the same lanes and
@@ -168,7 +168,7 @@ def count_window(padded, lengths, num_contigs: int, n, at_eof, lo, own,
     full-width scatters: () ``count`` of record starts, ``esc_count`` of
     escaped owned positions (all of them on a capacity overflow), and
     ``survivors``. The walk and the reduction are one ``count_lanes``
-    launch."""
+    launch after its survivor table."""
     F, cand, n_set = _stage0(padded, lengths, num_contigs, n, funnel)
     tables = bad_op_tables(padded, n) if funnel else None
     out = count_lanes(padded, lengths, num_contigs, n, at_eof, F, cand,

@@ -29,7 +29,8 @@ kernels of its own (``csrc/lanes.cu``; reference ``tpu/checker.py``):
 | wrapper                 | replaces (spark_bam_tpu/tpu/checker.py) |
 | ----------------------- | --------------------------------------- |
 | ``bad_op_tables``       | ``_funnel_tables`` (``:281``), ``_badops_before`` (``:312``) |
-| ``walk_lanes``, ``count_lanes`` | ``_deep_flags_at`` (``:322``), ``_misc_at`` (``:184``), the walk of ``_check_lanes`` (``:538-623``), the funnel's ``count_window`` (``:741-760``) |
+| ``survivor_table``      | ``_deep_flags_at`` (``:322``) and ``_misc_at`` (``:184``) at the survivors |
+| ``walk_lanes``, ``count_lanes`` | the walk of ``_check_lanes`` (``:538-623``), the funnel's ``count_window`` (``:741-760``); each launches ``survivor_table`` first |
 
 What bounds each on the H100 and how its design answers is noted at the
 top of its source. The tokenizer's plain version is the Python decoder in
@@ -62,14 +63,18 @@ _EPOCHS = 1 << 32
 #: log2(64 Ki): pointer doubling collapses any chain inside a token row.
 DOUBLING_ROUNDS = (STRIDE - 1).bit_length()
 
-#: Threads a CTA of the lane walk (``kThreads`` in ``csrc/lanes.cu``).
+#: Threads a CTA of the survivor table and the lane walk (``kThreads`` in
+#: ``csrc/lanes.cu``).
 WALK_THREADS = 256
 #: Bitmap words a bad-op summary word covers (``kSuperWords`` there).
 _SUPER_WORDS = 1024
+#: A survivor-table entry's successor when the walk must search itself
+#: (``kNoSucc`` there).
+NO_SUCC = -(1 << 31)
 
 LAUNCHES = {"prefilter_check_flags": 0, "full_check_flags": 0,
             "lz77_resolve": 0, "tokenize": 0,
-            "bad_op_tables": 0, "walk_lanes": 0,
+            "bad_op_tables": 0, "survivor_table": 0, "walk_lanes": 0,
             # the write path's lanes (compress/kernels.py)
             "crc32_lanes": 0, "deflate_fixed_lanes": 0}
 #: Launches recorded into CUDA graphs being captured (none of them ran).
@@ -383,37 +388,19 @@ def _as_bool(at_eof, dev) -> torch.Tensor:
     return torch.tensor(bool(at_eof), device=dev)
 
 
-def _walk_lanes(padded, lengths, num_contigs: int, n, at_eof, F, cand,
-                n_set, tables, reads_to_check: int = 10,
-                funnel: bool = True) -> dict:
-    """Plain version of ``walk_lanes``: the chain walk of each survivor
-    lane, line for line the reference's ``_check_lanes`` step. Under the
-    funnel a walked position that the prefilter passes takes the deep mask
-    of its lane from a full-width scatter (0 past the capacity); the full
-    pass's flags are looked up as they are. ``tables`` is
-    ``bad_op_tables``' output (under the funnel; else unused)."""
+def _chain_walk(padded, n, at_eof, live, start, reads_to_check: int, at,
+                moved=None) -> dict:
+    """The chain walk of the lanes ``live`` from the positions ``start``,
+    line for line the reference's ``_check_lanes`` step: ``at(pi)`` gives
+    each lane's flag word, ``remaining`` and body end at the clipped
+    positions ``pi``; ``moved(ok, pi, rem, b_end, nxt)``, where given,
+    hears each step's cursor move (``ok`` the lanes that step, ``nxt``
+    their next physical cursor). Returns the five per-lane outputs."""
     dev = padded.device
     w = padded.numel() - PAD
-    capacity = cand.numel()
+    capacity = live.numel()
     ae = _as_bool(at_eof, dev)
-    live = cand >= 0
-    if funnel:
-        ft = _funnel_tables(padded, n, cwords=tables[0])
-        F_cand = _deep_flags_at(padded, lengths, num_contigs, n, ft,
-                                torch.where(live, cand, 0))
-        F_cand = torch.where(live, F_cand, 0)
-        F_deep = torch.zeros(w + 1, dtype=torch.int32, device=dev)
-        F_deep[torch.where(live, cand, w).long()] = F_cand
-        F_deep = F_deep[:w]
-
-        def flags_lookup(pi):
-            pre = F[pi]
-            return torch.where(pre == 0, F_deep[pi], pre)
-    else:
-        def flags_lookup(pi):
-            return F[pi]
-
-    logical = torch.where(live, cand, 0).long()
+    logical = start
     physical = logical
     l_overflowed = torch.zeros(capacity, dtype=torch.bool, device=dev)
     res = torch.where(live, 0, -1).to(torch.int8)
@@ -421,7 +408,6 @@ def _walk_lanes(padded, lengths, num_contigs: int, n, at_eof, F, cand,
     reads_before = torch.zeros(capacity, dtype=torch.int32, device=dev)
     reads_parsed = torch.zeros(capacity, dtype=torch.int32, device=dev)
     exact = torch.ones(capacity, dtype=torch.bool, device=dev)
-    bound = n + 64
 
     for step in range(reads_to_check):
         run = res == 0
@@ -442,7 +428,8 @@ def _walk_lanes(padded, lengths, num_contigs: int, n, at_eof, F, cand,
         run = res == 0
 
         pi = physical.clamp(0, w - 1)
-        f = torch.where(run, flags_lookup(pi), 0)
+        flags, rem, b_end = at(pi)
+        f = torch.where(run, flags, 0)
         definitive = f & DEFINITIVE_MASK
         boundary = f & ESCAPE_MASK
         fail = run & ((definitive != 0) | (ae & (boundary != 0)))
@@ -456,16 +443,14 @@ def _walk_lanes(padded, lengths, num_contigs: int, n, at_eof, F, cand,
         run = res == 0
 
         ok = run & (f == 0)
-        rem, b_end = _misc_at(padded, n, pi)
         # Out-of-range logical cursors collapse to sentinels (±(n+64)) that
         # keep every later comparison; a lane whose cursor would need to
         # re-enter range is flagged via l_overflowed.
-        rem_c = rem.clamp(-bound, bound)
-        next_logical = logical + 4 + rem_c
-        clamped = next_logical.clamp(-bound, bound)
-        overflow_now = (rem > bound) | (rem < -bound) | (next_logical != clamped)
-        next_physical = torch.maximum(b_end, clamped).clamp(max=n)
-        logical = torch.where(ok, clamped, logical)
+        next_logical, next_physical, overflow_now = _step(logical, rem,
+                                                           b_end, n)
+        if moved is not None:
+            moved(ok, pi, rem, b_end, next_physical)
+        logical = torch.where(ok, next_logical, logical)
         physical = torch.where(ok, next_physical, physical)
         l_overflowed = l_overflowed | (ok & overflow_now)
 
@@ -475,6 +460,138 @@ def _walk_lanes(padded, lengths, num_contigs: int, n, at_eof, F, cand,
     return {"res": res, "fail_mask": fail_mask.int(),
             "reads_before": reads_before.int(),
             "reads_parsed": reads_parsed.int(), "exact": exact}
+
+
+def _step(logical, rem, b_end, n):
+    """One step of the walk's cursors from a record with ``rem`` and
+    ``b_end`` (int64): ``(logical, physical, overflow)``, the logical
+    cursor clamped to the sentinels ±(n + 64)."""
+    bound = n + 64
+    next_logical = logical + 4 + rem.clamp(-bound, bound)
+    clamped = next_logical.clamp(-bound, bound)
+    overflow = (rem > bound) | (rem < -bound) | (next_logical != clamped)
+    return clamped, torch.maximum(b_end, clamped).clamp(max=n), overflow
+
+
+def _walk_lanes(padded, lengths, num_contigs: int, n, at_eof, F, cand,
+                n_set, tables, reads_to_check: int = 10,
+                funnel: bool = True) -> dict:
+    """Plain version of ``walk_lanes``: the chain walk of each survivor
+    lane, line for line the reference's ``_check_lanes`` step. Under the
+    funnel a walked position that the prefilter passes takes the deep mask
+    of its lane from a full-width scatter (0 past the capacity); the full
+    pass's flags are looked up as they are. ``tables`` is
+    ``bad_op_tables``' output (under the funnel; else unused)."""
+    dev = padded.device
+    w = padded.numel() - PAD
+    live = cand >= 0
+    if funnel:
+        ft = _funnel_tables(padded, n, cwords=tables[0])
+        F_cand = _deep_flags_at(padded, lengths, num_contigs, n, ft,
+                                torch.where(live, cand, 0))
+        F_cand = torch.where(live, F_cand, 0)
+        F_deep = torch.zeros(w + 1, dtype=torch.int32, device=dev)
+        F_deep[torch.where(live, cand, w).long()] = F_cand
+        F_deep = F_deep[:w]
+
+        def flags_lookup(pi):
+            pre = F[pi]
+            return torch.where(pre == 0, F_deep[pi], pre)
+    else:
+        def flags_lookup(pi):
+            return F[pi]
+
+    def at(pi):
+        return (flags_lookup(pi), *_misc_at(padded, n, pi))
+
+    return _chain_walk(padded, n, at_eof, live,
+                       torch.where(live, cand, 0).long(), reads_to_check, at)
+
+
+def _list_keys(cand, n_set):
+    """The survivor list's first min(n_set, capacity) entries, the rest
+    above any position: a sorted key for the lower-bound searches."""
+    k = torch.arange(cand.numel(), device=cand.device)
+    return torch.where(k < n_set, cand.long(), _M32)
+
+
+def _survivor_table(padded, lengths, num_contigs: int, n, F, cand, n_set,
+                    tables, funnel: bool = True) -> torch.Tensor:
+    """Plain version of ``survivor_table``: (capacity, 4) int32 entries
+    ``(mask, remaining, body_end, successor)`` of the first min(n_set,
+    capacity) survivors of ``cand`` (zeros past them). ``mask`` is the
+    flag word the walk reads there: ``F``, or under the funnel where ``F``
+    is 0 the deep mask (``_deep_flags_at``). Where it is 0: the record's
+    ``remaining`` and body end (``_misc_at``), and the list rank of the
+    position its step lands on from a logical cursor at the record (where
+    that position is in the list; else ``~`` its lower bound), or
+    ``NO_SUCC`` where that position is at or past ``n`` or past ``w - 1``;
+    where the mask is not 0 the rest is ``(0, 0, NO_SUCC)``."""
+    w = padded.numel() - PAD
+    cap = cand.numel()
+    keys = _list_keys(cand, n_set)
+    live = keys < _M32
+    q = cand.long().clamp(0, w - 1)
+    mask = F[q].long()
+    if funnel:
+        ft = _funnel_tables(padded, n, cwords=tables[0])
+        deep = _deep_flags_at(padded, lengths, num_contigs, n, ft, q).long()
+        mask = torch.where(mask == 0, deep, mask)
+    rem, b_end = _misc_at(padded, n, q)
+    _, nat, _ = _step(q, rem, b_end, n)
+    lb = torch.searchsorted(keys, nat)
+    hit = keys[lb.clamp(max=cap - 1)] == nat
+    succ = torch.where(hit, lb, ~lb)
+    walks = mask == 0
+    succ = torch.where(walks & (nat < n) & (nat <= w - 1), succ, NO_SUCC)
+    entry = torch.stack([mask, torch.where(walks, rem, 0),
+                         torch.where(walks, b_end, 0), succ], 1)
+    return torch.where(live[:, None], entry, 0).int()
+
+
+def _walk_from_table(padded, n, at_eof, F, cand, n_set, table,
+                     reads_to_check: int = 10) -> dict:
+    """The walk of ``csrc/lanes.cu`` over ``survivor_table``'s entries, in
+    PyTorch: each lane's cursors as in ``_walk_lanes``, the mask and step
+    of a position in the list from its entry (its rank from the previous
+    entry's successor where the step landed where that entry says, else
+    by a lower-bound search), of a position not in it from ``F`` and the
+    record there. Gives ``_walk_lanes``' five per-lane outputs (it is the
+    kernel's design, held against the reference in the CPU tests)."""
+    w = padded.numel() - PAD
+    cap = cand.numel()
+    keys = _list_keys(cand, n_set)
+    live = keys < _M32
+    tab = table.long()
+    # Each lane's list rank at or after its position, and whether the
+    # position is the entry there.
+    lb = torch.arange(cap, device=padded.device)
+    have = live
+
+    def at(pi):
+        e = tab[lb.clamp(max=cap - 1)]
+        spot_rem, spot_end = _misc_at(padded, n, pi)
+        return (torch.where(have, e[:, 0], F[pi].long()),
+                torch.where(have, e[:, 1], spot_rem),
+                torch.where(have, e[:, 2], spot_end))
+
+    def moved(ok, pi, rem, b_end, nxt):
+        nonlocal lb, have
+        succ = tab[lb.clamp(max=cap - 1), 3]
+        _, nat, _ = _step(pi, rem, b_end, n)
+        by_succ = have & (succ != NO_SUCC) & (nxt == nat)
+        npi = nxt.clamp(0, w - 1)
+        found = torch.searchsorted(keys, npi)
+        at_found = keys[found.clamp(max=cap - 1)] == npi
+        move = ok & (nxt < n)
+        lb = torch.where(move, torch.where(
+            by_succ, torch.where(succ >= 0, succ, ~succ), found), lb)
+        have = torch.where(move, torch.where(by_succ, succ >= 0, at_found),
+                           have)
+
+    return _chain_walk(padded, n, at_eof, live,
+                       torch.where(live, cand, 0).long(), reads_to_check, at,
+                       moved)
 
 
 def _stage0_escapes(F, at_eof) -> torch.Tensor:
@@ -649,7 +766,10 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
 _COUNT_LOCK = threading.Lock()
 
 
-def _launch(name: str, fn, *args, device: torch.device) -> None:
+def _launch(name, fn, *args, device: torch.device) -> None:
+    """Call the C entry point ``fn`` on ``device``'s current stream and
+    count its launch under ``name`` (a tuple: one under each name, for an
+    entry point that launches several kernels)."""
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -658,7 +778,8 @@ def _launch(name: str, fn, *args, device: torch.device) -> None:
         raise RuntimeError(f"{fn} launch failed: cudaError {err}")
     counts = CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES
     with _COUNT_LOCK:
-        counts[name] += 1
+        for k in (name,) if isinstance(name, str) else name:
+            counts[k] += 1
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -931,10 +1052,31 @@ def bad_op_tables(padded: torch.Tensor, n):
     return words, blocks
 
 
+_LANE_CTAS: dict = {}
+
+
+def _lane_grid(dev: torch.device, capacity: int) -> int:
+    """CTAs of the survivor table and the walk: one wave on ``dev``
+    (``sbt_lanes_ctas``), fewer for a short list. Both loop over the
+    survivors present, read from device memory, so the grid depends on
+    the capacity alone and a captured launch stays right for any
+    ``n_set``."""
+    if dev.index not in _LANE_CTAS:
+        lib = load()
+        with torch.cuda.device(dev):
+            ctas = int(lib.sbt_lanes_ctas())
+        if ctas <= 0:
+            raise RuntimeError("sbt_lanes_ctas found no room for a CTA")
+        _LANE_CTAS[dev.index] = ctas
+    return min(_LANE_CTAS[dev.index], -(-capacity // WALK_THREADS))
+
+
 def _walk_args(padded, lengths, num_contigs, n, at_eof, F, cand, n_set,
-               tables, reads_to_check, funnel):
-    """Checks shared by ``walk_lanes`` and ``count_lanes``; the kernel's
-    leading arguments (up to ``funnel``) and the tensors they point to."""
+               tables, funnel):
+    """Checks shared by ``survivor_table``, ``walk_lanes`` and
+    ``count_lanes``: the survivor table's leading arguments (up to
+    ``funnel``; the walk's too), ``at_eof``'s two, and the tensors they
+    point to."""
     dev = padded.device
     _check(padded, "padded", torch.uint8, 1, dev)
     _check(lengths, "lengths", torch.int32, 1, dev)
@@ -948,8 +1090,6 @@ def _walk_args(padded, lengths, num_contigs, n, at_eof, F, cand, n_set,
     if cand.numel() == 0 or lengths.numel() == 0 or num_contigs < 0:
         raise ValueError("cand and lengths non-empty; num_contigs not "
                          "negative")
-    if reads_to_check < 0:
-        raise ValueError("reads_to_check must not be negative")
     if padded.data_ptr() % 16:
         raise ValueError("padded must start on a 16-byte boundary")
     if not isinstance(n_set, torch.Tensor) or n_set.dim() != 0 \
@@ -972,10 +1112,45 @@ def _walk_args(padded, lengths, num_contigs, n, at_eof, F, cand, n_set,
         w_ptr = b_ptr = None
         nsuper = 0
     args = (padded.data_ptr(), total, w, lengths.data_ptr(), lengths.numel(),
-            int(num_contigs), n_val, n_ptr, ae_val, ae_ptr, F.data_ptr(),
-            cand.data_ptr(), cand.numel(), n_set.data_ptr(), w_ptr, b_ptr,
-            nsuper, int(reads_to_check), int(bool(funnel)))
-    return args, (n_set, ae_t)
+            int(num_contigs), n_val, n_ptr, F.data_ptr(), cand.data_ptr(),
+            cand.numel(), n_set.data_ptr(), w_ptr, b_ptr, nsuper,
+            int(bool(funnel)))
+    return args, (ae_val, ae_ptr), (n_set, ae_t)
+
+
+def survivor_table(padded: torch.Tensor, lengths: torch.Tensor,
+                   num_contigs: int, n, F: torch.Tensor, cand: torch.Tensor,
+                   n_set, tables, funnel: bool = True) -> torch.Tensor:
+    """The (capacity, 4) int32 entries ``(mask, remaining, body_end,
+    successor)`` of the first min(n_set, capacity) survivors of ``cand``
+    (the compacted survivor list of a (W + PAD,) u8 window, in increasing
+    order; ``F`` its stage-0 flags, ``tables`` ``bad_op_tables``' under
+    ``funnel``), as ``_survivor_table``; the rows past them are left
+    unwritten on a card (zeros on the CPU). ``walk_lanes`` and
+    ``count_lanes`` launch it first, in the same call.
+
+    Replaces the reference's ``_deep_flags_at`` and ``_misc_at`` at the
+    survivors. A thread a survivor, over the ``n_set`` present (read from
+    device memory): the deep mask (names by 16-byte loads and SIMD byte
+    compares, cigars from the bad-op tables), the record's step and the
+    list rank where it lands, each once, so that the walk's lanes read
+    16 bytes where they land instead of computing it again
+    (``csrc/lanes.cu``)."""
+    if not _on_cuda(padded):
+        return _survivor_table(padded, lengths, num_contigs, n, F, cand,
+                               n_set, tables, funnel)
+    dev = padded.device
+    args, _, keep = _walk_args(padded, lengths, num_contigs, n, 0, F, cand,
+                               n_set, tables, funnel)
+    table = torch.empty((cand.numel(), 4), dtype=torch.int32, device=dev)
+    _launch("survivor_table", "sbt_survivor_table", *args, table.data_ptr(),
+            _lane_grid(dev, cand.numel()), device=dev)
+    del keep
+    return table
+
+
+#: The launches of one ``sbt_walk_lanes`` call: the table, then the walk.
+_WALK_LAUNCHES = ("survivor_table", "walk_lanes")
 
 
 def walk_lanes(padded: torch.Tensor, lengths: torch.Tensor, num_contigs: int,
@@ -990,28 +1165,32 @@ def walk_lanes(padded: torch.Tensor, lengths: torch.Tensor, num_contigs: int,
     ``res`` i8, ``fail_mask``, ``reads_before``, ``reads_parsed`` i32 and
     ``exact`` bool, as ``_walk_lanes``.
 
-    Replaces the reference's ``_deep_flags_at``, ``_misc_at`` and the walk
-    of ``_check_lanes``. One thread a lane, in one launch: under the funnel
-    a walked position that the prefilter passes gets its full mask
-    computed on the spot (a survivor past the capacity walks as mask 0, as
-    in the reference's scatter); the lane's serial chain of dependent
-    loads bounds it (``csrc/lanes.cu``)."""
+    Replaces the walk of the reference's ``_check_lanes``. One call, two
+    launches: ``survivor_table`` (each survivor's mask and step, once),
+    then a thread a lane over the survivors present that reads the table
+    where its chain lands (a survivor past the capacity walks as mask 0,
+    as in the reference's scatter; ``csrc/lanes.cu``)."""
     if not _on_cuda(padded):
         return _walk_lanes(padded, lengths, num_contigs, n, at_eof, F, cand,
                            n_set, tables, reads_to_check, funnel)
+    if reads_to_check < 0:
+        raise ValueError("reads_to_check must not be negative")
     dev = padded.device
-    args, keep = _walk_args(padded, lengths, num_contigs, n, at_eof, F, cand,
-                            n_set, tables, reads_to_check, funnel)
+    args, ae, keep = _walk_args(padded, lengths, num_contigs, n, at_eof, F,
+                                cand, n_set, tables, funnel)
     cap = cand.numel()
+    table = torch.empty((cap, 4), dtype=torch.int32, device=dev)
     out = {"res": torch.empty(cap, dtype=torch.int8, device=dev),
            "fail_mask": torch.empty(cap, dtype=torch.int32, device=dev),
            "reads_before": torch.empty(cap, dtype=torch.int32, device=dev),
            "reads_parsed": torch.empty(cap, dtype=torch.int32, device=dev),
            "exact": torch.empty(cap, dtype=torch.bool, device=dev)}
-    _launch("walk_lanes", "sbt_walk_lanes", *args,
+    _launch(_WALK_LAUNCHES, "sbt_walk_lanes", *args, *ae, table.data_ptr(),
+            int(reads_to_check),
             *(out[k].data_ptr() for k in ("res", "fail_mask", "reads_before",
                                           "reads_parsed", "exact")),
-            0, None, 0, None, None, 0, None, None, device=dev)
+            0, None, 0, None, None, 0, None, None, _lane_grid(dev, cap),
+            device=dev)
     del keep
     return out
 
@@ -1020,33 +1199,39 @@ def count_lanes(padded: torch.Tensor, lengths: torch.Tensor, num_contigs: int,
                 n, at_eof, F: torch.Tensor, cand: torch.Tensor, n_set, tables,
                 lo, own, reads_to_check: int = 10,
                 funnel: bool = True) -> torch.Tensor:
-    """``walk_lanes`` reduced over the owned span [lo, own) in the same
-    launch: the (3,) int64 ``(count, esc_count, survivors)`` of
-    ``_count_lanes`` (``lo`` and ``own`` ints or 0-d tensors on the
-    window's device). No per-lane output is written: each CTA counts its
-    owned lanes that pass or escape and a grid-stride share of the owned
-    offsets that stage 0 resolves as escapes, and the last CTA to take a
-    ticket (kept per stream, ``TileStatus``; a captured launch gets its
-    own counter) sums the CTAs' partial counts."""
+    """``walk_lanes`` reduced over the owned span [lo, own): the (3,)
+    int64 ``(count, esc_count, survivors)`` of ``_count_lanes`` (``lo``
+    and ``own`` ints or 0-d tensors on the window's device). After the
+    survivor table, one launch writes no per-lane output: each CTA counts
+    its owned lanes that pass or escape, or a grid-stride share of the
+    owned offsets that stage 0 resolves as escapes (16-byte loads of
+    ``F``), and the last CTA to take a ticket (kept per stream,
+    ``TileStatus``; a captured launch gets its own counter, zeroed before
+    the table's launch) sums the CTAs' partial counts."""
     if not _on_cuda(padded):
         return _count_lanes(padded, lengths, num_contigs, n, at_eof, F, cand,
                             n_set, tables, lo, own, reads_to_check, funnel)
+    if reads_to_check < 0:
+        raise ValueError("reads_to_check must not be negative")
     dev = padded.device
-    args, keep = _walk_args(padded, lengths, num_contigs, n, at_eof, F, cand,
-                            n_set, tables, reads_to_check, funnel)
+    args, ae, keep = _walk_args(padded, lengths, num_contigs, n, at_eof, F,
+                                cand, n_set, tables, funnel)
     lo_val, lo_ptr, lo_t = _int_arg(lo, "lo", dev)
     own_val, own_ptr, own_t = _int_arg(own, "own", dev)
-    grid = -(-cand.numel() // WALK_THREADS)
+    cap = cand.numel()
+    grid = _lane_grid(dev, cap)
+    table = torch.empty((cap, 4), dtype=torch.int32, device=dev)
     partials = torch.empty(2 * grid, dtype=torch.int32, device=dev)
     out = torch.empty(3, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with _WALK_STATUS.ordered:
         records, base, _epoch = _WALK_STATUS.next(dev, stream, grid)
         try:
-            _launch("walk_lanes", "sbt_walk_lanes", *args,
+            _launch(_WALK_LAUNCHES, "sbt_walk_lanes", *args, *ae,
+                    table.data_ptr(), int(reads_to_check),
                     None, None, None, None, None, lo_val, lo_ptr, own_val,
                     own_ptr, records.data_ptr(), base, partials.data_ptr(),
-                    out.data_ptr(), device=dev)
+                    out.data_ptr(), grid, device=dev)
         except RuntimeError:
             _WALK_STATUS.drop(dev, stream)
             raise

@@ -11,6 +11,15 @@ masks and counts are integers): on every ``prefilter_cases`` window, the
 over three owned spans; ``check_window``'s ``reads_parsed`` and
 ``reads_before`` on the overflowing window.
 
+The survivor table that the card's walk reads (``kernels._survivor_table``,
+the plain version of ``survivor_table``) must give, at every survivor of the
+same windows and of ``lane_cases.dense_run``, the JAX ``_deep_flags_at``
+mask and ``_misc_at`` step, and the walk over it (``kernels.
+_walk_from_table``, the card kernel's design in PyTorch: successor ranks
+and lower-bound searches) the JAX ``_check_lanes`` lanes at
+``reads_to_check`` 1, 3 and 10 and ``at_eof`` both ways, under the funnel
+and on the full pass's flags.
+
 The JAX side runs jitted, its prefilter the Pallas kernel in interpret mode
 (a ragged window zero-extended to whole 32 KiB Pallas tiles, which no
 offset below its ``w`` reads), except on ``overflow_soup``, whose table of
@@ -20,6 +29,7 @@ other window (``test_torch_prefilter_compact.py``).
 """
 
 import functools
+import hashlib
 
 import jax
 import jax.numpy as jnp
@@ -44,6 +54,10 @@ SYNTH = {"synth_short_0": (1, {}, 0), "synth_short_1": (2, {}, 40961),
          "synth_long": (9, dict(unit_reads=8, read_len=(60_000, 110_000)),
                         70001)}
 NAMES = [*PRE, *LANE, *SYNTH, "overflow_soup"]
+#: The survivor table's window that the JAX package can run (the other,
+#: ``tail_super_block``, holds more valid bytes than W).
+DENSE = {"dense_run": lane_cases.dense_run(W)}
+TABLE_NAMES = [*NAMES, *DENSE]
 STATIC = ("reads_to_check", "flags_impl", "pallas_interpret", "funnel")
 _jax_lanes = jax.jit(jck._check_lanes, static_argnames=STATIC)
 LANE_KEYS = ("cand", "live", "res", "fail_mask", "reads_before",
@@ -77,6 +91,8 @@ def case(request, synth_windows):
         return PRE[name]
     if name in LANE:
         return LANE[name]
+    if name in DENSE:
+        return DENSE[name]
     if name == "overflow_soup":
         return prefilter_cases.overflow_soup(W)
     return synth_windows[name]
@@ -95,12 +111,21 @@ def _extended(padded):
     return ext
 
 
-def _jax_check_lanes(padded, n, lens, nc, at_eof, rtc):
-    out = _jax_lanes(jnp.asarray(_extended(padded)), jnp.asarray(lens),
-                     jnp.int32(nc), jnp.int32(n), jnp.bool_(at_eof),
-                     reads_to_check=rtc, flags_impl=_impl(nc),
-                     pallas_interpret=True, funnel=True)
-    return {k: np.asarray(v) for k, v in out.items()}
+_JAX_LANES: dict = {}
+
+
+def _jax_check_lanes(padded, n, lens, nc, at_eof, rtc, funnel=True):
+    """The JAX lane core's outputs, kept by content for the tests that
+    ask again (one worker runs this file)."""
+    key = (hashlib.sha1(padded).hexdigest(), hashlib.sha1(lens).hexdigest(),
+           n, nc, bool(at_eof), rtc, funnel)
+    if key not in _JAX_LANES:
+        out = _jax_lanes(jnp.asarray(_extended(padded)), jnp.asarray(lens),
+                         jnp.int32(nc), jnp.int32(n), jnp.bool_(at_eof),
+                         reads_to_check=rtc, flags_impl=_impl(nc),
+                         pallas_interpret=True, funnel=funnel)
+        _JAX_LANES[key] = {k: np.asarray(v) for k, v in out.items()}
+    return _JAX_LANES[key]
 
 
 def _port_check_lanes(padded, n, lens, nc, at_eof, rtc):
@@ -251,3 +276,89 @@ def test_zero_d_scalars_equal_python_scalars():
                               torch.tensor(n - 300, dtype=torch.int32))
         for k in want:
             assert int(got[k]) == int(want[k]), k
+
+
+def _stage0(padded, n, lens, nc, funnel=True):
+    """The port's plain stage 0 and bad-op tables of one window."""
+    p, lt = torch.from_numpy(padded), torch.from_numpy(lens)
+    w = len(padded) - K.PAD
+    if funnel:
+        F, cand, n_set = K._prefilter_compact(p, lt, nc, n,
+                                              K.lane_capacity(w))
+        return p, lt, F, cand, n_set, K._bad_op_tables(p, n)
+    F = K._compute_flags(p, lt, nc, n)
+    survivor = (F == 0) & (torch.arange(w) < n)
+    cand, n_set = K._compact_mask(survivor, K.lane_capacity(w))
+    return p, lt, F, cand.int(), n_set.int(), None
+
+
+@pytest.mark.parametrize("case", TABLE_NAMES, indirect=True)
+def test_survivor_table_matches_jax(case):
+    """Each survivor's entry: the JAX ``_deep_flags_at`` mask; where it is
+    0, the JAX ``_misc_at`` remaining and body end, and the list rank of
+    the position the record's step lands on (``~`` its lower bound where
+    no survivor lies there; ``NO_SUCC`` at or past ``n`` or ``w - 1``)."""
+    padded, n, lens, nc = case
+    w = len(padded) - K.PAD
+    p, lt, F, cand, n_set, tables = _stage0(padded, n, lens, nc)
+    table = K._survivor_table(p, lt, nc, n, F, cand, n_set, tables).numpy()
+    live = min(int(n_set), cand.numel())
+    assert not table[live:].any()
+    q = cand[:live].numpy()
+    jp = jnp.asarray(padded)
+    deep = np.asarray(jck._deep_flags_at(
+        jp, jnp.asarray(lens), jnp.int32(nc), jnp.int32(n),
+        jck._funnel_tables(jp, jnp.int32(n)), jnp.asarray(q)))
+    rem, b_end = (np.asarray(a).astype(np.int64) for a in
+                  jck._misc_at(jp, jnp.int32(n), jnp.asarray(q)))
+    np.testing.assert_array_equal(table[:live, 0], deep)
+    walks = deep == 0
+    np.testing.assert_array_equal(table[:live, 1][walks], rem[walks])
+    np.testing.assert_array_equal(table[:live, 2][walks], b_end[walks])
+    assert not table[:live, 1:3][~walks].any()
+    # The successor, from the reference's step at a logical cursor on the
+    # record (sentinels +-(n + 64)).
+    bound = n + 64
+    nxt = np.clip(q + 4 + np.clip(rem, -bound, bound), -bound, bound)
+    nat = np.minimum(np.maximum(b_end, nxt), n)
+    lb = np.searchsorted(q, nat)
+    hit = (lb < live) & (q[np.minimum(lb, max(live - 1, 0))] == nat)
+    want = np.where(hit, lb, ~lb)
+    want = np.where(walks & (nat < n) & (nat <= w - 1), want, K.NO_SUCC)
+    np.testing.assert_array_equal(table[:live, 3], want)
+
+
+@pytest.mark.parametrize("at_eof", [True, False])
+@pytest.mark.parametrize("rtc", [1, 3, 10])
+@pytest.mark.parametrize("case", TABLE_NAMES, indirect=True)
+def test_table_walk_matches_jax(case, rtc, at_eof):
+    """The card walk's design over the survivor table gives the JAX lane
+    core's five outputs."""
+    padded, n, lens, nc = case
+    p, lt, F, cand, n_set, tables = _stage0(padded, n, lens, nc)
+    table = K._survivor_table(p, lt, nc, n, F, cand, n_set, tables)
+    got = K._walk_from_table(p, n, at_eof, F, cand, n_set, table, rtc)
+    want = _jax_check_lanes(padded, n, lens, nc, at_eof, rtc)
+    for k in ("res", "fail_mask", "reads_before", "reads_parsed", "exact"):
+        np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
+
+
+FULL_NAMES = [*LANE, "synth_short_1", "synth_long", "random_with_records"]
+
+
+@pytest.mark.parametrize("at_eof", [True, False])
+@pytest.mark.parametrize("case", FULL_NAMES, indirect=True)
+def test_table_walk_on_the_full_pass_matches_jax(case, at_eof):
+    """Without the funnel the table holds the full pass's flags and the
+    walk over it gives the JAX full-pass lane core's outputs."""
+    padded, n, lens, nc = case
+    p, lt, F, cand, n_set, _ = _stage0(padded, n, lens, nc, funnel=False)
+    table = K._survivor_table(p, lt, nc, n, F, cand, n_set, None, False)
+    live = min(int(n_set), cand.numel())
+    np.testing.assert_array_equal(table[:live, 0].numpy(),
+                                  F[cand[:live].long()].numpy())
+    got = K._walk_from_table(p, n, at_eof, F, cand, n_set, table, 10)
+    want = _jax_check_lanes(padded, n, lens, nc, at_eof, 10, funnel=False)
+    np.testing.assert_array_equal(got["res"].numpy(), want["res"])
+    for k in ("fail_mask", "reads_before", "reads_parsed", "exact"):
+        np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)

@@ -1523,6 +1523,7 @@ def test_count_repeat_graph_on_gpu_equals_plain(gpu, tmp_path, funnel):
         # The first call also runs the body once eagerly before capture.
         assert K.LAUNCHES[kernel] == iters + (k == 0)
         assert K.LAUNCHES["walk_lanes"] == iters + (k == 0)
+        assert K.LAUNCHES["survivor_table"] == iters + (k == 0)
         assert K.LAUNCHES["bad_op_tables"] == (iters + (k == 0)) * funnel
     assert len(run.graphs) == 1 and run.replays == 8
 
@@ -1561,12 +1562,14 @@ def test_native_eager_equals_the_card_verdict(gpu, tmp_path):
 
 
 def _lane_cases(w):
-    """The prefilter edge set, the lane edge set and the overflowing soup
-    at one W."""
+    """The prefilter edge set, the lane edge set, the survivor table's
+    (a long run of consecutive survivors, the last partial super-block)
+    and the overflowing soup at one W."""
     from spark_bam_tpu_torch.benchmarks import lane_cases
 
     cases = prefilter_cases.prefilter_windows(w, seed=5)
     cases.update(lane_cases.lane_windows(w, seed=5))
+    cases.update(lane_cases.table_windows(w, seed=5))
     cases["overflow_soup"] = prefilter_cases.overflow_soup(w)
     return cases
 
@@ -1588,6 +1591,7 @@ def test_lane_kernels_on_edge_windows(gpu, w):
                                  side)
                 assert got["bad_op_tables"] == 0 and got["walk_lanes"] == 0, \
                     (name, rtc, at_eof, got)
+                assert got["survivor_table"] == 0, (name, rtc, at_eof, got)
 
 
 @pytest.mark.parametrize("side", [False, True], ids=["current", "second"])
@@ -1619,6 +1623,86 @@ def test_lane_kernels_replayed_in_a_graph_match_plain(gpu, side):
         assert out["replays"] == 4
         assert not any(out["max_abs_err"].values()), out
         assert not any(out["eager_err"].values()), out
+
+
+@pytest.mark.parametrize("side", [False, True], ids=["current", "second"])
+def test_lane_kernels_replayed_over_survivor_counts(gpu, side):
+    """One capture replayed over windows of 0, ``capacity``, about half
+    the capacity (a long run of consecutive survivors) and more than the
+    capacity survivors: the survivor table and the walk read each
+    replay's ``n_set`` from device memory on a grid fixed by the
+    capacity."""
+    from spark_bam_tpu_torch.benchmarks import lane_cases
+    from spark_bam_tpu_torch.benchmarks.lane_checks import replay_lanes
+
+    w = 1 << 20
+    pre = prefilter_cases.prefilter_windows(w, seed=7)
+    # One contig table for all four: ANY_LENGTHS accepts every index and
+    # position, as the survivor runs and the dense run need.
+    wins = []
+    for b, n, _l, _c in (pre["count_0"], pre["count_capacity"],
+                         lane_cases.dense_run(w),
+                         pre["count_capacity_plus_1"]):
+        wins.append((torch.from_numpy(b).to(gpu), n, False, 0, n))
+    lens = torch.from_numpy(lane_cases.ANY_LENGTHS).to(gpu)
+    stream = torch.cuda.Stream(gpu) if side else None
+    counts = []
+    for rtc in (1, 10):
+        out = replay_lanes(wins, lens, lane_cases.ANY_CONTIGS, rtc, stream)
+        assert out["replays"] == 4
+        assert not any(out["max_abs_err"].values()), out
+        assert not any(out["eager_err"].values()), out
+    for b, n, _a, _lo, _own in wins:
+        counts.append(int(K.prefilter_check_flags(
+            b, lens, lane_cases.ANY_CONTIGS, n)[2]))
+    cap = K.lane_capacity(w)
+    assert counts[0] == 0 and counts[1] == cap and counts[3] > cap
+    assert cap // 3 < counts[2] < cap
+
+
+def test_survivor_table_matches_plain_and_counts_its_launches(gpu):
+    """``survivor_table`` on the card equals ``_survivor_table`` over the
+    survivors present, under the funnel and on the full pass's flags, and
+    each ``walk_lanes`` / ``count_lanes`` call launches it once before
+    its walk."""
+    from spark_bam_tpu_torch.benchmarks import lane_cases
+
+    w = 1 << 20
+    cases = lane_cases.table_windows(w, seed=3)
+    cases.update(lane_cases.lane_windows(w, seed=3))
+    for name, (padded, n, lens, nc) in cases.items():
+        buf = torch.from_numpy(padded).to(gpu)
+        lt = torch.from_numpy(lens).to(gpu)
+        for funnel in (True, False):
+            if funnel:
+                F, cand, n_set = K.prefilter_check_flags(buf, lt, nc, n)
+                tables = K.bad_op_tables(buf, n)
+            else:
+                F = K.full_check_flags(buf, lt, nc, n)
+                survivor = (F == 0) & (torch.arange(w, device=gpu) < n)
+                cand, n_set = K._compact_mask(survivor, K.lane_capacity(w))
+                cand, n_set, tables = cand.int(), n_set.int(), None
+            live = min(int(n_set), cand.numel())
+            got = K.survivor_table(buf, lt, nc, n, F, cand, n_set, tables,
+                                   funnel)
+            want = K._survivor_table(buf, lt, nc, n, F, cand, n_set, tables,
+                                     funnel)
+            assert got.shape == want.shape == (cand.numel(), 4)
+            assert torch.equal(got[:live], want[:live]), (name, funnel)
+            K.reset_launch_counts()
+            lanes = K.walk_lanes(buf, lt, nc, n, True, F, cand, n_set,
+                                 tables, 10, funnel)
+            count = K.count_lanes(buf, lt, nc, n, False, F, cand, n_set,
+                                  tables, 0, n, 10, funnel)
+            assert K.LAUNCHES["survivor_table"] == 2
+            assert K.LAUNCHES["walk_lanes"] == 2
+            plain = K._walk_lanes(buf, lt, nc, n, True, F, cand, n_set,
+                                  tables, 10, funnel)
+            for k in plain:
+                assert torch.equal(lanes[k], plain[k]), (name, funnel, k)
+            assert torch.equal(count, K._count_lanes(
+                buf, lt, nc, n, False, F, cand, n_set, tables, 0, n, 10,
+                funnel)), (name, funnel)
 
 
 def test_lane_kernels_from_concurrent_threads_match_plain(gpu):
@@ -1688,6 +1772,7 @@ def test_lane_kernels_take_tensor_scalars(gpu):
         torch.cuda.synchronize()
         assert K.LAUNCHES["prefilter_check_flags"] == 2
         assert K.LAUNCHES["bad_op_tables"] == 2
+        assert K.LAUNCHES["survivor_table"] == 2
         assert K.LAUNCHES["walk_lanes"] == 2
         for k in want:
             assert int(by_int[k]) == int(by_tensor[k]) == int(want[k]), k
