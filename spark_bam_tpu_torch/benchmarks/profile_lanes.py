@@ -19,15 +19,16 @@ and runs stage 0 on it (the package's ``prefilter_check_flags``). Then:
   ``lanes.cu``, for example a parent commit's, with ``flag_bits.cuh``
   beside it) as it is. A source that defines ``sbt_survivor_table`` walks
   in two launches (the table, then the walk; both in every time here), one
-  without it in one (PR 24's design);
+  without it in one (the earlier design: the deep mask where a chain
+  lands);
 - times every build in turns (``a b b a`` order, three times, CUDA-event
   medians of one call, host work included), then 20 calls in a row (``a b
   b a``; the host's work per call overlaps the card's), then 20 calls
   captured in one CUDA graph (``a b b a``, the device time a call: no host
-  work at all): the tables, the
-  walk in count mode (``count_lanes``, owned span [0, n - halo) as the
-  count path gives a non-final window) and with per-lane outputs
-  (``walk_lanes``), each build's output required to equal the plain
+  work at all): the tables, the walk in count mode (``count_lanes``,
+  owned span [0, n - halo) as the count path gives a non-final window)
+  and with per-lane outputs (``walk_lanes``), each build's output
+  required to equal the plain
   versions' (``kernels._bad_op_tables``, ``_count_lanes``,
   ``_walk_lanes``) bit for bit; for a two-launch build also its survivor
   table alone in a graph;
@@ -74,7 +75,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 PROF_WARPS, PROF_LANES = 16384, 1 << 17
 LANE_KEYS = ("res", "fail_mask", "reads_before", "reads_parsed", "exact")
 _U = ctypes.c_uint
-#: ``sbt_walk_lanes`` of the one-launch design (PR 24): the deep mask on
+#: ``sbt_walk_lanes`` of the one-launch design: the deep mask on
 #: the spot, a thread a list entry.
 _ONE_LAUNCH_WALK = [_P, _I, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P,
                     _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P,
