@@ -371,6 +371,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak memory rate
 #: The kernels of the count-reads path and of the full-check path.
 COUNT_KERNELS = ("tokenize", "lz77_resolve", "prefilter_check_flags",
                  "bad_op_tables", "survivor_table", "walk_lanes")
+#: The funnel's stage-1 kernels, on every path that counts or checks
+#: with the funnel.
+LANE_KERNELS = ("bad_op_tables", "survivor_table", "walk_lanes")
 #: The kernels that phase 14's fabric paths launch.
 FABRIC_KERNELS = ("prefilter_check_flags", "full_check_flags")
 #: Beside those kernels' rows: which of phase 14's launches the counters see.
@@ -525,8 +528,7 @@ def yardstick_check(port, padded, lens_dev, nc: int, n0: int, w: int,
             f"count_repeat {r1}, {r4} against the single count {single}")
     # One eager body before the capture, then 1 + 4 replays.
     require(all(launches[k] == 6 for k in ("prefilter_check_flags",
-                                           "bad_op_tables", "survivor_table",
-                                           "walk_lanes"))
+                                           *LANE_KERNELS))
             and run.graphs and run.replays == 5,
             f"count_repeat launches {launches}")
     reps = (2, 10)
@@ -789,9 +791,7 @@ def resident_phase(port, bam, manifest, long_bam, long_manifest, small,
     runner = checker.scan_runner
     require(got == want, f"resident count {got} != generator's {want}")
     require(all(launches[k] > 0 for k in ("prefilter_check_flags",
-                                          "bad_op_tables", "survivor_table",
-                                          "walk_lanes")),
-            launches)
+                                          *LANE_KERNELS)), launches)
     require(isinstance(runner, port.CountScanGraphs), type(runner))
     windows = len(checker.pipeline.groups)
     rows = checker.resident_chunk_rows()
@@ -2552,7 +2552,8 @@ def serve_phase(port, bam, manifest, small, small_manifest, long_bam,
                 stats = c.request("stats")
             paths["serve_a"] = dict(K.LAUNCHES)
             require(paths["serve_a"]["prefilter_check_flags"] >= rows_a
-                    and paths["serve_a"]["full_check_flags"] == 0,
+                    and paths["serve_a"]["full_check_flags"] == 0
+                    and all(paths["serve_a"][k] > 0 for k in LANE_KERNELS),
                     paths["serve_a"])
             host_launches, dev_kernels, row_ms = _row_cost(svc, str(bam))
         finally:
@@ -2731,7 +2732,9 @@ def serve_phase(port, bam, manifest, small, small_manifest, long_bam,
             svc_b.close()
             svc_cpu.close()
         require(paths["serve_b"]["prefilter_check_flags"] > 0
-                and paths["serve_b"]["full_check_flags"] > 0, paths["serve_b"])
+                and paths["serve_b"]["full_check_flags"] > 0
+                and all(paths["serve_b"][k] > 0 for k in LANE_KERNELS),
+                paths["serve_b"])
         p50, p99 = _pct(lat, 0.5), _pct(lat, 0.99)
         log(f"serve B (defaults, 40 MiB + long-read + unmapped BAMs): 8 "
             f"clients x 3 counts in {clients_s:.3f} s, latency p50 "
@@ -2759,7 +2762,9 @@ def serve_phase(port, bam, manifest, small, small_manifest, long_bam,
             svc_c.close()
         require(r["count"] == small_manifest["reads"], r)
         require(paths["serve_funnel_off"]["full_check_flags"] > 0
-                and paths["serve_funnel_off"]["prefilter_check_flags"] == 0,
+                and paths["serve_funnel_off"]["prefilter_check_flags"] == 0
+                and paths["serve_funnel_off"]["survivor_table"] > 0
+                and paths["serve_funnel_off"]["walk_lanes"] > 0,
                 paths["serve_funnel_off"])
         log(f"serve --funnel off: count {r['count']} through "
             f"full_check_flags ({paths['serve_funnel_off']})")
@@ -3597,9 +3602,7 @@ def host_tokenize_phase(port, bam, manifest, small, small_manifest,
     require(launches["tokenize"] == 0, launches)
     require(launches["lz77_resolve"] == windows, launches)
     require(all(launches[k] >= windows for k in ("prefilter_check_flags",
-                                                 "bad_op_tables",
-                                                 "survivor_table",
-                                                 "walk_lanes")), launches)
+                                                 *LANE_KERNELS)), launches)
     log(f"count-reads tokenize=host: {got} reads (= the generator's, 0 "
         f"demotions) in {host_s:.3f} s = {got / host_s:.0f} reads/s, beside "
         f"{fused_s:.3f} s on the device tokenizer (phase 3); {windows} "
